@@ -1,0 +1,9 @@
+"""Assigned input shapes (from the public pool)."""
+from repro_torch.configs.base import ShapeConfig
+
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4_096, global_batch=256, mode="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, mode="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, mode="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1, mode="decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

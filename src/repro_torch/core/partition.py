@@ -1,0 +1,253 @@
+"""Block partitioning (paper §3, §6.2.2): layers -> blocks.
+
+Implements the paper's operations:
+  1) ``get_layers``      — initial layer-wise division (one-time per DNN);
+  2) partition-point search over the allocated budget (lookup table, Table 3);
+  3) ``create_blocks``   — assemble blocks from partition points (index-only,
+     ~60-70 ms adaptation when the budget changes; here it is pure index math).
+"""
+from __future__ import annotations
+
+import itertools
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.cost_model import DelayModel, LayerInfo
+
+MAX_EXHAUSTIVE = 20_000
+
+
+@dataclass(frozen=True)
+class BlockPlan:
+    """A partition scheme p = {p_1..p_{n-1}} over L layers (paper notation:
+    p_i are layer indices; block i covers [p_{i-1}, p_i)). ``m`` is the
+    residency the plan was sized for: the executor may hold at most m blocks
+    at once — 1 = degraded serial (no prefetch), 2 = the paper's double
+    buffer, m > 2 = deeper prefetch pipelines that absorb swap-in jitter."""
+    points: Tuple[int, ...]
+    n_layers: int
+    m: int = 2
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.points) + 1
+
+    def blocks(self) -> List[Tuple[int, int]]:
+        bounds = (0,) + self.points + (self.n_layers,)
+        return [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
+
+
+def get_layers(infos: Sequence[LayerInfo]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Layer-wise arrays (sizes, depths, flops) — the smallest divisible units."""
+    return (np.asarray([i.size for i in infos], np.float64),
+            np.asarray([i.depth for i in infos], np.float64),
+            np.asarray([i.flops for i in infos], np.float64))
+
+
+def create_blocks(plan: BlockPlan, sizes, depths, flops):
+    """Aggregate per-layer stats into per-block (s_i, d_i, f_i)."""
+    s, d, f = [], [], []
+    for lo, hi in plan.blocks():
+        s.append(float(np.sum(sizes[lo:hi])))
+        d.append(float(np.sum(depths[lo:hi])))
+        f.append(float(np.sum(flops[lo:hi])))
+    return np.asarray(s), np.asarray(d), np.asarray(f)
+
+
+def simulate_pipeline(s, d, f, dm: DelayModel, m: int = 2) -> float:
+    """Exact makespan of the depth-m prefetch pipeline: one swap-in channel,
+    one executor; swap-in of block i may start only once block i-m has been
+    swapped out (memory holds at most m blocks). m=2 is the paper's double
+    buffer; m=1 is strictly serial; m>2 prefetches deeper."""
+    assert m >= 1
+    n = len(s)
+    t_in = [dm.t_in(s[i], d[i]) for i in range(n)]
+    t_ex = [dm.t_ex(f[i]) for i in range(n)]
+    t_out = [dm.t_out(d[i]) for i in range(n)]
+    load_done = [0.0] * n
+    exec_done = [0.0] * n
+    freed = [0.0] * n
+    for i in range(n):
+        start = load_done[i - 1] if i else 0.0
+        if i >= m:
+            start = max(start, freed[i - m])
+        load_done[i] = start + t_in[i]
+        exec_start = max(load_done[i], exec_done[i - 1] if i else 0.0)
+        exec_done[i] = exec_start + t_ex[i]
+        freed[i] = exec_done[i] + t_out[i]
+    return freed[-1]
+
+
+def n_blocks_for_budget(total_size: float, budget: float, m: int = 2) -> int:
+    """Paper: n = ceil(m * s / b)."""
+    return max(m, int(math.ceil(m * total_size / max(budget, 1.0))))
+
+
+@dataclass
+class TableRow:
+    points: Tuple[int, ...]
+    max_memory: float        # peak bytes with m resident (max m-block window)
+    latency: Optional[float]  # None -> "exceed"
+
+
+def plan_peak_bytes(sizes: np.ndarray, m: int) -> float:
+    """Peak weight residency of a block-size vector under depth-m residency:
+    the largest sum over any window of min(m, n) consecutive blocks."""
+    n = len(sizes)
+    w = min(max(m, 1), n)
+    csum = np.concatenate([[0.0], np.cumsum(sizes)])
+    return float(np.max(csum[w:] - csum[:-w]))
+
+
+class PartitionPlanner:
+    """Builds the run-time lookup table (Table 3) and picks partitions."""
+
+    def __init__(self, infos: Sequence[LayerInfo], dm: DelayModel, m: int = 2):
+        self.infos = list(infos)
+        self.sizes, self.depths, self.flops = get_layers(infos)
+        self.dm = dm
+        self.m = m
+        self.L = len(self.infos)
+        self._rows_cache: dict = {}   # (n, m) -> [(points, peak, latency)]
+
+    # -------------------------------------------------- candidate generation
+    def _candidates(self, n: int) -> List[Tuple[int, ...]]:
+        if n == 1:
+            return [()]
+        n_comb = math.comb(self.L - 1, n - 1)
+        if n_comb <= MAX_EXHAUSTIVE:
+            return list(itertools.combinations(range(1, self.L), n - 1))
+        # large search space: seeded local search around the equal-bytes split
+        return self._local_candidates(n)
+
+    def _equal_split(self, n: int) -> Tuple[int, ...]:
+        csum = np.cumsum(self.sizes)
+        targets = [csum[-1] * k / n for k in range(1, n)]
+        pts = sorted({int(np.searchsorted(csum, t)) + 1 for t in targets})
+        pts = [min(max(p, 1), self.L - 1) for p in pts]
+        # de-dup while keeping strictly increasing
+        out = []
+        for p in pts:
+            while p in out or p < 1:
+                p += 1
+            if p < self.L:
+                out.append(p)
+        while len(out) < n - 1:
+            cand = 1
+            while cand in out:
+                cand += 1
+            out.append(cand)
+        return tuple(sorted(out[:n - 1]))
+
+    def _score(self, pts: Tuple[int, ...]) -> float:
+        plan = BlockPlan(pts, self.L)
+        s, d, f = create_blocks(plan, self.sizes, self.depths, self.flops)
+        return simulate_pipeline(s, d, f, self.dm, self.m)
+
+    def _local_candidates(self, n: int, radius: int = 3, rounds: int = 5,
+                          beam: int = 24) -> List[Tuple[int, ...]]:
+        """Beam-limited local search seeded at the equal-bytes split (the
+        exhaustive table is infeasible for large L x n)."""
+        seen = set()
+        out: List[Tuple[int, ...]] = []
+        cur = {self._equal_split(n)}
+        for _ in range(rounds):
+            fresh = [p for p in cur if p not in seen]
+            seen.update(fresh)
+            out.extend(fresh)
+            neigh = set()
+            for pts in cur:
+                for j in range(len(pts)):
+                    for dlt in range(-radius, radius + 1):
+                        if not dlt:
+                            continue
+                        q = list(pts)
+                        q[j] = min(max(q[j] + dlt, 1), self.L - 1)
+                        q = tuple(sorted(set(q)))
+                        if len(q) == n - 1 and q not in seen:
+                            neigh.add(q)
+            if not neigh:
+                break
+            cur = set(sorted(neigh, key=self._score)[:beam])
+        return out or [self._equal_split(n)]
+
+    # -------------------------------------------------- table + selection
+    def _rows(self, n: int, m: int):
+        """Budget-INDEPENDENT rows (points, peak, latency), memoized — the
+        paper precomputes the lookup tables offline and prunes by the current
+        budget at run time (its 60-70 ms adaptation path)."""
+        key = (n, m)
+        if key not in self._rows_cache:
+            rows = []
+            for pts in self._candidates(n):
+                plan = BlockPlan(pts, self.L)
+                s, d, f = create_blocks(plan, self.sizes, self.depths,
+                                        self.flops)
+                peak = plan_peak_bytes(s, m)
+                rows.append((pts, peak,
+                             simulate_pipeline(s, d, f, self.dm, m)))
+            self._rows_cache[key] = rows
+        return self._rows_cache[key]
+
+    def lookup_table(self, n: int, budget: float, delta: float = 0.05,
+                     m: Optional[int] = None) -> List[TableRow]:
+        """Table 3: every candidate partition with peak memory and predicted
+        latency; infeasible rows (Eq. 3 violated) carry latency=None."""
+        m = self.m if m is None else m
+        return [TableRow(pts, peak,
+                         lat if peak <= budget * (1.0 - delta) else None)
+                for pts, peak, lat in self._rows(n, m)]
+
+    def min_feasible_budget(self, delta: float = 0.05) -> float:
+        """Smallest budget any partition can satisfy: with m=1 degradation the
+        floor is the largest single layer (plus the reserve delta)."""
+        return float(np.max(self.sizes)) / (1.0 - delta) + 1.0
+
+    def best_partition(self, budget: float, delta: float = 0.05,
+                       max_extra_blocks: int = 8,
+                       allow_degrade: bool = True,
+                       improve_tol: float = 0.01) -> Tuple[BlockPlan, List[TableRow]]:
+        """Pick the feasible partition with the least SIMULATED latency over
+        a range of block counts, starting at the paper's n = ceil(m*s/b).
+
+        The paper stops at the first feasible n — correct for its byte-bound
+        workloads, but it under-pipelines backends whose resident bytes are
+        far below the budget (the quantized/fused stores): the budget admits
+        the whole model in m blocks, so the plan degenerates to n == m and
+        the cold first block — half the model — can never be hidden behind
+        compute. Searching upward from n0 lets ``simulate_pipeline`` trade
+        a smaller exposed first block against the per-block fixed cost
+        (``DelayModel.kappa``); the search stops after two consecutive block
+        counts fail to improve the best makespan by ``improve_tol``.
+
+        If no candidate fits even at single-layer blocks, progressively
+        shallow the pipeline down to m=1 — sequential swapping with no
+        overlap — before giving up (a below-paper-minimum budget)."""
+        total = float(np.sum(self.sizes))
+        depths = tuple(range(self.m, 0, -1)) if allow_degrade else (self.m,)
+        for m in depths:
+            n0 = min(max(n_blocks_for_budget(total, budget, m), 1), self.L)
+            best_row = best_table = best_m = None
+            stale = 0
+            for n in range(n0, min(n0 + max_extra_blocks, self.L) + 1):
+                table = self.lookup_table(n, budget, delta, m=m)
+                feasible = [r for r in table if r.latency is not None]
+                if not feasible:
+                    continue
+                row = min(feasible, key=lambda r: r.latency)
+                if (best_row is None
+                        or row.latency < best_row.latency * (1 - improve_tol)):
+                    best_row, best_table, best_m = row, table, m
+                    stale = 0
+                else:
+                    stale += 1
+                    if stale >= 2:      # two counts without improvement
+                        break
+            if best_row is not None:
+                return BlockPlan(best_row.points, self.L, best_m), best_table
+        raise ValueError(
+            f"no feasible partition within budget {budget/1e6:.1f} MB "
+            f"(largest layer exceeds it even with m=1)")

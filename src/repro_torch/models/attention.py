@@ -1,0 +1,129 @@
+"""Attention: GQA with chunked online softmax, causal / sliding-window /
+softcap masks, for prefill and for single-token decode on a contiguous
+cache.
+
+:func:`online_attention` scans KV in chunks with running (m, l, acc)
+statistics, so the [Sq, Skv] score matrix never materializes at full
+sequence length. Masking is positional, as in the JAX package: kv position
+j attends iff ``j <= q_pos`` (causal), ``q_pos - j < window`` and
+``j < kv_valid_len``; masked scores are ``NEG_INF`` (finite, so a fully
+masked chunk cannot produce NaN) and ``l`` is clamped at 1e-30.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import apply_rope, linear, rope_angles, softcap
+from repro_torch.models.params import ParamDef
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+LARGE_WINDOW = 1 << 30
+
+
+def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor,
+                     kv_valid_len: Optional[torch.Tensor], *, causal: bool,
+                     window: Optional[int], scale: float,
+                     logit_cap: Optional[float], chunk: int = 1024
+                     ) -> torch.Tensor:
+    """q [B,Sq,H,hd], k/v [B,Skv,KV,hd], q_pos [B,Sq] absolute positions
+    -> [B,Sq,H,vd] fp32."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    G = H // KV
+    q = q.reshape(B, Sq, KV, G, hd).to(torch.float32)
+    window = LARGE_WINDOW if window is None else window
+    chunk = min(chunk, Skv)
+    dev = q.device
+
+    qp = q_pos[:, :, None, None, None]                       # [B,Sq,1,1,1]
+    valid_len = (kv_valid_len[:, None, None, None, None]
+                 if kv_valid_len is not None else None)
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, KV, G, vd), dtype=torch.float32, device=dev)
+    for c0 in range(0, Skv, chunk):
+        kc = k[:, c0:c0 + chunk].to(torch.float32)
+        vc = v[:, c0:c0 + chunk].to(torch.float32)
+        s = torch.einsum("bqkgh,bckh->bqkgc", q, kc) * scale
+        s = softcap(s, logit_cap)
+        pc = torch.arange(c0, c0 + kc.shape[1], device=dev)[None, None, None,
+                                                             None, :]
+        mask = pc < Skv
+        if causal:
+            mask = mask & (pc <= qp) & ((qp - pc) < window)
+        if valid_len is not None:
+            mask = mask & (pc < valid_len)
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqkgc,bckh->bqkgh", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Sq, H, vd)
+
+
+# ------------------------------------------------------------------ GQA layer
+def gqa_defs(cfg: ModelConfig) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    d = {"wq": ParamDef((D, H * hd)), "wk": ParamDef((D, KV * hd)),
+         "wv": ParamDef((D, KV * hd)), "wo": ParamDef((H * hd, D))}
+    if cfg.attn_bias:
+        d["bq"] = ParamDef((H * hd,), init="zeros")
+        d["bk"] = ParamDef((KV * hd,), init="zeros")
+        d["bv"] = ParamDef((KV * hd,), init="zeros")
+    return d
+
+
+def _attn_scale(cfg: ModelConfig) -> float:
+    if cfg.query_pre_attn_scalar is not None:
+        return cfg.query_pre_attn_scalar ** -0.5
+    return cfg.resolved_head_dim ** -0.5
+
+
+def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              positions: torch.Tensor, is_local: bool,
+              cache: Optional[dict], decode_pos: Optional[torch.Tensor],
+              chunk: int = 1024) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x [B,S,D]. Prefill: ``cache=None`` in, the new cache (k, v) out.
+    Decode: ``cache={'k','v'}`` of [B,Smax,KV,hd] and ``decode_pos`` [B],
+    the write index. The decode cache is updated IN PLACE (one row per
+    sequence) instead of copied, and returned."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+    k = linear(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
+    v = linear(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+    if cfg.rope_type == "mrope":
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+    if cfg.rope_type != "none":
+        ang = rope_angles(positions, hd, cfg.rope_theta)
+        q, k = apply_rope(q, ang), apply_rope(k, ang)
+
+    window = None
+    if cfg.sliding_window is not None:
+        if cfg.layer_pattern == "swa":
+            window = cfg.sliding_window
+        else:       # alternating local/global: is_local is a python bool
+            window = cfg.sliding_window if is_local else LARGE_WINDOW
+    if cache is not None and decode_pos is not None:
+        rows = torch.arange(B, device=x.device)
+        cache["k"][rows, decode_pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, decode_pos] = v[:, 0].to(cache["v"].dtype)
+        k_all, v_all, valid = cache["k"], cache["v"], decode_pos + 1
+    else:
+        k_all, v_all, valid = k, v, None
+
+    out = online_attention(q, k_all, v_all, positions, valid,
+                           causal=not cfg.is_encoder, window=window,
+                           scale=_attn_scale(cfg),
+                           logit_cap=cfg.attn_logit_softcap, chunk=chunk)
+    out = linear(out.reshape(B, S, H * hd).to(x.dtype), p["wo"])
+    new_cache = cache if cache is not None else {"k": k, "v": v}
+    return out, new_cache

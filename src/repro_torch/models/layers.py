@@ -1,0 +1,99 @@
+"""Shared layer primitives: norms, RoPE, linear, MLPs.
+
+:func:`linear` is the precision routing point of the swap path: a weight
+that arrives as a :class:`~repro_torch.kernels.qtensor.QuantizedTensor`
+(the quantized store's lazy mode) streams through the fused dequant-matmul
+kernel, so fp for that weight never exists in device memory. A plain
+tensor takes ``x @ w``, the exact path the mmap store runs.
+
+The arithmetic mirrors the JAX package op for op (fp32 norms and RoPE,
+the activations' formulas), so float32 configs agree across the two
+packages up to accumulation order.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.qtensor import QuantizedTensor
+from repro_torch.kernels.swap_linear_q import activation, swap_linear_q
+from repro_torch.models.params import ParamDef
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+             plus_one: bool = False) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    scale = (1.0 + w) if plus_one else w
+    return (x * scale).to(dt)
+
+
+# ------------------------------------------------------------------ rotary
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> torch.Tensor:
+    """positions [B, S] -> angles [B, S, head_dim / 2]."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    inv_freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                      device=positions.device), exps)
+    return positions.to(torch.float32)[..., None] * inv_freq
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, head_dim]; angles [B, S, head_dim / 2] (neox halves)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(dt)
+
+
+# ------------------------------------------------------------------ linear
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
+           act: str = "none") -> torch.Tensor:
+    """y = act(x @ w + b), routed by weight representation: a
+    QuantizedTensor goes through ``swap_linear_q`` (leading axes of x
+    flattened for the kernel and restored after), a tensor through
+    ``x @ w``."""
+    if isinstance(w, QuantizedTensor):
+        lead = x.shape[:-1]
+        y = swap_linear_q(x.reshape(-1, x.shape[-1]).contiguous(), w.q,
+                          w.scales, b, bits=w.bits, act=act)
+        return y.reshape(*lead, y.shape[-1])
+    r = x @ w
+    if b is not None:
+        r = r + b
+    return activation(r, act)
+
+
+# ------------------------------------------------------------------ MLP
+def mlp_defs(cfg: ModelConfig, d_in: int, d_hidden: int) -> dict:
+    if cfg.act in ("swiglu", "gelu_glu"):
+        return {"wi0": ParamDef((d_in, d_hidden)),
+                "wi1": ParamDef((d_in, d_hidden)),
+                "wo": ParamDef((d_hidden, d_in))}
+    return {"wi": ParamDef((d_in, d_hidden)),
+            "wo": ParamDef((d_hidden, d_in))}
+
+
+def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act in ("swiglu", "gelu_glu"):
+        gate = linear(x, p["wi0"],
+                      act="silu" if cfg.act == "swiglu" else "gelu")
+        return linear(gate * linear(x, p["wi1"]), p["wo"])
+    h = F.gelu(linear(x, p["wi"]), approximate="tanh")
+    return linear(h, p["wo"])
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)

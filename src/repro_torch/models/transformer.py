@@ -1,0 +1,221 @@
+"""Config-driven decoder, dense kind.
+
+The layer list (``cfg.layer_kinds()``) is grouped into *segments* of
+consecutive identical kinds; each segment's params are stacked [n, ...],
+the layout of the JAX package, so units, skeletons and store files line
+up between the two. PyTorch runs eagerly, so a segment is a Python loop
+over its layers (views of the stacked tensors) where the JAX package
+scans. Per-layer variation that only changes masking (gemma2 local/global)
+is a Python bool per layer.
+
+Dense layers only: MoE, MLA, the SSM kinds, zamba2's shared attention and
+the vision and audio frontends raise ``NotImplementedError``.
+
+Modes: "prefill" runs full sequences; "decode" runs one token against a
+contiguous cache (updated in place).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.skeleton import torch_dtype
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import mlp_apply, mlp_defs, rms_norm, softcap
+from repro_torch.models.params import ParamDef, init_from_defs
+from repro_torch.tree import tree_map
+
+
+@dataclass(frozen=True)
+class Segment:
+    kind: str
+    n: int
+    layer_ids: Tuple[int, ...]
+
+
+def build_plan(cfg: ModelConfig) -> List[Segment]:
+    kinds = cfg.layer_kinds()
+    plan: List[Segment] = []
+    i = 0
+    while i < len(kinds):
+        j = i
+        while j < len(kinds) and kinds[j] == kinds[i]:
+            j += 1
+        plan.append(Segment(kinds[i], j - i, tuple(range(i, j))))
+        i = j
+    return plan
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    kinds = set(cfg.layer_kinds())
+    if kinds != {"dense"} or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {sorted(kinds)}"
+            f"{' with MLA' if cfg.mla else ''} are not ported yet "
+            f"(dense only)")
+    if not cfg.embed_inputs or cfg.d_frontend or cfg.is_encoder:
+        raise NotImplementedError(f"{cfg.name}: modality frontends are not "
+                                  f"ported yet")
+    if cfg.rope_type == "mrope":
+        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet")
+
+
+# ------------------------------------------------------------------ defs
+def layer_defs(cfg: ModelConfig, kind: str) -> dict:
+    if kind != "dense":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    D = cfg.d_model
+    norm = "zeros" if cfg.post_norms else "ones"
+    d: Dict[str, Any] = {"ln1": ParamDef((D,), init=norm),
+                         "ln2": ParamDef((D,), init=norm),
+                         "attn": attn_mod.gqa_defs(cfg)}
+    if cfg.post_norms:
+        d["post_ln1"] = ParamDef((D,), init="zeros")
+        d["post_ln2"] = ParamDef((D,), init="zeros")
+    d["ffn"] = mlp_defs(cfg, D, cfg.d_ff)
+    return d
+
+
+def model_defs(cfg: ModelConfig) -> Tuple[dict, List[Segment]]:
+    _check_supported(cfg)
+    plan = build_plan(cfg)
+    D, V = cfg.d_model, cfg.vocab_size
+    defs: Dict[str, Any] = {
+        "final_norm": ParamDef((D,), init="zeros" if cfg.post_norms
+                               else "ones"),
+        "embed": ParamDef((V, D), init="small")}
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((D, V), init="small")
+    defs["segments"] = [layer_defs(cfg, s.kind) for s in plan]
+    return defs, plan
+
+
+# ------------------------------------------------------------------ layer
+def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                positions: torch.Tensor, is_local: bool, cache, decode_pos,
+                mode: str):
+    """Returns (x, new_cache)."""
+    if kind != "dense":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    h = rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+    a_out, new_cache = attn_mod.gqa_apply(cfg, p["attn"], h, positions,
+                                          is_local, cache, decode_pos)
+    if cfg.post_norms:
+        a_out = rms_norm(a_out, p["post_ln1"], cfg.norm_eps, plus_one=True)
+    x = x + a_out
+    h = rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norms)
+    f_out = mlp_apply(cfg, p["ffn"], h)
+    if cfg.post_norms:
+        f_out = rms_norm(f_out, p["post_ln2"], cfg.norm_eps, plus_one=True)
+    return x + f_out, new_cache
+
+
+def layer_slice(stacked, j: int):
+    """Layer j of a stacked segment tree (views)."""
+    return tree_map(lambda a: a[j], stacked)
+
+
+# ------------------------------------------------------------------ model
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.defs, self.plan = model_defs(cfg)
+
+    # ---------------- params
+    def init(self, seed: int = 0, device="cuda") -> dict:
+        """Random params (fp32) from per-path ``torch.Generator``s on
+        ``device`` (without CUDA the default raises). A swapped model's
+        params only feed the store, which serializes from the host: pass
+        ``device="cpu"`` for those."""
+        device = resolve_device(device)
+        parts = dict(self.defs)
+        seg_defs = parts.pop("segments")
+        params = init_from_defs(parts, seed, device=device)
+        params["segments"] = [
+            init_from_defs(sdefs, seed + 1000 + si, lead=(seg.n,),
+                           device=device)
+            for si, (seg, sdefs) in enumerate(zip(self.plan, seg_defs))]
+        return params
+
+    def cast(self, params: dict) -> dict:
+        """Float params to the compute dtype (storage stays fp32)."""
+        dt = torch_dtype(self.cfg.dtype)
+        return tree_map(lambda a: a.to(dt) if a.is_floating_point() else a,
+                        params)
+
+    # ---------------- embedding / io
+    def _embed(self, params: dict, batch: dict, mode: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (x [B,S,D], positions [B,S])."""
+        cfg = self.cfg
+        tokens = batch["token" if mode == "decode" else "tokens"]
+        x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+        if cfg.final_logit_softcap is not None:   # gemma-style embed scaling
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+        if "positions" in batch:
+            positions = batch["positions"]
+        elif mode == "decode":
+            positions = batch["pos"][:, None]
+        else:
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+        return x, positions
+
+    def _head(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        w = params.get("lm_head")
+        if w is None:
+            w = params["embed"].T
+        logits = h.to(torch.float32) @ w.to(torch.float32)
+        return softcap(logits, self.cfg.final_logit_softcap)
+
+    # ---------------- steps
+    def forward(self, params: dict, batch: dict, mode: str = "prefill",
+                cache: Optional[list] = None):
+        """Full-sequence forward. Returns (hidden, cache): the cache is a
+        list per segment of stacked {'k','v'} [n, B, L, KV, hd]."""
+        cfg = self.cfg
+        params = self.cast(params)
+        x, positions = self._embed(params, batch, mode)
+        decode_pos = batch.get("pos") if mode == "decode" else None
+        new_cache = []
+        for si, seg in enumerate(self.plan):
+            stacked = params["segments"][si]
+            ks, vs = [], []
+            for j, lid in enumerate(seg.layer_ids):
+                c = (None if cache is None else
+                     {"k": cache[si]["k"][j], "v": cache[si]["v"][j]})
+                x, c_new = apply_layer(cfg, seg.kind, layer_slice(stacked, j),
+                                       x, positions, cfg.is_local_layer(lid),
+                                       c, decode_pos, mode)
+                ks.append(c_new["k"])
+                vs.append(c_new["v"])
+            new_cache.append(cache[si] if cache is not None else
+                             {"k": torch.stack(ks), "v": torch.stack(vs)})
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                     plus_one=cfg.post_norms)
+        return x, new_cache
+
+    def prefill(self, params: dict, batch: dict):
+        h, cache = self.forward(params, batch, mode="prefill")
+        return self._head(params, h[:, -1:]), cache
+
+    def alloc_cache(self, batch: int, max_len: int, device="cuda") -> list:
+        """Zero decode cache: per segment {'k','v'} [n, B, L, KV, hd]."""
+        device = resolve_device(device)
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return [{"k": torch.zeros((seg.n,) + shape, dtype=dt, device=device),
+                 "v": torch.zeros((seg.n,) + shape, dtype=dt, device=device)}
+                for seg in self.plan]
+
+    def decode_step(self, params: dict, cache: list, batch: dict):
+        """batch: {'token': [B,1], 'pos': [B]}. ``cache`` (from
+        :meth:`alloc_cache`) is updated in place and returned."""
+        h, cache = self.forward(params, batch, mode="decode", cache=cache)
+        return self._head(params, h), cache

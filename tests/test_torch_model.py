@@ -1,0 +1,98 @@
+"""The port's dense model against the JAX package's, on the same weights.
+
+qwen2.5-3b covers GQA with qkv bias, RoPE and swiglu; gemma2-9b covers the
+sliding window on alternating layers, the attention and final logit
+softcaps, ``plus_one`` norms, post-norms, the embedding scale and gelu_glu.
+Both ``reduced()``, float32, params from JAX ``Model.init`` handed over as
+numpy (``repro_torch.convert``).
+
+Tolerance: 1e-5 (float32 on both sides; the sums run in another order).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_arch as ref_get_arch  # noqa: E402
+from repro.configs.base import ShapeConfig  # noqa: E402
+from repro.models.transformer import Model as RefModel  # noqa: E402
+from repro.models.transformer import alloc_cache as ref_alloc_cache  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.tree import tree_flatten_with_path  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+ARCHS = ["qwen2.5-3b", "gemma2-9b"]
+
+
+def _pair(arch, seed=0):
+    ref_cfg = dataclasses.replace(ref_get_arch(arch).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    ref_model, model = RefModel(ref_cfg), Model(cfg)
+    ref_params = ref_model.init(jax.random.key(seed))
+    params = params_from_jax(jax.tree.map(np.asarray, ref_params))
+    return ref_model, ref_params, model, params
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_layout_matches_reference(arch):
+    """Same keys, shapes and dtypes, leaf for leaf in JAX's order; the
+    port's own init draws the same shapes."""
+    ref_model, ref_params, model, params = _pair(arch)
+    ref_flat = jax.tree_util.tree_flatten_with_path(ref_params)[0]
+    own = model.init(0, device="cpu")
+    for tree in (params, own):
+        flat = tree_flatten_with_path(tree)[0]
+        assert len(flat) == len(ref_flat)
+        for (p, leaf), (rp, rleaf) in zip(flat, ref_flat):
+            assert p == tuple(getattr(k, "key", getattr(k, "idx", None))
+                              for k in rp)
+            assert tuple(leaf.shape) == tuple(rleaf.shape)
+            assert leaf.dtype == torch.float32
+
+
+@pytest.mark.parametrize("seq", [32, 96])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_logits_match_reference(arch, seq):
+    """seq 96 passes gemma's 64-token reduced window."""
+    ref_model, ref_params, model, params = _pair(arch)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, model.cfg.vocab_size, (2, seq)).astype(np.int32)
+    want, _ = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)})
+    got, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)})
+    assert tuple(got.shape) == (2, 1, model.cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert tuple(cache[0]["k"].shape) == (
+        model.cfg.n_layers, 2, seq, model.cfg.n_kv_heads,
+        model.cfg.resolved_head_dim)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_steps_match_reference(arch):
+    ref_model, ref_params, model, params = _pair(arch)
+    B, L = 2, 16
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, model.cfg.vocab_size, (B, 5)).astype(np.int32)
+    ref_cache = ref_alloc_cache(ref_model, ShapeConfig("d", L, B, "decode"))
+    cache = model.alloc_cache(B, L, device="cpu")
+    for t in range(toks.shape[1]):
+        tok = toks[:, t:t + 1]
+        want, ref_cache = ref_model.decode_step(
+            ref_params, ref_cache,
+            {"token": jnp.asarray(tok), "pos": jnp.full((B,), t, jnp.int32)})
+        got, cache = model.decode_step(
+            params, cache, {"token": torch.from_numpy(tok),
+                            "pos": torch.full((B,), t, dtype=torch.long)})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_unported_kinds_raise():
+    for arch in ("deepseek-v2-lite-16b", "zamba2-7b", "rwkv6-3b",
+                 "hubert-xlarge", "qwen2-vl-72b"):
+        with pytest.raises(NotImplementedError):
+            Model(get_arch(arch).reduced())
