@@ -7,19 +7,28 @@ Phases, each printing its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the build
    of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` call);
-2. kernels: ``swap_linear_q`` and ``dequant_int8`` held against their plain
-   PyTorch versions on the card at every shape the slice launches, plus
-   odd and ragged shapes, and timed at the main path's shapes beside their
-   plain version, a library call and the card's bound;
-3. the slice: qwen2.5-3b at its published widths with the depth cut from
-   36 to 4 layers and random weights from a seed; a swapped prefill of 4
-   requests x 128 tokens on the mmap store and on the quantized store
-   (int8 lazy, int4 lazy, int8 eager), each under a budget below the
-   store's resident bytes, checked against the unswapped forward; then
-   greedy decode of 2 requests x 4 tokens on the int8 lazy store.
+2. kernels: ``swap_linear_q``, ``dequant_int8`` and ``paged_attention``
+   held against their plain PyTorch versions on the card at every shape
+   the paths launch, plus odd and ragged shapes, and timed at the main
+   paths' shapes beside their plain version, a library call and the
+   card's bound;
+3. the swapped slice: qwen2.5-3b at its published widths with the depth
+   cut from 36 to 4 layers and random weights from a seed; a swapped
+   prefill of 4 requests x 128 tokens on the mmap store and on the
+   quantized store (int8 lazy, int4 lazy, int8 eager), each under a budget
+   below the store's resident bytes, checked against the unswapped
+   forward; then greedy decode of 2 requests x 4 tokens on int8 lazy;
+4. paged continuous-batching decode at the published widths: (A) the
+   same qwen2.5-3b in float32 on mmap, 6 requests under a page pool small
+   enough to preempt, every request's tokens held to a solo in-memory run;
+   (B) the same workload in bf16 on int8 lazy, its step trace held to
+   (A)'s and one batched step's logits to the in-memory model on the
+   round-tripped weights; (C) gemma2-9b in bf16, depth cut 42 -> 2 (one
+   local, one global layer), int8 lazy, a 4,200-token prompt beside a
+   24-token one so the local layer's 4,096-token window skips pages.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
-kernel and main-path shape, the launches the slice made there, the error
+kernel and main-path shape, the launches the paths made there, the error
 against the plain version, and the times. The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 then exits non-zero without that line; without CUDA it exits 2 at once.
@@ -53,6 +62,16 @@ N_LAYERS = 4
 BATCH, PROMPT = 4, 128
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 2, 8, 4
 BUDGET_FRACTION = 0.9              # of each store's resident bytes
+
+# phase 4: the paged workload. 23 pages of 16 tokens force one preemption
+# at these token counts (the trace depends on token counts and pages
+# only, so the number was found on the CPU with the reduced config)
+PAGED_PROMPTS = [37, 64, 100, 129, 17, 200]
+PAGED_NEW = [2, 6, 3, 5, 4, 8]
+PAGED_MAX_BATCH, PAGE_TOKENS, PAGED_MAX_PAGES = 4, 16, 23
+GEMMA_LAYERS = 2                   # layer 0 local (window 4096), 1 global
+GEMMA_PROMPTS, GEMMA_NEW = [4200, 24], [3, 3]
+GEMMA_MAX_PAGES = 270              # 263 + 2 pages live at the first step
 
 
 def require(cond: bool, msg: str) -> None:
@@ -199,6 +218,8 @@ def check_kernels(torch, cfg):
             q, s = weights(K, N, bits)
             dt = dts[dname]
             for M in Ms:
+                if N == V and M == BATCH * PROMPT:
+                    M = BATCH       # the head projects the last position
                 x = torch.randn((M, K), generator=g, device=dev).to(dt)
                 b = ((torch.randn((N,), generator=g, device=dev) * 0.1).to(dt)
                      if has_bias else None)
@@ -275,6 +296,188 @@ def check_kernels(torch, cfg):
     return rows
 
 
+# ------------------------------------------------------ paged attention
+def paged_inputs(torch, seed, B, H, KV, hd, T, seq_lens, dtype, pad_cols=0):
+    """q, K/V pools (page 0 the zero page, a few spare pages), a SHUFFLED
+    page table with ``pad_cols`` extra columns of the padding page, and
+    int32 seq_lens, on the card."""
+    import numpy as np
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    n = [-(-s // T) for s in seq_lens]
+    P = sum(n) + 3
+    q = (torch.randn((B, H, hd), generator=g, device="cuda") * 0.5).to(dtype)
+    kp = (torch.randn((P + 1, T, KV, hd), generator=g, device="cuda")
+          * 0.5).to(dtype)
+    vp = (torch.randn((P + 1, T, KV, hd), generator=g, device="cuda")
+          * 0.5).to(dtype)
+    kp[0] = 0
+    vp[0] = 0
+    ids = np.random.default_rng(seed).permutation(np.arange(1, P + 1))
+    pt = np.zeros((B, max(n) + pad_cols), np.int32)
+    used = 0
+    for b, k in enumerate(n):
+        pt[b, :k] = ids[used:used + k]
+        used += k
+    return (q, kp, vp, torch.from_numpy(pt).cuda(),
+            torch.tensor(seq_lens, dtype=torch.int32, device="cuda"))
+
+
+def paged_live_tokens(seq_lens, window):
+    """Live in-window tokens over a batch: the K/V rows the function must
+    read and the slots its softmax covers."""
+    return sum(s - (0 if window is None else max(s - window, 0))
+               for s in seq_lens)
+
+
+# (name, dtype, B, H, KV, hd, seq_lens, scale, window, softcap): the main
+# paths' decode shapes. Run A is qwen in fp32, Run B in bf16 (batches of
+# 1-4, contexts up to 208 tokens), Run C gemma2-9b (a 4,201-token and a
+# 25-token sequence at the first decode step)
+QWEN_SCALE = 128 ** -0.5
+GEMMA_SCALE = 224.0 ** -0.5
+PAGED_TIMED = [
+    ("qwen2.5-3b fp32 B=4", "float32", 4, 16, 2, 128, [38, 65, 101, 130],
+     QWEN_SCALE, None, None),
+    ("qwen2.5-3b bf16 B=1", "bfloat16", 1, 16, 2, 128, [208], QWEN_SCALE,
+     None, None),
+    ("qwen2.5-3b bf16 B=4", "bfloat16", 4, 16, 2, 128, [38, 65, 101, 130],
+     QWEN_SCALE, None, None),
+    ("gemma2-9b bf16 B=2 local", "bfloat16", 2, 16, 8, 256, [4201, 25],
+     GEMMA_SCALE, 4096, 50.0),
+    ("gemma2-9b bf16 B=2 global", "bfloat16", 2, 16, 8, 256, [4201, 25],
+     GEMMA_SCALE, None, 50.0),
+]
+
+
+def check_paged_attention(torch):
+    """Phase 2 for B3: the kernel against its plain version over the
+    reference test's sweep and the main paths' shapes, then timed at the
+    latter. Returns the timing rows."""
+    from repro_torch.kernels import paged_attention as pa
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = []
+    for dname in dts:                   # the JAX package's test sweep
+        for window, softcap in ((None, None), (7, None), (None, 30.0),
+                                (5, 30.0)):
+            cases.append((dname, 3, 8, 2, 64, 8, [5, 23, 16], None, window,
+                          softcap, 0))
+    for dname in dts:                   # qwen2.5-3b, B 1-4, ragged
+        for sl in ([1], [1, 17], [1, 38, 101], [17, 65, 130, 208]):
+            cases.append((dname, len(sl), 16, 2, 128, 16, sl, QWEN_SCALE,
+                          None, None, 1))
+    for window in (4096, None):         # gemma2-9b, local and global
+        cases.append(("bfloat16", 2, 16, 8, 256, 16, [4201, 25], GEMMA_SCALE,
+                      window, 50.0, 0))
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (dname, B, H, KV, hd, T, sl, scale, window, softcap,
+            pad) in enumerate(cases):
+        args = paged_inputs(torch, 100 + i, B, H, KV, hd, T, sl, dts[dname],
+                            pad)
+        got = pa.paged_attention(*args, scale=scale, window=window,
+                                 softcap=softcap)
+        want = pa.paged_attention_plain(*args, scale=scale, window=window,
+                                        softcap=softcap)
+        _, rel = rel_err(torch, got, want)
+        require(bool(torch.isfinite(got).all()),
+                f"paged_attention non-finite at {(B, H, KV, hd, T, sl)}")
+        require(rel <= TOL[dname],
+                f"paged_attention {dname} {(B, H, KV, hd, T, sl)} window "
+                f"{window} softcap {softcap}: rel err {rel:.3g} > "
+                f"{TOL[dname]}")
+        worst[dname] = max(worst[dname], rel)
+    print(f"paged_attention: {len(cases)} cases match the plain version "
+          f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
+          f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+
+    rows = []
+    for (label, dname, B, H, KV, hd, sl, scale, window,
+         softcap) in PAGED_TIMED:
+        dt = dts[dname]
+        T = PAGE_TOKENS
+        q, kp, vp, pt, sl_t = paged_inputs(torch, 7, B, H, KV, hd, T, sl, dt)
+        kw = dict(scale=scale, window=window, softcap=softcap)
+        got = pa.paged_attention(q, kp, vp, pt, sl_t, **kw)
+        want = pa.paged_attention_plain(q, kp, vp, pt, sl_t, **kw)
+        err, rel = rel_err(torch, got, want)
+        require(rel <= TOL[dname], f"timing case {label}: rel {rel:.3g}")
+        k_ms = time_ms(torch, lambda: pa.paged_attention(q, kp, vp, pt,
+                                                         sl_t, **kw))
+        p_ms = time_ms(torch, lambda: pa.paged_attention_plain(
+            q, kp, vp, pt, sl_t, **kw))
+        # library yardstick on the K/V gathered to contiguous [B, KV, S, hd]
+        # beforehand (not timed), the same mask: SDPA, or flex_attention
+        # (compiled, its fused kernel) where the softcap needs a score_mod
+        S = pt.shape[1] * T
+        kc = kp[pt.long()].reshape(B, S, KV, hd).transpose(1, 2).contiguous()
+        vc = vp[pt.long()].reshape(B, S, KV, hd).transpose(1, 2).contiguous()
+        q4 = q[:, :, None, :]
+        lens = sl_t.long()
+        if softcap is None:
+            G = H // KV
+            kc = kc.repeat_interleave(G, dim=1)
+            vc = vc.repeat_interleave(G, dim=1)
+            tok = torch.arange(S, device="cuda")[None, :]
+            mask = tok < lens[:, None]
+            if window is not None:
+                mask &= (lens[:, None] - 1 - tok) < window
+            mask = mask[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+
+            def lib():
+                return sdpa(q4, kc, vc, attn_mask=mask, scale=scale)
+        else:
+            from torch.nn.attention import flex_attention as fa
+            flex = torch.compile(fa.flex_attention)
+
+            def capped(s, b, h, q_idx, kv_idx):
+                return softcap * torch.tanh(s / softcap)
+
+            def live(b, h, q_idx, kv_idx):
+                m = kv_idx < lens[b]
+                if window is not None:
+                    m = m & (lens[b] - 1 - kv_idx < window)
+                return m
+            block_mask = fa.create_block_mask(live, B, None, 1, S,
+                                              device="cuda")
+
+            def lib():
+                return flex(q4, kc, vc, score_mod=capped,
+                            block_mask=block_mask, scale=scale,
+                            enable_gqa=True)
+        _, lrel = rel_err(torch, lib()[:, :, 0], want)
+        require(lrel <= TOL[dname], f"library yardstick {label}: {lrel}")
+        l_ms = time_ms(torch, lib)
+        del kc, vc
+        tokens = paged_live_tokens(sl, window)
+        es = q.element_size()
+        nbytes = (tokens * KV * hd * es * 2 + 2 * B * H * hd * es
+                  + pt.numel() * 4 + B * 4)
+        ops = 4.0 * H * hd * tokens
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS[dname] * 1e3
+        rows.append({
+            "name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:34",
+            "key": (B, H, KV, hd, T, dname, window, softcap),
+            "shape": f"{label} seq_lens={sl} window={window} "
+                     f"softcap={softcap}",
+            "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": l_ms, "live_tokens": tokens})
+        del q, kp, vp
+    for r in rows:
+        print(f"  paged_attention {r['shape']:78s} kernel {r['ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
+              f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['live_tokens']} live tokens x {r['key'][2]} KV heads)",
+              flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- slice
 STORES = [
     ("mmap", dict(store_backend="mmap")),
@@ -285,33 +488,15 @@ STORES = [
 ]
 
 
-def run_slice(torch, cfg, main_launches):
+def run_slice(torch, cfg, model, params, main_launches):
     import numpy as np
     from repro_torch.core.cost_model import DelayModel
     from repro_torch.core.runtime import SwappedModel
     from repro_torch.kernels import dequant as dq
     from repro_torch.kernels import swap_linear_q as slq
-    from repro_torch.models.transformer import Model
     from repro_torch.store.quantized_store import roundtrip
 
-    counters = {"swap_linear_q": slq.launches, "dequant_int8": dq.launches}
-
-    def reset():
-        for c in counters.values():
-            c.reset()
-
-    def collect():
-        got = {k: c.count for k, c in counters.items()}
-        for k, c in counters.items():
-            for key, n in c.by_shape.items():
-                main_launches[k][key] = main_launches[k].get(key, 0) + n
-        return got
-
-    t0 = time.perf_counter()
-    model = Model(cfg)
-    params = model.init(0, device="cpu")     # host: the store's source
-    print(f"params: {sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M "
-          f"(fp32, host), init {time.perf_counter() - t0:.1f} s", flush=True)
+    reset, collect = launch_counting(main_launches)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)),
                              dtype=torch.int32)
@@ -446,9 +631,373 @@ def run_slice(torch, cfg, main_launches):
     return results
 
 
+# ---------------------------------------------------------------- paged
+def resident_params(torch, sm, unit_params):
+    """The model's param tree (on the card) from per-unit params, e.g. the
+    quantized store's per-unit round trip: the in-memory reference of a
+    swapped quantized model. The head unit's own ``lm_head`` is kept (the
+    store quantizes the tied head per vocab column, not the embedding)."""
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+    by_kind = {u.kind: p for u, p in zip(sm.units, unit_params)
+               if u.kind in ("embed", "head")}
+    layers = [p for u, p in zip(sm.units, unit_params)
+              if u.layer_id is not None]
+    flat = [tree_flatten(p) for p in layers]
+    stacked = tree_unflatten(flat[0][1], [torch.stack(ls) for ls in
+                                          zip(*(f[0] for f in flat))])
+    tree = {"embed": by_kind["embed"]["embed"],
+            "final_norm": by_kind["head"]["final_norm"],
+            "lm_head": by_kind["head"]["lm_head"], "segments": [stacked]}
+    return tree_map(lambda a: a.to("cuda"), tree)
+
+
+def one_step_check(torch, sm, kv, ref_params, prompts, reset, collect):
+    """Prefill ``prompts`` through the swapped model into the page pool,
+    then ONE batched ``decode_step_paged``, held against the in-memory
+    ``Model.prefill`` + ``Model.decode_step`` on ``ref_params`` fed the
+    same tokens. Returns (worst rel err, launches of that step)."""
+    from repro_torch.serving.kv_cache import pad_prefill_cache
+    from repro_torch.serving.paged_kv import PagedBatchView
+    rids = [1000 + i for i in range(len(prompts))]
+    toks = []
+    for rid, p in zip(rids, prompts):
+        require(kv.alloc(rid, len(p)), f"one-step check: no pages for {rid}")
+        state, _ = sm.forward_partial(
+            {"tokens": torch.tensor([p], dtype=torch.int32)},
+            collect_cache=True)
+        pids, slots = kv.slots(rid, range(len(p)))
+        for lid, c in state.caches.items():
+            kv.write_rows(lid, pids, slots, c["k"][0], c["v"][0])
+        toks.append(int(state.logits[0, -1].argmax()))
+        del state
+    for rid in rids:
+        require(kv.extend(rid, 1), f"one-step check: cannot extend {rid}")
+    view = PagedBatchView(kv, rids)
+    batch = {"token": torch.tensor([[t] for t in toks], dtype=torch.int32),
+             "pos": torch.tensor([len(p) for p in prompts])}
+    reset()
+    logits = sm.decode_step_paged(batch, view)
+    counts = collect()
+    for rid in rids:
+        kv.free(rid)
+    model = sm.model
+    worst = 0.0
+    for i, p in enumerate(prompts):
+        tokens = torch.tensor([p], dtype=torch.int32, device="cuda")
+        _, cache = model.prefill(ref_params, {"tokens": tokens})
+        cache = pad_prefill_cache(model, cache, len(p) + 1, 1)
+        want, _ = model.decode_step(ref_params, cache, {
+            "token": torch.tensor([[toks[i]]], device="cuda"),
+            "pos": torch.tensor([len(p)], device="cuda")})
+        del cache
+        _, rel = rel_err(torch, logits[i, -1], want[0, -1])
+        require(bool(torch.isfinite(logits[i]).all()),
+                "one-step check: non-finite logits")
+        worst = max(worst, rel)
+    torch.cuda.empty_cache()
+    return worst, counts
+
+
+def clipped_seconds(spans, windows) -> float:
+    """Seconds of ``spans`` that fall inside ``windows`` (both lists of
+    (start, end) on one clock; the windows do not overlap)."""
+    return sum(max(0.0, min(e, we) - max(s, ws))
+               for s, e in spans for ws, we in windows)
+
+
+def drive_paged(torch, sm, kv, prompts, new, max_batch, reset, collect):
+    """The batch engine over the workload; returns (requests, engine,
+    launches, the decode steps' windows on the host clock, the device
+    bytes allocated when the run began)."""
+    from repro_torch.serving.batch_engine import BatchDecodeEngine
+    from repro_torch.serving.engine import Request
+    be = BatchDecodeEngine(sm, kv, max_batch=max_batch)
+    reqs = [Request(i, list(p), max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, new))]
+    for r in reqs:
+        be.submit(r)
+    windows = []
+    step = sm.decode_step_paged
+
+    def timed_step(batch, view):
+        t0 = time.perf_counter()
+        out = step(batch, view)
+        windows.append((t0, time.perf_counter()))
+        return out
+    sm.decode_step_paged = timed_step
+    sm.engine.stats.__init__()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    reset()
+    try:
+        be.run_all()
+    finally:
+        del sm.decode_step_paged
+    return reqs, be, collect(), windows, alloc0
+
+
+def report_paged(torch, tag, sm, kv, be, budget, windows, alloc0):
+    st = be.stats()
+    es = sm.engine.stats
+    led = sm.engine.ledger
+    decode_stage = {k: clipped_seconds(es.stage_spans(k), windows)
+                    for k in ("read", "unpack", "dispatch", "exec", "wait")}
+    n_dec = max(len(windows), 1)
+    out = {"tok_per_s": st["tok_per_s"], "prefill_s": st["prefill_s"],
+           "decode_s": st["decode_s"], "decode_steps": len(windows),
+           "step_ms": st["decode_s"] / n_dec * 1e3,
+           "mean_occupancy": st["mean_occupancy"],
+           "preemptions": st["preemptions"], "ledger_peak": led.peak,
+           "budget": budget, "pool_bytes": kv.pool_bytes,
+           "kv_pages_peak": st["kv_pages_peak"],
+           "page_bytes": kv.page_bytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "allocated_at_start": alloc0,
+           "decode_stage_ms": {k: v / n_dec * 1e3
+                               for k, v in decode_stage.items()}}
+    print(f"[{tag}] {st['tokens_emitted']:.0f} tokens in "
+          f"{st['prefill_s'] + st['decode_s']:.2f} s: {st['tok_per_s']:.2f} "
+          f"tok/s; prefill {st['prefill_s']:.2f} s, decode "
+          f"{st['decode_s']:.2f} s over {len(windows)} steps "
+          f"({out['step_ms']:.1f} ms a step); mean occupancy "
+          f"{st['mean_occupancy']:.3f}; preemptions {st['preemptions']:.0f}",
+          flush=True)
+    print(f"[{tag}] ledger peak {led.peak / 1e9:.3f} GB <= budget "
+          f"{budget / 1e9:.3f} GB (KV pages peak {st['kv_pages_peak']:.0f} "
+          f"x {kv.page_bytes / 1e6:.3f} MB charged); KV pools on the device "
+          f"{kv.pool_bytes / 1e9:.3f} GB ({kv.max_pages} pages + the zero "
+          f"page, all layers); max_memory_allocated "
+          f"{out['max_memory_allocated'] / 1e9:.3f} GB (allocated when the "
+          f"run began {alloc0 / 1e9:.3f} GB)", flush=True)
+    print(f"[{tag}] decode step ms by stage span: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["decode_stage_ms"].items()),
+        flush=True)
+    return out
+
+
+def check_paged_run(tag, kv, be, counts, n_layers, budget):
+    """The checks every paged run shares: pages and ledger clean, peak
+    within budget, B3 once per layer per decode step."""
+    led = kv.ledger
+    steps = sum(1 for t in be.trace if t.batch)
+    require(kv.pages_in_use == 0, f"{tag}: {kv.pages_in_use} pages in use")
+    require(led.resident == 0, f"{tag}: {led.resident} bytes left on the "
+            f"ledger")
+    require(led.peak <= budget, f"{tag}: ledger peak {led.peak} > {budget}")
+    require(counts["paged_attention"] == n_layers * steps > 0,
+            f"{tag}: paged_attention launched {counts['paged_attention']} "
+            f"times, expected {n_layers} x {steps}")
+
+
+def paged_model(torch, model, params, d, opts, cfg, max_pages, prompt_len):
+    """SwappedModel + page pool under one ledger: weights planned at 0.9x
+    the store's resident bytes, the ledger enforcing that plus the pool's
+    pages (the budget split of ``launch/serve.py --paged``)."""
+    from repro_torch.core.cost_model import DelayModel
+    from repro_torch.core.runtime import SwappedModel
+    from repro_torch.serving.paged_kv import PagedKVCache, page_bytes_for
+    sm = SwappedModel(model, params, d, device="cuda", **opts)
+    resident = sum(sm.store.resident_nbytes(u.name) for u in sm.units)
+    w_budget = int(BUDGET_FRACTION * resident)
+    budget = w_budget + max_pages * page_bytes_for(cfg, PAGE_TOKENS)
+    sm.engine.ledger.budget = budget                      # enforced
+    sm.partition(w_budget, DelayModel(), 1, prompt_len)
+    kv = PagedKVCache(cfg, sm.engine.ledger, page_tokens=PAGE_TOKENS,
+                      max_pages=max_pages, device="cuda")
+    print(f"[{cfg.name} {cfg.dtype} {sm.store_backend}/{sm.precision}] "
+          f"blocks={sm.plan.n_blocks} {sm.plan.points} m={sm.plan.m}; "
+          f"weight budget {w_budget / 1e9:.3f} GB (0.9 x resident "
+          f"{resident / 1e9:.3f} GB) + {max_pages} pages = budget "
+          f"{budget / 1e9:.3f} GB", flush=True)
+    return sm, kv, budget
+
+
+def run_paged(torch, cfg, model, params, main_launches):
+    """Phase 4: paged continuous-batching decode, runs A, B and C."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.kernels import swap_linear_q as slq
+    from repro_torch.store.quantized_store import roundtrip
+
+    reset, collect = launch_counting(main_launches)
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in PAGED_PROMPTS]
+    L = cfg.n_layers
+    results = {}
+
+    # -- Run A: exactness, float32 on mmap
+    cfg_a = dataclasses.replace(cfg, dtype="float32")
+    model_a = Model(cfg_a)
+    t0 = time.perf_counter()
+    solo = ServingEngine(model_a, params, max_len=max(PAGED_PROMPTS)
+                         + max(PAGED_NEW) + 1, device="cuda")
+    want = []
+    for p, n in zip(prompts, PAGED_NEW):
+        r = Request(0, list(p), max_new_tokens=n)
+        solo.generate([r])
+        want.append(r.output)
+    del solo
+    torch.cuda.empty_cache()
+    print(f"[A] solo in-memory runs: {want} ({time.perf_counter() - t0:.1f} "
+          f"s)", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        sm, kv, budget = paged_model(torch, model_a, params, d,
+                                     dict(store_backend="mmap"), cfg_a,
+                                     PAGED_MAX_PAGES, max(PAGED_PROMPTS))
+        try:
+            require(sm.plan.n_blocks >= 3, f"A: {sm.plan.n_blocks} blocks")
+            reqs, be, counts, windows, alloc0 = drive_paged(
+                torch, sm, kv, prompts, PAGED_NEW, PAGED_MAX_BATCH, reset,
+                collect)
+            results["A"] = report_paged(torch, "A", sm, kv, be, budget,
+                                        windows, alloc0)
+        finally:
+            sm.close()
+    got = [r.output for r in reqs]
+    require(got == want, f"A: batched tokens {got} != solo {want}")
+    tr = be.trace
+    require(any(t.admitted and t.batch for t in tr),
+            "A: no admission into a running batch")
+    require(any(t.retired and t.batch for t in tr), "A: no mid-run retirement")
+    require(be.preemptions >= 1, "A: no preemption")
+    check_paged_run("A", kv, be, counts, L, budget)
+    trace_a = [(t.batch, t.admitted, t.retired, t.preempted, t.kv_pages)
+               for t in tr]
+    print(f"[A] tokens equal the solo runs for all {len(reqs)} requests; "
+          f"{len(tr)} steps, preemptions {be.preemptions}, launches "
+          f"{counts}", flush=True)
+    print(f"[A] trace (batch, admitted, retired, preempted, pages): "
+          f"{trace_a}", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- Run B: the published dtype, bf16 on int8 lazy
+    with tempfile.TemporaryDirectory() as d:
+        sm, kv, budget = paged_model(
+            torch, model, params, d,
+            dict(store_backend="quant", precision="int8"), cfg,
+            PAGED_MAX_PAGES, max(PAGED_PROMPTS))
+        try:
+            require(sm.plan.n_blocks >= 3, f"B: {sm.plan.n_blocks} blocks")
+            reqs, be, counts, windows, alloc0 = drive_paged(
+                torch, sm, kv, prompts, PAGED_NEW, PAGED_MAX_BATCH, reset,
+                collect)
+            results["B"] = report_paged(torch, "B", sm, kv, be, budget,
+                                        windows, alloc0)
+            trace_b = [(t.batch, t.admitted, t.retired, t.preempted,
+                        t.kv_pages) for t in be.trace]
+            require(trace_b == trace_a, f"B: trace {trace_b} != A's")
+            check_paged_run("B", kv, be, counts, L, budget)
+            sizes = {len(t.batch) for t in be.trace if t.batch}
+            ms = {k[0] for k in slq.launches.by_shape}
+            require(sizes <= ms and sizes == {1, 2, 3, 4},
+                    f"B: batch sizes {sorted(sizes)} vs swap_linear_q "
+                    f"launches at M {sorted(ms)}")
+            print(f"[B] trace equals A's; swap_linear_q at M "
+                  f"{sorted(m for m in ms if m <= PAGED_MAX_BATCH)} in "
+                  f"decode; launches {counts}", flush=True)
+            ref = resident_params(torch, sm, [roundtrip(u.params, 8)
+                                              for u in sm.units])
+            err, step_counts = one_step_check(torch, sm, kv, ref,
+                                              prompts[:3], reset, collect)
+            del ref
+            require(err <= 2e-2, f"B: one-step logits rel err {err:.3g}")
+            require(step_counts["paged_attention"] == L,
+                    f"B: one step launched paged_attention "
+                    f"{step_counts['paged_attention']} times")
+            results["B"]["one_step_rel_err"] = err
+            print(f"[B] one decode_step_paged on 3 live sequences vs the "
+                  f"in-memory model on round-tripped int8 weights: rel err "
+                  f"{err:.3g} <= 2e-2", flush=True)
+        finally:
+            sm.close()
+    del model_a
+    torch.cuda.empty_cache()
+
+    # -- Run C: gemma2-9b, window and softcap on the path
+    gcfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=GEMMA_LAYERS)
+    print(f"model: {gcfg.name} d_model {gcfg.d_model}, {gcfg.n_heads} heads "
+          f"/ {gcfg.n_kv_heads} KV heads, head_dim {gcfg.resolved_head_dim}, "
+          f"d_ff {gcfg.d_ff}, vocab {gcfg.vocab_size}, window "
+          f"{gcfg.sliding_window} on even layers, softcaps "
+          f"{gcfg.attn_logit_softcap}/{gcfg.final_logit_softcap}, "
+          f"{gcfg.dtype}; reduced: n_layers 42->{GEMMA_LAYERS}", flush=True)
+    t0 = time.perf_counter()
+    gmodel = Model(gcfg)
+    gparams = gmodel.init(0, device="cpu")
+    print(f"params: {sum(p.numel() for p in _leaves(gparams)) / 1e6:.1f} M "
+          f"(fp32, host), init {time.perf_counter() - t0:.1f} s", flush=True)
+    grng = np.random.default_rng(1)
+    gprompts = [list(map(int, grng.integers(0, gcfg.vocab_size, n)))
+                for n in GEMMA_PROMPTS]
+    with tempfile.TemporaryDirectory() as d:
+        sm, kv, budget = paged_model(
+            torch, gmodel, gparams, d,
+            dict(store_backend="quant", precision="int8"), gcfg,
+            GEMMA_MAX_PAGES, max(GEMMA_PROMPTS))
+        try:
+            ref = resident_params(torch, sm, [roundtrip(u.params, 8)
+                                              for u in sm.units])
+            err, step_counts = one_step_check(torch, sm, kv, ref, gprompts,
+                                              reset, collect)
+            del ref
+            torch.cuda.empty_cache()
+            require(err <= 2e-2, f"C: one-step logits rel err {err:.3g}")
+            print(f"[C] one decode_step_paged vs the in-memory model on "
+                  f"round-tripped int8 weights: rel err {err:.3g} <= 2e-2; "
+                  f"launches {step_counts}", flush=True)
+            reqs, be, counts, windows, alloc0 = drive_paged(
+                torch, sm, kv, gprompts, GEMMA_NEW, 2, reset, collect)
+            results["C"] = report_paged(torch, "C", sm, kv, be, budget,
+                                        windows, alloc0)
+            results["C"]["one_step_rel_err"] = err
+        finally:
+            sm.close()
+    check_paged_run("C", kv, be, counts, GEMMA_LAYERS, budget)
+    from repro_torch.kernels import paged_attention as pa
+    keys = pa.launches.by_shape
+    local = sum(n for k, n in keys.items() if k[7] == 4096 and k[8] == 50.0)
+    glob = sum(n for k, n in keys.items() if k[7] is None and k[8] == 50.0)
+    steps = sum(1 for t in be.trace if t.batch)
+    require(local == glob == steps > 0,
+            f"C: paged_attention launches window 4096 {local}, no window "
+            f"{glob}, decode steps {steps}")
+    require([len(r.output) for r in reqs] == GEMMA_NEW, "C: token counts")
+    print(f"[C] paged_attention at window 4096 (layer 0) x {local} and no "
+          f"window (layer 1) x {glob}, softcap 50; outputs "
+          f"{[r.output for r in reqs]}", flush=True)
+    return results
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
+
+
+def launch_counting(main_launches):
+    """(reset, collect) over the kernels' launch counters: reset sets every
+    count to 0 before a main-path run; collect reads the counts after it
+    and adds the per-shape launches to ``main_launches``."""
+    from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import swap_linear_q as slq
+    counters = {"swap_linear_q": slq.launches, "dequant_int8": dq.launches,
+                "paged_attention": pa.launches}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def collect():
+        got = {k: c.count for k, c in counters.items()}
+        for k, c in counters.items():
+            for key, n in c.by_shape.items():
+                main_launches[k][key] = main_launches[k].get(key, 0) + n
+        return got
+    return reset, collect
 
 
 def main() -> int:
@@ -458,6 +1007,11 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # what torch.compile builds (the flex_attention yardstick) stays in the
+    # checkout's build/
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / "compile_cache" / sub))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
@@ -487,7 +1041,11 @@ def main() -> int:
     cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=N_LAYERS)
     with phase("2 kernels against their plain versions"):
         rows = check_kernels(torch, cfg)
+        rows += check_paged_attention(torch)
 
+    from repro_torch.models.transformer import Model
+    main_launches = {"swap_linear_q": {}, "dequant_int8": {},
+                     "paged_attention": {}}
     with phase("3 the slice at full width"):
         print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads "
               f"/ {cfg.n_kv_heads} KV heads, head_dim "
@@ -495,16 +1053,35 @@ def main() -> int:
               f"{cfg.vocab_size}, qkv bias {cfg.attn_bias}, tied "
               f"{cfg.tie_embeddings}, {cfg.dtype}", flush=True)
         print(f"reduced: n_layers 36->{N_LAYERS}", flush=True)
-        main_launches = {"swap_linear_q": {}, "dequant_int8": {}}
-        run_slice(torch, cfg, main_launches)
+        t0 = time.perf_counter()
+        model = Model(cfg)
+        params = model.init(0, device="cpu")     # host: the store's source
+        print(f"params: {sum(p.numel() for p in _leaves(params)) / 1e6:.1f} "
+              f"M (fp32, host), init {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        run_slice(torch, cfg, model, params, main_launches)
+
+    with phase("4 paged continuous-batching decode at full width"):
+        run_paged(torch, cfg, model, params, main_launches)
 
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
+    print("main-path launches (phases 3 and 4): " + ", ".join(
+        f"{name} {sum(per_shape.values())}"
+        for name, per_shape in main_launches.items()), flush=True)
     out = []
     for r in rows:
         r = dict(r)
-        r["launches"] = main_launches[r["name"]].get(r.pop("key"), 0)
+        key = r.pop("key")
+        if r["name"] == "paged_attention":
+            # a timing row stands for its shape at any page-table width
+            r["launches"] = sum(
+                n for k, n in main_launches[r["name"]].items()
+                if k[:5] + k[6:] == key)
+        else:
+            r["launches"] = main_launches[r["name"]].get(key, 0)
+        r.pop("live_tokens", None)
         out.append(r)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(card, flush=True)

@@ -85,7 +85,9 @@ class PassState:
     """A swapped forward pass, resumable at block boundaries: the
     activation, the position carrier and the index of the next block, so a
     preempted request re-executes nothing on resume. ``blocks`` and ``m``
-    are snapshotted at pass start."""
+    are snapshotted at pass start. ``caches`` (``collect_cache=True``)
+    holds each layer's prefill K/V by layer id, for a serving admit to
+    seed the paged pool without a second pass."""
     blocks: List[Tuple[int, int]]
     m: int = 2
     x: Any = None
@@ -94,6 +96,7 @@ class PassState:
     t_active: float = 0.0
     preemptions: int = 0
     logits: Any = None
+    caches: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
 
     @property
     def done(self) -> bool:
@@ -247,18 +250,24 @@ class SwappedModel:
             logits = h.to(torch.float32) @ w.to(torch.float32)
         return softcap(logits, cfg.final_logit_softcap)
 
-    def _apply_unit(self, unit: Unit, uparams: dict, x, positions, batch):
+    def _apply_unit(self, unit: Unit, uparams: dict, x, positions, batch,
+                    collect: Optional[dict] = None):
         cfg = self.cfg
         if unit.kind == "embed":
             # embeddings are gather consumers: dequantize at use
             return self.model._embed(materialize_tree(uparams), batch,
                                      "prefill")
         if unit.kind == "head":
-            return self._head_logits(uparams, x), positions
+            # every caller reads the last position only: projecting the
+            # prompt's other positions would hold [B, S, vocab] fp32 logits
+            # the ledger never sees (4.3 GB for gemma2-9b at S = 4,200)
+            return self._head_logits(uparams, x[:, -1:]), positions
         p = cast_unit_params(uparams, torch_dtype(cfg.dtype))
-        x, _ = apply_layer(cfg, unit.kind, p, x, positions,
-                           cfg.is_local_layer(unit.layer_id), None, None,
-                           "prefill")
+        x, new_cache = apply_layer(cfg, unit.kind, p, x, positions,
+                                   cfg.is_local_layer(unit.layer_id), None,
+                                   None, "prefill")
+        if collect is not None:
+            collect[unit.layer_id] = new_cache
         return x, positions
 
     # ------------------------------------------------------------ decode
@@ -327,9 +336,53 @@ class SwappedModel:
             "wall_s": time.time() - t0,
             "peak_resident_mb": self.engine.stats.peak_resident / 1e6}
 
+    def decode_step_paged(self, batch: dict, view) -> torch.Tensor:
+        """One BATCHED decode step through the paged KV cache (continuous
+        batching, ``serving/batch_engine.py``): the weight blocks stream
+        through the memory window once and their swap-in cost amortizes
+        over every active sequence. Attention K/V land in the page pool via
+        ``view`` (``serving/paged_kv.PagedBatchView``), so there is no
+        contiguous per-batch cache and batch membership may change freely
+        between steps.
+
+        batch: ``{"token": [B, 1], "pos": [B]}``. Returns last-position
+        logits [B, 1, vocab].
+        """
+        if self.plan is None:
+            raise RuntimeError("call partition()/set_plan() first")
+        cfg = self.cfg
+        eng = self.engine
+        dt = torch_dtype(cfg.dtype)
+        batch = self._to_device(batch)
+        names = [u.name for u in self.units]
+        x = positions = logits = None
+        gen = swap_schedule(eng, self.plan.blocks(), names, self.plan.m)
+        try:
+            for bi, lo, hi, handle in gen:
+                t0 = time.perf_counter()
+                for ui, p in zip(range(lo, hi), handle.params):
+                    unit = self.units[ui]
+                    if unit.kind == "embed":
+                        x, positions = self.model._embed(
+                            materialize_tree(p), batch, "decode")
+                    elif unit.kind == "head":
+                        logits = self._head_logits(p, x)
+                    else:
+                        x, _ = apply_layer(
+                            cfg, unit.kind, cast_unit_params(p, dt), x,
+                            positions, cfg.is_local_layer(unit.layer_id),
+                            None, batch["pos"], "decode",
+                            paged=view.bind(unit.layer_id))
+                synchronize(self.device)
+                eng.record_exec(time.perf_counter() - t0)
+        finally:
+            gen.close()     # a raising step drains in-flight prefetches now
+        return logits
+
     # ------------------------------------------------------------ forward
     def forward_partial(self, batch: dict, state: Optional[PassState] = None,
-                        should_yield=None) -> Tuple[PassState, Optional[Dict]]:
+                        should_yield=None, collect_cache: bool = False
+                        ) -> Tuple[PassState, Optional[Dict]]:
         """Swapped forward pass with block-boundary yield points.
 
         Runs blocks from ``state`` (fresh pass when None). After each block
@@ -338,7 +391,8 @@ class SwappedModel:
         in-flight prefetches drained. Resuming re-executes nothing, so a
         preempted pass stays bit-identical to an uninterrupted one. On
         completion ``state.logits`` holds the last-position logits and
-        ``stats`` matches :meth:`forward`.
+        ``stats`` matches :meth:`forward`. With ``collect_cache`` a fresh
+        pass keeps each layer's prefill K/V in ``state.caches``.
         """
         if self.plan is None:
             raise RuntimeError("call partition()/set_plan() first")
@@ -346,7 +400,8 @@ class SwappedModel:
         names = [u.name for u in self.units]
         batch = self._to_device(batch)
         if state is None:
-            state = PassState(blocks=self.plan.blocks(), m=self.plan.m)
+            state = PassState(blocks=self.plan.blocks(), m=self.plan.m,
+                              caches={} if collect_cache else None)
 
         t_start = time.perf_counter()
         pending = state.blocks[state.next_block:]
@@ -356,7 +411,8 @@ class SwappedModel:
                 t0 = time.perf_counter()
                 for u, p in zip(self.units[lo:hi], handle.params):
                     state.x, state.positions = self._apply_unit(
-                        u, p, state.x, state.positions, batch)
+                        u, p, state.x, state.positions, batch,
+                        collect=state.caches)
                 synchronize(self.device)
                 eng.record_exec(time.perf_counter() - t0)
                 state.next_block += 1

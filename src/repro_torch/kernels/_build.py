@@ -84,11 +84,14 @@ def build() -> Path:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.repro_swap_linear_q.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_swap_linear_q.restype = i
     lib.repro_dequant.argtypes = [p, p, p, i64, i64, i, i, p]
     lib.repro_dequant.restype = i
+    lib.repro_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                          f, i, f, i, p]
+    lib.repro_paged_attention.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

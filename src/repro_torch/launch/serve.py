@@ -1,15 +1,24 @@
-"""Swapped serving of one model: a swapped prefill under a weight budget,
-then greedy decode of a few tokens with the weights streamed per step.
+"""Serving of one model, in one of three modes:
+
+* swapped (``--budget-mb``): a swapped prefill under a weight budget, then
+  greedy decode of a few tokens with the weights streamed per step;
+* paged (``--paged --budget-mb``): continuous-batching decode through the
+  paged KV cache, weight blocks and KV pages under ONE ledger;
+* in-memory (neither): the plain engine, every weight resident.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --reduce smoke --budget-mb 8 --requests 2 --prompt-len 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --reduce smoke --budget-mb 4 --store quant --precision int4 \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --reduce smoke --budget-mb 24 --paged --kv-frac 0.3 --max-batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --reduce smoke --requests 2 --device cpu
 
 Runs on ``cuda`` unless ``--device`` says otherwise; without CUDA the
 default raises. The flags are the JAX CLI's (``repro.launch.serve``) that
-this path reads, plus ``--device``.
+these modes read, plus ``--device``.
 """
 from __future__ import annotations
 
@@ -26,6 +35,9 @@ from repro_torch.core.cost_model import DelayModel
 from repro_torch.core.runtime import SwappedModel
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Model
+from repro_torch.serving.batch_engine import BatchDecodeEngine
+from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.paged_kv import PagedKVCache
 
 
 def scale_config(cfg: ModelConfig, preset: str) -> ModelConfig:
@@ -42,17 +54,91 @@ def scale_config(cfg: ModelConfig, preset: str) -> ModelConfig:
     return cfg
 
 
+def serve_paged(args: argparse.Namespace, mcfg: ModelConfig, model: Model,
+                params: dict, device: torch.device) -> dict:
+    """Swap-aware continuous-batching decode: weight blocks are planned
+    against (1 - kv_frac) of the budget and the KV page pool is sized from
+    the rest, BOTH charged to one ledger that enforces the whole budget;
+    page pressure preempts the youngest/lowest-priority sequences
+    (recomputed on re-admission)."""
+    budget = int(args.budget_mb * 1e6)
+    kv_bytes = int(budget * args.kv_frac)
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as d:
+        sm = SwappedModel(model, params, d, budget=budget,
+                          prefetch_depth=args.prefetch_depth,
+                          store_backend=args.store, precision=args.precision,
+                          device=device)
+        try:
+            sm.partition(budget - kv_bytes, DelayModel(), 1, args.prompt_len)
+            kv = PagedKVCache.for_budget(mcfg, sm.engine.ledger, kv_bytes,
+                                         page_tokens=args.page_tokens,
+                                         device=device)
+            be = BatchDecodeEngine(sm, kv, max_batch=args.max_batch)
+            reqs = [Request(i, list(map(int, rng.integers(
+                        0, mcfg.vocab_size, args.prompt_len))),
+                        max_new_tokens=args.new_tokens)
+                    for i in range(args.requests)]
+            for r in reqs:
+                be.submit(r)
+            be.run_all()
+            st = be.stats()
+            peak = sm.engine.ledger.peak
+        finally:
+            sm.close()
+    print(f"[serve-paged] {args.requests} requests x {args.new_tokens} new "
+          f"tokens under {args.budget_mb:.0f} MB "
+          f"(kv_frac={args.kv_frac:g}, {kv.max_pages} pages x "
+          f"{kv.page_tokens} tok): {st['tok_per_s']:.2f} tok/s, "
+          f"occupancy {st['mean_occupancy']*100:.0f}%, "
+          f"preemptions {st['preemptions']:.0f}, "
+          f"peak resident {peak/1e6:.1f} MB "
+          f"({'OK' if peak <= budget else 'OVER'}), "
+          f"KV pool on device {kv.pool_bytes/1e6:.1f} MB, "
+          f"device={device}", flush=True)
+    print(f"[serve-paged] sample output: {reqs[0].output[:12]}", flush=True)
+    return {"requests": reqs, "stats": st, "peak": peak, "budget": budget}
+
+
+def serve_in_memory(args: argparse.Namespace, mcfg: ModelConfig,
+                    model: Model, params: dict,
+                    device: torch.device) -> dict:
+    """The plain in-memory engine, every weight resident on ``device``."""
+    rng = np.random.default_rng(0)
+    engine = ServingEngine(model, params, max_len=args.max_len,
+                           device=device)
+    reqs = [Request(i, list(map(int, rng.integers(0, mcfg.vocab_size,
+                                                  args.prompt_len))),
+                    max_new_tokens=args.new_tokens)
+            for i in range(args.requests)]
+    engine.generate(reqs)                                   # warm
+    reqs2 = [Request(100 + i, r.prompt, r.max_new_tokens)
+             for i, r in enumerate(reqs)]
+    stats = engine.generate(reqs2)
+    print(f"[serve] {args.requests} requests x {args.new_tokens} new "
+          f"tokens: prefill {stats['prefill_s']*1e3:.1f} ms, "
+          f"{stats['tok_per_s']:.1f} tok/s decode, device={device}",
+          flush=True)
+    print(f"[serve] sample output: {reqs2[0].output[:12]}", flush=True)
+    return {"requests": reqs2, "stats": stats}
+
+
 def serve(args: argparse.Namespace) -> dict:
-    """Build, plan and run the swapped path; returns what it printed."""
+    """Build the model and run the mode the flags select; returns what it
+    printed."""
     device = resolve_device(args.device)
     mcfg = scale_config(get_arch(args.arch), args.reduce)
     if not mcfg.supports_decode():
         raise SystemExit(f"{mcfg.name} is encoder-only: no decode serving")
-    if args.budget_mb is None:
-        raise SystemExit("the in-memory engine is not ported yet: pass "
-                         "--budget-mb for the swapped path")
+    if args.paged and args.budget_mb is None:
+        raise SystemExit("--paged needs --budget-mb: weight blocks and KV "
+                         "pages share that budget")
     model = Model(mcfg)
     params = model.init(0, device="cpu")     # host: the store's source
+    if args.paged:
+        return serve_paged(args, mcfg, model, params, device)
+    if args.budget_mb is None:
+        return serve_in_memory(args, mcfg, model, params, device)
     rng = np.random.default_rng(0)
     budget = int(args.budget_mb * 1e6)
     tokens = torch.as_tensor(rng.integers(
@@ -102,7 +188,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduce", default="smoke",
                     choices=["smoke", "100m", "full"])
     ap.add_argument("--budget-mb", type=float, default=None,
-                    help="SwapNet weight budget: stream blocks within it")
+                    help="SwapNet budget: stream weight blocks within it "
+                         "(without it, and without --paged, the in-memory "
+                         "engine serves)")
+    ap.add_argument("--paged", action="store_true",
+                    help="continuous-batching decode through the paged KV "
+                         "cache (requires --budget-mb): weight blocks and "
+                         "KV pages share one ledger, sequences admit/retire "
+                         "at every decode step")
+    ap.add_argument("--kv-frac", type=float, default=0.3,
+                    help="fraction of --budget-mb reserved for KV pages in "
+                         "--paged mode (the rest plans weight blocks)")
+    ap.add_argument("--page-tokens", type=int, default=16,
+                    help="tokens per KV page (one page spans all layers)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="decode batch slots for --paged continuous batching")
     ap.add_argument("--store", default="mmap", choices=["mmap", "quant"],
                     help="block store: mmap (zero-copy, lossless) or quant "
                          "(per-channel quantized units kept quantized-"
@@ -116,6 +216,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="decode cache capacity of the in-memory engine")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "versions of the kernels)")

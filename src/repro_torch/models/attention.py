@@ -1,6 +1,6 @@
 """Attention: GQA with chunked online softmax, causal / sliding-window /
 softcap masks, for prefill and for single-token decode on a contiguous
-cache.
+cache or through the paged KV cache (:func:`gqa_apply_paged`).
 
 :func:`online_attention` scans KV in chunks with running (m, l, acc)
 statistics, so the [Sq, Skv] score matrix never materializes at full
@@ -127,3 +127,36 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = linear(out.reshape(B, S, H * hd).to(x.dtype), p["wo"])
     new_cache = cache if cache is not None else {"k": k, "v": v}
     return out, new_cache
+
+
+def gqa_apply_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    positions: torch.Tensor, is_local: bool,
+                    paged) -> torch.Tensor:
+    """Single-token batched decode through the paged KV cache
+    (``serving/paged_kv.py``): q/k/v projections and RoPE exactly as
+    :func:`gqa_apply`, then the new K/V are appended to each sequence's
+    pages and attention gathers through the page table
+    (``kernels/paged_attention``).
+
+    ``paged`` is a layer-bound attend hook (``PagedBatchView.bind``). A
+    global layer passes ``window=None``, not ``LARGE_WINDOW``, so the
+    kernel sees a real "no window"."""
+    B, S, D = x.shape
+    if S != 1:
+        raise ValueError(f"paged attention decodes one token, got S={S}")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+    k = linear(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
+    v = linear(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+    if cfg.rope_type == "mrope":
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+    if cfg.rope_type != "none":
+        ang = rope_angles(positions, hd, cfg.rope_theta)
+        q, k = apply_rope(q, ang), apply_rope(k, ang)
+    window = None
+    if cfg.sliding_window is not None and (cfg.layer_pattern == "swa"
+                                           or is_local):
+        window = int(cfg.sliding_window)
+    out = paged.attend(q[:, 0], k[:, 0], v[:, 0], scale=_attn_scale(cfg),
+                       window=window, softcap=cfg.attn_logit_softcap)
+    return linear(out.reshape(B, S, H * hd).to(x.dtype), p["wo"])

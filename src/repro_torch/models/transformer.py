@@ -12,7 +12,8 @@ Dense layers only: MoE, MLA, the SSM kinds, zamba2's shared attention and
 the vision and audio frontends raise ``NotImplementedError``.
 
 Modes: "prefill" runs full sequences; "decode" runs one token against a
-contiguous cache (updated in place).
+contiguous cache (updated in place) or, with a ``paged`` hook, through the
+paged KV cache.
 """
 from __future__ import annotations
 
@@ -97,13 +98,21 @@ def model_defs(cfg: ModelConfig) -> Tuple[dict, List[Segment]]:
 # ------------------------------------------------------------------ layer
 def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, is_local: bool, cache, decode_pos,
-                mode: str):
-    """Returns (x, new_cache)."""
+                mode: str, paged=None):
+    """Returns (x, new_cache). ``paged`` (decode only) is a layer-bound
+    paged-attention hook (``serving/paged_kv.PagedBatchView.bind``):
+    attention K/V land in the page pool instead of a contiguous cache, and
+    ``new_cache`` is None."""
     if kind != "dense":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     h = rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
-    a_out, new_cache = attn_mod.gqa_apply(cfg, p["attn"], h, positions,
-                                          is_local, cache, decode_pos)
+    if paged is not None and mode == "decode":
+        a_out = attn_mod.gqa_apply_paged(cfg, p["attn"], h, positions,
+                                         is_local, paged)
+        new_cache = None
+    else:
+        a_out, new_cache = attn_mod.gqa_apply(cfg, p["attn"], h, positions,
+                                              is_local, cache, decode_pos)
     if cfg.post_norms:
         a_out = rms_norm(a_out, p["post_ln1"], cfg.norm_eps, plus_one=True)
     x = x + a_out

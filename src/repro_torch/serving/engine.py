@@ -1,0 +1,112 @@
+"""The in-memory serving engine: request queue -> padded batch -> prefill
+-> greedy decode, every weight resident on the device.
+
+:class:`ServingEngine` is the solo reference the swapped paged engine
+(``serving/batch_engine.py``) is held to: greedy decode is deterministic,
+so a request's tokens must come out the same either way.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import Model
+from repro_torch.serving.kv_cache import gather_cache_rows, pad_prefill_cache
+from repro_torch.tree import tree_map
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int = 16
+    eos: Optional[int] = None
+    output: List[int] = field(default_factory=list)
+    # urgency: the batch engine evicts the lowest priority first under page
+    # pressure; the in-memory engine serves in arrival order
+    priority: float = 1.0
+    # terminal failure (SwapError): set by the batch engine when the
+    # sequence is EVICTED on an unrecoverable swap failure instead of
+    # retired cleanly; the retire callback fires either way
+    error: Optional[BaseException] = None
+
+
+def pad_prompts(cfg, reqs: Sequence[Request]) -> Dict[str, torch.Tensor]:
+    """Left-pad a request batch into a prefill input dict (host tensors)."""
+    B = len(reqs)
+    L = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((B, L), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, L - len(r.prompt):] = r.prompt
+    return {"tokens": torch.from_numpy(toks)}
+
+
+class ServingEngine:
+    """Greedy generation on the in-memory model. ``params`` are moved to
+    ``device`` once (no copy if they are there already)."""
+
+    def __init__(self, model: Model, params: dict, max_len: int = 512,
+                 device="cuda"):
+        self.model = model
+        self.device = resolve_device(device)
+        self.params = tree_map(lambda a: a.to(self.device), params)
+        self.max_len = max_len
+
+    def generate(self, reqs: Sequence[Request]) -> Dict[str, float]:
+        """Greedy generation for a batch of requests (in place).
+
+        Each request retires at ITS OWN ``max_new_tokens`` / EOS: finished
+        rows are gathered out of the decode cache (``gather_cache_rows``),
+        so a ragged batch never decodes padding for requests that are
+        already done."""
+        if not self.model.cfg.supports_decode():
+            raise ValueError(f"{self.model.cfg.name} is encoder-only")
+        model, dev = self.model, self.device
+        B = len(reqs)
+        t0 = time.perf_counter()
+        batch = {k: v.to(dev) for k, v in pad_prompts(model.cfg,
+                                                      reqs).items()}
+        L = batch["tokens"].shape[1]
+        logits, cache = model.prefill(self.params, batch)
+        cache = pad_prefill_cache(model, cache, self.max_len, B)
+        tok = logits[:, -1].argmax(dim=-1)
+        toks = tok.tolist()                   # waits for the device
+        t_prefill = time.perf_counter() - t0
+
+        active = list(range(B))         # request index per live cache row
+        n_steps = 0
+        decoded = 0
+        for step in range(self.max_len):
+            keep: List[int] = []
+            for row, i in enumerate(active):
+                r = reqs[i]
+                t = int(toks[row])
+                r.output.append(t)
+                finished = (r.eos is not None and t == r.eos) \
+                    or len(r.output) >= r.max_new_tokens
+                if not finished:
+                    keep.append(row)
+            if not keep or L + step >= self.max_len:
+                break
+            if len(keep) < len(active):         # retire finished rows
+                cache = gather_cache_rows(model, cache, keep, self.max_len,
+                                          len(active))
+                tok = tok[torch.tensor(keep, device=dev)]
+                active = [active[row] for row in keep]
+            db = {"token": tok[:, None],
+                  "pos": torch.full((len(active),), L + step,
+                                    dtype=torch.long, device=dev)}
+            logits, cache = model.decode_step(self.params, cache, db)
+            tok = logits[:, -1].argmax(dim=-1)
+            toks = tok.tolist()
+            n_steps += 1
+            decoded += len(active)
+        total = time.perf_counter() - t0
+        return {"prefill_s": t_prefill, "total_s": total,
+                "decode_steps": n_steps,
+                "tok_per_s": decoded / max(total - t_prefill, 1e-9)}

@@ -45,26 +45,44 @@ class TreeDef:
         return f"TreeDef({self.template!r})"
 
 
+# The walkers are module functions, not closures: a nested function that
+# calls itself sits in a reference cycle with its cells, which would keep
+# the leaves (device tensors of swapped-out blocks) alive until the cyclic
+# garbage collector happens to run.
+def _walk(node, path, is_leaf, out):
+    if is_leaf is not None and is_leaf(node):
+        out.append((path, node))
+        return _LEAF
+    if isinstance(node, dict):
+        return {k: _walk(node[k], path + (k,), is_leaf, out)
+                for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        kids = [_walk(v, path + (i,), is_leaf, out)
+                for i, v in enumerate(node)]
+        return kids if isinstance(node, list) else tuple(kids)
+    if node is None:
+        return None
+    out.append((path, node))
+    return _LEAF
+
+
+def _build(t, it):
+    if t is _LEAF:
+        return next(it)
+    if isinstance(t, dict):
+        return {k: _build(v, it) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_build(v, it) for v in t]
+    if isinstance(t, tuple):
+        return tuple(_build(v, it) for v in t)
+    return None
+
+
 def tree_flatten_with_path(tree, is_leaf: Optional[Callable[[Any], bool]] = None
                            ) -> Tuple[List[Tuple[Path, Any]], TreeDef]:
     """``([(path, leaf), ...], treedef)`` in JAX's leaf order."""
     out: List[Tuple[Path, Any]] = []
-
-    def walk(node, path):
-        if is_leaf is not None and is_leaf(node):
-            out.append((path, node))
-            return _LEAF
-        if isinstance(node, dict):
-            return {k: walk(node[k], path + (k,)) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            kids = [walk(v, path + (i,)) for i, v in enumerate(node)]
-            return kids if isinstance(node, list) else tuple(kids)
-        if node is None:
-            return None
-        out.append((path, node))
-        return _LEAF
-
-    template = walk(tree, ())
+    template = _walk(tree, (), is_leaf, out)
     return out, TreeDef(template, len(out))
 
 
@@ -79,27 +97,11 @@ def tree_leaves(tree, is_leaf=None) -> list:
 
 def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     """Inverse of :func:`tree_flatten`; dicts come back in sorted key order."""
-    it = iter(leaves)
-    count = 0
-
-    def build(t):
-        nonlocal count
-        if t is _LEAF:
-            count += 1
-            return next(it)
-        if isinstance(t, dict):
-            return {k: build(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [build(v) for v in t]
-        if isinstance(t, tuple):
-            return tuple(build(v) for v in t)
-        return None
-
-    tree = build(treedef.template)
-    if count != treedef.num_leaves or next(it, _LEAF) is not _LEAF:
+    leaves = list(leaves)
+    if len(leaves) != treedef.num_leaves:
         raise ValueError(f"tree_unflatten: {treedef.num_leaves} leaves "
-                         f"expected, got a different count")
-    return tree
+                         f"expected, got {len(leaves)}")
+    return _build(treedef.template, iter(leaves))
 
 
 def tree_map(fn: Callable, tree, is_leaf=None) -> Any:

@@ -12,7 +12,11 @@ Tolerances, with their reasons:
     flush);
   * swap_linear_q, bf16 x: 2e-2 (one bf16 rounding of the output);
   * dequant: bitwise (one fp32 multiply per element on both sides);
-  * mmap swapped vs unswapped: bitwise (the same ops on the same bytes).
+  * paged_attention: 1e-5 fp32 (the online softmax sums in another
+    order), 2e-2 bf16 (one bf16 rounding of the output);
+  * mmap swapped vs unswapped: bitwise (the same ops on the same bytes);
+  * paged continuous batching vs solo in-memory decode, float32: equal
+    tokens.
 """
 import dataclasses
 
@@ -25,8 +29,12 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.cost_model import DelayModel  # noqa: E402
 from repro_torch.core.runtime import SwappedModel  # noqa: E402
 from repro_torch.kernels import dequant as dq  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import swap_linear_q as slq  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.serving.batch_engine import BatchDecodeEngine  # noqa: E402
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.serving.paged_kv import PagedKVCache  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +105,75 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         dq.dequant_int8(q, s, torch.float16)
 
 
+def _paged_inputs(seed, B, H, KV, hd, T, seq_lens, dtype, pad_cols=0):
+    """q, pools (page 0 zero), a SHUFFLED page table with ``pad_cols``
+    extra columns of the padding page, seq_lens: on the card."""
+    rng = np.random.default_rng(seed)
+    n = [-(-s // T) for s in seq_lens]
+    P = sum(n) + 3
+    q = rng.standard_normal((B, H, hd)) * 0.5
+    kp = rng.standard_normal((P + 1, T, KV, hd)) * 0.5
+    vp = rng.standard_normal((P + 1, T, KV, hd)) * 0.5
+    kp[0] = vp[0] = 0
+    ids = rng.permutation(np.arange(1, P + 1))
+    pt = np.zeros((B, max(n) + pad_cols), np.int32)
+    used = 0
+    for b, k in enumerate(n):
+        pt[b, :k] = ids[used:used + k]
+        used += k
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dtype).cuda()  # noqa: E731
+    return (to(q), to(kp), to(vp), torch.from_numpy(pt).cuda(),
+            torch.tensor(seq_lens, dtype=torch.int32).cuda())
+
+
+PAGED_CASES = [
+    # (B, H, KV, hd, T, seq_lens, scale, pad_cols): the reference test's
+    # shape, qwen2.5-3b's and gemma2-9b's decode shapes, 4-token pages,
+    # and pages longer than the kernel's 16-token staging chunk
+    (3, 8, 2, 64, 8, [5, 23, 16], None, 0),
+    (4, 16, 2, 128, 16, [1, 17, 40, 100], None, 2),
+    (2, 16, 8, 256, 16, [4201, 25], 224.0 ** -0.5, 0),
+    (2, 4, 4, 64, 4, [1, 70], None, 1),
+    (2, 8, 1, 128, 48, [130, 3], None, 0),
+]
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (7, None),
+                                            (None, 30.0), (5, 30.0),
+                                            (4096, 50.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain(dev, dtype, window, softcap):
+    for i, (B, H, KV, hd, T, sl, scale, pad) in enumerate(PAGED_CASES):
+        args = _paged_inputs(i, B, H, KV, hd, T, sl, dtype, pad)
+        before = pa.launches.count
+        got = pa.paged_attention(*args, scale=scale, window=window,
+                                 softcap=softcap)
+        assert pa.launches.count == before + 1
+        want = pa.paged_attention_plain(*args, scale=scale, window=window,
+                                        softcap=softcap)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= TOL[dtype], (B, H, KV, hd, T, sl)
+
+
+def test_paged_attention_raises_instead_of_falling_back(dev):
+    q, kp, vp, pt, sl = _paged_inputs(0, 2, 8, 2, 64, 8, [5, 9],
+                                      torch.float32)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q.half(), kp.half(), vp.half(), pt, sl)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q, kp, vp, pt.long(), sl)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q.bfloat16(), kp, vp, pt, sl)
+    with pytest.raises(ValueError):                      # head_dim 32
+        pa.paged_attention(q[..., :32].contiguous(), kp[..., :32]
+                           .contiguous(), vp[..., :32].contiguous(), pt, sl)
+    q16 = torch.randn((2, 32, 64), device=dev)           # 16 heads per KV
+    with pytest.raises(ValueError):
+        pa.paged_attention(q16, kp, vp, pt, sl)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(), dtype="bfloat16")
@@ -134,3 +211,39 @@ def test_swapped_slice_on_the_card(dev, tiny, tmp_path, kind):
         sm.close()
     assert logits.is_cuda and bool(torch.isfinite(logits).all())
     assert stats["peak_resident_mb"] * 1e6 <= budget
+
+
+def test_paged_decode_on_the_card(dev, tmp_path):
+    """Continuous batching through the kernel equals solo in-memory decode
+    (float32), and every decode step launched it once per layer."""
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (8, 13, 5, 30)]
+    max_new = [2, 6, 3, 5]
+    solo_eng = ServingEngine(model, params, max_len=64, device=dev)
+    want = []
+    for p, n in zip(prompts, max_new):
+        r = Request(0, list(p), max_new_tokens=n)
+        solo_eng.generate([r])
+        want.append(r.output)
+    sm = SwappedModel(model, params, str(tmp_path), budget=None)
+    try:
+        sm.partition(8 * 1024 * 1024, DelayModel(), 1, 16)
+        kv = PagedKVCache(cfg, sm.engine.ledger, page_tokens=4, max_pages=12)
+        be = BatchDecodeEngine(sm, kv, max_batch=2)
+        reqs = [Request(i, list(p), max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, max_new))]
+        for r in reqs:
+            be.submit(r)
+        pa.launches.reset()
+        be.run_all()
+    finally:
+        sm.close()
+    assert [r.output for r in reqs] == want
+    steps = sum(1 for t in be.trace if t.batch)
+    assert pa.launches.count == cfg.n_layers * steps > 0
+    assert kv.pages_in_use == 0

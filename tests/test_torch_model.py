@@ -96,3 +96,35 @@ def test_unported_kinds_raise():
                  "hubert-xlarge", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError):
             Model(get_arch(arch).reduced())
+
+
+@pytest.mark.parametrize("op", ["tree_map", "tree_flatten", "cast"])
+def test_tree_ops_release_leaves_without_gc(op):
+    """Flattening, mapping and casting a param tree keep no reference to
+    its leaves: a tree dropped by its caller frees its tensors at once,
+    not when the cyclic garbage collector next runs (device tensors of a
+    swapped-out block would otherwise outlive their ledger charge)."""
+    import gc
+    import weakref
+
+    from repro_torch import tree as tr
+    leaf = torch.zeros(8)
+    ref = weakref.ref(leaf)
+    tree = {"b": [leaf, None], "a": (torch.ones(2),)}
+    gc.disable()
+    try:
+        if op == "cast":
+            out = Model(get_arch("qwen2.5-3b").reduced()).cast(tree)
+        elif op == "tree_map":
+            out = tr.tree_map(lambda a: a + 1, tree)
+        else:
+            leaves, treedef = tr.tree_flatten(tree)
+            out = tr.tree_unflatten(treedef, [a * 2 for a in leaves])
+            del leaves
+        del tree, leaf
+        assert ref() is None
+        assert out["b"][1] is None and len(out["a"]) == 1
+    finally:
+        gc.enable()
+    with pytest.raises(ValueError):
+        tr.tree_unflatten(tr.tree_flatten({"a": 1, "b": 2})[1], [1])
