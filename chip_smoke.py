@@ -6,12 +6,13 @@
 Phases, each printing its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the build
-   of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` call);
-2. kernels: ``swap_linear_q``, ``dequant_int8`` and ``paged_attention``
-   held against their plain PyTorch versions on the card at every shape
-   the paths launch, plus odd and ragged shapes, and timed at the main
-   paths' shapes beside their plain version, a library call and the
-   card's bound;
+   of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all at once, then one link);
+2. kernels: ``swap_linear_q``, ``dequant_int8``, ``paged_attention`` and
+   ``wkv6`` held against their plain PyTorch versions on the card at every
+   shape the paths launch, plus odd and ragged shapes, and timed at the
+   main paths' shapes beside their plain version, a library call where
+   one computes the same function, and the card's bound;
 3. the swapped slice: qwen2.5-3b at its published widths with the depth
    cut from 36 to 4 layers and random weights from a seed; a swapped
    prefill of 4 requests x 128 tokens on the mmap store and on the
@@ -25,7 +26,14 @@ Phases, each printing its wall time:
    (A)'s and one batched step's logits to the in-memory model on the
    round-tripped weights; (C) gemma2-9b in bf16, depth cut 42 -> 2 (one
    local, one global layer), int8 lazy, a 4,200-token prompt beside a
-   24-token one so the local layer's 4,096-token window skips pages.
+   24-token one so the local layer's 4,096-token window skips pages;
+5. rwkv6-3b (Finch) at its published widths, depth cut 32 -> 4, random
+   weights from a seed: a swapped prefill of 2 x 512 tokens on mmap
+   (asked for as ``quant``, which this quant-ineligible model resolves to
+   mmap) in float32 and in bf16, each bitwise equal to the unswapped
+   forward and launching ``wkv6`` once per layer; then weight-streaming
+   greedy decode (2 prompts x 16 tokens, 4 new) against the in-memory
+   engine on the card.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -72,6 +80,11 @@ PAGED_MAX_BATCH, PAGE_TOKENS, PAGED_MAX_PAGES = 4, 16, 23
 GEMMA_LAYERS = 2                   # layer 0 local (window 4096), 1 global
 GEMMA_PROMPTS, GEMMA_NEW = [4200, 24], [3, 3]
 GEMMA_MAX_PAGES = 270              # 263 + 2 pages live at the first step
+
+# phase 5: rwkv6-3b
+RWKV_LAYERS = 4
+RWKV_BATCH, RWKV_PROMPT = 2, 512
+RWKV_DECODE_PROMPT, RWKV_DECODE_NEW = 16, 4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -473,6 +486,104 @@ def check_paged_attention(torch):
               f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
               f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
               f"{r['live_tokens']} live tokens x {r['key'][2]} KV heads)",
+              flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- wkv6
+# (BH, S, hd, dtype, initial state): rwkv6-3b's swapped prefill (2 x 512
+# tokens x 40 heads of 64) and its engine prefill (2 x 16 tokens), in the
+# path's fp32 and in bf16; the reduced config's head_dim 32 at 3 chunks;
+# a carried state
+WKV_CASES = [(80, 512, 64, "float32", False), (80, 16, 64, "float32", False),
+             (80, 512, 64, "bfloat16", False),
+             (80, 16, 64, "bfloat16", False), (3, 48, 32, "float32", False),
+             (3, 48, 32, "bfloat16", False), (80, 512, 64, "float32", True),
+             (3, 48, 32, "float32", True), (3, 48, 32, "bfloat16", True)]
+WKV_TIMED = [(80, 512, 64), (80, 16, 64)]        # fp32, no state: the path
+
+
+def wkv6_inputs(torch, seed, BH, S, hd, dtype, state):
+    """r, k, v ~ 0.5 N(0, 1), u ~ 0.1 N(0, 1), log decays uniform over the
+    whole clamp range [-5, -1e-4] with row 0 at -5 (k e^-l reaches e^80),
+    an fp32 initial state or None; on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    r, k, v = (randn(BH, S, hd, scale=0.5).to(dtype) for _ in range(3))
+    w = -5.0 + (5.0 - 1e-4) * torch.rand((BH, S, hd), generator=g,
+                                         device="cuda")
+    w[0] = -5.0
+    u = randn(BH, hd, scale=0.1).to(dtype)
+    s0 = randn(BH, hd, hd, scale=0.3) if state else None
+    return r, k, v, w.to(dtype), u, s0
+
+
+def wkv6_cost(BH, S, hd, itemsize, state):
+    """(bytes, operations) the function needs: r, k, v, w read and y
+    written once, u, the state in (if any) and out; per chunk of Q steps
+    and row, the strictly lower A (Q(Q-1) hd), the causal A v (Q(Q+1)
+    hd), r S and k^T v (2 Q hd^2 each), the state's decay (2 hd^2) and
+    about 11 elementwise operations per (step, channel)."""
+    Q = min(16, S)
+    nbytes = (5 * BH * S * hd * itemsize + BH * hd * itemsize
+              + BH * hd * hd * 4 * (2 if state else 1))
+    per_chunk = 2 * Q * Q * hd + 4 * Q * hd * hd + 2 * hd * hd + 11 * Q * hd
+    return nbytes, float(BH * (S // Q) * per_chunk)
+
+
+def check_wkv6(torch):
+    """Phase 2 for B6: the kernel against its plain version, y and the
+    final state, then timed at the path's shapes. Returns the rows."""
+    from repro_torch.kernels import wkv6 as kw
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (BH, S, hd, dname, state) in enumerate(WKV_CASES):
+        args = wkv6_inputs(torch, 200 + i, BH, S, hd, dts[dname], state)
+        y, s_fin = kw.wkv6(*args)
+        y_p, s_p = kw.wkv6_plain(*args)
+        for what, got, want in (("y", y, y_p), ("state", s_fin, s_p)):
+            _, rel = rel_err(torch, got, want)
+            require(bool(torch.isfinite(got).all()),
+                    f"wkv6 {what} non-finite at {(BH, S, hd, dname, state)}")
+            require(rel <= TOL[dname], f"wkv6 {what} {(BH, S, hd, dname)} "
+                    f"state in {state}: rel err {rel:.3g} > {TOL[dname]}")
+            worst[dname] = max(worst[dname], rel)
+        del args, y, s_fin, y_p, s_p
+    print(f"wkv6: {len(WKV_CASES)} cases (y and final state) match the plain "
+          f"version (worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
+          f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+
+    rows = []
+    for (BH, S, hd) in WKV_TIMED:
+        args = wkv6_inputs(torch, 7, BH, S, hd, torch.float32, False)
+        y, _ = kw.wkv6(*args)
+        y_p, _ = kw.wkv6_plain(*args)
+        err, rel = rel_err(torch, y, y_p)
+        require(rel <= TOL["float32"], f"wkv6 timing case {(BH, S, hd)}")
+        k_ms = time_ms(torch, lambda: kw.wkv6(*args))
+        p_ms = time_ms(torch, lambda: kw.wkv6_plain(*args))
+        nbytes, ops = wkv6_cost(BH, S, hd, 4, False)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS["float32"] * 1e3
+        rows.append({
+            "name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:24",
+            "key": (BH, S, hd, "float32", False),
+            "shape": f"BH={BH} S={S} hd={hd} float32, zero initial state",
+            "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+        del args
+    for r in rows:
+        print(f"  wkv6 {r['shape']:42s} kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  library: no PyTorch call computes "
+              f"WKV6  bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
     torch.cuda.empty_cache()
     return rows
@@ -972,6 +1083,154 @@ def run_paged(torch, cfg, model, params, main_launches):
     return results
 
 
+# ---------------------------------------------------------------- rwkv6
+def report_prefill(tag, sm, st, budget, resident, max_alloc):
+    """Print a swapped prefill pass's row, as phase 3 prints its rows."""
+    es = sm.engine.stats
+    stage = {k: es.stage_seconds(k)
+             for k in ("read", "unpack", "dispatch", "exec", "wait")}
+    print(f"[{tag}] blocks={sm.plan.n_blocks} {sm.plan.points} "
+          f"m={sm.plan.m} latency {st['latency_s'] * 1e3:.1f} ms; peak "
+          f"ledger {es.peak_resident / 1e9:.3f} GB <= budget "
+          f"{budget / 1e9:.3f} GB (resident {resident / 1e9:.3f} GB); "
+          f"device bytes of the resident weights "
+          f"{es.peak_device_weights / 1e9:.3f} GB (peak); "
+          f"max_memory_allocated {max_alloc / 1e9:.3f} GB; swapped "
+          f"{st['bytes_swapped'] / 1e9:.3f} GB", flush=True)
+    print(f"[{tag}] stages s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage.items())
+        + f"; overlap_eff {st['overlap_efficiency']:.3f}", flush=True)
+    return {"latency_s": st["latency_s"], "stage_s": stage,
+            "peak_ledger": es.peak_resident, "budget": budget,
+            "peak_device_weights": es.peak_device_weights,
+            "max_memory_allocated": max_alloc,
+            "bytes_swapped": st["bytes_swapped"],
+            "overlap_efficiency": st["overlap_efficiency"]}
+
+
+def run_rwkv6(torch, main_launches):
+    """Phase 5: rwkv6-3b swapped prefill in float32 and bf16 (B6 on every
+    layer), then weight-streaming decode against the in-memory engine."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.cost_model import DelayModel
+    from repro_torch.core.runtime import SwappedModel
+    from repro_torch.kernels import wkv6 as kw
+    from repro_torch.models.ssm import rwkv6_dims
+    from repro_torch.models.transformer import Model
+    from repro_torch.store.mmap_store import MmapStore
+
+    reset, collect = launch_counting(main_launches)
+    base = dataclasses.replace(get_arch("rwkv6-3b"), n_layers=RWKV_LAYERS)
+    nh, hd = rwkv6_dims(base)
+    print(f"model: {base.name} d_model {base.d_model}, {nh} WKV heads of "
+          f"{hd}, d_ff {base.d_ff}, vocab {base.vocab_size}, tied "
+          f"{base.tie_embeddings}, quant_eligible {base.quant_eligible}, "
+          f"{base.dtype}; reduced: n_layers 32->{RWKV_LAYERS}", flush=True)
+    t0 = time.perf_counter()
+    params = Model(base).init(0, device="cpu")   # host: the store's source
+    print(f"params: {sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M "
+          f"(fp32, host), init {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, base.vocab_size,
+                                          (RWKV_BATCH, RWKV_PROMPT)),
+                             dtype=torch.int32)
+    batch = {"tokens": tokens}
+    prefill_key = (RWKV_BATCH * nh, RWKV_PROMPT, hd, "float32", False)
+    results, logits_by = {}, {}
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dname)
+        model = Model(cfg)
+        tag = f"rwkv6 {dname}"
+        with tempfile.TemporaryDirectory() as d:
+            # asked for as quant: a quant-ineligible model serves from mmap
+            sm = SwappedModel(model, params, d, device="cuda",
+                              store_backend="quant")
+            try:
+                require(sm.store_backend == "mmap" and sm.precision == "fp"
+                        and isinstance(sm.store, MmapStore),
+                        f"{tag}: store_backend='quant' resolved to "
+                        f"{sm.store_backend}/{sm.precision}")
+                resident = sum(sm.store.resident_nbytes(u.name)
+                               for u in sm.units)
+                budget = int(BUDGET_FRACTION * resident)
+                sm.engine.ledger.budget = budget          # enforced
+                sm.partition(budget, DelayModel(), RWKV_BATCH, RWKV_PROMPT)
+                require(sm.plan.n_blocks >= 3,
+                        f"{tag}: {sm.plan.n_blocks} blocks < 3")
+                sm.forward(batch)                                  # warm
+                sm.engine.stats.__init__()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset()
+                logits, st = sm.forward(batch)
+                counts = collect()
+                max_alloc = torch.cuda.max_memory_allocated()
+                require(counts["wkv6"] == RWKV_LAYERS
+                        and set(kw.launches.by_shape) == {prefill_key},
+                        f"{tag}: wkv6 launches {kw.launches.by_shape}, "
+                        f"expected {RWKV_LAYERS} at {prefill_key}")
+                require(bool(torch.isfinite(logits).all()),
+                        f"{tag}: non-finite logits")
+                require(tuple(logits.shape)
+                        == (RWKV_BATCH, 1, cfg.vocab_size),
+                        f"{tag}: logits shape {tuple(logits.shape)}")
+                require(sm.engine.stats.peak_resident <= budget,
+                        f"{tag}: peak ledger over budget")
+                require(torch.equal(logits, sm.forward_unswapped(batch)),
+                        f"{tag}: swapped logits != unswapped logits")
+                print(f"[{tag}] store_backend='quant' resolved to "
+                      f"{sm.store_backend}/{sm.precision}; swapped logits "
+                      f"== unswapped logits bitwise; launches {counts}",
+                      flush=True)
+                results[dname] = report_prefill(tag, sm, st, budget,
+                                                resident, max_alloc)
+                logits_by[dname] = logits
+                if dname == "float32":
+                    results["decode"] = rwkv6_decode(
+                        torch, sm, model, params, tokens, reset, collect)
+            finally:
+                sm.close()
+        torch.cuda.empty_cache()
+    err = rel_err(torch, logits_by["bfloat16"], logits_by["float32"])
+    results["bfloat16"]["rel_err_vs_fp32"] = err[1]
+    print(f"[rwkv6 bfloat16] logits vs float32: max |err| {err[0]:.4g}, "
+          f"max |err| / max |logit| {err[1]:.4g}", flush=True)
+    return results
+
+
+def rwkv6_decode(torch, sm, model, params, tokens, reset, collect):
+    """(d): ``decode_loop`` (the prompt fed one token at a time, weights
+    streamed per step) against the in-memory ``ServingEngine`` on the card,
+    whose chunked prefill launches B6 at S = 16."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    prompt = tokens[:, :RWKV_DECODE_PROMPT]
+    max_len = 2 * RWKV_DECODE_PROMPT
+    reset()
+    gen, dstats = sm.decode_loop(prompt, max_new_tokens=RWKV_DECODE_NEW,
+                                 max_len=max_len)
+    eng = ServingEngine(model, params, max_len=max_len, device="cuda")
+    reqs = [Request(i, list(map(int, p)), max_new_tokens=RWKV_DECODE_NEW)
+            for i, p in enumerate(prompt.tolist())]
+    estats = eng.generate(reqs)
+    counts = collect()
+    del eng
+    want = [r.output for r in reqs]
+    require(gen.tolist() == want,
+            f"rwkv6 decode_loop tokens {gen.tolist()} != engine {want}")
+    require(counts["wkv6"] == RWKV_LAYERS,
+            f"rwkv6 decode: wkv6 launched {counts['wkv6']} times, expected "
+            f"{RWKV_LAYERS} (the engine's prefill)")
+    passes = RWKV_DECODE_PROMPT + RWKV_DECODE_NEW - 1
+    print(f"[rwkv6 decode] decode_loop {gen.tolist()} == ServingEngine "
+          f"{want}; {passes} swapped passes in {dstats['wall_s']:.2f} s "
+          f"(peak ledger {dstats['peak_resident_mb'] / 1e3:.3f} GB); engine "
+          f"prefill {estats['prefill_s'] * 1e3:.1f} ms, "
+          f"{estats['tok_per_s']:.1f} tok/s; launches {counts}", flush=True)
+    return {"tokens": gen.tolist(), "wall_s": dstats["wall_s"],
+            "passes": passes, "engine_prefill_s": estats["prefill_s"]}
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -984,8 +1243,9 @@ def launch_counting(main_launches):
     from repro_torch.kernels import dequant as dq
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import swap_linear_q as slq
+    from repro_torch.kernels import wkv6 as kw
     counters = {"swap_linear_q": slq.launches, "dequant_int8": dq.launches,
-                "paged_attention": pa.launches}
+                "paged_attention": pa.launches, "wkv6": kw.launches}
 
     def reset():
         for c in counters.values():
@@ -1042,10 +1302,11 @@ def main() -> int:
     with phase("2 kernels against their plain versions"):
         rows = check_kernels(torch, cfg)
         rows += check_paged_attention(torch)
+        rows += check_wkv6(torch)
 
     from repro_torch.models.transformer import Model
     main_launches = {"swap_linear_q": {}, "dequant_int8": {},
-                     "paged_attention": {}}
+                     "paged_attention": {}, "wkv6": {}}
     with phase("3 the slice at full width"):
         print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads "
               f"/ {cfg.n_kv_heads} KV heads, head_dim "
@@ -1063,11 +1324,16 @@ def main() -> int:
 
     with phase("4 paged continuous-batching decode at full width"):
         run_paged(torch, cfg, model, params, main_launches)
+    del model, params
+    torch.cuda.empty_cache()
+
+    with phase("5 rwkv6-3b swapped at full width"):
+        run_rwkv6(torch, main_launches)
 
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 and 4): " + ", ".join(
+    print("main-path launches (phases 3 to 5): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

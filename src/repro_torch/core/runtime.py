@@ -36,7 +36,8 @@ from repro_torch.kernels.qtensor import (QuantizedTensor, cast_unit_params,
                                          materialize_tree)
 from repro_torch.kernels.swap_linear_q import smem_bytes
 from repro_torch.models.layers import linear, rms_norm, softcap
-from repro_torch.models.transformer import Model, apply_layer, layer_slice
+from repro_torch.models.transformer import (Model, alloc_layer_cache,
+                                            apply_layer, layer_slice)
 from repro_torch.store import build_store
 from repro_torch.tree import tree_leaves
 
@@ -86,8 +87,9 @@ class PassState:
     activation, the position carrier and the index of the next block, so a
     preempted request re-executes nothing on resume. ``blocks`` and ``m``
     are snapshotted at pass start. ``caches`` (``collect_cache=True``)
-    holds each layer's prefill K/V by layer id, for a serving admit to
-    seed the paged pool without a second pass."""
+    holds each layer's prefill cache by layer id (K/V, or an rwkv6 layer's
+    final state), for a serving admit to seed the paged pool without a
+    second pass."""
     blocks: List[Tuple[int, int]]
     m: int = 2
     x: Any = None
@@ -106,7 +108,7 @@ class PassState:
 @dataclass
 class Unit:
     name: str
-    kind: str                 # embed | head | dense
+    kind: str                 # embed | head | dense | rwkv6
     layer_id: Optional[int]
     params: dict
 
@@ -275,8 +277,9 @@ class SwappedModel:
                     max_len: int = 128) -> Tuple[torch.Tensor, Dict]:
         """Greedy generation with WEIGHT-BLOCK STREAMING (paper §10): every
         decode step swaps the model's blocks through the memory window;
-        only the KV caches and m weight blocks are resident at any time.
-        The prompt is fed one token at a time, as in the JAX package.
+        only the decode caches (K/V, or an rwkv6 layer's state) and m
+        weight blocks are resident at any time. The prompt is fed one token
+        at a time, as in the JAX package.
 
         prompt_tokens: [B, S] ints. Returns (generated [B, max_new], stats).
         """
@@ -287,9 +290,7 @@ class SwappedModel:
         prompt = torch.as_tensor(prompt_tokens).to(dev)
         B, S = prompt.shape
         dt = torch_dtype(cfg.dtype)
-        shape = (B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        caches = {i: {"k": torch.zeros(shape, dtype=dt, device=dev),
-                      "v": torch.zeros(shape, dtype=dt, device=dev)}
+        caches = {i: alloc_layer_cache(cfg, u.kind, B, max_len, dev)
                   for i, u in enumerate(self.units) if u.layer_id is not None}
         unit_names = [u.name for u in self.units]
 
@@ -392,7 +393,8 @@ class SwappedModel:
         preempted pass stays bit-identical to an uninterrupted one. On
         completion ``state.logits`` holds the last-position logits and
         ``stats`` matches :meth:`forward`. With ``collect_cache`` a fresh
-        pass keeps each layer's prefill K/V in ``state.caches``.
+        pass keeps each layer's prefill cache in ``state.caches``: its K/V,
+        or an rwkv6 layer's final state.
         """
         if self.plan is None:
             raise RuntimeError("call partition()/set_plan() first")

@@ -1,8 +1,10 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
-All of ``src/repro_torch/csrc/*.cu`` compile in ONE ``nvcc`` call into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), placed in ``build/repro_torch/`` at the repository root.
+Each of ``src/repro_torch/csrc/*.cu`` compiles in its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects into
+one shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds), placed in ``build/repro_torch/`` at the repository
+root.
 The kernels therefore build only from a source checkout (``src/`` layout):
 an installed copy of the package carries no ``csrc/`` and :func:`build`
 says so. The file name carries a hash of the sources and flags, so an edited source
@@ -29,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -71,15 +73,39 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp.so")
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    log, procs = [], []
+    try:
+        for cmd in cmds:                # every source at once
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        for cmd, proc in zip(cmds, procs):
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {proc.returncode}"
+                                   f":\n{' '.join(cmd)}\n{text}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code "
+                               f"{proc.returncode}:\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+    finally:
+        for p in procs:                 # stop the rest after a failure
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(log)
     return out
 
 
@@ -92,6 +118,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                           f, i, f, i, p]
     lib.repro_paged_attention.restype = i
+    lib.repro_wkv6.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.repro_wkv6.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -15,6 +15,13 @@
         --reduce smoke --budget-mb 24 --paged --kv-frac 0.3 --max-batch 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --reduce smoke --requests 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --reduce smoke --budget-mb 8 --prompt-len 16 --device cpu
+
+rwkv6 serves on the swapped and the in-memory paths (``--store quant``
+resolves to mmap: it is quant-ineligible); ``--paged`` refuses it, as the
+paged KV cache covers attention stacks only. Its chunked prefill takes
+prompts of at most 16 tokens or a multiple of 16.
 
 Runs on ``cuda`` unless ``--device`` says otherwise; without CUDA the
 default raises. The flags are the JAX CLI's (``repro.launch.serve``) that

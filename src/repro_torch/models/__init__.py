@@ -1,1 +1,2 @@
-"""Dense decoder: parameters, layers, attention, the model."""
+"""Decoder models: parameters, layers, attention, the rwkv6 layers
+(``ssm.py``), the model."""

@@ -32,6 +32,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     return (x * scale).to(dt)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * w + b).to(dt)
+
+
 # ------------------------------------------------------------------ rotary
 def rope_angles(positions: torch.Tensor, head_dim: int,
                 theta: float) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Config-driven decoder, dense kind.
+"""Config-driven decoder: the dense and rwkv6 kinds.
 
 The layer list (``cfg.layer_kinds()``) is grouped into *segments* of
 consecutive identical kinds; each segment's params are stacked [n, ...],
@@ -8,12 +8,14 @@ over its layers (views of the stacked tensors) where the JAX package
 scans. Per-layer variation that only changes masking (gemma2 local/global)
 is a Python bool per layer.
 
-Dense layers only: MoE, MLA, the SSM kinds, zamba2's shared attention and
-the vision and audio frontends raise ``NotImplementedError``.
+A model is either all dense (attention + MLP) or all rwkv6 (time-mix +
+channel-mix, ``models/ssm.py``). MoE, MLA, mamba2, zamba2's shared
+attention and the vision and audio frontends raise ``NotImplementedError``.
 
 Modes: "prefill" runs full sequences; "decode" runs one token against a
-contiguous cache (updated in place) or, with a ``paged`` hook, through the
-paged KV cache.
+decode cache (updated in place: K/V rows for dense layers, the recurrent
+state for rwkv6 layers) or, for dense layers with a ``paged`` hook,
+through the paged KV cache.
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.skeleton import torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import mlp_apply, mlp_defs, rms_norm, softcap
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (layer_norm, mlp_apply, mlp_defs,
+                                       rms_norm, softcap)
 from repro_torch.models.params import ParamDef, init_from_defs
 from repro_torch.tree import tree_map
 
@@ -53,11 +57,11 @@ def build_plan(cfg: ModelConfig) -> List[Segment]:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds())
-    if kinds != {"dense"} or cfg.mla is not None:
+    if kinds not in ({"dense"}, {"rwkv6"}) or cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)}"
             f"{' with MLA' if cfg.mla else ''} are not ported yet "
-            f"(dense only)")
+            f"(all dense or all rwkv6 only)")
     if not cfg.embed_inputs or cfg.d_frontend or cfg.is_encoder:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
                                   f"ported yet")
@@ -67,6 +71,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 # ------------------------------------------------------------------ defs
 def layer_defs(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "rwkv6":
+        return ssm_mod.rwkv6_defs(cfg)
     if kind != "dense":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     D = cfg.d_model
@@ -102,7 +108,10 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     """Returns (x, new_cache). ``paged`` (decode only) is a layer-bound
     paged-attention hook (``serving/paged_kv.PagedBatchView.bind``):
     attention K/V land in the page pool instead of a contiguous cache, and
-    ``new_cache`` is None."""
+    ``new_cache`` is None. In decode, ``cache`` is updated in place and
+    returned."""
+    if kind == "rwkv6":
+        return _apply_rwkv6(cfg, p, x, cache, mode)
     if kind != "dense":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     h = rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
@@ -121,6 +130,53 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     if cfg.post_norms:
         f_out = rms_norm(f_out, p["post_ln2"], cfg.norm_eps, plus_one=True)
     return x + f_out, new_cache
+
+
+def _apply_rwkv6(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
+                 mode: str):
+    """An rwkv6 layer; its cache is {'S', 'shift1', 'shift2'}: the WKV
+    state and the two token shifts."""
+    S0 = sh1 = sh2 = None
+    if cache is not None:
+        S0, sh1, sh2 = cache["S"], cache["shift1"], cache["shift2"]
+    xn = layer_norm(x, p["ln1_w"], p["ln1_b"], cfg.norm_eps)
+    if mode == "decode":
+        out, (S, sh1n) = ssm_mod.rwkv6_time_mix_step(cfg, p, xn, S0, sh1)
+    else:
+        out, (S, sh1n) = ssm_mod.rwkv6_time_mix_chunked(cfg, p, xn, S0, sh1)
+    x = x + out
+    xn = layer_norm(x, p["ln2_w"], p["ln2_b"], cfg.norm_eps)
+    out, sh2n = ssm_mod.rwkv6_channel_mix(cfg, p, xn, sh2)
+    new = {"S": S, "shift1": sh1n, "shift2": sh2n}
+    if cache is not None and mode == "decode":
+        for name, t in new.items():
+            cache[name].copy_(t)
+        new = cache
+    return x + out, new
+
+
+def cache_struct(cfg: ModelConfig, kind: str, batch: int,
+                 max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """One layer's decode cache, leaf name -> (shape, dtype): K/V rows
+    [B, max_len, KV, hd] for a dense layer; for rwkv6 the fp32 WKV state
+    [B, nh, hd, hd] and the token shifts [B, 1, D], which do not grow with
+    the sequence."""
+    dt = torch_dtype(cfg.dtype)
+    if kind == "rwkv6":
+        nh, hd = ssm_mod.rwkv6_dims(cfg)
+        shift = ((batch, 1, cfg.d_model), dt)
+        return {"S": ((batch, nh, hd, hd), torch.float32),
+                "shift1": shift, "shift2": shift}
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": (shape, dt), "v": (shape, dt)}
+
+
+def alloc_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                      device: torch.device, lead: tuple = ()) -> dict:
+    """Zeros of :func:`cache_struct`, with ``lead`` axes in front."""
+    return {name: torch.zeros(lead + shape, dtype=dt, device=device)
+            for name, (shape, dt) in cache_struct(cfg, kind, batch,
+                                                  max_len).items()}
 
 
 def layer_slice(stacked, j: int):
@@ -186,7 +242,8 @@ class Model:
     def forward(self, params: dict, batch: dict, mode: str = "prefill",
                 cache: Optional[list] = None):
         """Full-sequence forward. Returns (hidden, cache): the cache is a
-        list per segment of stacked {'k','v'} [n, B, L, KV, hd]."""
+        list per segment of each layer's cache leaves stacked [n, ...]
+        (``cache_struct``)."""
         cfg = self.cfg
         params = self.cast(params)
         x, positions = self._embed(params, batch, mode)
@@ -194,17 +251,17 @@ class Model:
         new_cache = []
         for si, seg in enumerate(self.plan):
             stacked = params["segments"][si]
-            ks, vs = [], []
+            layers = []
             for j, lid in enumerate(seg.layer_ids):
                 c = (None if cache is None else
-                     {"k": cache[si]["k"][j], "v": cache[si]["v"][j]})
+                     {name: t[j] for name, t in cache[si].items()})
                 x, c_new = apply_layer(cfg, seg.kind, layer_slice(stacked, j),
                                        x, positions, cfg.is_local_layer(lid),
                                        c, decode_pos, mode)
-                ks.append(c_new["k"])
-                vs.append(c_new["v"])
+                layers.append(c_new)
             new_cache.append(cache[si] if cache is not None else
-                             {"k": torch.stack(ks), "v": torch.stack(vs)})
+                             {name: torch.stack([c[name] for c in layers])
+                              for name in layers[0]})
         x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                      plus_one=cfg.post_norms)
         return x, new_cache
@@ -213,15 +270,19 @@ class Model:
         h, cache = self.forward(params, batch, mode="prefill")
         return self._head(params, h[:, -1:]), cache
 
-    def alloc_cache(self, batch: int, max_len: int, device="cuda") -> list:
-        """Zero decode cache: per segment {'k','v'} [n, B, L, KV, hd]."""
-        device = resolve_device(device)
-        cfg = self.cfg
-        dt = torch_dtype(cfg.dtype)
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return [{"k": torch.zeros((seg.n,) + shape, dtype=dt, device=device),
-                 "v": torch.zeros((seg.n,) + shape, dtype=dt, device=device)}
+    def cache_struct(self, batch: int, max_len: int) -> list:
+        """Per segment, leaf name -> (shape [n, ...], dtype) of the decode
+        cache (``cache_struct`` with the layers stacked in front)."""
+        return [{name: ((seg.n,) + shape, dt) for name, (shape, dt) in
+                 cache_struct(self.cfg, seg.kind, batch, max_len).items()}
                 for seg in self.plan]
+
+    def alloc_cache(self, batch: int, max_len: int, device="cuda") -> list:
+        """Zero decode cache: per segment the stacked leaves of
+        :meth:`cache_struct`."""
+        device = resolve_device(device)
+        return [alloc_layer_cache(self.cfg, seg.kind, batch, max_len, device,
+                                  lead=(seg.n,)) for seg in self.plan]
 
     def decode_step(self, params: dict, cache: list, batch: dict):
         """batch: {'token': [B,1], 'pos': [B]}. ``cache`` (from

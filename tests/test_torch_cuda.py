@@ -14,9 +14,12 @@ Tolerances, with their reasons:
   * dequant: bitwise (one fp32 multiply per element on both sides);
   * paged_attention: 1e-5 fp32 (the online softmax sums in another
     order), 2e-2 bf16 (one bf16 rounding of the output);
+  * wkv6: 1e-5 fp32 inputs (the chunk's sums run in another order), 2e-2
+    bf16 (one bf16 rounding of the output; the state stays fp32);
   * mmap swapped vs unswapped: bitwise (the same ops on the same bytes);
   * paged continuous batching vs solo in-memory decode, float32: equal
-    tokens.
+    tokens;
+  * rwkv6 swapped vs unswapped on mmap: bitwise.
 """
 import dataclasses
 
@@ -31,6 +34,7 @@ from repro_torch.core.runtime import SwappedModel  # noqa: E402
 from repro_torch.kernels import dequant as dq  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import swap_linear_q as slq  # noqa: E402
+from repro_torch.kernels import wkv6 as kw  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serving.batch_engine import BatchDecodeEngine  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -247,3 +251,82 @@ def test_paged_decode_on_the_card(dev, tmp_path):
     steps = sum(1 for t in be.trace if t.batch)
     assert pa.launches.count == cfg.n_layers * steps > 0
     assert kv.pages_in_use == 0
+
+
+def _wkv_inputs(BH, S, hd, dtype, seed, state=False):
+    """r, k, v, u, and log decays drawn over the whole clamp range
+    [-5, -1e-4] (row 0 held at -5: the e^80 corner), on the card."""
+    rng = np.random.default_rng(seed)
+    r, k, v = rng.standard_normal((3, BH, S, hd)) * 0.5
+    w = rng.uniform(-5.0, -1e-4, (BH, S, hd))
+    w[0] = -5.0
+    u = rng.standard_normal((BH, hd)) * 0.1
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dtype).cuda()  # noqa: E731
+    s0 = (torch.from_numpy(rng.standard_normal((BH, hd, hd)).astype(
+        np.float32) * 0.3).cuda() if state else None)
+    return to(r), to(k), to(v), to(w), to(u), s0
+
+
+WKV_CASES = [(80, 512, 64), (80, 16, 64), (3, 48, 32), (4, 5, 32)]
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain(dev, dtype, state):
+    for i, (BH, S, hd) in enumerate(WKV_CASES):
+        args = _wkv_inputs(BH, S, hd, dtype, seed=i, state=state)
+        before = kw.launches.count
+        y, s_fin = kw.wkv6(*args)
+        assert kw.launches.count == before + 1
+        assert kw.launches.by_shape[(BH, S, hd, str(dtype)[6:], state)] >= 1
+        y_p, s_p = kw.wkv6_plain(*args)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and s_fin.dtype == torch.float32
+        assert bool(torch.isfinite(y).all() and torch.isfinite(s_fin).all())
+        assert _rel(y, y_p) <= TOL[dtype], (BH, S, hd)
+        assert _rel(s_fin, s_p) <= TOL[torch.float32], (BH, S, hd)
+
+
+def test_wkv6_cuda_tensor_never_runs_plain(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(kw, "wkv6_plain", refuse)
+    r, k, v, w, u, _ = _wkv_inputs(2, 32, 64, torch.float32, seed=9)
+    kw.wkv6(r, k, v, w, u)
+    with pytest.raises(ValueError, match="chunks of 16"):
+        kw.wkv6(r[:, :20].contiguous(), k[:, :20].contiguous(),
+                v[:, :20].contiguous(), w[:, :20].contiguous(), u)
+    with pytest.raises(TypeError):
+        kw.wkv6(r.half(), k.half(), v.half(), w.half(), u.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        kw.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    with pytest.raises(ValueError):                      # head_dim 16
+        kw.wkv6(*(t[..., :16].contiguous() for t in (r, k, v, w, u)))
+
+
+def test_rwkv6_swapped_on_the_card(dev, tmp_path):
+    """The rwkv6 path on the card: B6 once per layer per prefill, swapped
+    equal to unswapped bitwise, and decode_loop's tokens equal to the
+    in-memory engine's."""
+    cfg = dataclasses.replace(get_arch("rwkv6-3b").reduced(),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    batch = {"tokens": torch.from_numpy(prompts.astype(np.int32))}
+    sm = SwappedModel(model, params, str(tmp_path), store_backend="quant")
+    try:
+        assert sm.store_backend == "mmap"
+        sm.partition(8 * 1024 * 1024, DelayModel(), 2, 16)
+        kw.launches.reset()
+        logits, _ = sm.forward(batch)
+        assert kw.launches.count == cfg.n_layers
+        assert torch.equal(logits, sm.forward_unswapped(batch))
+        gen, _ = sm.decode_loop(batch["tokens"], max_new_tokens=4, max_len=32)
+    finally:
+        sm.close()
+    eng = ServingEngine(model, params, max_len=32, device=dev)
+    reqs = [Request(i, list(map(int, p)), max_new_tokens=4)
+            for i, p in enumerate(prompts)]
+    eng.generate(reqs)
+    assert [r.output for r in reqs] == gen.tolist()

@@ -92,7 +92,7 @@ def test_decode_steps_match_reference(arch):
 
 
 def test_unported_kinds_raise():
-    for arch in ("deepseek-v2-lite-16b", "zamba2-7b", "rwkv6-3b",
+    for arch in ("deepseek-v2-lite-16b", "zamba2-7b", "llama4-scout-17b-a16e",
                  "hubert-xlarge", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError):
             Model(get_arch(arch).reduced())

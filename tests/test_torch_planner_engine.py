@@ -74,6 +74,26 @@ def test_delay_model_fit_matches_reference():
         (b.alpha, b.beta, b.gamma, b.eta, b.kappa)
 
 
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-3b"])
+def test_layer_flops_matches_reference(arch):
+    """One layer's FLOPs row at the published widths (shape-only leaves)."""
+    from repro.configs import get_arch as ref_get_arch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import is_def
+    from repro_torch.models.transformer import layer_defs
+    from repro_torch.tree import tree_map
+    cfg = get_arch(arch)
+    kind = cfg.layer_kinds()[0]
+    defs = layer_defs(cfg, kind)
+    port = tree_map(lambda d: torch.empty(d.shape, device="meta"), defs,
+                    is_leaf=is_def)
+    ref = tree_map(lambda d: np.broadcast_to(np.float32(0), d.shape), defs,
+                   is_leaf=is_def)
+    for batch, seq in ((1, 1), (2, 512), (4, 4096)):
+        assert cm.layer_flops(cfg, kind, port, batch, seq) == \
+            ref_cm.layer_flops(ref_get_arch(arch), kind, ref, batch, seq)
+
+
 def test_simulate_pipeline_matches_reference():
     rng = np.random.default_rng(5)
     s, d, f = rng.uniform(1e6, 1e8, 9), rng.uniform(1, 20, 9), \
