@@ -8,11 +8,12 @@ Phases, each printing its wall time:
 1. device: the card's name and power limit (``nvidia-smi``), then the build
    of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once, then one link);
-2. kernels: ``swap_linear_q``, ``dequant_int8``, ``paged_attention`` and
-   ``wkv6`` held against their plain PyTorch versions on the card at every
-   shape the paths launch, plus odd and ragged shapes, and timed at the
-   main paths' shapes beside their plain version, a library call where
-   one computes the same function, and the card's bound;
+2. kernels: ``swap_linear_q``, ``dequant_int8``, ``paged_attention``,
+   ``wkv6``, ``swap_linear`` and ``flash_attention`` held against their
+   plain PyTorch versions on the card at every shape the paths launch,
+   plus odd and ragged shapes, and timed at the main paths' shapes beside
+   their plain version, a library call where one computes the same
+   function, and the card's bound;
 3. the swapped slice: qwen2.5-3b at its published widths with the depth
    cut from 36 to 4 layers and random weights from a seed; a swapped
    prefill of 4 requests x 128 tokens on the mmap store and on the
@@ -33,7 +34,17 @@ Phases, each printing its wall time:
    mmap) in float32 and in bf16, each bitwise equal to the unswapped
    forward and launching ``wkv6`` once per layer; then weight-streaming
    greedy decode (2 prompts x 16 tokens, 4 new) against the in-memory
-   engine on the card.
+   engine on the card;
+6. gemma2-9b at its published widths in bf16, depth cut 42 -> 2 (one
+   local, one global layer), the same weights as (C): a full-precision
+   swapped prefill of one 4,200-token prompt on the mmap store, bitwise
+   equal to the unswapped forward, with ``flash_attention`` once per layer
+   (window 4096 on layer 0, none on layer 1) and ``swap_linear`` seven
+   times per layer.
+
+Every full-precision linear of phases 3 to 6 runs ``swap_linear`` and
+every prefill's attention ``flash_attention``; the quantized stores' lazy
+linears run ``swap_linear_q``.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -80,6 +91,9 @@ PAGED_MAX_BATCH, PAGE_TOKENS, PAGED_MAX_PAGES = 4, 16, 23
 GEMMA_LAYERS = 2                   # layer 0 local (window 4096), 1 global
 GEMMA_PROMPTS, GEMMA_NEW = [4200, 24], [3, 3]
 GEMMA_MAX_PAGES = 270              # 263 + 2 pages live at the first step
+
+# phase 6: gemma2-9b full-precision swapped prefill
+GEMMA_PREFILL = 4200
 
 # phase 5: rwkv6-3b
 RWKV_LAYERS = 4
@@ -589,6 +603,292 @@ def check_wkv6(torch):
     return rows
 
 
+# ---------------------------------------------------------------- swap_linear
+def fp_layer_linears(cfg):
+    """(K, N, act, bias) of a dense layer's full-precision linears, one
+    entry per launch key (M, K, N, dtype, act): where two share a
+    key (qwen's wq and attention wo) the first wins."""
+    D, F = cfg.d_model, cfg.d_ff
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gate = "silu" if cfg.act == "swiglu" else "gelu"
+    out = {}
+    for K, N, act, b in [(D, H * hd, "none", cfg.attn_bias),     # wq
+                         (D, KV * hd, "none", cfg.attn_bias),    # wk, wv
+                         (H * hd, D, "none", False),             # attn wo
+                         (D, F, gate, False),                    # wi0
+                         (D, F, "none", False),                  # wi1
+                         (F, D, "none", False)]:                 # ffn wo
+        out.setdefault((K, N, act), b)
+    return [k + (b,) for k, b in out.items()]
+
+
+def check_swap_linear(torch, qcfg, gcfg, rcfg):
+    """Phase 2 for B5: the kernel against its plain version over ragged
+    shapes and qwen2.5-3b's linears at decode and prefill, then timed at
+    the main paths' shapes. Returns the timing rows."""
+    from repro_torch.kernels import swap_linear as sl
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def inputs(M, K, N, dt):
+        x = (torch.randn((M, K), generator=g, device=dev) * 0.5).to(dt)
+        w = (torch.randn((K, N), generator=g, device=dev)
+             * K ** -0.5).to(dt)
+        b = (torch.randn((N,), generator=g, device=dev) * 0.1).to(dt)
+        return x, w, b
+
+    cases = [(3, 129, 67), (130, 200, 150), (1, 7, 3)]
+    cases += [(M, K, N) for (K, N, _, _) in fp_layer_linears(qcfg)
+              for M in (2, 512)]
+    n_checked, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    for (M, K, N) in cases:
+        for dname, dt in dts.items():
+            x, w, b = inputs(M, K, N, dt)
+            for act in ("none", "silu", "gelu"):
+                for bias in (b, None):
+                    got = sl.swap_linear(x, w, bias, act=act)
+                    want = sl.swap_linear_plain(x, w, bias, act=act)
+                    _, rel = rel_err(torch, got, want)
+                    require(bool(torch.isfinite(got).all()),
+                            f"swap_linear non-finite at {(M, K, N)}")
+                    require(rel <= TOL[dname],
+                            f"swap_linear {dname} {act} {(M, K, N)} bias "
+                            f"{bias is not None}: rel err {rel:.3g} > "
+                            f"{TOL[dname]}")
+                    worst[dname] = max(worst[dname], rel)
+                    n_checked += 1
+    x, w, b = inputs(130, 2048, 256, torch.float32)
+    full = sl.swap_linear(x, w, b, act="silu")
+    require(all(torch.equal(full[i:i + 1], sl.swap_linear(
+        x[i:i + 1].contiguous(), w, b, act="silu")) for i in range(130)),
+        "swap_linear: a row of the 130-row call differs from its 1-row call")
+    print(f"swap_linear: {n_checked} cases match the plain version "
+          f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
+          f"{worst['bfloat16']:.3g} <= 2e-2); the rows of a 130-row call "
+          f"equal their 1-row calls bitwise", flush=True)
+    torch.cuda.synchronize()
+
+    # the main paths: qwen2.5-3b bf16 prefill (phase 3 mmap and eager),
+    # its fp32 decode at batch 2 (phase 4, run A), gemma2-9b's prefill
+    # (phase 6), rwkv6-3b's output projection (phase 5, fp32)
+    timed = [("qwen2.5-3b", BATCH * PROMPT, "bfloat16", s)
+             for s in fp_layer_linears(qcfg)]
+    timed += [("qwen2.5-3b", 2, "float32", s) for s in fp_layer_linears(qcfg)]
+    timed += [("gemma2-9b", GEMMA_PREFILL, "bfloat16", s)
+              for s in fp_layer_linears(gcfg)]
+    timed += [("rwkv6-3b wo", RWKV_BATCH * RWKV_PROMPT, "float32",
+               (rcfg.d_model, rcfg.d_model, "none", False))]
+    rows = []
+    for label, M, dname, (K, N, act, has_bias) in timed:
+        dt = dts[dname]
+        x, w, b = inputs(M, K, N, dt)
+        b = b if has_bias else None
+        got = sl.swap_linear(x, w, b, act=act)
+        want = sl.swap_linear_plain(x, w, b, act=act)
+        err, rel = rel_err(torch, got, want)
+        require(rel <= TOL[dname], f"swap_linear timing case {(M, K, N)} "
+                f"rel {rel:.3g}")
+        k_ms = time_ms(torch, lambda: sl.swap_linear(x, w, b, act=act))
+        p_ms = time_ms(torch, lambda: sl.swap_linear_plain(x, w, b, act=act))
+        fn = {"silu": torch.nn.functional.silu,
+              "gelu": lambda r: torch.nn.functional.gelu(
+                  r, approximate="tanh")}.get(act)
+
+        def lib():
+            r = torch.addmm(b, x, w) if b is not None else x @ w
+            return fn(r) if fn else r
+        _, lrel = rel_err(torch, lib(), want)
+        require(lrel <= TOL[dname], f"swap_linear library yardstick "
+                f"{(M, K, N)}: {lrel:.3g}")
+        l_ms = time_ms(torch, lib)
+        xs = x.element_size()
+        nbytes = (M * K * xs + K * N * w.element_size()
+                  + (N * xs if b is not None else 0) + M * N * xs)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * M * N * K / PEAK_OPS[dname] * 1e3
+        rows.append({
+            "name": "swap_linear", "route": "cuda",
+            "source": "src/repro_torch/csrc/swap_linear.cu",
+            "replaces": "src/repro/kernels/swap_linear.py:36",
+            "key": (M, K, N, dname, act),
+            "shape": f"{label} M={M} K={K} N={N} {dname} act={act}"
+                     f"{' +bias' if b is not None else ''}",
+            "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": l_ms})
+        del x, w, b, got, want
+    for r in rows:
+        print(f"  swap_linear {r['shape']:58s} kernel {r['ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
+              f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ flash attention
+def fa_inputs(torch, seed, B, S, H, KV, hd, dtype, shuffled=False):
+    """q [B,S,H,hd], k, v [B,S,KV,hd] ~ 0.5 N(0, 1) and int32 positions
+    (an arange, or a permutation per row), on the card."""
+    import numpy as np
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, k, v = ((torch.randn((B, S, n, hd), generator=g, device="cuda")
+                * 0.5).to(dtype) for n in (H, KV, KV))
+    rng = np.random.default_rng(seed)
+    pos = (np.stack([rng.permutation(S) for _ in range(B)]) if shuffled
+           else np.broadcast_to(np.arange(S), (B, S)))
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def attended_pairs(S, window) -> int:
+    """(query, key) pairs a causal prefill of S tokens attends to under a
+    window (None: none), per batch row and head."""
+    w = S if window is None else min(window, S)
+    return sum(min(i + 1, w) for i in range(S))
+
+
+# (label, dtype, B, S, H, KV, hd, scale, window, softcap): the main paths'
+# prefills. qwen2.5-3b's swapped prefill (phase 3, bf16) and its paged
+# admissions (phase 4: run A fp32, run B bf16, one prompt each); gemma2-9b's
+# 4,200-token prefill (phases 4 C and 6) and its 24-token admission (4 C)
+FA_TIMED = [("qwen2.5-3b prefill", "bfloat16", BATCH, PROMPT, 16, 2, 128,
+             QWEN_SCALE, None, None)]
+FA_TIMED += [("qwen2.5-3b admission", dname, 1, S, 16, 2, 128, QWEN_SCALE,
+              None, None) for dname in ("float32", "bfloat16")
+             for S in PAGED_PROMPTS]
+FA_TIMED += [("gemma2-9b prefill", "bfloat16", 1, S, 16, 8, 256,
+              GEMMA_SCALE, window, 50.0) for S in (GEMMA_PREFILL, 24)
+             for window in (4096, None)]
+
+
+def check_flash_attention(torch):
+    """Phase 2 for B4: the kernel against its plain version over the
+    reference test's masks, the main paths' shapes, odd head dims and
+    shuffled positions, then timed at the main paths' shapes beside SDPA
+    (no softcap) or compiled flex_attention (softcap). Returns the rows."""
+    from repro_torch.kernels import flash_attention as fa
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    masks = [(True, None, None), (True, 7, None), (True, None, 50.0),
+             (False, None, None), (True, 64, 30.0)]
+    # (B, S, H, KV, hd, scale, shuffled positions)
+    shapes = [(1, 256, 4, 2, 64, None, False),
+              (BATCH, PROMPT, 16, 2, 128, QWEN_SCALE, False),
+              (1, 37, 16, 2, 128, QWEN_SCALE, False),
+              (1, 129, 16, 2, 128, QWEN_SCALE, False),
+              (1, 300, 16, 8, 256, GEMMA_SCALE, False),
+              (2, 37, 4, 2, 80, None, False), (1, 100, 8, 1, 120, None, False),
+              (2, 129, 4, 4, 64, None, True)]
+    n_checked, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    for i, (B, S, H, KV, hd, scale, shuffled) in enumerate(shapes):
+        for dname, dt in dts.items():
+            q, k, v, pos = fa_inputs(torch, 300 + i, B, S, H, KV, hd, dt,
+                                     shuffled)
+            for causal, window, softcap in masks:
+                kw = dict(scale=hd ** -0.5 if scale is None else scale,
+                          causal=causal, window=window, softcap=softcap)
+                got = fa.flash_attention(q, k, v, pos, **kw)
+                want = fa.flash_attention_plain(q, k, v, pos, **kw)
+                _, rel = rel_err(torch, got, want)
+                require(bool(torch.isfinite(got).all()),
+                        f"flash_attention non-finite at {(B, S, H, KV, hd)}")
+                require(rel <= TOL[dname],
+                        f"flash_attention {dname} {(B, S, H, KV, hd)} "
+                        f"causal {causal} window {window} softcap "
+                        f"{softcap}: rel err {rel:.3g} > {TOL[dname]}")
+                worst[dname] = max(worst[dname], rel)
+                n_checked += 1
+    print(f"flash_attention: {n_checked} cases match the plain version "
+          f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
+          f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+    torch.cuda.synchronize()
+
+    rows = []
+    for (label, dname, B, S, H, KV, hd, scale, window,
+         softcap) in FA_TIMED:
+        dt = dts[dname]
+        q, k, v, pos = fa_inputs(torch, 9, B, S, H, KV, hd, dt)
+        kw = dict(scale=scale, causal=True, window=window, softcap=softcap)
+        got = fa.flash_attention(q, k, v, pos, **kw)
+        want = fa.flash_attention_plain(q, k, v, pos, **kw)
+        err, rel = rel_err(torch, got, want)
+        require(rel <= TOL[dname], f"flash_attention timing case {label} "
+                f"S={S}: rel {rel:.3g}")
+        k_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, pos, **kw))
+        p_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, pos,
+                                                               **kw))
+        # library yardstick on [B, heads, S, hd] copies made beforehand (not
+        # timed): SDPA, or compiled flex_attention where the softcap needs a
+        # score_mod
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if softcap is None:
+            G = H // KV
+            kt = kt.repeat_interleave(G, dim=1)
+            vt = vt.repeat_interleave(G, dim=1)
+            mask = None
+            if window is not None:
+                i = torch.arange(S, device="cuda")
+                mask = (i[None, :] <= i[:, None]) & (
+                    i[:, None] - i[None, :] < window)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+
+            def lib():
+                return sdpa(qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                            scale=scale)
+        else:
+            from torch.nn.attention import flex_attention as flex_mod
+            flex = torch.compile(flex_mod.flex_attention)
+
+            def capped(s, b, h, q_idx, kv_idx):
+                return softcap * torch.tanh(s / softcap)
+
+            def live(b, h, q_idx, kv_idx):
+                m = kv_idx <= q_idx
+                if window is not None:
+                    m = m & (q_idx - kv_idx < window)
+                return m
+            block_mask = flex_mod.create_block_mask(live, B, None, S, S,
+                                                    device="cuda")
+
+            def lib():
+                return flex(qt, kt, vt, score_mod=capped,
+                            block_mask=block_mask, scale=scale,
+                            enable_gqa=True)
+        _, lrel = rel_err(torch, lib().transpose(1, 2), want)
+        require(lrel <= TOL[dname], f"flash_attention library yardstick "
+                f"{label} S={S}: {lrel:.3g}")
+        l_ms = time_ms(torch, lib)
+        del qt, kt, vt
+        es = q.element_size()
+        nbytes = (2 * B * S * H * hd * es + 2 * B * S * KV * hd * es
+                  + B * S * 4)
+        ops = 4.0 * hd * H * B * attended_pairs(S, window)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS[dname] * 1e3
+        rows.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:26",
+            "key": (B, S, H, KV, hd, dname, True, window, softcap),
+            "shape": f"{label} B={B} S={S} {H}/{KV} heads hd={hd} {dname} "
+                     f"window={window} softcap={softcap}",
+            "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": l_ms})
+        del q, k, v, got, want
+    for r in rows:
+        print(f"  flash_attention {r['shape']:78s} kernel {r['ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
+              f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- slice
 STORES = [
     ("mmap", dict(store_backend="mmap")),
@@ -658,6 +958,15 @@ def run_slice(torch, cfg, model, params, main_launches):
                     require(err[1] <= 2e-2, f"{kind}: swapped vs unswapped "
                             f"dequantized rel err {err[1]:.3g} > 2e-2")
                 units_per_pass = 7 * cfg.n_layers + 1
+                require(counts["flash_attention"] == cfg.n_layers,
+                        f"{kind}: flash_attention launched "
+                        f"{counts['flash_attention']} times, expected "
+                        f"{cfg.n_layers} (one per layer)")
+                fp_linears = 0 if kind.endswith("lazy") else 7 * cfg.n_layers
+                require(counts["swap_linear"] == fp_linears,
+                        f"{kind}: swap_linear launched "
+                        f"{counts['swap_linear']} times, expected "
+                        f"{fp_linears}")
                 if kind.endswith("lazy"):
                     require(counts["swap_linear_q"] == units_per_pass,
                             f"{kind}: swap_linear_q launched "
@@ -889,9 +1198,14 @@ def report_paged(torch, tag, sm, kv, be, budget, windows, alloc0):
 
 def check_paged_run(tag, kv, be, counts, n_layers, budget):
     """The checks every paged run shares: pages and ledger clean, peak
-    within budget, B3 once per layer per decode step."""
+    within budget, B3 once per layer per decode step, B4 once per layer
+    per admission's prefill."""
     led = kv.ledger
     steps = sum(1 for t in be.trace if t.batch)
+    admitted = sum(len(t.admitted) for t in be.trace)
+    require(counts["flash_attention"] == n_layers * admitted > 0,
+            f"{tag}: flash_attention launched {counts['flash_attention']} "
+            f"times, expected {n_layers} x {admitted} admissions")
     require(kv.pages_in_use == 0, f"{tag}: {kv.pages_in_use} pages in use")
     require(led.resident == 0, f"{tag}: {led.resident} bytes left on the "
             f"ledger")
@@ -924,10 +1238,29 @@ def paged_model(torch, model, params, d, opts, cfg, max_pages, prompt_len):
     return sm, kv, budget
 
 
-def run_paged(torch, cfg, model, params, main_launches):
+def gemma_model(torch):
+    """gemma2-9b at its published widths, depth cut to GEMMA_LAYERS, with
+    fp32 host weights from seed 0: the source of phases 4 (C) and 6."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model
+    gcfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=GEMMA_LAYERS)
+    print(f"model: {gcfg.name} d_model {gcfg.d_model}, {gcfg.n_heads} heads "
+          f"/ {gcfg.n_kv_heads} KV heads, head_dim {gcfg.resolved_head_dim}, "
+          f"d_ff {gcfg.d_ff}, vocab {gcfg.vocab_size}, window "
+          f"{gcfg.sliding_window} on even layers, softcaps "
+          f"{gcfg.attn_logit_softcap}/{gcfg.final_logit_softcap}, "
+          f"{gcfg.dtype}; reduced: n_layers 42->{GEMMA_LAYERS}", flush=True)
+    t0 = time.perf_counter()
+    gmodel = Model(gcfg)
+    gparams = gmodel.init(0, device="cpu")
+    print(f"params: {sum(p.numel() for p in _leaves(gparams)) / 1e6:.1f} M "
+          f"(fp32, host), init {time.perf_counter() - t0:.1f} s", flush=True)
+    return gmodel, gparams
+
+
+def run_paged(torch, cfg, model, params, gmodel, gparams, main_launches):
     """Phase 4: paged continuous-batching decode, runs A, B and C."""
     import numpy as np
-    from repro_torch.configs import get_arch
     from repro_torch.models.transformer import Model
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.kernels import swap_linear_q as slq
@@ -976,6 +1309,10 @@ def run_paged(torch, cfg, model, params, main_launches):
     require(any(t.retired and t.batch for t in tr), "A: no mid-run retirement")
     require(be.preemptions >= 1, "A: no preemption")
     check_paged_run("A", kv, be, counts, L, budget)
+    require(counts["swap_linear"] > 0 and counts["swap_linear_q"] == 0,
+            f"A: fp32 mmap linears launched swap_linear "
+            f"{counts['swap_linear']} and swap_linear_q "
+            f"{counts['swap_linear_q']} times")
     trace_a = [(t.batch, t.admitted, t.retired, t.preempted, t.kv_pages)
                for t in tr]
     print(f"[A] tokens equal the solo runs for all {len(reqs)} requests; "
@@ -1029,18 +1366,7 @@ def run_paged(torch, cfg, model, params, main_launches):
     torch.cuda.empty_cache()
 
     # -- Run C: gemma2-9b, window and softcap on the path
-    gcfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=GEMMA_LAYERS)
-    print(f"model: {gcfg.name} d_model {gcfg.d_model}, {gcfg.n_heads} heads "
-          f"/ {gcfg.n_kv_heads} KV heads, head_dim {gcfg.resolved_head_dim}, "
-          f"d_ff {gcfg.d_ff}, vocab {gcfg.vocab_size}, window "
-          f"{gcfg.sliding_window} on even layers, softcaps "
-          f"{gcfg.attn_logit_softcap}/{gcfg.final_logit_softcap}, "
-          f"{gcfg.dtype}; reduced: n_layers 42->{GEMMA_LAYERS}", flush=True)
-    t0 = time.perf_counter()
-    gmodel = Model(gcfg)
-    gparams = gmodel.init(0, device="cpu")
-    print(f"params: {sum(p.numel() for p in _leaves(gparams)) / 1e6:.1f} M "
-          f"(fp32, host), init {time.perf_counter() - t0:.1f} s", flush=True)
+    gcfg = gmodel.cfg
     grng = np.random.default_rng(1)
     gprompts = [list(map(int, grng.integers(0, gcfg.vocab_size, n)))
                 for n in GEMMA_PROMPTS]
@@ -1170,6 +1496,10 @@ def run_rwkv6(torch, main_launches):
                         and set(kw.launches.by_shape) == {prefill_key},
                         f"{tag}: wkv6 launches {kw.launches.by_shape}, "
                         f"expected {RWKV_LAYERS} at {prefill_key}")
+                require(counts["swap_linear"] == RWKV_LAYERS,
+                        f"{tag}: swap_linear launched "
+                        f"{counts['swap_linear']} times, expected "
+                        f"{RWKV_LAYERS} (the time-mix output projection)")
                 require(bool(torch.isfinite(logits).all()),
                         f"{tag}: non-finite logits")
                 require(tuple(logits.shape)
@@ -1197,6 +1527,78 @@ def run_rwkv6(torch, main_launches):
     print(f"[rwkv6 bfloat16] logits vs float32: max |err| {err[0]:.4g}, "
           f"max |err| / max |logit| {err[1]:.4g}", flush=True)
     return results
+
+
+def run_gemma_prefill(torch, gmodel, gparams, main_launches):
+    """Phase 6: gemma2-9b bf16, a full-precision swapped prefill of one
+    4,200-token prompt on mmap; B4 once per layer (window 4096 on the local
+    layer 0, none on the global layer 1), B5 seven times per layer, and the
+    logits bitwise equal to the unswapped forward."""
+    import numpy as np
+    from repro_torch.core.cost_model import DelayModel
+    from repro_torch.core.runtime import SwappedModel
+    from repro_torch.kernels import flash_attention as fa
+
+    reset, collect = launch_counting(main_launches)
+    gcfg = gmodel.cfg
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, gcfg.vocab_size,
+                                          (1, GEMMA_PREFILL)),
+                             dtype=torch.int32)
+    batch = {"tokens": tokens}
+    tag = "gemma2-9b bf16 mmap"
+    t_store = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        sm = SwappedModel(gmodel, gparams, d, device="cuda",
+                          store_backend="mmap")
+        try:
+            require(sm.precision == "fp", f"{tag}: precision {sm.precision}")
+            resident = sum(sm.store.resident_nbytes(u.name)
+                           for u in sm.units)
+            budget = int(BUDGET_FRACTION * resident)
+            sm.engine.ledger.budget = budget              # enforced
+            sm.partition(budget, DelayModel(), 1, GEMMA_PREFILL)
+            print(f"[{tag}] store of {resident / 1e9:.3f} GB built in "
+                  f"{time.perf_counter() - t_store:.1f} s", flush=True)
+            sm.forward(batch)                                      # warm
+            sm.engine.stats.__init__()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            logits, st = sm.forward(batch)
+            counts = collect()
+            max_alloc = torch.cuda.max_memory_allocated()
+            windows = sorted((k[7] or 0) for k in fa.launches.by_shape
+                             for _ in range(fa.launches.by_shape[k]))
+            require(counts["flash_attention"] == GEMMA_LAYERS
+                    and windows == [0, gcfg.sliding_window],
+                    f"{tag}: flash_attention launches "
+                    f"{fa.launches.by_shape}, expected one at window "
+                    f"{gcfg.sliding_window} and one with none")
+            require(all(k[1] == GEMMA_PREFILL and k[8] == 50.0
+                        for k in fa.launches.by_shape),
+                    f"{tag}: flash_attention keys {fa.launches.by_shape}")
+            require(counts["swap_linear"] == 7 * GEMMA_LAYERS,
+                    f"{tag}: swap_linear launched {counts['swap_linear']} "
+                    f"times, expected {7 * GEMMA_LAYERS}")
+            require(counts["swap_linear_q"] == 0, f"{tag}: swap_linear_q "
+                    f"launched {counts['swap_linear_q']} times")
+            require(bool(torch.isfinite(logits).all()),
+                    f"{tag}: non-finite logits")
+            require(tuple(logits.shape) == (1, 1, gcfg.vocab_size),
+                    f"{tag}: logits shape {tuple(logits.shape)}")
+            require(sm.engine.stats.peak_resident <= budget,
+                    f"{tag}: peak ledger over budget")
+            require(torch.equal(logits, sm.forward_unswapped(batch)),
+                    f"{tag}: swapped logits != unswapped logits")
+            print(f"[{tag}] swapped logits == unswapped logits bitwise; "
+                  f"flash_attention at window 4096 (layer 0) and none "
+                  f"(layer 1); launches {counts}", flush=True)
+            out = report_prefill(tag, sm, st, budget, resident, max_alloc)
+        finally:
+            sm.close()
+    torch.cuda.empty_cache()
+    return out
 
 
 def rwkv6_decode(torch, sm, model, params, tokens, reset, collect):
@@ -1241,11 +1643,14 @@ def launch_counting(main_launches):
     count to 0 before a main-path run; collect reads the counts after it
     and adds the per-shape launches to ``main_launches``."""
     from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import swap_linear as sl
     from repro_torch.kernels import swap_linear_q as slq
     from repro_torch.kernels import wkv6 as kw
     counters = {"swap_linear_q": slq.launches, "dequant_int8": dq.launches,
-                "paged_attention": pa.launches, "wkv6": kw.launches}
+                "paged_attention": pa.launches, "wkv6": kw.launches,
+                "swap_linear": sl.launches, "flash_attention": fa.launches}
 
     def reset():
         for c in counters.values():
@@ -1299,14 +1704,18 @@ def main() -> int:
               flush=True)
 
     cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=N_LAYERS)
+    gcfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=GEMMA_LAYERS)
     with phase("2 kernels against their plain versions"):
         rows = check_kernels(torch, cfg)
         rows += check_paged_attention(torch)
         rows += check_wkv6(torch)
+        rows += check_swap_linear(torch, cfg, gcfg, get_arch("rwkv6-3b"))
+        rows += check_flash_attention(torch)
 
     from repro_torch.models.transformer import Model
     main_launches = {"swap_linear_q": {}, "dequant_int8": {},
-                     "paged_attention": {}, "wkv6": {}}
+                     "paged_attention": {}, "wkv6": {}, "swap_linear": {},
+                     "flash_attention": {}}
     with phase("3 the slice at full width"):
         print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads "
               f"/ {cfg.n_kv_heads} KV heads, head_dim "
@@ -1323,17 +1732,22 @@ def main() -> int:
         run_slice(torch, cfg, model, params, main_launches)
 
     with phase("4 paged continuous-batching decode at full width"):
-        run_paged(torch, cfg, model, params, main_launches)
+        gmodel, gparams = gemma_model(torch)
+        run_paged(torch, cfg, model, params, gmodel, gparams, main_launches)
     del model, params
     torch.cuda.empty_cache()
 
     with phase("5 rwkv6-3b swapped at full width"):
         run_rwkv6(torch, main_launches)
 
+    with phase("6 gemma2-9b full-precision swapped prefill at full width"):
+        run_gemma_prefill(torch, gmodel, gparams, main_launches)
+    del gmodel, gparams
+
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 5): " + ", ".join(
+    print("main-path launches (phases 3 to 6): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

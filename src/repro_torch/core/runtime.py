@@ -34,7 +34,7 @@ from repro_torch.core.swap_engine import SwapEngine
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.qtensor import (QuantizedTensor, cast_unit_params,
                                          materialize_tree)
-from repro_torch.kernels.swap_linear_q import smem_bytes
+from repro_torch.kernels import swap_linear, swap_linear_q
 from repro_torch.models.layers import linear, rms_norm, softcap
 from repro_torch.models.transformer import (Model, alloc_layer_cache,
                                             apply_layer, layer_slice)
@@ -176,14 +176,16 @@ def store_opts(backend: str, precision: str = "int8") -> dict:
 
 
 def kernel_smem_working_set(precision: str, dtype: str = "bfloat16") -> int:
-    """Shared memory one block of the port's fused dequant-matmul holds for
-    a store precision (x tile in the compute dtype + the still-quantized
-    weight tile). ``fp`` weights run ``x @ w`` and no port kernel: 0.
-    ``mixed`` reports the int8 figure, the larger one."""
+    """Shared memory one block of the port's weight-stream matmul holds for
+    a store precision: ``fp`` weights run ``swap_linear`` (x and w tiles in
+    the compute dtype), quantized ones the fused dequant-matmul (x tile in
+    the compute dtype + the still-quantized weight tile). ``mixed`` reports
+    the int8 figure, the larger of the quantized ones."""
+    item = torch_dtype(dtype).itemsize
     if precision == "fp":
-        return 0
+        return swap_linear.smem_bytes(item)
     bits = 4 if precision == "int4" else 8
-    return smem_bytes(bits, torch_dtype(dtype).itemsize)
+    return swap_linear_q.smem_bytes(bits, item)
 
 
 class SwappedModel:

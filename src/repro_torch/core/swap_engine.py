@@ -332,9 +332,10 @@ class SwapStats:
                                        kernel's weight stream.
 
     ``smem_working_set`` is the per-kernel figure: shared memory one block
-    of the fused dequant-matmul holds at this engine's store precision
-    (set by the runtime from ``kernels.swap_linear_q.smem_bytes``; 0 where
-    no port kernel streams the weights).
+    of the weight-stream matmul holds at this engine's store precision
+    (set by the runtime from ``kernels.swap_linear.smem_bytes`` for fp
+    units and ``kernels.swap_linear_q.smem_bytes`` for quantized ones; 0
+    until the runtime sets it).
 
     ``timeline`` is the per-stage event log the overlap analysis runs on:
     ``(stage, start, end)`` tuples in ``time.perf_counter`` absolute

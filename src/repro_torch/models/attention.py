@@ -1,13 +1,20 @@
-"""Attention: GQA with chunked online softmax, causal / sliding-window /
-softcap masks, for prefill and for single-token decode on a contiguous
-cache or through the paged KV cache (:func:`gqa_apply_paged`).
+"""Attention: GQA with causal / sliding-window / softcap masks, for
+prefill and for single-token decode on a contiguous cache or through the
+paged KV cache (:func:`gqa_apply_paged`).
+
+Prefill (Sq == Skv, no cache) runs the ``flash_attention`` kernel
+(``kernels/flash_attention.py``; its plain version on the CPU). Decode on
+the contiguous cache runs :func:`online_attention`, as the JAX package
+computes that step outside any kernel (its ``models/attention.py``): the
+TPU kernel is prefill-only, so this is no plain version of it on the card.
 
 :func:`online_attention` scans KV in chunks with running (m, l, acc)
 statistics, so the [Sq, Skv] score matrix never materializes at full
 sequence length. Masking is positional, as in the JAX package: kv position
 j attends iff ``j <= q_pos`` (causal), ``q_pos - j < window`` and
 ``j < kv_valid_len``; masked scores are ``NEG_INF`` (finite, so a fully
-masked chunk cannot produce NaN) and ``l`` is clamped at 1e-30.
+masked chunk cannot produce NaN) and ``l`` is clamped at 1e-30. The
+prefill kernel keeps these semantics.
 """
 from __future__ import annotations
 
@@ -16,11 +23,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import (LARGE_WINDOW, NEG_INF,
+                                                  flash_attention)
 from repro_torch.models.layers import apply_rope, linear, rope_angles, softcap
 from repro_torch.models.params import ParamDef
-
-NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-LARGE_WINDOW = 1 << 30
 
 
 def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,10 +97,13 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
               positions: torch.Tensor, is_local: bool,
               cache: Optional[dict], decode_pos: Optional[torch.Tensor],
               chunk: int = 1024) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x [B,S,D]. Prefill: ``cache=None`` in, the new cache (k, v) out.
-    Decode: ``cache={'k','v'}`` of [B,Smax,KV,hd] and ``decode_pos`` [B],
-    the write index. The decode cache is updated IN PLACE (one row per
-    sequence) instead of copied, and returned."""
+    """x [B,S,D]. Prefill: ``cache=None`` in, the new cache (k, v) out;
+    attention runs the ``flash_attention`` kernel. Decode:
+    ``cache={'k','v'}`` of [B,Smax,KV,hd] and ``decode_pos`` [B], the write
+    index; attention runs :func:`online_attention` over the cache (no
+    kernel: the reference computes that step in XLA). The decode cache is
+    updated IN PLACE (one row per sequence) instead of copied, and
+    returned."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
@@ -116,14 +125,14 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
         rows = torch.arange(B, device=x.device)
         cache["k"][rows, decode_pos] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, decode_pos] = v[:, 0].to(cache["v"].dtype)
-        k_all, v_all, valid = cache["k"], cache["v"], decode_pos + 1
+        out = online_attention(q, cache["k"], cache["v"], positions,
+                               decode_pos + 1, causal=not cfg.is_encoder,
+                               window=window, scale=_attn_scale(cfg),
+                               logit_cap=cfg.attn_logit_softcap, chunk=chunk)
     else:
-        k_all, v_all, valid = k, v, None
-
-    out = online_attention(q, k_all, v_all, positions, valid,
-                           causal=not cfg.is_encoder, window=window,
-                           scale=_attn_scale(cfg),
-                           logit_cap=cfg.attn_logit_softcap, chunk=chunk)
+        out = flash_attention(q, k, v, positions, scale=_attn_scale(cfg),
+                              causal=not cfg.is_encoder, window=window,
+                              softcap=cfg.attn_logit_softcap)
     out = linear(out.reshape(B, S, H * hd).to(x.dtype), p["wo"])
     new_cache = cache if cache is not None else {"k": k, "v": v}
     return out, new_cache

@@ -4,7 +4,9 @@
 that arrives as a :class:`~repro_torch.kernels.qtensor.QuantizedTensor`
 (the quantized store's lazy mode) streams through the fused dequant-matmul
 kernel, so fp for that weight never exists in device memory. A plain
-tensor takes ``x @ w``, the exact path the mmap store runs.
+tensor (the mmap store, eager quant's dequantized leaves, the in-memory
+model) streams through the full-precision kernel ``swap_linear``. On the
+CPU both take their plain versions.
 
 The arithmetic mirrors the JAX package op for op (fp32 norms and RoPE,
 the activations' formulas), so float32 configs agree across the two
@@ -19,7 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.qtensor import QuantizedTensor
-from repro_torch.kernels.swap_linear_q import activation, swap_linear_q
+from repro_torch.kernels.swap_linear import swap_linear
+from repro_torch.kernels.swap_linear_q import swap_linear_q
 from repro_torch.models.params import ParamDef
 
 
@@ -69,18 +72,17 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
            act: str = "none") -> torch.Tensor:
     """y = act(x @ w + b), routed by weight representation: a
-    QuantizedTensor goes through ``swap_linear_q`` (leading axes of x
-    flattened for the kernel and restored after), a tensor through
-    ``x @ w``."""
+    QuantizedTensor goes through ``swap_linear_q``, a tensor through
+    ``swap_linear`` (fp32 accumulator, bias and activation in fp32, the
+    result in x's dtype). The leading axes of x are flattened for the
+    kernel and restored after."""
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
     if isinstance(w, QuantizedTensor):
-        lead = x.shape[:-1]
-        y = swap_linear_q(x.reshape(-1, x.shape[-1]).contiguous(), w.q,
-                          w.scales, b, bits=w.bits, act=act)
-        return y.reshape(*lead, y.shape[-1])
-    r = x @ w
-    if b is not None:
-        r = r + b
-    return activation(r, act)
+        y = swap_linear_q(x2d, w.q, w.scales, b, bits=w.bits, act=act)
+    else:
+        y = swap_linear(x2d, w, b, act=act)
+    return y.reshape(*lead, y.shape[-1])
 
 
 # ------------------------------------------------------------------ MLP

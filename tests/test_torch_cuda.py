@@ -16,6 +16,11 @@ Tolerances, with their reasons:
     order), 2e-2 bf16 (one bf16 rounding of the output);
   * wkv6: 1e-5 fp32 inputs (the chunk's sums run in another order), 2e-2
     bf16 (one bf16 rounding of the output; the state stays fp32);
+  * swap_linear: 1e-5 fp32 x (the fp32 sums run in another order), 2e-2
+    bf16 x (one bf16 rounding of the output); an M-row call against the
+    1-row calls on its rows: bitwise;
+  * flash_attention: 1e-5 fp32 (online against dense softmax), 2e-2 bf16
+    (one bf16 rounding of the output);
   * mmap swapped vs unswapped: bitwise (the same ops on the same bytes);
   * paged continuous batching vs solo in-memory decode, float32: equal
     tokens;
@@ -32,7 +37,9 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.cost_model import DelayModel  # noqa: E402
 from repro_torch.core.runtime import SwappedModel  # noqa: E402
 from repro_torch.kernels import dequant as dq  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import swap_linear as sl  # noqa: E402
 from repro_torch.kernels import swap_linear_q as slq  # noqa: E402
 from repro_torch.kernels import wkv6 as kw  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
@@ -330,3 +337,149 @@ def test_rwkv6_swapped_on_the_card(dev, tmp_path):
             for i, p in enumerate(prompts)]
     eng.generate(reqs)
     assert [r.output for r in reqs] == gen.tolist()
+
+
+# (M, K, N): ragged in every extent, qwen2.5-3b's prefill and decode
+# shapes, one row, and a gemma2-9b MLP width at a few rows
+SL_CASES = [(3, 129, 67), (512, 2048, 256), (2, 2048, 11008), (1, 7, 3),
+            (130, 200, 150), (5, 3584, 14336)]
+
+
+@pytest.mark.parametrize("act", ["none", "silu", "gelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swap_linear_kernel_matches_plain(dev, dtype, act):
+    for i, (M, K, N) in enumerate(SL_CASES):
+        g = torch.Generator().manual_seed(i)
+        x = (torch.randn((M, K), generator=g) * 0.5).to(dtype).to(dev)
+        w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dtype).to(dev)
+        b = (torch.randn((N,), generator=g) * 0.1).to(dtype).to(dev)
+        for bias in (b, None):
+            before = sl.launches.count
+            got = sl.swap_linear(x, w, bias, act=act)
+            assert sl.launches.count == before + 1
+            want = sl.swap_linear_plain(x, w, bias, act=act)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and tuple(got.shape) == (M, N)
+            assert bool(torch.isfinite(got).all())
+            assert _rel(got, want) <= TOL[dtype], (M, K, N, bias is None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swap_linear_rows_do_not_depend_on_m(dev, dtype):
+    """Row i of an M-row call equals the 1-row call on that row bitwise:
+    paged batched decode (M = batch) reproduces solo runs (M = 1)."""
+    g = torch.Generator().manual_seed(3)
+    K, N = 2048, 256
+    w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dtype).to(dev)
+    b = (torch.randn((N,), generator=g) * 0.1).to(dtype).to(dev)
+    x = (torch.randn((130, K), generator=g)).to(dtype).to(dev)
+    for M in (2, 3, 4, 8, 65, 130):
+        full = sl.swap_linear(x[:M].contiguous(), w, b, act="silu")
+        for i in range(M):
+            one = sl.swap_linear(x[i:i + 1].contiguous(), w, b, act="silu")
+            assert torch.equal(full[i:i + 1], one), (M, i)
+
+
+def test_swap_linear_cuda_tensor_never_runs_plain(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(sl, "swap_linear_plain", refuse)
+    x = torch.randn((8, 64), device=dev)
+    w = torch.randn((64, 32), device=dev)
+    sl.swap_linear(x, w, act="gelu")
+    with pytest.raises(TypeError):
+        sl.swap_linear(x.half(), w.half())
+    with pytest.raises(TypeError):
+        sl.swap_linear(x, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        sl.swap_linear(torch.randn((8, 128), device=dev)[:, ::2], w)
+    with pytest.raises(ValueError, match="devices"):
+        sl.swap_linear(x, w.cpu())
+
+
+def _fa_inputs(B, S, H, KV, hd, dtype, seed, shuffled=False):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy((rng.standard_normal((B, S, n, hd)) * 0.5)
+                                .astype(np.float32)).to(dtype).to("cuda")
+               for n in (H, KV, KV))
+    pos = (np.stack([rng.permutation(S) for _ in range(B)]) if shuffled
+           else np.broadcast_to(np.arange(S), (B, S)))
+    return q, k, v, torch.from_numpy(np.array(pos)).to("cuda")
+
+
+# (B, S, H, KV, hd, scale, shuffled positions): the reference test's S,
+# the port's ragged prompts, qwen2.5-3b's prefill, gemma2-9b's heads at
+# its query scale, odd head dims, GQA 8 and 1, explicit positions
+FA_CASES = [(1, 256, 4, 2, 64, None, False), (2, 37, 4, 2, 80, None, False),
+            (4, 128, 16, 2, 128, None, False),
+            (1, 300, 16, 8, 256, 224.0 ** -0.5, False),
+            (1, 100, 8, 1, 120, None, False), (2, 129, 4, 4, 64, None, True),
+            (3, 17, 8, 8, 32, None, False)]
+
+
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 7, None), (True, None, 50.0),
+    (False, None, None), (True, 64, 30.0), (True, 200, 50.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, dtype, causal, window,
+                                              softcap):
+    for i, (B, S, H, KV, hd, scale, shuffled) in enumerate(FA_CASES):
+        q, k, v, pos = _fa_inputs(B, S, H, KV, hd, dtype, i, shuffled)
+        kw = dict(scale=hd ** -0.5 if scale is None else scale,
+                  causal=causal, window=window, softcap=softcap)
+        before = fa.launches.count
+        got = fa.flash_attention(q, k, v, pos, **kw)
+        assert fa.launches.count == before + 1
+        want = fa.flash_attention_plain(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= TOL[dtype], (B, S, H, KV, hd)
+
+
+def test_flash_attention_cuda_tensor_never_runs_plain(dev, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(fa, "flash_attention_plain", refuse)
+    q, k, v, pos = _fa_inputs(1, 40, 4, 2, 64, torch.float32, 0)
+    fa.flash_attention(q, k, v, pos, scale=0.125, window=16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half(), pos, scale=0.125)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), v, pos, scale=0.125)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k, v, pos.float(), scale=0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v, pos, scale=0.125)
+    with pytest.raises(ValueError, match="devices"):
+        fa.flash_attention(q, k, v, pos.cpu(), scale=0.125)
+    big = torch.zeros((1, 4, 2, 320), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(big, big, big, pos[:, :4], scale=0.1)
+
+
+def test_gemma_prefill_on_the_card(dev, tmp_path):
+    """Reduced gemma2-9b (window 24, shorter than the prompt) swapped on
+    mmap on the card: bitwise equal to the unswapped forward, every layer's
+    prefill through flash_attention (window 24 on layer 0, none on layer
+    1) and every linear through swap_linear."""
+    cfg = dataclasses.replace(get_arch("gemma2-9b").reduced(),
+                              dtype="float32", sliding_window=24)
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 45))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+    sm = SwappedModel(model, params, str(tmp_path))
+    try:
+        sm.partition(6 * 1024 * 1024, DelayModel(), 2, 45)
+        fa.launches.reset()
+        sl.launches.reset()
+        logits, _ = sm.forward(batch)
+        assert fa.launches.count == cfg.n_layers
+        assert sorted(k[7] or 0 for k in fa.launches.by_shape) == [0, 24]
+        assert sl.launches.count == 7 * cfg.n_layers
+        assert torch.equal(logits, sm.forward_unswapped(batch))
+    finally:
+        sm.close()
+    assert bool(torch.isfinite(logits).all())
