@@ -75,6 +75,85 @@ PEAK_OPS = {"bfloat16": 989e12,    # bf16 tensor cores, dense
             "float32": 67e12}      # fp32 outside the tensor cores (fp32
                                    # accuracy rules out TF32)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # max |err| / max |plain|
+
+# Device ms of swap_linear_q and swap_linear at the timed shapes in their
+# earlier design (one 64 x 64 output tile per block on the CUDA cores in
+# fp32, no split-K), recorded from this script's kernels line on an NVIDIA
+# H100 80GB HBM3 at 700.00 W. Printed beside a timing row's human-readable
+# line for comparison, marked as recorded; never part of the kernels line,
+# which holds only what this run measured.
+EARLIER_MS = {
+    ('swap_linear_q',
+     'M=512 K=2048 N=2048 int8 x=bfloat16 act=none'): 0.3015,
+    ('swap_linear_q',
+     'M=2 K=2048 N=2048 int8 x=bfloat16 act=none'): 0.2016,
+    ('swap_linear_q',
+     'M=512 K=2048 N=256 int8 x=bfloat16 act=none'): 0.2308,
+    ('swap_linear_q',
+     'M=2 K=2048 N=256 int8 x=bfloat16 act=none'): 0.2001,
+    ('swap_linear_q',
+     'M=512 K=2048 N=11008 int8 x=bfloat16 act=silu'): 1.3431,
+    ('swap_linear_q',
+     'M=2 K=2048 N=11008 int8 x=bfloat16 act=silu'): 0.2767,
+    ('swap_linear_q',
+     'M=512 K=2048 N=11008 int8 x=bfloat16 act=none'): 1.3458,
+    ('swap_linear_q',
+     'M=2 K=2048 N=11008 int8 x=bfloat16 act=none'): 0.2800,
+    ('swap_linear_q',
+     'M=512 K=11008 N=2048 int8 x=bfloat16 act=none'): 1.6980,
+    ('swap_linear_q',
+     'M=2 K=11008 N=2048 int8 x=bfloat16 act=none'): 1.0623,
+    ('swap_linear_q',
+     'M=4 K=2048 N=151936 int8 x=float32 act=none'): 1.7777,
+    ('swap_linear_q',
+     'M=2 K=2048 N=151936 int8 x=float32 act=none'): 1.7804,
+    ('swap_linear_q',
+     'M=512 K=2048 N=2048 int4 x=bfloat16 act=none'): 0.3135,
+    ('swap_linear_q',
+     'M=512 K=2048 N=256 int4 x=bfloat16 act=none'): 0.2391,
+    ('swap_linear_q',
+     'M=512 K=2048 N=11008 int4 x=bfloat16 act=silu'): 1.4151,
+    ('swap_linear_q',
+     'M=512 K=2048 N=11008 int4 x=bfloat16 act=none'): 1.3917,
+    ('swap_linear_q',
+     'M=512 K=11008 N=2048 int4 x=bfloat16 act=none'): 1.6976,
+    ('swap_linear_q',
+     'M=4 K=2048 N=151936 int4 x=float32 act=none'): 1.9787,
+    ('swap_linear',
+     'qwen2.5-3b M=512 K=2048 N=2048 bfloat16 act=none +bias'): 0.2923,
+    ('swap_linear',
+     'qwen2.5-3b M=512 K=2048 N=256 bfloat16 act=none +bias'): 0.2294,
+    ('swap_linear',
+     'qwen2.5-3b M=512 K=2048 N=11008 bfloat16 act=silu'): 1.4085,
+    ('swap_linear',
+     'qwen2.5-3b M=512 K=2048 N=11008 bfloat16 act=none'): 1.3811,
+    ('swap_linear',
+     'qwen2.5-3b M=512 K=11008 N=2048 bfloat16 act=none'): 1.6905,
+    ('swap_linear',
+     'qwen2.5-3b M=2 K=2048 N=2048 float32 act=none +bias'): 0.1425,
+    ('swap_linear',
+     'qwen2.5-3b M=2 K=2048 N=256 float32 act=none +bias'): 0.1420,
+    ('swap_linear',
+     'qwen2.5-3b M=2 K=2048 N=11008 float32 act=silu'): 0.2274,
+    ('swap_linear',
+     'qwen2.5-3b M=2 K=2048 N=11008 float32 act=none'): 0.2269,
+    ('swap_linear',
+     'qwen2.5-3b M=2 K=11008 N=2048 float32 act=none'): 0.9648,
+    ('swap_linear',
+     'gemma2-9b M=4200 K=3584 N=4096 bfloat16 act=none'): 6.6732,
+    ('swap_linear',
+     'gemma2-9b M=4200 K=3584 N=2048 bfloat16 act=none'): 3.4133,
+    ('swap_linear',
+     'gemma2-9b M=4200 K=4096 N=3584 bfloat16 act=none'): 6.6789,
+    ('swap_linear',
+     'gemma2-9b M=4200 K=3584 N=14336 bfloat16 act=gelu'): 23.7566,
+    ('swap_linear',
+     'gemma2-9b M=4200 K=3584 N=14336 bfloat16 act=none'): 23.4063,
+    ('swap_linear',
+     'gemma2-9b M=4200 K=14336 N=3584 bfloat16 act=none'): 23.8633,
+    ('swap_linear',
+     'rwkv6-3b wo M=1024 K=2560 N=2560 float32 act=none'): 0.6521,
+}
 SLEEP_CYCLES_PER_S = 2.0e9         # >= the H100's SM clock: holds long enough
 
 N_LAYERS = 4
@@ -145,6 +224,43 @@ def time_ms(torch, fn, target_s: float = 0.1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def gemm_ptxas(log: str) -> list:
+    """One line per variant of the weight-streaming matmul core
+    (``csrc/sm90_gemm.cuh``: weight kind, row tile) with what ``ptxas -v``
+    reported for it: registers, spill stores and loads."""
+    import re
+    names = {"0": "bf16/fp32", "8": "int8", "4": "int4"}
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            t = re.search(r"(tc_gemm|simt_gemm)ILi(\d+)E(?:Li(\d+)E)?", name)
+            cur = None
+            if t:
+                rows = int(t.group(3)) * (64 if t.group(1) == "tc_gemm" else 1)
+                cur = f"{t.group(1)}<{names[t.group(2)]}, {rows} rows>"
+            spill = ""
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spills {m.group(1)} / {m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"  ptxas {cur}: {m.group(1)} registers, {spill}")
+            cur = None
+    return out
+
+
+def earlier(row) -> str:
+    """The printed suffix with the earlier design's recorded time at a
+    timing row's shape, if there is one (not measured in this run)."""
+    e = EARLIER_MS.get((row["name"], row["shape"]))
+    return "" if e is None else f" (earlier design, recorded: {e:.4f} ms)"
+
+
 def rel_err(torch, got, want) -> tuple:
     d = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
@@ -169,6 +285,89 @@ def slice_linear_shapes(cfg):
                              (D, V, "none", "float32", False)]:       # head
         out.setdefault((K, N, act, dt), b)
     return [k + (b,) for k, b in out.items()]
+
+
+def check_row_independence(torch, g, which):
+    """B1 (``which`` "q") or B5 ("fp") on the card: the rows of a 130-row
+    call (K 2048 split 8 ways at N 256, the splits summed by a second
+    pass) and of an 1100-row call (N = K = 2048: the
+    splits summed inside each block, against the last-block combine of the
+    1-row call) equal their 1-row calls bitwise, at every dtype and,
+    for B1, int8 and int4; an x at data_ptr() % 16 != 0 (plain loads)
+    gives its aligned copy's (TMA or cp.async) bits; one-hot rows of x
+    against a weight of distinct values return its rows exactly (a
+    swizzle or transpose fault cannot pass). Returns a summary line."""
+    from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import swap_linear as sl
+    from repro_torch.kernels import swap_linear_q as slq
+    dev = torch.device("cuda")
+    kinds = (8, 4) if which == "q" else (None,)
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for (M, K, N, rows) in ((130, 2048, 256, range(130)),
+                                (1100, 2048, 2048, (0, 1, 127, 128, 1099))):
+            x = torch.randn((M, K), generator=g, device=dev).to(dt)
+            b = (torch.randn((N,), generator=g, device=dev) * 0.1).to(dt)
+            for bits in kinds:
+                if bits is None:
+                    w = (torch.randn((K, N), generator=g, device=dev)
+                         * K ** -0.5).to(dt)
+
+                    def fn(xx):
+                        return sl.swap_linear(xx, w, b, act="silu")
+                else:
+                    lo = -127 if bits == 8 else -128
+                    q = torch.randint(lo, 128, (K if bits == 8 else K // 2, N),
+                                      generator=g, device=dev,
+                                      dtype=torch.int8)
+                    s = torch.rand((N,), generator=g, device=dev) * 0.02
+
+                    def fn(xx):
+                        return slq.swap_linear_q(xx, q, s, b, bits=bits,
+                                                 act="silu")
+                full = fn(x)
+                require(all(torch.equal(full[i:i + 1],
+                                         fn(x[i:i + 1].contiguous()))
+                            for i in rows),
+                        f"{which} int{bits} {dt} M={M}: a row differs from "
+                        f"its 1-row call")
+                n += 1
+                buf = torch.empty((M * K + 8,), dtype=dt, device=dev)
+                xv = buf[1:1 + M * K].view(M, K)
+                xv.copy_(x)
+                require(xv.data_ptr() % 16 != 0 and torch.equal(fn(xv), full),
+                        f"{which} int{bits} {dt} M={M}: the misaligned view "
+                        f"differs from the aligned copy")
+                n += 1
+    K, N = 96, 160
+    idx = torch.arange(K * N, dtype=torch.int32).reshape(K, N)
+    for dt in (torch.float32, torch.bfloat16):
+        ks = [(7 * m + 3) % K for m in range(130)]
+        x = torch.zeros((130, K), dtype=dt, device=dev)
+        x[torch.arange(130), torch.tensor(ks)] = 1
+        if which == "fp":
+            w = ((idx + 0x3C00).to(torch.int16).view(torch.bfloat16)
+                 if dt == torch.bfloat16 else (idx + 1).float()).to(dev)
+            require(torch.equal(sl.swap_linear(x, w), w[ks]),
+                    f"swap_linear {dt}: one-hot rows do not return the "
+                    f"weight's rows")
+            n += 1
+            continue
+        for bits in (8, 4):
+            v = ((idx * 37 + 11) % (255 if bits == 8 else 15)
+                 - (127 if bits == 8 else 7)).to(torch.int8)
+            q = (v if bits == 8 else torch.from_numpy(dq.pack_int4(
+                v.numpy()))).to(dev)
+            got = slq.swap_linear_q(x, q, torch.ones((N,), device=dev),
+                                    bits=bits)
+            require(torch.equal(got.float(), v[ks].float().to(dev)),
+                    f"swap_linear_q int{bits} {dt}: one-hot rows do not "
+                    f"return the weight's rows")
+            n += 1
+    torch.cuda.synchronize()
+    return (f"{n} checks: the rows of 130- and 1100-row calls equal their "
+            f"1-row calls bitwise, misaligned views their aligned copies, "
+            f"one-hot rows the weight's rows")
 
 
 def check_kernels(torch, cfg):
@@ -219,6 +418,8 @@ def check_kernels(torch, cfg):
     print(f"swap_linear_q: {n_checked} cases match the plain version "
           f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, "
           f"bf16 {worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+    print(f"swap_linear_q: {check_row_independence(torch, g, 'q')}",
+          flush=True)
 
     n_checked = 0
     for (R, C) in [(1001, 333), (D, D), (V, D)]:
@@ -270,6 +471,7 @@ def check_kernels(torch, cfg):
                 l_ms = time_ms(torch, lib)
                 del w_lib
                 xs = 2 if dname == "bfloat16" else 4
+                shape = f"M={M} K={K} N={N} int{bits} x={dname} act={act}"
                 nbytes = (M * K * xs + q.numel() + 4 * N
                           + (N * xs if b is not None else 0) + M * N * xs)
                 ops = 2.0 * M * N * K
@@ -280,8 +482,7 @@ def check_kernels(torch, cfg):
                     "source": "src/repro_torch/csrc/swap_linear_q.cu",
                     "replaces": "src/repro/kernels/swap_linear_q.py:44",
                     "key": (M, K, N, bits, dname, act),
-                    "shape": f"M={M} K={K} N={N} int{bits} x={dname} "
-                             f"act={act}",
+                    "shape": shape,
                     "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
                     "plain_ms": p_ms,
                     "bound_ms": max(t_bytes, t_ops),
@@ -315,10 +516,10 @@ def check_kernels(torch, cfg):
             "library_ms": l_ms})
         del q, s
     for r in rows:
-        print(f"  {r['name']:14s} {r['shape']:46s} kernel {r['ms']:.4f} ms  "
-              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
-              f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
+        print(f"  {r['name']:14s} {r['shape']:46s} kernel {r['ms']:.4f} ms"
+              f"{earlier(r)}  plain {r['plain_ms']:.4f} ms  library "
+              f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -668,6 +869,8 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg):
           f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
           f"{worst['bfloat16']:.3g} <= 2e-2); the rows of a 130-row call "
           f"equal their 1-row calls bitwise", flush=True)
+    print(f"swap_linear: {check_row_independence(torch, g, 'fp')}",
+          flush=True)
     torch.cuda.synchronize()
 
     # the main paths: qwen2.5-3b bf16 prefill (phase 3 mmap and eager),
@@ -704,6 +907,8 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg):
                 f"{(M, K, N)}: {lrel:.3g}")
         l_ms = time_ms(torch, lib)
         xs = x.element_size()
+        shape = (f"{label} M={M} K={K} N={N} {dname} act={act}"
+                 f"{' +bias' if b is not None else ''}")
         nbytes = (M * K * xs + K * N * w.element_size()
                   + (N * xs if b is not None else 0) + M * N * xs)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -713,18 +918,17 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg):
             "source": "src/repro_torch/csrc/swap_linear.cu",
             "replaces": "src/repro/kernels/swap_linear.py:36",
             "key": (M, K, N, dname, act),
-            "shape": f"{label} M={M} K={K} N={N} {dname} act={act}"
-                     f"{' +bias' if b is not None else ''}",
+            "shape": shape,
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
             "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": l_ms})
         del x, w, b, got, want
     for r in rows:
-        print(f"  swap_linear {r['shape']:58s} kernel {r['ms']:.4f} ms  "
-              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
-              f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
+        print(f"  swap_linear {r['shape']:58s} kernel {r['ms']:.4f} ms"
+              f"{earlier(r)}  plain {r['plain_ms']:.4f} ms  library "
+              f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -1702,6 +1906,8 @@ def main() -> int:
         print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
               f"{path.name}; ptxas: {regs[:2]} ... ({len(regs)} variants)",
               flush=True)
+        for line in gemm_ptxas(_build.build_log):
+            print(line, flush=True)
 
     cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=N_LAYERS)
     gcfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=GEMMA_LAYERS)

@@ -177,10 +177,11 @@ def store_opts(backend: str, precision: str = "int8") -> dict:
 
 def kernel_smem_working_set(precision: str, dtype: str = "bfloat16") -> int:
     """Shared memory one block of the port's weight-stream matmul holds for
-    a store precision: ``fp`` weights run ``swap_linear`` (x and w tiles in
-    the compute dtype), quantized ones the fused dequant-matmul (x tile in
-    the compute dtype + the still-quantized weight tile). ``mixed`` reports
-    the int8 figure, the larger of the quantized ones."""
+    a store precision: ``fp`` weights run ``swap_linear`` (a ring of x and
+    w tiles in the compute dtype), quantized ones the fused dequant-matmul
+    (a ring of x tiles and still-quantized weight tiles, plus for bf16 the
+    two tiles the weight is widened into). ``mixed`` reports the int8
+    figure, the larger of the quantized ones."""
     item = torch_dtype(dtype).itemsize
     if precision == "fp":
         return swap_linear.smem_bytes(item)

@@ -111,7 +111,8 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.repro_swap_linear_q.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_swap_linear_q.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, i, i, i, i, i, p]
     lib.repro_swap_linear_q.restype = i
     lib.repro_dequant.argtypes = [p, p, p, i64, i64, i, i, p]
     lib.repro_dequant.restype = i
@@ -120,7 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_paged_attention.restype = i
     lib.repro_wkv6.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.repro_wkv6.restype = i
-    lib.repro_swap_linear.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.repro_swap_linear.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                      i, i, i, i, p]
     lib.repro_swap_linear.restype = i
     lib.repro_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
                                           i, f, i, p]

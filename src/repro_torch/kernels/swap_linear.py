@@ -5,14 +5,16 @@ tanh-gelu activation applied once at the flush, in fp32: the function of
 the JAX package's ``kernels/swap_linear.py``, whose oracle is
 ``kernels/ref.py:swap_linear_ref``. It carries every full-precision
 :func:`repro_torch.models.layers.linear` of the port; quantized weights
-take ``swap_linear_q`` (same tiling, dequant in the k-loop).
+take ``swap_linear_q`` (the same core, the weight widened in the k-loop).
 
-The CUDA kernel is ``csrc/swap_linear.cu`` (one 64x64 output tile per
-block, k-steps of 32, x and w tiles staged in shared memory in the input
-dtype, fp32 accumulators in registers; ragged M, N and K masked in the
-kernel, no padded copies; no split-K and no atomics, and one tile shape
-for every M, so row i of an M-row call equals the 1-row call on that row
-bitwise). :func:`swap_linear_plain` is the plain PyTorch version,
+The CUDA kernel is ``csrc/swap_linear.cu`` over the shared core of
+``csrc/sm90_gemm.cuh``: bf16 on the tensor cores (``wgmma`` fed by a TMA
+ring), fp32 on the CUDA cores in fp32 (a ``cp.async`` ring, the row tile
+sized to M). K is split where the output tiles alone leave SMs idle, by a
+count that depends on (N, K, dtype) only (``kernels/gemm_plan.py``), so
+row i of an M-row call equals the 1-row call on that row bitwise; ragged
+or misaligned shapes take masked plain loads into the same tiles.
+:func:`swap_linear_plain` is the plain PyTorch version,
 ``swap_linear_ref``'s arithmetic: it is what a CPU tensor runs, and what
 the kernel is held to on the card: about 1e-5 relative for fp32 (the sums
 run in another order), about 2e-2 for bf16 x (one bf16 rounding of the
@@ -24,29 +26,33 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import gemm_plan
 from repro_torch.kernels._build import LaunchCounter, check, library
-from repro_torch.kernels.swap_linear_q import ACTS, X_DTYPES, activation
-
-# tile config of csrc/swap_linear.cu (BM, BN, BK there)
-BLOCK_M, BLOCK_N, BLOCK_K = 64, 64, 32
+from repro_torch.kernels.swap_linear_q import (ACTS, X_DTYPES, activation,
+                                               bias_arg, data_ptr,
+                                               launch_plan)
 
 launches = LaunchCounter()
+_DTYPE_NAMES = {2: ("bfloat16", "bf16"), 4: ("float32", "fp32")}
 
 
 def smem_bytes(itemsize: int = 2) -> int:
-    """Shared memory one block of the kernel holds: the x tile and the w
-    tile in the input dtype (the Hopper counterpart of the reference's
-    ``vmem_bytes``: one buffer, no double buffering yet)."""
-    return (BLOCK_M * BLOCK_K + BLOCK_K * BLOCK_N) * itemsize
+    """Shared memory one block of the kernel holds (the Hopper counterpart
+    of the reference's ``vmem_bytes``): for bf16 the TMA ring's 4 stages of
+    x and w tiles, for fp32 the larger of the CUDA-core rings."""
+    if itemsize == 2:
+        return gemm_plan.smem_bytes("wgmma", "bf16", gemm_plan.TC_BLOCK_M)
+    return max(gemm_plan.smem_bytes("simt", "fp32", bm)
+               for bm in gemm_plan.SIMT_TILES)
 
 
 def weight_stream_bytes(M: int, K: int, N: int, w_itemsize: int = 2) -> int:
-    """Device-memory weight traffic of one call at the kernel's tiles:
-    every (BLOCK_K, BLOCK_N) weight tile is read once per BLOCK_M-row block
-    of x, and the masked edge reads nothing, so the stream moves
-    ``ceil(M / BLOCK_M) * K * N * w_itemsize`` bytes (the L2 cache may
-    serve some of them)."""
-    return -(-M // BLOCK_M) * K * N * w_itemsize
+    """Device-memory weight traffic of one call: every weight tile is read
+    once per row tile of x (bf16: 64 rows, 128 once such tiles fill the
+    card; fp32: 8 or 64), so one row tile streams ``K * N * w_itemsize``
+    bytes (the L2 cache may serve some of the re-reads)."""
+    x_dtype, weight = _DTYPE_NAMES[w_itemsize]
+    return gemm_plan.weight_stream_bytes(M, K, N, x_dtype, weight)
 
 
 def _check_shapes(x, w, b, act: str):
@@ -95,17 +101,19 @@ def swap_linear(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("x and w lie on different devices")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("swap_linear takes contiguous x and w")
-    bias = None
-    if b is not None:
-        if b.device != x.device:
-            raise ValueError(f"bias on {b.device}, x on {x.device}")
-        bias = b.to(torch.float32).contiguous()   # exact for bf16 and fp32
+    if b is not None and b.device != x.device:
+        raise ValueError(f"bias on {b.device}, x on {x.device}")
+    bias, bias_dtype = bias_arg(b)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    p, scratch, counters = launch_plan(
+        x, w, "bf16" if x.dtype == torch.bfloat16 else "fp32")
     err = library().repro_swap_linear(
-        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), M, N, K, X_DTYPES[x.dtype], ACTS[act],
+        x.data_ptr(), w.data_ptr(), data_ptr(bias), out.data_ptr(),
+        data_ptr(scratch), data_ptr(counters), M, N, K,
+        X_DTYPES[x.dtype], ACTS[act], bias_dtype,
+        p.splits, p.block_m, p.combine_code, p.route_code,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "swap_linear kernel launch")
     launches.bump((M, K, N, str(x.dtype).replace("torch.", ""), act))

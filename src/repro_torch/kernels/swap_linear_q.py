@@ -7,15 +7,18 @@ applied ONCE to the fp32 accumulator at the flush (it factors out of the
 k-sum), and bias and the silu / tanh-gelu activation ride the same flush.
 fp for the weight never exists in device memory.
 
-The CUDA kernel is ``csrc/swap_linear_q.cu`` (one 64x64 output tile per
-block, k-steps of 32, x tile and int8 / carrier weight tile staged in
-shared memory, fp32 accumulators in registers; ragged M, N and K masked in
-the kernel, no padded copies). :func:`swap_linear_q_plain` is the plain
-PyTorch version: unpack, dequantize the whole weight, fp32 matmul,
-epilogue. It is what a CPU tensor runs, and what the kernel is held to on
-the card: about 1e-5 relative for fp32 x (accumulation order: the kernel
-scales once at the flush), about 2e-2 for bf16 x (one bf16 rounding of
-the output).
+The CUDA kernel is ``csrc/swap_linear_q.cu`` over the shared core of
+``csrc/sm90_gemm.cuh``: bf16 x on the tensor cores (TMA brings the
+quantized tile, which is widened to bf16 in shared memory for ``wgmma``),
+fp32 x on the CUDA cores in fp32 (the tile widened in registers). K is
+split by a count that depends on (N, K, dtype) only
+(``kernels/gemm_plan.py``), so rows do not depend on M; ragged or
+misaligned shapes take masked plain loads into the same tiles.
+:func:`swap_linear_q_plain` is the plain PyTorch version: unpack,
+dequantize the whole weight, fp32 matmul, epilogue. It is what a CPU tensor
+runs, and what the kernel is held to on the card: about 1e-5 relative for
+fp32 x (accumulation order: the kernel scales once at the flush), about
+2e-2 for bf16 x (one bf16 rounding of the output).
 """
 from __future__ import annotations
 
@@ -24,23 +27,71 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import gemm_plan
 from repro_torch.kernels._build import LaunchCounter, check, library
 from repro_torch.kernels.dequant import unpack_int4_tensor
 
-# tile config of csrc/swap_linear_q.cu (BM, BN, BK there)
-BLOCK_M, BLOCK_N, BLOCK_K = 64, 64, 32
 ACTS = {"none": 0, "silu": 1, "gelu": 2}
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_X_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 launches = LaunchCounter()
 
 
 def smem_bytes(bits: int = 8, x_itemsize: int = 2) -> int:
-    """Shared memory one block of the kernel holds: the x tile in x's dtype
-    plus the weight tile still quantized (BLOCK_K / 2 carrier rows at int4),
-    so the weight window shrinks 2x from int8 to int4."""
-    pack = 2 if bits == 4 else 1
-    return BLOCK_M * BLOCK_K * x_itemsize + (BLOCK_K // pack) * BLOCK_N
+    """Shared memory one block of the kernel holds: the stages of x tiles
+    and still-quantized weight tiles (half the carrier rows at int4), plus,
+    for bf16 x, the two bf16 tiles the weight is widened into; for fp32 x
+    the larger of the CUDA-core rings."""
+    weight = f"int{bits}"
+    if x_itemsize == 2:
+        return gemm_plan.smem_bytes("wgmma", weight, gemm_plan.TC_BLOCK_M)
+    return max(gemm_plan.smem_bytes("simt", weight, bm)
+               for bm in gemm_plan.SIMT_TILES)
+
+
+def bias_arg(b: Optional[torch.Tensor]):
+    """The bias as the kernels read it, and its dtype code: fp32 and bf16
+    as they are (the kernel widens bf16 exactly), anything else cast to
+    fp32."""
+    if b is None:
+        return None, 0
+    if b.dtype not in X_DTYPES:
+        b = b.to(torch.float32)
+    return b.contiguous(), X_DTYPES[b.dtype]
+
+
+# (device, stream) -> the per-tile arrival counts of the "blocks" combine
+_TILE_COUNTERS: dict = {}
+
+
+def launch_plan(x: torch.Tensor, w: torch.Tensor, weight: str):
+    """The kernel's launch plan for x [M, K] times w (``weight`` "bf16",
+    "fp32", "int8" or "int4"), and the buffers its combine needs (None
+    where it needs none): fp32 scratch for the partial sums of the
+    "blocks" and "pass" combines, from ``torch.empty`` per call, and the
+    per-tile arrival counts of "blocks". Those are zero between calls (the
+    last block of each tile resets its count), so one buffer serves every
+    call on a stream, whose calls run in order."""
+    M, K = x.shape
+    p = gemm_plan.plan(M, w.shape[1], K, _X_NAMES[x.dtype], weight,
+                       x.data_ptr(), w.data_ptr())
+    if not p.scratch_bytes:
+        return p, None, None
+    scratch = torch.empty(p.scratch_bytes // 4, dtype=torch.float32,
+                          device=x.device)
+    if p.combine != "blocks":
+        return p, scratch, None
+    key = (x.device, torch.cuda.current_stream(x.device).cuda_stream)
+    counters = _TILE_COUNTERS.get(key)
+    if counters is None:
+        counters = _TILE_COUNTERS[key] = torch.zeros(
+            gemm_plan.NUM_SMS, dtype=torch.int32, device=x.device)
+    return p, scratch, counters
+
+
+def data_ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def activation(r: torch.Tensor, act: str) -> torch.Tensor:
@@ -107,19 +158,19 @@ def swap_linear_q(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     if not (x.is_contiguous() and qw.is_contiguous()
             and scales.is_contiguous()):
         raise ValueError("swap_linear_q takes contiguous x, qw and scales")
-    bias = None
-    if b is not None:
-        if tuple(b.shape) != (N,) or b.device != x.device:
-            raise ValueError(f"bias {tuple(b.shape)} on {b.device} does not "
-                             f"match ({N},) on {x.device}")
-        bias = b.to(torch.float32).contiguous()   # exact for bf16 and fp32
+    if b is not None and (tuple(b.shape) != (N,) or b.device != x.device):
+        raise ValueError(f"bias {tuple(b.shape)} on {b.device} does not "
+                         f"match ({N},) on {x.device}")
+    bias, bias_dtype = bias_arg(b)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    p, scratch, counters = launch_plan(x, qw, f"int{bits}")
     err = library().repro_swap_linear_q(
-        x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        x.data_ptr(), qw.data_ptr(), scales.data_ptr(), data_ptr(bias),
+        out.data_ptr(), data_ptr(scratch), data_ptr(counters),
         M, N, K, X_DTYPES[x.dtype], bits, ACTS[act],
+        bias_dtype, p.splits, p.block_m, p.combine_code, p.route_code,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "swap_linear_q kernel launch")
     launches.bump((M, K, N, bits, str(x.dtype).replace("torch.", ""), act))

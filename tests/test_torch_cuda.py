@@ -18,7 +18,9 @@ Tolerances, with their reasons:
     bf16 (one bf16 rounding of the output; the state stays fp32);
   * swap_linear: 1e-5 fp32 x (the fp32 sums run in another order), 2e-2
     bf16 x (one bf16 rounding of the output); an M-row call against the
-    1-row calls on its rows: bitwise;
+    1-row calls on its rows, and swap_linear_q's too: bitwise; a
+    misaligned view against its aligned copy: bitwise; one-hot rows of x
+    against a weight of distinct values: exact;
   * flash_attention: 1e-5 fp32 (online against dense softmax), 2e-2 bf16
     (one bf16 rounding of the output);
   * mmap swapped vs unswapped: bitwise (the same ops on the same bytes);
@@ -38,6 +40,7 @@ from repro_torch.core.cost_model import DelayModel  # noqa: E402
 from repro_torch.core.runtime import SwappedModel  # noqa: E402
 from repro_torch.kernels import dequant as dq  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gemm_plan  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import swap_linear as sl  # noqa: E402
 from repro_torch.kernels import swap_linear_q as slq  # noqa: E402
@@ -378,6 +381,165 @@ def test_swap_linear_rows_do_not_depend_on_m(dev, dtype):
         for i in range(M):
             one = sl.swap_linear(x[i:i + 1].contiguous(), w, b, act="silu")
             assert torch.equal(full[i:i + 1], one), (M, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_swap_linear_q_rows_do_not_depend_on_m(dev, bits, dtype):
+    """B1 keeps B5's contract: row i of an M-row call equals the 1-row call
+    on that row bitwise, at int8 and int4 (Run B decodes at M 1-4 on int8
+    lazy). K = 2048 splits 8 ways at N = 256."""
+    q, s = _weights(bits, 2048, 256, seed=bits)
+    q, s = q.to(dev), s.to(dev)
+    g = torch.Generator().manual_seed(4)
+    b = (torch.randn((256,), generator=g) * 0.1).to(dtype).to(dev)
+    x = torch.randn((130, 2048), generator=g).to(dtype).to(dev)
+    for M in (2, 3, 4, 8, 65, 130):
+        full = slq.swap_linear_q(x[:M].contiguous(), q, s, b, bits=bits,
+                                 act="silu")
+        for i in range(M):
+            one = slq.swap_linear_q(x[i:i + 1].contiguous(), q, s, b,
+                                    bits=bits, act="silu")
+            assert torch.equal(full[i:i + 1], one), (M, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_match_across_split_combines(dev, dtype):
+    """At N = K = 2048 (8 splits) a 1-row call sums the splits over fp32
+    scratch in the last block of each output tile ("blocks"), an 1100-row
+    call inside each block ("serial"): the rows still equal their 1-row
+    calls bitwise."""
+    K = N = 2048
+    g = torch.Generator().manual_seed(6)
+    w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dtype).to(dev)
+    b = (torch.randn((N,), generator=g) * 0.1).to(dtype).to(dev)
+    x = torch.randn((1100, K), generator=g).to(dtype).to(dev)
+    q, s = _weights(8, K, N, seed=6)
+    q, s = q.to(dev), s.to(dev)
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    assert gemm_plan.plan(1100, N, K, name, "int8").combine == "serial"
+    assert gemm_plan.plan(1, N, K, name, "int8").combine == "blocks"
+    full = sl.swap_linear(x, w, b, act="gelu")
+    fq = slq.swap_linear_q(x, q, s, b, bits=8, act="gelu")
+    for i in (0, 1, 127, 128, 555, 1099):
+        row = x[i:i + 1].contiguous()
+        assert torch.equal(full[i:i + 1], sl.swap_linear(row, w, b,
+                                                         act="gelu")), i
+        assert torch.equal(fq[i:i + 1], slq.swap_linear_q(
+            row, q, s, b, bits=8, act="gelu")), i
+
+
+# qwen2.5-3b's linears at decode (M = 2): every (K, N) with N = 2048
+# splits K 8 ways, the d_ff one not at all
+QWEN_DECODE = [(2, 2048, 2048), (2, 2048, 256), (2, 2048, 11008),
+               (2, 11008, 2048), (4, 2048, 151936)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_shapes_and_splits_match_plain(dev, dtype):
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    for i, (M, K, N) in enumerate(QWEN_DECODE):
+        g = torch.Generator().manual_seed(20 + i)
+        x = torch.randn((M, K), generator=g).to(dtype).to(dev)
+        b = (torch.randn((N,), generator=g) * 0.1).to(dtype).to(dev)
+        for bits in (8, 4):
+            q, s = _weights(bits, K, N, seed=i)
+            q, s = q.to(dev), s.to(dev)
+            got = slq.swap_linear_q(x, q, s, b, bits=bits, act="silu")
+            want = slq.swap_linear_q_plain(x, q, s, b, bits=bits, act="silu")
+            assert _rel(got, want) <= TOL[dtype], (M, K, N, bits)
+        if N == 151936:
+            continue
+        w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dtype).to(dev)
+        assert gemm_plan.plan(M, N, K, name, "bf16" if dtype ==
+                              torch.bfloat16 else "fp32").splits == (
+            1 if N == 11008 else 8)
+        got = sl.swap_linear(x, w, b, act="none")
+        assert _rel(got, sl.swap_linear_plain(x, w, b)) <= TOL[dtype], (M, K, N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_view_equals_aligned_copy(dev, dtype):
+    """x at data_ptr() % 16 != 0 takes the plain-load route into the same
+    tiles and the same arithmetic: its output equals the aligned copy's
+    (TMA or cp.async) bitwise, for B5 and B1."""
+    M, K, N = 130, 512, 256
+    g = torch.Generator().manual_seed(7)
+    buf = torch.randn((M * K + 8,), generator=g).to(dtype).to(dev)
+    xv = buf[1:1 + M * K].view(M, K)
+    xa = xv.clone()
+    assert xv.data_ptr() % 16 != 0 and xa.data_ptr() % 16 == 0
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    weight = "bf16" if dtype == torch.bfloat16 else "fp32"
+    w = (torch.randn((K, N), generator=g) * 0.05).to(dtype).to(dev)
+    assert gemm_plan.plan(M, N, K, name, weight, xv.data_ptr(),
+                          w.data_ptr()).route == "plain"
+    assert gemm_plan.plan(M, N, K, name, weight, xa.data_ptr(),
+                          w.data_ptr()).route != "plain"
+    b = (torch.randn((N,), generator=g) * 0.1).to(dtype).to(dev)
+    assert torch.equal(sl.swap_linear(xv, w, b, act="silu"),
+                       sl.swap_linear(xa, w, b, act="silu"))
+    for bits in (8, 4):
+        q, s = _weights(bits, K, N, seed=bits)
+        q, s = q.to(dev), s.to(dev)
+        assert torch.equal(slq.swap_linear_q(xv, q, s, b, bits=bits),
+                           slq.swap_linear_q(xa, q, s, b, bits=bits))
+
+
+def test_bias_is_read_in_its_own_dtype(dev):
+    """A bf16 bias is read as it is (no cast launched before the kernel),
+    an fp32 one too: the same values in either dtype give the same bits."""
+    g = torch.Generator().manual_seed(9)
+    M, K, N = 3, 256, 160
+    x = torch.randn((M, K), generator=g).bfloat16().to(dev)
+    w = (torch.randn((K, N), generator=g) * 0.05).bfloat16().to(dev)
+    b16 = (torch.randn((N,), generator=g) * 0.1).bfloat16().to(dev)
+    b32 = b16.float()
+    assert torch.equal(sl.swap_linear(x, w, b16, act="gelu"),
+                       sl.swap_linear(x, w, b32, act="gelu"))
+    q, s = _weights(8, K, N, seed=9)
+    q, s = q.to(dev), s.to(dev)
+    assert torch.equal(slq.swap_linear_q(x, q, s, b16, act="silu"),
+                       slq.swap_linear_q(x, q, s, b32, act="silu"))
+
+
+def _one_hot(M, K, dtype, dev):
+    ks = [(7 * m + 3) % K for m in range(M)]
+    x = torch.zeros((M, K), dtype=dtype, device=dev)
+    x[torch.arange(M), torch.tensor(ks)] = 1
+    return x, ks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_distinct_weights_land_where_they_belong(dev, dtype):
+    """A weight with a distinct value at every (k, n) (distinct bf16 bit
+    patterns; distinct integers in fp32) against one-hot rows of x: row m
+    must return weight row k_m exactly, so a swizzle, transpose or tile
+    offset fault cannot pass. K = 96 and N = 160 leave partial k- and
+    n-tiles; the same against the plain version with random x."""
+    K, N = 96, 160
+    idx = torch.arange(K * N, dtype=torch.int32).reshape(K, N)
+    if dtype == torch.bfloat16:
+        w = (idx + 0x3C00).to(torch.int16).view(torch.bfloat16).to(dev)
+    else:
+        w = (idx + 1).to(torch.float32).to(dev)
+    assert torch.unique(w.float()).numel() == K * N
+    for M in (1, 2, 9, 130):
+        x, ks = _one_hot(M, K, dtype, dev)
+        assert torch.equal(sl.swap_linear(x, w), w[ks]), M
+    vals = ((idx * 37 + 11) % 255 - 127).to(torch.int8)
+    for bits, v in ((8, vals), (4, (idx * 37 + 11) % 15 - 7)):
+        v = v.to(torch.int8)
+        q = v if bits == 8 else torch.from_numpy(dq.pack_int4(v.numpy()))
+        q, s = q.to(dev), torch.ones((N,), device=dev)
+        for M in (1, 3, 130):
+            x, ks = _one_hot(M, K, dtype, dev)
+            got = slq.swap_linear_q(x, q, s, bits=bits)
+            assert torch.equal(got.float(), v[ks].float().to(dev)), (bits, M)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((5, K), generator=g).to(dtype).to(dev)
+    wr = (torch.randn((K, N), generator=g) * 0.1).to(dtype).to(dev)
+    assert _rel(sl.swap_linear(x, wr), sl.swap_linear_plain(x, wr)) <= TOL[dtype]
 
 
 def test_swap_linear_cuda_tensor_never_runs_plain(dev, monkeypatch):
