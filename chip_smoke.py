@@ -7,13 +7,15 @@ Phases, each printing its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the build
    of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once, then one link);
+   source, all at once, then one link) and the registers and spills
+   ``ptxas`` reported for the matmul and attention kernels;
 2. kernels: ``swap_linear_q``, ``dequant_int8``, ``paged_attention``,
    ``wkv6``, ``swap_linear`` and ``flash_attention`` held against their
    plain PyTorch versions on the card at every shape the paths launch,
-   plus odd and ragged shapes, and timed at the main paths' shapes beside
-   their plain version, a library call where one computes the same
-   function, and the card's bound;
+   plus odd and ragged shapes, the bitwise checks (rows independent of
+   the batch, repeated calls equal), and timed at the main paths' shapes
+   beside their plain version, a library call where one computes the
+   same function, and the card's bound;
 3. the swapped slice: qwen2.5-3b at its published widths with the depth
    cut from 36 to 4 layers and random weights from a seed; a swapped
    prefill of 4 requests x 128 tokens on the mmap store and on the
@@ -76,11 +78,14 @@ PEAK_OPS = {"bfloat16": 989e12,    # bf16 tensor cores, dense
                                    # accuracy rules out TF32)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # max |err| / max |plain|
 
-# Device ms of swap_linear_q and swap_linear at the timed shapes in their
-# earlier design (one 64 x 64 output tile per block on the CUDA cores in
-# fp32, no split-K), recorded from this script's kernels line on an NVIDIA
-# H100 80GB HBM3 at 700.00 W. Printed beside a timing row's human-readable
-# line for comparison, marked as recorded; never part of the kernels line,
+# Device ms of the kernels at the timed shapes in their earlier design,
+# recorded from this script's kernels line on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md): swap_linear_q and swap_linear before their redesign
+# (one 64 x 64 output tile per block on the CUDA cores in fp32, no
+# split-K), flash_attention as first ported (fp32 on the CUDA cores, 8
+# threads a row), paged_attention before flash-decoding (one block per
+# sequence and KV head). Printed beside a timing row's human-readable line
+# for comparison, marked as recorded; never part of the kernels line,
 # which holds only what this run measured.
 EARLIER_MS = {
     ('swap_linear_q',
@@ -153,6 +158,32 @@ EARLIER_MS = {
      'gemma2-9b M=4200 K=14336 N=3584 bfloat16 act=none'): 23.8633,
     ('swap_linear',
      'rwkv6-3b wo M=1024 K=2560 N=2560 float32 act=none'): 0.6521,
+    ('paged_attention', 'qwen2.5-3b fp32 B=4 seq_lens=[38, 65, 101, 130] '
+     'window=None softcap=None'): 0.0346,
+    ('paged_attention', 'qwen2.5-3b bf16 B=1 seq_lens=[208] window=None '
+     'softcap=None'): 0.0507,
+    ('paged_attention', 'qwen2.5-3b bf16 B=4 seq_lens=[38, 65, 101, 130] '
+     'window=None softcap=None'): 0.0357,
+    ('paged_attention', 'gemma2-9b bf16 B=2 local seq_lens=[4201, 25] '
+     'window=4096 softcap=50.0'): 0.5842,
+    ('paged_attention', 'gemma2-9b bf16 B=2 global seq_lens=[4201, 25] '
+     'window=None softcap=50.0'): 0.5976,
+    ('flash_attention', 'qwen2.5-3b prefill B=4 S=128 16/2 heads hd=128 '
+     'bfloat16 window=None softcap=None'): 0.0677,
+    **{('flash_attention', f'qwen2.5-3b admission B=1 S={S} 16/2 heads '
+        f'hd=128 {dname} window=None softcap=None'): ms
+       for dname, times in (
+           ("float32", (0.0129, 0.0230, 0.0265, 0.0458, 0.0569, 0.0812)),
+           ("bfloat16", (0.0139, 0.0244, 0.0476, 0.0484, 0.0598, 0.0856)))
+       for S, ms in zip((17, 37, 64, 100, 129, 200), times)},
+    ('flash_attention', 'gemma2-9b prefill B=1 S=4200 16/8 heads hd=256 '
+     'bfloat16 window=4096 softcap=50.0'): 32.6881,
+    ('flash_attention', 'gemma2-9b prefill B=1 S=4200 16/8 heads hd=256 '
+     'bfloat16 window=None softcap=50.0'): 32.6153,
+    ('flash_attention', 'gemma2-9b prefill B=1 S=24 16/8 heads hd=256 '
+     'bfloat16 window=4096 softcap=50.0'): 0.0365,
+    ('flash_attention', 'gemma2-9b prefill B=1 S=24 16/8 heads hd=256 '
+     'bfloat16 window=None softcap=50.0'): 0.0363,
 }
 SLEEP_CYCLES_PER_S = 2.0e9         # >= the H100's SM clock: holds long enough
 
@@ -252,6 +283,46 @@ def gemm_ptxas(log: str) -> list:
             out.append(f"  ptxas {cur}: {m.group(1)} registers, {spill}")
             cur = None
     return out
+
+
+def attention_ptxas(log: str) -> list:
+    """One line per attention kernel (``csrc/flash_attention.cu``,
+    ``csrc/paged_attention.cu``) with what ``ptxas -v`` reported for each
+    of its variants: registers / spill stores / spill loads (bytes)."""
+    import re
+    fams = [("fa_tc", r"fa_tcILi(\d+)E", "hd {0}"),
+            ("fa_simt", r"fa_simtI(f|13__nv_bfloat16)Li(\d+)E",
+             "{0} hd {1}"),
+            ("paged_attention_kernel",
+             r"paged_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+             "{0} hd {1} G {2}"),
+            ("paged_combine", r"paged_combineI(f|13__nv_bfloat16)Li(\d+)E",
+             "{0} hd {1}")]
+    found = {f[0]: [] for f in fams}
+    cur, spill = None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = None
+            for fam, pat, fmt in fams:
+                t = re.search(pat, m.group(1))
+                if t:
+                    g = [("fp32" if x == "f" else "bf16" if "bfloat" in x
+                          else x) for x in t.groups()]
+                    cur = (fam, fmt.format(*g))
+            spill = ""
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            found[cur[0]].append(f"{cur[1]}: {m.group(1)}/{spill}")
+            cur = None
+    return [f"  ptxas {fam} (registers/spill stores/spill loads): "
+            + "; ".join(sorted(v)) for fam, v in found.items() if v]
 
 
 def earlier(row) -> str:
@@ -578,6 +649,60 @@ PAGED_TIMED = [
 ]
 
 
+def check_paged_bitwise(torch, pa, dts) -> int:
+    """A sequence's output does not depend on the batch (its splits follow
+    its own seq_len), two identical calls give equal bits, and the kernel's
+    splits are split_bounds'. Returns the number of checks."""
+    n = 0
+    kw = dict(scale=GEMMA_SCALE, softcap=50.0)
+    for dname in ("bfloat16", "float32"):
+        solo = paged_inputs(torch, 41, 1, 16, 8, 256, PAGE_TOKENS, [4201],
+                            dts[dname])
+        np_long = -(-4201 // PAGE_TOKENS)
+        for window in (4096, None):
+            want = pa.paged_attention(*solo, window=window, **kw)
+            for others in ([25], [4500, 1, 300]):
+                sl = [4201] + others
+                q, kp, vp, pt, lens = paged_inputs(
+                    torch, 42, len(sl), 16, 8, 256, PAGE_TOKENS, sl,
+                    dts[dname], pad_cols=len(others))
+                q[0] = solo[0][0]          # the same row: q and its pages
+                kp[pt[0, :np_long].long()] = solo[1][solo[3][0].long()]
+                vp[pt[0, :np_long].long()] = solo[2][solo[3][0].long()]
+                got = pa.paged_attention(q, kp, vp, pt, lens, window=window,
+                                         **kw)
+                require(torch.equal(got[:1], want),
+                        f"paged_attention {dname} window {window}: the "
+                        f"4,201-token row beside {others} differs from it "
+                        f"alone")
+                n += 1
+    for B, H, KV, hd, sl, kw2 in [
+            (4, 16, 2, 128, [38, 65, 101, 130], dict(scale=QWEN_SCALE)),
+            (1, 16, 2, 128, [64], dict(scale=QWEN_SCALE)),
+            (2, 16, 8, 256, [4201, 25], dict(scale=GEMMA_SCALE, window=4096,
+                                             softcap=50.0))]:
+        for dname in ("bfloat16", "float32"):
+            args = paged_inputs(torch, 43, B, H, KV, hd, PAGE_TOKENS, sl,
+                                dts[dname])
+            require(torch.equal(pa.paged_attention(*args, **kw2),
+                                pa.paged_attention(*args, **kw2)),
+                    f"paged_attention {dname} {sl}: two identical calls "
+                    f"differ")
+            n += 1
+    lens = [1, 16, 25, 64, 65, 208, 4096, 4201, 4500]
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for L in (64, 128):
+        for window in (None, 17, 4096):
+            require(pa.kernel_split_bounds(sl, window, L, 300 * PAGE_TOKENS)
+                    == [pa.split_bounds(x, window, L, 300 * PAGE_TOKENS)
+                        for x in lens],
+                    f"paged_attention: the kernel's splits (L {L}, window "
+                    f"{window}) differ from split_bounds")
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
+
 def check_paged_attention(torch):
     """Phase 2 for B3: the kernel against its plain version over the
     reference test's sweep and the main paths' shapes, then timed at the
@@ -617,6 +742,10 @@ def check_paged_attention(torch):
     print(f"paged_attention: {len(cases)} cases match the plain version "
           f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
           f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+    n_bits = check_paged_bitwise(torch, pa, dts)
+    print(f"paged_attention: {n_bits} bitwise checks pass (gemma2-9b's "
+          f"4,201-token row alone == beside 1 and 3 other sequences; two "
+          f"identical calls, one split and many)", flush=True)
 
     rows = []
     for (label, dname, B, H, KV, hd, sl, scale, window,
@@ -697,11 +826,11 @@ def check_paged_attention(torch):
             "library_ms": l_ms, "live_tokens": tokens})
         del q, kp, vp
     for r in rows:
-        print(f"  paged_attention {r['shape']:78s} kernel {r['ms']:.4f} ms  "
-              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
-              f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-              f"{r['live_tokens']} live tokens x {r['key'][2]} KV heads)",
-              flush=True)
+        print(f"  paged_attention {r['shape']:78s} kernel {r['ms']:.4f} ms"
+              f"{earlier(r)}  plain {r['plain_ms']:.4f} ms  library "
+              f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['live_tokens']} live tokens x "
+              f"{r['key'][2]} KV heads)", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -1005,9 +1134,49 @@ def check_flash_attention(torch):
                         f"{softcap}: rel err {rel:.3g} > {TOL[dname]}")
                 worst[dname] = max(worst[dname], rel)
                 n_checked += 1
+    # the tensor-core kernel at S of one or two tokens, around its 64-key
+    # and 128-row tiles and at gemma2-9b's 4,200, at each head dim it takes
+    for hd in fa.TC_HEAD_DIMS:
+        for i, S in enumerate((1, 2, 63, 64, 65, 127, 128, 129, 4200)):
+            q, k, v, pos = fa_inputs(torch, 400 + i, 2 if S < 4200 else 1, S,
+                                     4, 2, hd, torch.bfloat16)
+            for causal, window, softcap in masks:
+                kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                          softcap=softcap)
+                got = fa.flash_attention(q, k, v, pos, **kw)
+                _, rel = rel_err(torch, got, fa.flash_attention_plain(
+                    q, k, v, pos, **kw))
+                require(rel <= TOL["bfloat16"] and
+                        bool(torch.isfinite(got).all()),
+                        f"flash_attention bf16 S={S} hd={hd} causal {causal}"
+                        f" window {window} softcap {softcap}: rel {rel:.3g}")
+                worst["bfloat16"] = max(worst["bfloat16"], rel)
+                n_checked += 1
     print(f"flash_attention: {n_checked} cases match the plain version "
           f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
           f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+    # bitwise: row b of a 4-row call == the 1-row call on that row, and two
+    # identical calls agree, on both kernels
+    n_bits = 0
+    for i, (S, H, KV, hd, dname) in enumerate(
+            [(PROMPT, 16, 2, 128, "bfloat16"), (300, 16, 8, 256, "bfloat16"),
+             (200, 16, 2, 128, "float32"), (37, 4, 2, 80, "bfloat16")]):
+        q, k, v, pos = fa_inputs(torch, 500 + i, 4, S, H, KV, hd, dts[dname])
+        kw = dict(scale=hd ** -0.5, window=64, softcap=50.0)
+        full = fa.flash_attention(q, k, v, pos, **kw)
+        require(torch.equal(full, fa.flash_attention(q, k, v, pos, **kw)),
+                f"flash_attention {dname} S={S} hd={hd}: two identical calls "
+                f"differ")
+        for b in range(4):
+            one = fa.flash_attention(*(t[b:b + 1].contiguous()
+                                       for t in (q, k, v, pos)), **kw)
+            require(torch.equal(full[b:b + 1], one),
+                    f"flash_attention {dname} S={S} hd={hd}: row {b} of a "
+                    f"4-row call differs from its 1-row call")
+        n_bits += 5
+    print(f"flash_attention: {n_bits} bitwise checks pass (rows of 4-row "
+          f"calls == their 1-row calls, repeated calls equal; tensor-core "
+          f"and CUDA-core kernels)", flush=True)
     torch.cuda.synchronize()
 
     rows = []
@@ -1082,13 +1251,13 @@ def check_flash_attention(torch):
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
             "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": l_ms})
+            "library_ms": l_ms, "path": fa.path(dt, hd)})
         del q, k, v, got, want
     for r in rows:
-        print(f"  flash_attention {r['shape']:78s} kernel {r['ms']:.4f} ms  "
-              f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} "
-              f"ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
+        print(f"  flash_attention {r['shape']:78s} ({r['path']}) kernel "
+              f"{r['ms']:.4f} ms{earlier(r)}  plain {r['plain_ms']:.4f} ms  "
+              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']})", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -1906,7 +2075,8 @@ def main() -> int:
         print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
               f"{path.name}; ptxas: {regs[:2]} ... ({len(regs)} variants)",
               flush=True)
-        for line in gemm_ptxas(_build.build_log):
+        for line in gemm_ptxas(_build.build_log) + attention_ptxas(
+                _build.build_log):
             print(line, flush=True)
 
     cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=N_LAYERS)
@@ -1968,6 +2138,7 @@ def main() -> int:
         else:
             r["launches"] = main_launches[r["name"]].get(key, 0)
         r.pop("live_tokens", None)
+        r.pop("path", None)
         out.append(r)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(card, flush=True)

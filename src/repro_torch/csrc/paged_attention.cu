@@ -14,62 +14,79 @@
 // Semantics kept from the TPU kernel: scores are q.k * scale, then the
 // softcap (cap * tanh(s / cap)), then the mask (tok < seq_len and, with a
 // window, q_pos - tok < window); masked scores are the finite NEG_INF; the
-// online softmax (m, l, acc) runs in fp32; l is clamped at 1e-30. A page
-// past the sequence (j * T >= seq_len) or wholly out of the window
-// (j * T + T - 1 < q_pos - (window - 1)) is skipped and never read, so the
-// padding page 0 never reaches the softmax.
+// online softmax (m, l, acc) runs in fp32; l is clamped at 1e-30. Only the
+// live, in-window tokens [lo, hi) are read, lo = seq_len - window (0
+// without a window), hi = seq_len: a page past the sequence or wholly out
+// of the window is never read, so the padding page 0 never reaches the
+// softmax.
 //
-// Translation: the TPU grid (B, KV, NP) runs in order on one core and
-// carries (m, l, acc) in VMEM across the page axis. Here one block owns
-// one (sequence, KV head) pair and walks that sequence's pages in a loop,
-// so the statistics stay in the block; the block reads its own page-table
-// row and seq_len (the TPU's scalar prefetch). Pages are staged CHUNK
-// tokens at a time (any T). The chunks a sequence needs are one
-// contiguous run, from the one holding the oldest in-window token to the
-// one holding the query, so the loop walks exactly that run. Each thread
-// loads its share of the next chunk's K and V rows in 16-byte vectors
-// into registers while the block computes the current chunk from shared
-// memory (fp32), so a chunk's load latency hides behind the previous
-// chunk's work. Scores: each warp takes CHUNK / WARPS tokens for all G
-// query heads, lanes split hd, and the partial dot products of all its
-// (token, head) pairs reduce together in interleaved shuffles. The
-// softmax step gives one warp per head; the accumulators [G, hd] live in
-// registers. G is bucketed to a compile-time GB in {1, 2, 4, 8}.
+// What bounds it on an H100: bytes. Each live, in-window K/V row is read
+// once per KV head (2 * hd * itemsize bytes), against 4 * G * hd flops per
+// token: far below the card's ratio of flops to bytes. So the card must
+// have enough rows in flight, and a long sequence has to be spread over
+// many SMs (flash-decoding):
 //
-// What bounds it on an H100: bytes. Each live, in-window K/V page is read
-// once per KV head (2 * T * hd * itemsize bytes), against 4 * G * hd
-// flops per token: far below the card's ratio of flops to bytes. The
-// design reads only live in-window pages and reads each K/V row exactly
-// once for all G heads that share it. What it does not do yet: split a
-// long sequence across blocks (flash-decoding). A decode batch of B
-// sequences fills only B * KV blocks of the 132 SMs, so a long sequence
-// runs on one SM, chunk after chunk; that split is later work.
+// * Splits. [lo, hi) is cut into splits of L tokens from lo (the last
+//   one shorter); L is a constant of (hd, dtype, T) that the caller passes
+//   (kernels/paged_attention.py::split_len: a multiple of T and of the
+//   chunk, about 64 tokens at hd 128 and 128 at hd 256, so gemma2-9b's
+//   4,201-token context makes 33 splits a KV head). The boundaries depend
+//   only on the sequence's own seq_len, the window and L, never on B or
+//   the other sequences, so a sequence's output has the same bits alone or
+//   in any batch. The grid is
+//   (the most splits the page table's width NP allows, KV, B); a block
+//   past its sequence's split count exits at once.
+// * One split: the block writes the output itself, so short contexts pay
+//   no second pass. More: each block writes its split's (m, l, acc[G, hd])
+//   in fp32 to scratch, and a second kernel adds the splits of each
+//   sequence in split order (weights exp(m_s - max m)); no atomics.
+// * Inside a split, one block of 128 threads per (split, KV head,
+//   sequence) reads each K/V row once for all G query heads. The split's
+//   page ids are read into shared memory first, so no row load waits on
+//   the page table. Rows arrive by 16-byte cp.async into a ring of 3
+//   stages of CHUNK tokens (16-64; at most 16 KB of K per stage) and stay
+//   in q's dtype in shared memory, widened at use. A thread takes one
+//   token's dot products for up to G heads (its K row read once, rows
+//   padded so a quarter warp's 16-byte reads hit every bank once, four
+//   partial sums a head), or, where there are fewer heads than thread
+//   groups, one head over a part of hd, so no thread idles; the softmax
+//   lanes add the parts, computing each score's tanh and exp once; then
+//   a thread takes a pair of output columns for its heads. Three barriers
+//   a chunk.
+// G is bucketed to a compile-time GB in {1, 2, 4, 8}.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_G = 8;
-constexpr int CHUNK = 16;                     // tokens staged at a time (<= 32)
-constexpr int TPW = CHUNK / WARPS;            // tokens per warp in the scores
+constexpr int STAGES = 3;
+constexpr int MAX_PAGES = 512;    // page ids a split reads, kept in shared
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 
-// 16 bytes of DT widened to fp32 and stored to shared memory
-__device__ __forceinline__ void store_vec(float* dst, uint4 v, float) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<float4*>(&v);
-}
-__device__ __forceinline__ void store_vec(float* dst, uint4 v, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
+template <typename DT, int HD> struct Paged {
+  static constexpr int ES = (int)sizeof(DT);
+  // tokens a stage (kernels/paged_attention.py::chunk_tokens)
+  static constexpr int CHUNK = 16384 / (HD * ES) < 64 ? 16384 / (HD * ES) : 64;
+  static constexpr int VEC = 16 / ES;             // elements per 16 bytes
+  static constexpr int ROW_V = HD / VEC;          // 16-byte vectors a row
+  static constexpr int LD = HD + VEC;             // shared row stride
+  static constexpr int TILE = CHUNK * LD;         // elements of K (or V)
+  static constexpr int NV = CHUNK * ROW_V / THREADS;  // vectors a thread
+  static constexpr int GSTEP = THREADS / CHUNK;   // head step of a score
+  static constexpr int DP = HD / 2;               // column pairs
+  static constexpr int GQ = DP >= THREADS ? 1 : THREADS / DP;  // head step
+  static constexpr int PPT = DP >= THREADS ? DP / THREADS : 1; // pairs/thread
+  static constexpr int SMEM_BYTES = STAGES * 2 * TILE * ES;
+  static_assert(CHUNK * ROW_V % THREADS == 0, "a chunk splits evenly");
+  static_assert(CHUNK <= 64 && THREADS % CHUNK == 0, "chunk shape");
+};
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -80,6 +97,31 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// 16 bytes of shared memory widened to fp32
+__device__ __forceinline__ void widen16(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h;
+    memcpy(&h, &w[i], 4);
+    const float2 x = __bfloat1622float2(h);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+// a pair of neighbouring elements widened to fp32
+__device__ __forceinline__ float2 widen2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 widen2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -94,153 +136,191 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// A sequence's live, in-window tokens [lo, hi) and its split count, as
+// kernels/paged_attention.py::split_bounds computes them on the host: a
+// change to one must be made to the other (split_plan below lets the
+// card's tests hold them together).
+__device__ __forceinline__ int live_range(int seq_len, int window, int cap,
+                                          int L, int& lo, int& hi) {
+  hi = min(seq_len, cap);
+  lo = window > 0 ? max(0, seq_len - window) : 0;
+  const int live = max(0, hi - lo);
+  return (live + L - 1) / L;
+}
+
+struct PagedArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int32_t* page_table;
+  const int32_t* seq_lens;
+  void* out;
+  float* part;          // [B, KV, SMAX, G, HD] acc, then [B, KV, SMAX, G, 2]
+  int H, KV, T, NP, L, smax;
+  float scale;
+  int window;
+  float softcap;
+};
+
 template <typename DT, int HD, int GB>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const DT* __restrict__ q, const DT* __restrict__ kp,
-                       const DT* __restrict__ vp,
-                       const int32_t* __restrict__ page_table,
-                       const int32_t* __restrict__ seq_lens,
-                       DT* __restrict__ out, int H, int KV, int T, int NP,
-                       float scale, int window, float softcap) {
-  constexpr int ACC = (GB * HD + THREADS - 1) / THREADS;  // acc slots/thread
-  constexpr int VEC = 16 / sizeof(DT);        // elements per 16-byte load
-  constexpr int ROW_V = HD / VEC;             // 16-byte vectors per row
-  constexpr int NV = CHUNK * ROW_V / THREADS; // vectors per thread per chunk
-  constexpr int DPL = HD / 32;                // head-dim slots per lane
-  static_assert(CHUNK * ROW_V % THREADS == 0, "chunk must split evenly");
-  static_assert(TPW * GB <= 32, "one lane per (token, head) pair");
+paged_attention_kernel(const PagedArgs a) {
+  using P = Paged<DT, HD>;
+  // a score thread takes GPT heads, or (fewer heads than thread groups)
+  // one head over 1 / PARTS of hd, its partial sums added in order later
+  constexpr int PARTS = GB < P::GSTEP ? P::GSTEP / GB : 1;
+  constexpr int GPT = PARTS > 1 ? 1 : GB / P::GSTEP;
+  constexpr int GPV = (GB + P::GQ - 1) / P::GQ;         // heads an acc thread
+  static_assert(P::ROW_V % PARTS == 0, "hd splits evenly");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  DT* ring = reinterpret_cast<DT*>(smem_raw);           // K0 V0 K1 V1 ...
   __shared__ __align__(16) float q_s[GB][HD];
-  __shared__ __align__(16) float k_s[CHUNK][HD];
-  __shared__ __align__(16) float v_s[CHUNK][HD];
-  __shared__ float s_s[GB][CHUNK];
+  __shared__ float s_s[PARTS][GB][64];    // dot products; then p in [0]
   __shared__ float m_s[GB], l_s[GB], corr_s[GB];
+  __shared__ int pg_s[MAX_PAGES];
 
-  const int kv = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / KV;
+  const int sp = blockIdx.x;
+  const int kv = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = a.H / a.KV;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  const int seq_len = seq_lens[b];
-  const int q_pos = seq_len - 1;
-  const int lo_tok = window > 0 ? q_pos - (window - 1) : 0;  // oldest in window
-  // the chunks holding live in-window tokens: one contiguous run
-  const int cpp = (T + CHUNK - 1) / CHUNK;    // chunks per page
-  int c_first = 0, c_last = -1;
-  if (seq_len > 0) {
-    const int lo = lo_tok > 0 ? lo_tok : 0;
-    c_first = (lo / T) * cpp + (lo % T) / CHUNK;
-    c_last = (q_pos / T) * cpp + (q_pos % T) / CHUNK;
-    if (q_pos / T >= NP) c_last = NP * cpp - 1;
-  }
+  const int seq_len = a.seq_lens[b];
+  int lo, hi;
+  const int nsplit = live_range(seq_len, a.window, a.NP * a.T, a.L, lo, hi);
+  if (sp >= max(nsplit, 1)) return;
+  const int s0 = lo + sp * a.L;
+  const int s1 = min(s0 + a.L, hi);
+  const int nch = s1 > s0 ? (s1 - s0 + P::CHUNK - 1) / P::CHUNK : 0;
 
-  for (int e = tid; e < GB * HD; e += THREADS) {
+  const DT* q = static_cast<const DT*>(a.q);
+#pragma unroll      // every load in flight at once
+  for (int i = 0; i < (GB * HD + THREADS - 1) / THREADS; ++i) {
+    const int e = tid + i * THREADS;
+    if (e >= GB * HD) break;
     const int g = e / HD, d = e % HD;    // rows past G stay zero
-    q_s[g][d] = g < G ? to_f<DT>(q[((int64_t)b * H + kv * G + g) * HD + d])
+    q_s[g][d] = g < G ? to_f<DT>(q[((int64_t)b * a.H + kv * G + g) * HD + d])
                       : 0.f;
   }
   if (tid < GB) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
-  float acc[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+
+  // the split's page ids, read once: no load waits on the page table
+  const int p0 = s0 / a.T;
+  const int32_t* row = a.page_table + (int64_t)b * a.NP;
+  for (int e = tid; s1 > s0 && e <= (s1 - 1) / a.T - p0; e += THREADS) {
+    pg_s[e] = row[p0 + e];
+  }
   __syncthreads();
 
-  const int32_t* row = page_table + (int64_t)b * NP;
-  const int64_t tok_stride = (int64_t)KV * HD;       // between slots of a page
-  uint4 kr[NV], vr[NV];
-  // start the 16-byte loads of chunk ci into kr / vr (zeros past the page)
-  auto prefetch = [&](int ci) {
-    const int c0 = (ci % cpp) * CHUNK;
-    const int ch = min(CHUNK, T - c0);
-    const int64_t base =
-        ((int64_t)row[ci / cpp] * T + c0) * tok_stride + (int64_t)kv * HD;
+  const DT* kp = static_cast<const DT*>(a.k);
+  const DT* vp = static_cast<const DT*>(a.v);
+  // cp.async of chunk c's K and V rows into stage c % STAGES (zeros past s1)
+  auto load = [&](int c) {
+    DT* ks = ring + (c % STAGES) * 2 * P::TILE;
+    DT* vs = ks + P::TILE;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
+    for (int i = 0; i < P::NV; ++i) {
       const int e = tid + i * THREADS;
-      const int t = e / ROW_V, dv = e % ROW_V;
-      if (t < ch) {
-        const int64_t off = base + t * tok_stride + dv * VEC;
-        kr[i] = __ldg(reinterpret_cast<const uint4*>(kp + off));
-        vr[i] = __ldg(reinterpret_cast<const uint4*>(vp + off));
-      } else {
-        kr[i] = make_uint4(0u, 0u, 0u, 0u);
-        vr[i] = make_uint4(0u, 0u, 0u, 0u);
+      const int r = e / P::ROW_V, c16 = (e % P::ROW_V) * P::VEC;
+      const int tok = s0 + c * P::CHUNK + r;
+      const bool ok = tok < s1;
+      int64_t off = 0;
+      if (ok) {
+        const int pg = tok / a.T;
+        const int64_t slot = (int64_t)pg_s[pg - p0] * a.T + (tok - pg * a.T);
+        off = (slot * a.KV + kv) * HD + c16;
       }
+      cp_async16(ks + r * P::LD + c16, kp + off, ok);
+      cp_async16(vs + r * P::LD + c16, vp + off, ok);
     }
   };
-  if (c_first <= c_last) prefetch(c_first);
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < nch) load(c);
+    cp_async_commit();
+  }
 
-  for (int ci = c_first; ci <= c_last; ++ci) {
-    const int c0 = (ci % cpp) * CHUNK;
-    const int ch = min(CHUNK, T - c0);
-    const int t_lo = (ci / cpp) * T + c0;     // first token of the chunk
+  float acc[GPV][P::PPT][2];
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int e = tid + i * THREADS;
-      const int t = e / ROW_V, dv = e % ROW_V;
-      store_vec(&k_s[t][dv * VEC], kr[i], DT());
-      store_vec(&v_s[t][dv * VEC], vr[i], DT());
-    }
-    __syncthreads();
-    if (ci < c_last) prefetch(ci + 1);        // lands while this chunk runs
+  for (int k = 0; k < GPV; ++k)
+#pragma unroll
+    for (int p = 0; p < P::PPT; ++p) acc[k][p][0] = acc[k][p][1] = 0.f;
+  const int t = tid % P::CHUNK, gh = tid / P::CHUNK;     // score thread
+  const int dp = tid % (P::DP < THREADS ? P::DP : THREADS);
+  const int gq = P::DP < THREADS ? tid / P::DP : 0;     // acc thread
 
-    // scores: warp w takes tokens w, w + WARPS, ...; all heads at once
-    float part[TPW][GB];
-#pragma unroll
-    for (int r = 0; r < TPW; ++r)
-#pragma unroll
-      for (int g = 0; g < GB; ++g) part[r][g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      float kd[TPW];
-#pragma unroll
-      for (int r = 0; r < TPW; ++r) kd[r] = k_s[warp + WARPS * r][d];
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        const float qd = q_s[g][d];
-#pragma unroll
-        for (int r = 0; r < TPW; ++r) part[r][g] += qd * kd[r];
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int r = 0; r < TPW; ++r)
-#pragma unroll
-        for (int g = 0; g < GB; ++g)
-          part[r][g] += __shfl_xor_sync(0xffffffffu, part[r][g], o);
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();          // chunk c is in; chunk c - 1 is done with
+    if (c + STAGES - 1 < nch) load(c + STAGES - 1);
+    cp_async_commit();
+    const DT* ks = ring + (c % STAGES) * 2 * P::TILE;
+    const DT* vs = ks + P::TILE;
+    const int c0 = s0 + c * P::CHUNK;
+    const int ch = min(P::CHUNK, s1 - c0);
+
+    // dot products: token t for heads gh, gh + GSTEP, ... (or head
+    // gh % GB over part gh / GB of hd); four partial sums a head (vector
+    // element x % 4) so the fma chains run side by side
     {
-      // every lane holds every sum: lane r * GB + g finishes pair (r, g)
-      float dot = 0.f;
+      const int part = PARTS > 1 ? gh / GB : 0;
+      const int g0 = PARTS > 1 ? gh % GB : gh;
+      float dot[GPT][4];
 #pragma unroll
-      for (int r = 0; r < TPW; ++r)
+      for (int k = 0; k < GPT; ++k)
 #pragma unroll
-        for (int g = 0; g < GB; ++g)
-          if (lane == r * GB + g) dot = part[r][g];
-      const int r = lane / GB, g = lane % GB;
-      const int t = warp + WARPS * r;
-      if (r < TPW && g < G && t < ch) {
-        float s = dot * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        const int tok = t_lo + t;
-        const bool ok = tok < seq_len && (window <= 0 || q_pos - tok < window);
-        s_s[g][t] = ok ? s : NEG_INF;
+        for (int x = 0; x < 4; ++x) dot[k][x] = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < P::ROW_V / PARTS; ++i) {
+        const int vi = part * (P::ROW_V / PARTS) + i;
+        float kf[P::VEC];
+        widen16(ks + t * P::LD + vi * P::VEC, kf);
+#pragma unroll
+        for (int k = 0; k < GPT; ++k) {
+          const int g = g0 + P::GSTEP * k;
+          if (g < GB) {
+#pragma unroll
+            for (int x = 0; x < P::VEC; ++x) {
+              dot[k][x & 3] =
+                  fmaf(q_s[g][vi * P::VEC + x], kf[x], dot[k][x & 3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < GPT; ++k) {
+        const int g = g0 + P::GSTEP * k;
+        if (g < G) {
+          s_s[part][g][t] = (dot[k][0] + dot[k][1]) + (dot[k][2] + dot[k][3]);
+        }
       }
     }
     __syncthreads();
-    // online softmax: one warp per query head, one lane per token
+    // online softmax: one warp per query head, two tokens a lane; a
+    // score's parts added in order, then scale, softcap, mask
+    auto score = [&](int g, int tt) {
+      float x = s_s[0][g][tt];
+#pragma unroll
+      for (int pp = 1; pp < PARTS; ++pp) x += s_s[pp][g][tt];
+      x *= a.scale;
+      if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+      return tt < ch ? x : NEG_INF;
+    };
     for (int g = warp; g < G; g += WARPS) {
-      const float s = lane < ch ? s_s[g][lane] : NEG_INF;
+      const float x0 = lane < P::CHUNK ? score(g, lane) : NEG_INF;
+      const float x1 = lane + 32 < P::CHUNK ? score(g, lane + 32) : NEG_INF;
       const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float p = lane < ch ? expf(s - m_new) : 0.f;
-      const float psum = warp_sum(p);
-      if (lane < ch) s_s[g][lane] = p;
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      const float p0 = lane < ch ? expf(x0 - m_new) : 0.f;
+      const float p1 = lane + 32 < ch ? expf(x1 - m_new) : 0.f;
+      const float psum = warp_sum(p0 + p1);
+      if (lane < P::CHUNK) s_s[0][g][lane] = p0;
+      if (lane + 32 < P::CHUNK) s_s[0][g][lane + 32] = p1;
       if (lane == 0) {
         const float corr = expf(m_old - m_new);
         l_s[g] = l_s[g] * corr + psum;
@@ -249,105 +329,206 @@ paged_attention_kernel(const DT* __restrict__ q, const DT* __restrict__ kp,
       }
     }
     __syncthreads();
-    // acc[g, d] = acc * corr + sum_t p[g, t] * v[t, d]
+    // acc[g, d pair] = acc * corr + sum_t p[g, t] * v[t, d pair]
 #pragma unroll
-    for (int i = 0; i < ACC; ++i) {
-      const int e = tid + i * THREADS;
-      const int g = e / HD, d = e % HD;
+    for (int k = 0; k < GPV; ++k) {
+      const int g = gq + P::GQ * k;
       if (g < G) {
-        float a = acc[i] * corr_s[g];
-        for (int t = 0; t < ch; ++t) a += s_s[g][t] * v_s[t][d];
-        acc[i] = a;
+        const float corr = corr_s[g];
+#pragma unroll
+        for (int p = 0; p < P::PPT; ++p) {
+          acc[k][p][0] *= corr;
+          acc[k][p][1] *= corr;
+        }
       }
     }
-    __syncthreads();
-  }
+#pragma unroll 8
+    for (int tt = 0; tt < ch; ++tt) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) {
-    const int e = tid + i * THREADS;
-    const int g = e / HD, d = e % HD;
-    if (g < G) {
-      out[((int64_t)b * H + kv * G + g) * HD + d] =
-          from_f<DT>(acc[i] / fmaxf(l_s[g], 1e-30f));
+      for (int p = 0; p < P::PPT; ++p) {
+        const float2 vv = widen2(vs + tt * P::LD + 2 * (dp + p * THREADS));
+#pragma unroll
+        for (int k = 0; k < GPV; ++k) {
+          const int g = gq + P::GQ * k;
+          if (g < GB) {
+            const float pr = s_s[0][g][tt];
+            acc[k][p][0] = fmaf(pr, vv.x, acc[k][p][0]);
+            acc[k][p][1] = fmaf(pr, vv.y, acc[k][p][1]);
+          }
+        }
+      }
     }
   }
-}
+  cp_async_wait<0>();
+  __syncthreads();            // the last chunk's l_s / m_s are final
 
-template <typename DT, int HD>
-void launch_hd(const DT* q, const DT* k, const DT* v, const int32_t* pt,
-               const int32_t* sl, DT* out, int B, int H, int KV, int T,
-               int NP, float scale, int window, float softcap,
-               cudaStream_t st) {
-  const dim3 grid(KV, B);
-  const int G = H / KV;
-  if (G <= 1) {
-    paged_attention_kernel<DT, HD, 1><<<grid, THREADS, 0, st>>>(
-        q, k, v, pt, sl, out, H, KV, T, NP, scale, window, softcap);
-  } else if (G <= 2) {
-    paged_attention_kernel<DT, HD, 2><<<grid, THREADS, 0, st>>>(
-        q, k, v, pt, sl, out, H, KV, T, NP, scale, window, softcap);
-  } else if (G <= 4) {
-    paged_attention_kernel<DT, HD, 4><<<grid, THREADS, 0, st>>>(
-        q, k, v, pt, sl, out, H, KV, T, NP, scale, window, softcap);
-  } else {
-    paged_attention_kernel<DT, HD, 8><<<grid, THREADS, 0, st>>>(
-        q, k, v, pt, sl, out, H, KV, T, NP, scale, window, softcap);
+  const size_t unit = ((size_t)b * a.KV + kv) * a.smax + sp;  // this split
+#pragma unroll
+  for (int k = 0; k < GPV; ++k) {
+    const int g = gq + P::GQ * k;
+    if (g >= G) continue;
+#pragma unroll
+    for (int p = 0; p < P::PPT; ++p) {
+      const int d = 2 * (dp + p * THREADS);
+      if (nsplit <= 1) {
+        const float inv = 1.0f / fmaxf(l_s[g], 1e-30f);
+        DT* o = static_cast<DT*>(a.out) + ((int64_t)b * a.H + kv * G + g) * HD;
+        o[d] = from_f<DT>(acc[k][p][0] * inv);
+        o[d + 1] = from_f<DT>(acc[k][p][1] * inv);
+      } else {
+        float* pa = a.part + (unit * G + g) * HD + d;
+        pa[0] = acc[k][p][0];
+        pa[1] = acc[k][p][1];
+      }
+    }
+  }
+  if (nsplit > 1 && tid < G) {
+    float* ml = a.part + (size_t)gridDim.z * a.KV * a.smax * G * HD +
+                (unit * G + tid) * 2;
+    ml[0] = m_s[tid];
+    ml[1] = l_s[tid];
   }
 }
 
-template <typename DT>
-int launch(const void* q, const void* k, const void* v, const void* pt,
-           const void* sl, void* out, int B, int H, int KV, int hd, int T,
-           int NP, float scale, int window, float softcap, cudaStream_t st) {
-  const DT* qp = static_cast<const DT*>(q);
-  const DT* kp = static_cast<const DT*>(k);
-  const DT* vp = static_cast<const DT*>(v);
-  const int32_t* ptp = static_cast<const int32_t*>(pt);
-  const int32_t* slp = static_cast<const int32_t*>(sl);
-  DT* op = static_cast<DT*>(out);
-  switch (hd) {
-    case 64:
-      launch_hd<DT, 64>(qp, kp, vp, ptp, slp, op, B, H, KV, T, NP, scale,
-                        window, softcap, st);
-      break;
-    case 128:
-      launch_hd<DT, 128>(qp, kp, vp, ptp, slp, op, B, H, KV, T, NP, scale,
-                         window, softcap, st);
-      break;
-    case 256:
-      launch_hd<DT, 256>(qp, kp, vp, ptp, slp, op, B, H, KV, T, NP, scale,
-                         window, softcap, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+// The splits of each sequence with more than one, added in split order:
+// out = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30), w_s = exp(m_s - max m).
+// One thread per output element; the loads of several splits in flight.
+template <typename DT, int HD>
+__global__ void __launch_bounds__(THREADS)
+paged_combine(const PagedArgs a, int B) {
+  const int kv = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = a.H / a.KV;
+  const int e = blockIdx.z * THREADS + threadIdx.x;
+  int lo, hi;
+  const int nsplit = live_range(a.seq_lens[b], a.window, a.NP * a.T, a.L, lo,
+                                hi);
+  if (nsplit <= 1 || e >= G * HD) return;
+  const int g = e / HD, d = e % HD;
+  const size_t unit0 = ((size_t)b * a.KV + kv) * a.smax;
+  const float* ml = a.part + (size_t)B * a.KV * a.smax * G * HD;
+  float mx = NEG_INF;
+#pragma unroll 8
+  for (int s = 0; s < nsplit; ++s) {
+    mx = fmaxf(mx, __ldg(ml + ((unit0 + s) * G + g) * 2));
+  }
+  float l = 0.f, acc = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < nsplit; ++s) {
+    const size_t u = (unit0 + s) * G + g;
+    const float w = expf(__ldg(ml + u * 2) - mx);
+    l = fmaf(__ldg(ml + u * 2 + 1), w, l);
+    acc = fmaf(__ldg(a.part + u * HD + d), w, acc);
+  }
+  static_cast<DT*>(a.out)[((int64_t)b * a.H + kv * G + g) * HD + d] =
+      from_f<DT>(acc / fmaxf(l, 1e-30f));
+}
+
+template <typename DT, int HD, int GB>
+int launch_g(const PagedArgs& a, int B, cudaStream_t st) {
+  using P = Paged<DT, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_kernel<DT, HD, GB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  paged_attention_kernel<DT, HD, GB>
+      <<<dim3(a.smax, a.KV, B), THREADS, P::SMEM_BYTES, st>>>(a);
+  if (a.smax > 1) {
+    const int G = a.H / a.KV;
+    paged_combine<DT, HD>
+        <<<dim3(a.KV, B, (G * HD + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+            a, B);
   }
   return (int)cudaGetLastError();
 }
 
+template <typename DT, int HD>
+int launch_hd(PagedArgs a, int B, cudaStream_t st) {
+  using P = Paged<DT, HD>;
+  if (a.L <= 0 || a.L % P::CHUNK != 0 || a.L % a.T != 0 ||
+      a.L / a.T + 2 > MAX_PAGES) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smax = ((long long)a.NP * a.T + a.L - 1) / a.L;
+  if (smax > 65535 || (smax > 1) != (a.part != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.smax = (int)smax;
+  const int G = a.H / a.KV;
+  if (G <= 1) return launch_g<DT, HD, 1>(a, B, st);
+  if (G <= 2) return launch_g<DT, HD, 2>(a, B, st);
+  if (G <= 4) return launch_g<DT, HD, 4>(a, B, st);
+  return launch_g<DT, HD, 8>(a, B, st);
+}
+
+template <typename DT>
+int launch(const PagedArgs& a, int B, int hd, cudaStream_t st) {
+  switch (hd) {
+    case 64:
+      return launch_hd<DT, 64>(a, B, st);
+    case 128:
+      return launch_hd<DT, 128>(a, B, st);
+    case 256:
+      return launch_hd<DT, 256>(a, B, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// live_range of n sequences, for the tests: out[3 i ..] = lo, hi, splits
+__global__ void split_plan(const int32_t* seq_lens, int n, int window,
+                           int cap, int L, int32_t* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int lo, hi;
+  const int ns = live_range(seq_lens[i], window, cap, L, lo, hi);
+  out[3 * i] = lo;
+  out[3 * i + 1] = hi;
+  out[3 * i + 2] = ns;
+}
+
 }  // namespace
+
+// The kernels' live range and split count of n sequences: seq_lens [n] and
+// out [n, 3] int32 on the card; window <= 0 means none, cap is the page
+// table's NP * T, L the split length.
+extern "C" int repro_paged_split_plan(const void* seq_lens, int n,
+                                      int window, int cap, int L, void* out,
+                                      void* stream) {
+  if (n <= 0 || cap <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+  split_plan<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(seq_lens), n, window, cap, L,
+      static_cast<int32_t*>(out));
+  return (int)cudaGetLastError();
+}
 
 // q, k_pages, v_pages and out in one dtype (0 = fp32, 1 = bf16); page_table
 // [B, NP] and seq_lens [B] int32; all contiguous, the pools 16-byte
-// aligned. window <= 0 means no
-// window, softcap <= 0 no softcap. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape the kernel does not take).
+// aligned. window <= 0 means no window, softcap <= 0 no softcap. split_len
+// is L (kernels/paged_attention.py::split_len, a multiple of T and of the
+// chunk); scratch holds B * KV * ceil(NP * T / L) * G * (hd + 2) floats when
+// that split count exceeds 1, else it is null. Returns cudaGetLastError()
+// after the launches (cudaErrorInvalidValue for a call the kernel does not
+// take).
 extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages,
                                      const void* page_table,
-                                     const void* seq_lens, void* out, int B,
-                                     int H, int KV, int hd, int T, int NP,
+                                     const void* seq_lens, void* out,
+                                     void* scratch, int B, int H, int KV,
+                                     int hd, int T, int NP, int split_len,
                                      float scale, int window, float softcap,
                                      int dtype, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAX_G || T <= 0 ||
-      NP <= 0 || dtype < 0 || dtype > 1) {
+  if (B <= 0 || B > 65535 || KV <= 0 || KV > 65535 || H % KV != 0 ||
+      H / KV > MAX_G || T <= 0 || NP <= 0 || dtype < 0 || dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
+  const PagedArgs a = {q, k_pages, v_pages,
+                       static_cast<const int32_t*>(page_table),
+                       static_cast<const int32_t*>(seq_lens), out,
+                       static_cast<float*>(scratch), H, KV, T, NP, split_len,
+                       0, scale, window, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, seq_lens,
-                                 out, B, H, KV, hd, T, NP, scale, window,
-                                 softcap, st);
-  }
-  return launch<float>(q, k_pages, v_pages, page_table, seq_lens, out, B, H,
-                       KV, hd, T, NP, scale, window, softcap, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, B, hd, st);
+  return launch<float>(a, B, hd, st);
 }

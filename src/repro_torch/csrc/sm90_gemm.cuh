@@ -75,6 +75,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 // ------------------------------------------------------------ plan constants
@@ -278,60 +280,6 @@ __device__ __forceinline__ uint32_t i4x2_bf16(uint32_t w, uint32_t sel) {
 }
 
 // ----------------------------------------------------------------- PTX
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// returns once the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// generic-proxy writes to shared memory made visible to the async proxy
-// (wgmma operand reads)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
-}
-
 // The "blocks" combine, called by the NT threads that wrote this block's
 // partial sums: the last block of the output tile to arrive adds the S
 // partials in the order 0..S-1, applies the epilogue and writes the tile,
@@ -392,32 +340,6 @@ __device__ void combine_if_last(const GemmArgs& a, int m0, int n0, int bm,
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// byte offset of (row, byte) in a tile of 128-byte rows, 128-byte swizzle:
-// the 16-byte chunk index is xored with row % 8, as TMA writes it
-__device__ __forceinline__ int sw128(int row, int byte) {
-  return row * 128 + ((((byte >> 4) ^ (row & 7)) << 4) | (byte & 15));
-}
 
 __device__ __forceinline__ void reg_fence(float (&d)[64]) {
 #pragma unroll
@@ -841,32 +763,6 @@ simt_gemm(const GemmArgs a, const int route) {
 }
 
 // ------------------------------------------------------------------ host
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn tensor_map_encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-  }
-  return fn;
-}
-
 // A 2-D row-major [rows, cols] tensor map with boxes of box_cols x box_rows.
 bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType dt,
                int elem_bytes, int rows, int cols, int box_cols, int box_rows,
@@ -881,10 +777,6 @@ bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType dt,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // Checks a launch plan of bm x bn x bk tiles: one split goes with

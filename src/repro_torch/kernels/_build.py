@@ -116,16 +116,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_swap_linear_q.restype = i
     lib.repro_dequant.argtypes = [p, p, p, i64, i64, i, i, p]
     lib.repro_dequant.restype = i
-    lib.repro_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                          f, i, f, i, p]
+    lib.repro_paged_attention.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                          i, i, i, f, i, f, i, p]
     lib.repro_paged_attention.restype = i
+    lib.repro_paged_split_plan.argtypes = [p, i, i, i, i, p, p]
+    lib.repro_paged_split_plan.restype = i
     lib.repro_wkv6.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.repro_wkv6.restype = i
     lib.repro_swap_linear.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                       i, i, i, i, p]
     lib.repro_swap_linear.restype = i
     lib.repro_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
-                                          i, f, i, p]
+                                          i, f, i, i, p]
     lib.repro_flash_attention.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -6,20 +6,30 @@ prefill needs: q [B, S, H, hd] and k, v [B, S, KV, hd] in the projections'
 layout, grouped-query heads read in place (query head h reads KV head
 ``h // (H / KV)``), explicit query positions and any S. The semantics are
 those of :func:`repro_torch.models.attention.online_attention` with no
-``kv_valid_len``: key j (its index) attends to a query at position
-``q_pos[b, i]`` iff, when causal, ``j <= q_pos`` and ``q_pos - j < window``;
-a score is ``q.k * scale``, then the softcap, then the mask (the finite
-``NEG_INF``). ``window=None`` and ``LARGE_WINDOW`` both mean no window.
+``kv_valid_len``, on the calls that function and the TPU kernel agree on:
+key j (its index) attends to a query at position ``q_pos[b, i]`` iff,
+when causal, ``j <= q_pos`` and ``q_pos - j < window``; a non-causal call
+attends to every key. A score is ``q.k * scale``, then the softcap, then
+the mask (the finite ``NEG_INF``). ``window=None`` and ``LARGE_WINDOW``
+both mean no window. A non-causal call with a window raises
+``ValueError``: the TPU kernel windows it, ``online_attention`` does not,
+and no model makes that call.
 
-The CUDA kernel is ``csrc/flash_attention.cu``: one block per (32 query
-rows, head, batch) walks the KV tiles of 32 keys that hold a key some of
-its rows may attend to (the TPU kernel's block skip, taken from q_pos),
-with the running (m, l, acc) in fp32. :func:`flash_attention_plain` is the
-plain PyTorch version, ``flash_attention_ref`` with GQA and q_pos: one
-dense fp32 softmax. It is what a CPU tensor runs, and what the kernel is
-held to on the card: about 1e-5 relative for fp32 (the online softmax
-sums in another order), about 2e-2 for bf16 (one bf16 rounding of the
-output).
+The CUDA kernels are in ``csrc/flash_attention.cu``; :func:`path` picks
+one from (dtype, head_dim) on the host. bf16 at head_dim 64, 128 or 256
+(every bf16 prefill of the main path) takes the tensor cores: a block of
+128 query rows of one head, TMA loads of Q and of a ring of 64-key K / V
+tiles, ``wgmma`` for ``Q K^T`` and ``P V`` with P rounded to bf16 in
+registers. fp32, and bf16 at any other head_dim, take the CUDA cores in
+fp32: a block of 64 (or, where that leaves SMs idle, 32) (query, head)
+rows of one KV head's G heads, so each K / V tile is staged once for
+all of them. Both visit only the KV tiles
+that hold a key some of the block's rows may attend to (the TPU kernel's
+block skip, taken from q_pos). :func:`flash_attention_plain` is the plain
+PyTorch version, ``flash_attention_ref`` with GQA and q_pos: one dense
+fp32 softmax. It is what a CPU tensor runs, and what the kernels are held
+to on the card: about 1e-5 relative for fp32 (the online softmax sums in
+another order), about 2e-2 for bf16 (P and the output rounded to bf16).
 """
 from __future__ import annotations
 
@@ -33,11 +43,13 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LARGE_WINDOW = 1 << 30           # models/attention.py's "no window"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (64, 128, 256)    # the tensor-core kernel's head dims
+PATHS = {"tc": 0, "simt": 1}
 
 launches = LaunchCounter()
 
 
-def _check_args(q, k, v, q_pos, window, softcap):
+def _check_args(q, k, v, q_pos, causal, window, softcap):
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"q must be [B, S, H, hd] and k, v [B, S, KV, hd], "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -55,7 +67,17 @@ def _check_args(q, k, v, q_pos, window, softcap):
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0 or None, got {softcap}")
     window = None if window is None or window >= LARGE_WINDOW else int(window)
+    if not causal and window is not None:
+        raise ValueError(f"a non-causal call takes no window (got {window}):"
+                         f" the TPU kernel would window it, online_attention"
+                         f" would not")
     return B, S, H, KV, hd, window
+
+
+def path(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call runs: "tc" (tensor cores) for bf16 at a head
+    dim of 64, 128 or 256, "simt" (CUDA cores, fp32) otherwise."""
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "simt"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,7 +86,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           softcap: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version: dense fp32 scores over the whole sequence,
     softcap, mask, softmax; the result in q's dtype."""
-    B, S, H, KV, hd, window = _check_args(q, k, v, q_pos, window, softcap)
+    B, S, H, KV, hd, window = _check_args(q, k, v, q_pos, causal, window,
+                                           softcap)
     G = H // KV
     qf = q.reshape(B, S, KV, G, hd).to(torch.float32)
     s = torch.einsum("bqkgh,bckh->bkgqc", qf, k.to(torch.float32)) * scale
@@ -91,7 +114,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA tensor launches the kernel or raises; a CPU tensor takes
     :func:`flash_attention_plain`."""
-    B, S, H, KV, hd, window = _check_args(q, k, v, q_pos, window, softcap)
+    B, S, H, KV, hd, window = _check_args(q, k, v, q_pos, causal, window,
+                                           softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, scale=scale,
                                      causal=causal, window=window,
@@ -111,6 +135,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention inputs lie on different devices")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention takes contiguous q, k and v")
+    kernel = path(q.dtype, hd)
+    if kernel == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention's tensor-core kernel reads q, k "
+                         "and v by TMA: they must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -120,6 +148,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.data_ptr(), B, S, H, KV, hd, float(scale), int(bool(causal)),
         0 if window is None else window,
         0.0 if softcap is None else float(softcap), DTYPES[q.dtype],
+        PATHS[kernel],
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention kernel launch")
     launches.bump((B, S, H, KV, hd, str(q.dtype).replace("torch.", ""),

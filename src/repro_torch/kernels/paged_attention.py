@@ -8,20 +8,26 @@ mask ``q_pos - tok >= window``, and the gemma-style logit softcap is applied
 before the mask. The page table is padded with page 0 past a sequence's
 pages; those columns are never read.
 
-The CUDA kernel is ``csrc/paged_attention.cu``: one block per (sequence,
-KV head) walks the sequence's live, in-window pages with an fp32 online
-softmax and skips the rest, loading the next 16-token chunk of K and V
-while it computes the current one. :func:`paged_attention_plain` is the plain
-PyTorch version, gather-then-attend as the JAX package's oracle
-(``kernels/ref.py:paged_attention_ref``): it materializes each sequence's
-pages contiguously and runs one masked softmax. It is what a CPU tensor
-runs, and what the kernel is held to on the card: about 1e-5 relative for
-fp32 (the online softmax sums in another order), about 2e-2 for bf16 (one
-bf16 rounding of the output).
+The CUDA kernel is ``csrc/paged_attention.cu`` (flash-decoding): a
+sequence's live, in-window tokens are cut into splits of
+:func:`split_len` tokens, one block per (split, KV head, sequence) reads
+its split's K/V rows once for all G query heads through a ring of
+``cp.async`` stages, and a second kernel adds the splits of each sequence
+in split order. A sequence with one split is written by its block
+directly. The host plans from shapes alone (:func:`split_len`,
+:func:`max_splits`, :func:`scratch_floats`) and never reads ``seq_lens``
+back; :func:`split_bounds` is the split rule the kernel applies.
+:func:`paged_attention_plain` is the plain PyTorch version, gather-then-
+attend as the JAX package's oracle (``kernels/ref.py:paged_attention_ref``):
+it materializes each sequence's pages contiguously and runs one masked
+softmax. It is what a CPU tensor runs, and what the kernel is held to on the
+card: about 1e-5 relative for fp32 (the online softmax sums in another
+order), about 2e-2 for bf16 (one bf16 rounding of the output).
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -30,6 +36,79 @@ from repro_torch.kernels._build import LaunchCounter, check, library
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8            # query heads per KV head (MAX_G in the kernel)
+# About the tokens a split takes, by head_dim (see split_len): measured on
+# an H100 with tools/torch_attention_sweep.py (PERF.md), a split of 64
+# tokens at qwen2.5-3b's head_dim 128 and of 128 at gemma2-9b's 256 gave
+# the shortest decode step; longer splits leave SMs idle, shorter ones
+# make the second pass dominate. No model decodes at head_dim 64: its
+# entry is head_dim 128's, not measured.
+SPLIT_TOKENS = {64: 64, 128: 64, 256: 128}
+STAGE_BYTES = 16384      # K bytes a stage of the kernel's ring holds
+
+
+def chunk_tokens(hd: int, dtype: torch.dtype) -> int:
+    """Tokens a stage of the kernel's ring holds (``Paged::CHUNK``): 64,
+    or fewer where 64 rows of K would pass 16 KB."""
+    return min(64, STAGE_BYTES // (hd * (torch.finfo(dtype).bits // 8)))
+
+
+def split_len(hd: int, dtype: torch.dtype, T: int) -> int:
+    """L, the tokens a split covers: a multiple of the page size T and of
+    the chunk, as near ``SPLIT_TOKENS[hd]`` as such a multiple gets (at
+    least one). A constant of (hd, dtype, T): gemma2-9b's 4,201-token
+    context (hd 256, bf16, T 16) makes 33 splits of 128."""
+    base = math.lcm(T, chunk_tokens(hd, dtype))
+    return base * max(1, round(SPLIT_TOKENS[hd] / base))
+
+
+def max_splits(NP: int, T: int, L: int) -> int:
+    """Splits the widest sequence a page table of NP columns can hold may
+    need: the grid's split dimension, and the scratch's."""
+    return -(-NP * T // L)
+
+
+def scratch_floats(B: int, KV: int, G: int, hd: int, NP: int, T: int,
+                   L: int) -> int:
+    """fp32 scratch for the splits' (acc, m, l): none when one split is
+    all a sequence of the page table can need, since each sequence with one
+    split writes its output directly. From the shapes alone (NP, not the
+    sequence lengths)."""
+    n = max_splits(NP, T, L)
+    return 0 if n <= 1 else B * KV * n * G * (hd + 2)
+
+
+def split_bounds(seq_len: int, window: Optional[int], L: int,
+                 capacity: int) -> List[Tuple[int, int]]:
+    """The [start, end) token ranges of a sequence's splits, as the kernel
+    cuts them: its live, in-window tokens [lo, hi), lo = seq_len - window
+    (0 without a window), hi = min(seq_len, capacity) with capacity the
+    page table's NP * T, in pieces of L from lo. They depend on the
+    sequence alone, never on the batch. A copy of the kernel's
+    ``live_range`` (``csrc/paged_attention.cu``): a change to one must be
+    made to the other; :func:`kernel_split_bounds` reads the kernel's."""
+    hi = min(seq_len, capacity)
+    lo = max(0, seq_len - window) if window is not None else 0
+    return [(s, min(s + L, hi)) for s in range(lo, hi, L)]
+
+
+def kernel_split_bounds(seq_lens: torch.Tensor, window: Optional[int],
+                        L: int, capacity: int) -> List[List[Tuple[int, int]]]:
+    """:func:`split_bounds` of each of ``seq_lens`` (int32 on the card) as
+    the kernel's ``live_range`` computes them, for the tests that hold the
+    two together. Not a launch of the attention kernel: no count."""
+    if seq_lens.device.type != "cuda" or seq_lens.dtype != torch.int32:
+        raise ValueError("kernel_split_bounds takes int32 seq_lens on the "
+                         "card")
+    seq_lens = seq_lens.contiguous()
+    out = torch.empty((seq_lens.numel(), 3), dtype=torch.int32,
+                      device=seq_lens.device)
+    check(library().repro_paged_split_plan(
+        seq_lens.data_ptr(), seq_lens.numel(),
+        0 if window is None else int(window), capacity, L, out.data_ptr(),
+        torch.cuda.current_stream(seq_lens.device).cuda_stream),
+        "paged split plan launch")
+    return [[(lo + s * L, min(lo + (s + 1) * L, hi)) for s in range(n)]
+            for lo, hi, n in out.tolist()]
 
 launches = LaunchCounter()
 
@@ -137,10 +216,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if B == 0:
         return out
     scale = hd ** -0.5 if scale is None else float(scale)
+    L = split_len(hd, q.dtype, T)
+    n = scratch_floats(B, KV, H // KV, hd, NP, T, L)
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device) \
+        if n else None
     err = library().repro_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, H, KV, hd, T, NP, scale, 0 if window is None else int(window),
+        None if scratch is None else scratch.data_ptr(),
+        B, H, KV, hd, T, NP, L, scale, 0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "paged_attention kernel launch")

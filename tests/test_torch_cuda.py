@@ -22,7 +22,10 @@ Tolerances, with their reasons:
     misaligned view against its aligned copy: bitwise; one-hot rows of x
     against a weight of distinct values: exact;
   * flash_attention: 1e-5 fp32 (online against dense softmax), 2e-2 bf16
-    (one bf16 rounding of the output);
+    (P and the output rounded to bf16); a row of a B-row call against the
+    1-row call on it, and two identical calls: bitwise;
+  * paged_attention: a sequence alone against the same sequence in
+    batches of other lengths, and two identical calls: bitwise;
   * mmap swapped vs unswapped: bitwise (the same ops on the same bytes);
   * paged continuous batching vs solo in-memory decode, float32: equal
     tokens;
@@ -186,6 +189,61 @@ def test_paged_attention_raises_instead_of_falling_back(dev):
     q16 = torch.randn((2, 32, 64), device=dev)           # 16 heads per KV
     with pytest.raises(ValueError):
         pa.paged_attention(q16, kp, vp, pt, sl)
+
+
+def test_paged_attention_long_sequence_does_not_depend_on_the_batch(dev):
+    """gemma2-9b's 4,201-token context (33 splits, 32 under the window)
+    gives the same bits alone as beside 1 and 3 other sequences of other
+    lengths, whose page tables are wider and whose split counts differ."""
+    kw = dict(scale=224.0 ** -0.5, softcap=50.0)
+    for window in (4096, None):
+        for dtype in (torch.bfloat16, torch.float32):
+            solo = None
+            for others in ([], [25], [4500, 1, 300]):
+                sl = [4201] + others
+                args = _paged_inputs(11, len(sl), 16, 8, 256, 16, sl, dtype,
+                                     pad_cols=len(others))
+                q, kp, vp, pt, lens = args
+                # the long row's q, pages and page list are the same in
+                # every batch: rebuild them from the solo call's seed
+                ref = _paged_inputs(11, 1, 16, 8, 256, 16, [4201], dtype)
+                q[0] = ref[0][0]
+                n = -(-4201 // 16)
+                kp[pt[0, :n].long()] = ref[1][ref[3][0, :n].long()]
+                vp[pt[0, :n].long()] = ref[2][ref[3][0, :n].long()]
+                got = pa.paged_attention(q, kp, vp, pt, lens, window=window,
+                                         **kw)[0]
+                if solo is None:
+                    solo = got
+                assert torch.equal(got, solo), (window, dtype, others)
+
+
+def test_paged_attention_kernel_splits_match_the_host_rule(dev):
+    """The kernel's live range and split count (live_range) give the
+    bounds split_bounds computes on the host, for which the CPU tests
+    hold the cover and batch properties."""
+    lens = [0, 1, 15, 16, 17, 25, 63, 64, 65, 127, 128, 129, 208, 4096,
+            4097, 4201, 4500]
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for L in (64, 128):
+        for window in (None, 1, 17, 64, 4096):
+            for cap in (64 * 16, 300 * 16):
+                got = pa.kernel_split_bounds(sl, window, L, cap)
+                want = [pa.split_bounds(n, window, L, cap) for n in lens]
+                assert got == want, (L, window, cap)
+
+
+def test_paged_attention_is_deterministic(dev):
+    """Two identical calls give equal bits, with one split (qwen2.5-3b's
+    decode) and with many (gemma2-9b's)."""
+    for (B, H, KV, hd, sl, kw) in [
+            (4, 16, 2, 128, [38, 65, 101, 130], {}),
+            (2, 16, 8, 256, [4201, 25], dict(window=4096, softcap=50.0))]:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _paged_inputs(5, B, H, KV, hd, 16, sl, dtype)
+            a = pa.paged_attention(*args, **kw)
+            b = pa.paged_attention(*args, **kw)
+            assert torch.equal(a, b), (hd, dtype)
 
 
 @pytest.fixture(scope="module")
@@ -619,6 +677,64 @@ def test_flash_attention_cuda_tensor_never_runs_plain(dev, monkeypatch):
     big = torch.zeros((1, 4, 2, 320), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(big, big, big, pos[:, :4], scale=0.1)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 7, None), (True, None, 50.0),
+    (False, None, None), (True, 64, 30.0), (True, 200, 50.0)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_tensor_cores_at_ragged_s(dev, hd, causal, window,
+                                                  softcap):
+    """The bf16 tensor-core kernel at S around its 64-key and 128-row tiles
+    and at gemma2-9b's 4,200 tokens: keys past S are masked, rows past S
+    are not written, and no box reads the next batch row."""
+    assert fa.path(torch.bfloat16, hd) == "tc"
+    for i, S in enumerate((1, 2, 63, 64, 65, 127, 128, 129, 4200)):
+        B = 2 if S < 4200 else 1
+        q, k, v, pos = _fa_inputs(B, S, 4, 2, hd, torch.bfloat16, 40 + i)
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                  softcap=softcap)
+        got = fa.flash_attention(q, k, v, pos, **kw)
+        want = fa.flash_attention_plain(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), S
+        assert _rel(got, want) <= TOL[torch.bfloat16], (S, hd)
+
+
+# (S, H, KV, hd, dtype): both kernels at the main paths' head dims
+FA_BITWISE = [(200, 16, 2, 128, torch.bfloat16), (130, 16, 8, 256, torch.bfloat16),
+              (200, 16, 2, 128, torch.float32), (37, 4, 2, 80, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("S,H,KV,hd,dtype", FA_BITWISE)
+def test_flash_attention_rows_do_not_depend_on_the_batch(dev, S, H, KV, hd,
+                                                         dtype):
+    """Row b of a 4-row call equals the 1-row call on that row bitwise,
+    and two identical calls give equal bits (no split over keys, no
+    atomics)."""
+    q, k, v, pos = _fa_inputs(4, S, H, KV, hd, dtype, 7)
+    kw = dict(scale=hd ** -0.5, window=64, softcap=50.0)
+    full = fa.flash_attention(q, k, v, pos, **kw)
+    assert torch.equal(full, fa.flash_attention(q, k, v, pos, **kw))
+    for b in range(4):
+        one = fa.flash_attention(q[b:b + 1].contiguous(),
+                                 k[b:b + 1].contiguous(),
+                                 v[b:b + 1].contiguous(), pos[b:b + 1], **kw)
+        assert torch.equal(full[b:b + 1], one), (b, fa.path(dtype, hd))
+
+
+def test_flash_attention_non_causal_window_raises_on_the_card(dev):
+    """The kernel path refuses a window on a non-causal call, as the plain
+    path does; LARGE_WINDOW and None run."""
+    for dtype, hd in ((torch.bfloat16, 128), (torch.float32, 64)):
+        q, k, v, pos = _fa_inputs(1, 40, 4, 2, hd, dtype, 1)
+        with pytest.raises(ValueError, match="non-causal"):
+            fa.flash_attention(q, k, v, pos, scale=0.1, causal=False,
+                               window=16)
+        a = fa.flash_attention(q, k, v, pos, scale=0.1, causal=False)
+        b = fa.flash_attention(q, k, v, pos, scale=0.1, causal=False,
+                               window=fa.LARGE_WINDOW)
+        assert torch.equal(a, b)
 
 
 def test_gemma_prefill_on_the_card(dev, tmp_path):

@@ -121,6 +121,12 @@ def test_plain_matches_online_attention_gqa_and_positions(H, KV):
     for window, softcap in ((None, None), (7, 50.0), (fa.LARGE_WINDOW, 30.0)):
         for causal in (True, False):
             kw = dict(causal=causal, window=window, scale=0.3)
+            if not causal and window == 7:
+                # the kernel refuses this pair: online_attention drops the
+                # window here, the TPU kernel applies it
+                with pytest.raises(ValueError, match="non-causal"):
+                    fa.flash_attention(q, k, v, pos, softcap=softcap, **kw)
+                continue
             got = fa.flash_attention(q, k, v, pos, softcap=softcap, **kw)
             want = attention.online_attention(q, k, v, pos, None,
                                               logit_cap=softcap, chunk=16,
@@ -144,6 +150,30 @@ def test_window_none_and_large_window_agree_and_args_checked():
         fa.flash_attention(q, k, v, pos, scale=1.0, window=0)
     with pytest.raises(ValueError, match="q_pos"):
         fa.flash_attention(q, k, v, pos[:, :5], scale=1.0)
+
+
+@pytest.mark.parametrize("window", [1, 7, 4096, fa.LARGE_WINDOW - 1])
+def test_non_causal_call_refuses_a_window(window):
+    """A non-causal call with a finite window raises on the plain path
+    (and so on every CPU tensor); LARGE_WINDOW and None still run and give
+    the unwindowed result."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 20, 4, 2, 16, seed=9))
+    pos = torch.arange(20).expand(2, 20)
+    with pytest.raises(ValueError, match="non-causal"):
+        fa.flash_attention(q, k, v, pos, scale=0.25, causal=False,
+                           window=window)
+    with pytest.raises(ValueError, match="non-causal"):
+        fa.flash_attention_plain(q, k, v, pos, scale=0.25, causal=False,
+                                 window=window)
+    a = fa.flash_attention(q, k, v, pos, scale=0.25, causal=False,
+                           window=None)
+    b = fa.flash_attention(q, k, v, pos, scale=0.25, causal=False,
+                           window=fa.LARGE_WINDOW)
+    assert torch.equal(a, b)
+    want = attention.online_attention(q, k, v, pos, None, causal=False,
+                                      window=None, scale=0.25,
+                                      logit_cap=None, chunk=16)
+    np.testing.assert_allclose(a.numpy(), want.numpy(), **TOL["float32"])
 
 
 # ------------------------------------------------------------ model level
