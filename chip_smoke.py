@@ -8,7 +8,7 @@ Phases, each printing its wall time:
 1. device: the card's name and power limit (``nvidia-smi``), then the build
    of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once, then one link) and the registers and spills
-   ``ptxas`` reported for the matmul and attention kernels;
+   ``ptxas`` reported for the matmul, attention and wkv6 kernels;
 2. kernels: ``swap_linear_q``, ``dequant_int8``, ``paged_attention``,
    ``wkv6``, ``swap_linear`` and ``flash_attention`` held against their
    plain PyTorch versions on the card at every shape the paths launch,
@@ -84,9 +84,10 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # max |err| / max |plain|
 # (one 64 x 64 output tile per block on the CUDA cores in fp32, no
 # split-K), flash_attention as first ported (fp32 on the CUDA cores, 8
 # threads a row), paged_attention before flash-decoding (one block per
-# sequence and KV head). Printed beside a timing row's human-readable line
-# for comparison, marked as recorded; never part of the kernels line,
-# which holds only what this run measured.
+# sequence and KV head), wkv6 as first ported (one block of 4 hd threads
+# per row, the chunks one after another on the CUDA cores). Printed beside
+# a timing row's human-readable line for comparison, marked as recorded;
+# never part of the kernels line, which holds only what this run measured.
 EARLIER_MS = {
     ('swap_linear_q',
      'M=512 K=2048 N=2048 int8 x=bfloat16 act=none'): 0.3015,
@@ -184,6 +185,8 @@ EARLIER_MS = {
      'bfloat16 window=4096 softcap=50.0'): 0.0365,
     ('flash_attention', 'gemma2-9b prefill B=1 S=24 16/8 heads hd=256 '
      'bfloat16 window=None softcap=50.0'): 0.0363,
+    ('wkv6', 'BH=80 S=512 hd=64 float32, zero initial state'): 0.3428,
+    ('wkv6', 'BH=80 S=16 hd=64 float32, zero initial state'): 0.0132,
 }
 SLEEP_CYCLES_PER_S = 2.0e9         # >= the H100's SM clock: holds long enough
 
@@ -285,19 +288,25 @@ def gemm_ptxas(log: str) -> list:
     return out
 
 
-def attention_ptxas(log: str) -> list:
-    """One line per attention kernel (``csrc/flash_attention.cu``,
-    ``csrc/paged_attention.cu``) with what ``ptxas -v`` reported for each
-    of its variants: registers / spill stores / spill loads (bytes)."""
+ATTENTION_KERNELS = [
+    ("fa_tc", r"fa_tcILi(\d+)E", "hd {0}"),
+    ("fa_simt", r"fa_simtI(f|13__nv_bfloat16)Li(\d+)E", "{0} hd {1}"),
+    ("paged_attention_kernel",
+     r"paged_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+     "{0} hd {1} G {2}"),
+    ("paged_combine", r"paged_combineI(f|13__nv_bfloat16)Li(\d+)E",
+     "{0} hd {1}")]
+WKV6_KERNELS = [("wkv6_ring", r"wkv6_ringI(f|13__nv_bfloat16)Li(\d+)E",
+                 "{0} hd {1}")]
+
+
+def kernel_ptxas(log: str, fams: list) -> list:
+    """One line per kernel of ``fams`` (``ATTENTION_KERNELS``:
+    ``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``;
+    ``WKV6_KERNELS``: ``csrc/wkv6.cu``) with what ``ptxas -v`` reported
+    for each of its variants: registers / spill stores / spill loads
+    (bytes)."""
     import re
-    fams = [("fa_tc", r"fa_tcILi(\d+)E", "hd {0}"),
-            ("fa_simt", r"fa_simtI(f|13__nv_bfloat16)Li(\d+)E",
-             "{0} hd {1}"),
-            ("paged_attention_kernel",
-             r"paged_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
-             "{0} hd {1} G {2}"),
-            ("paged_combine", r"paged_combineI(f|13__nv_bfloat16)Li(\d+)E",
-             "{0} hd {1}")]
     found = {f[0]: [] for f in fams}
     cur, spill = None, ""
     for ln in log.splitlines():
@@ -846,6 +855,11 @@ WKV_CASES = [(80, 512, 64, "float32", False), (80, 16, 64, "float32", False),
              (3, 48, 32, "bfloat16", False), (80, 512, 64, "float32", True),
              (3, 48, 32, "float32", True), (3, 48, 32, "bfloat16", True)]
 WKV_TIMED = [(80, 512, 64), (80, 16, 64)]        # fp32, no state: the path
+# the bitwise checks: the path's shapes, bf16 with a carried state, the
+# reduced config's head_dim 32
+WKV_BITWISE = [(80, 512, 64, "float32", False), (80, 16, 64, "float32", False),
+               (80, 512, 64, "bfloat16", True), (3, 48, 32, "float32", True),
+               (3, 48, 32, "bfloat16", False)]
 
 
 def wkv6_inputs(torch, seed, BH, S, hd, dtype, state):
@@ -900,8 +914,10 @@ def check_wkv6(torch):
     print(f"wkv6: {len(WKV_CASES)} cases (y and final state) match the plain "
           f"version (worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
           f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+    check_wkv6_bitwise(torch, kw)
 
     rows = []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for (BH, S, hd) in WKV_TIMED:
         args = wkv6_inputs(torch, 7, BH, S, hd, torch.float32, False)
         y, _ = kw.wkv6(*args)
@@ -922,15 +938,57 @@ def check_wkv6(torch):
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
             "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": None,
+            "plan": kw.launch_plan(BH, hd, 4, n_sm)})
         del args
     for r in rows:
-        print(f"  wkv6 {r['shape']:42s} kernel {r['ms']:.4f} ms  plain "
-              f"{r['plain_ms']:.4f} ms  library: no PyTorch call computes "
-              f"WKV6  bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
+        G, D = r.pop("plan")
+        print(f"  wkv6 {r['shape']:42s} kernel {r['ms']:.4f} ms"
+              f"{earlier(r)}  plain {r['plain_ms']:.4f} ms  library: no "
+              f"PyTorch call computes WKV6  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); groups {G}, ring depth {D}", flush=True)
     torch.cuda.empty_cache()
     return rows
+
+
+def check_wkv6_bitwise(torch, kw):
+    """B6's properties, bitwise, at ``WKV_BITWISE``: the first and the last
+    three rows of a call equal a 3-row call on them; every column split
+    the kernel takes at that head_dim equals the planned launch; S run in
+    two halves with the state carried equals one call; a repeated call
+    equals the first."""
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    n = 0
+    for i, (BH, S, hd, dname, state) in enumerate(WKV_BITWISE):
+        args = wkv6_inputs(torch, 300 + i, BH, S, hd, dts[dname], state)
+        y, s_fin = kw.wkv6(*args)
+        runs = [("a repeated call", kw.wkv6(*args), (y, s_fin))]
+        runs += [(f"groups {G}", kw.wkv6(*args, groups=G), (y, s_fin))
+                 for G in kw.GROUPS if hd % (G * kw.CONSUMER_COLUMNS) == 0]
+        if BH > 3:
+            for rows in (slice(0, 3), slice(BH - 3, BH)):
+                sub = [None if t is None else t[rows].contiguous()
+                       for t in args]
+                runs.append((f"rows {rows.start}-{rows.stop - 1} alone",
+                             kw.wkv6(*sub), (y[rows], s_fin[rows])))
+        if S % 32 == 0:
+            h = S // 2
+            y1, s1 = kw.wkv6(*(t[:, :h].contiguous() for t in args[:4]),
+                             args[4], args[5])
+            y2, s2 = kw.wkv6(*(t[:, h:].contiguous() for t in args[:4]),
+                             args[4], s1)
+            runs.append(("two halves of S", (torch.cat([y1, y2], dim=1), s2),
+                         (y, s_fin)))
+        for what, got, want in runs:
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]),
+                    f"wkv6 {(BH, S, hd, dname, state)}: {what} differs "
+                    f"bitwise")
+        n += len(runs)
+        del args, runs
+    print(f"wkv6: {n} bitwise checks at {len(WKV_BITWISE)} shapes (rows of "
+          f"BH 80 == a 3-row call, every column split == the plan, two "
+          f"halves of S == one call, repeated calls)", flush=True)
 
 
 # ---------------------------------------------------------------- swap_linear
@@ -2075,8 +2133,9 @@ def main() -> int:
         print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
               f"{path.name}; ptxas: {regs[:2]} ... ({len(regs)} variants)",
               flush=True)
-        for line in gemm_ptxas(_build.build_log) + attention_ptxas(
-                _build.build_log):
+        for line in (gemm_ptxas(_build.build_log)
+                     + kernel_ptxas(_build.build_log, ATTENTION_KERNELS)
+                     + kernel_ptxas(_build.build_log, WKV6_KERNELS)):
             print(line, flush=True)
 
     cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=N_LAYERS)

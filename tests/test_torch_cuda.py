@@ -15,7 +15,10 @@ Tolerances, with their reasons:
   * paged_attention: 1e-5 fp32 (the online softmax sums in another
     order), 2e-2 bf16 (one bf16 rounding of the output);
   * wkv6: 1e-5 fp32 inputs (the chunk's sums run in another order), 2e-2
-    bf16 (one bf16 rounding of the output; the state stays fp32);
+    bf16 (one bf16 rounding of the output; the state stays fp32); rows of
+    a BH 80 call against a 3-row call on them, every column split against
+    the planned one, two calls with the state carried against one:
+    bitwise;
   * swap_linear: 1e-5 fp32 x (the fp32 sums run in another order), 2e-2
     bf16 x (one bf16 rounding of the output); an M-row call against the
     1-row calls on its rows, and swap_linear_q's too: bitwise; a
@@ -335,7 +338,8 @@ def _wkv_inputs(BH, S, hd, dtype, seed, state=False):
     return to(r), to(k), to(v), to(w), to(u), s0
 
 
-WKV_CASES = [(80, 512, 64), (80, 16, 64), (3, 48, 32), (4, 5, 32)]
+WKV_CASES = [(80, 512, 64), (80, 16, 64), (3, 48, 32), (4, 5, 32),
+             (5, 48, 64), (3, 512, 32), (7, 16, 32)]
 
 
 @pytest.mark.parametrize("state", [False, True])
@@ -370,6 +374,73 @@ def test_wkv6_cuda_tensor_never_runs_plain(dev, monkeypatch):
         kw.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
     with pytest.raises(ValueError):                      # head_dim 16
         kw.wkv6(*(t[..., :16].contiguous() for t in (r, k, v, w, u)))
+    with pytest.raises(ValueError, match="groups"):      # 64 / 16 < 8
+        kw.wkv6(r, k, v, w, u, groups=16)
+
+
+def _wkv_splits(hd):
+    return [G for G in kw.GROUPS if hd % (G * kw.CONSUMER_COLUMNS) == 0]
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_rows_do_not_depend_on_bh(dev, dtype, state):
+    """Rows of a BH 80 call (one column split) equal the same rows run as
+    a 3-row call (another split), bitwise: no row reads another, and a
+    column's arithmetic does not depend on the split."""
+    args = _wkv_inputs(80, 512, 64, dtype, seed=11, state=state)
+    y, s_fin = kw.wkv6(*args)
+    for rows in (slice(0, 3), slice(40, 43), slice(77, 80)):
+        sub = [None if t is None else t[rows].contiguous() for t in args]
+        y3, s3 = kw.wkv6(*sub)
+        assert torch.equal(y3, y[rows]) and torch.equal(s3, s_fin[rows])
+
+
+@pytest.mark.parametrize("S", [16, 48, 512])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_column_splits_agree_bitwise(dev, dtype, hd, S):
+    """Every column split the kernel takes at this head_dim gives the
+    planned launch's y and state bitwise, and a repeated call the same
+    bits; each is within the tolerance of the plain version."""
+    args = _wkv_inputs(6, S, hd, dtype, seed=12, state=True)
+    y, s_fin = kw.wkv6(*args)
+    y_p, s_p = kw.wkv6_plain(*args)
+    assert _rel(y, y_p) <= TOL[dtype] and _rel(s_fin, s_p) <= 1e-5
+    for G in _wkv_splits(hd) + [None]:
+        yg, sg = kw.wkv6(*args, groups=G)
+        assert torch.equal(yg, y) and torch.equal(sg, s_fin), G
+
+
+@pytest.mark.parametrize("S,cut", [(512, 256), (48, 32), (32, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_state_carried_across_two_calls(dev, dtype, S, cut):
+    """S run as [0, cut) then [cut, S), the state of the first call handed
+    to the second, equals one call bitwise: both cut at multiples of 16,
+    so every chunk runs the same arithmetic."""
+    r, k, v, w, u, s0 = _wkv_inputs(3, S, 64, dtype, seed=13, state=True)
+    y, s_fin = kw.wkv6(r, k, v, w, u, s0)
+    head = [t[:, :cut].contiguous() for t in (r, k, v, w)]
+    tail = [t[:, cut:].contiguous() for t in (r, k, v, w)]
+    y1, s1 = kw.wkv6(*head, u, s0)
+    y2, s2 = kw.wkv6(*tail, u, s1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y)
+    assert torch.equal(s2, s_fin)
+
+
+def test_wkv6_shared_memory_matches_the_host_plan(dev):
+    """The kernel's own count of a block's shared memory (``layout`` in
+    ``csrc/wkv6.cu``) equals the host plan's ``smem_bytes`` for every plan
+    it takes, and a split it does not take is refused."""
+    from repro_torch.kernels._build import library
+    for hd in kw.HEAD_DIMS:
+        for dtype, code in kw.DTYPES.items():
+            es = torch.empty((), dtype=dtype).element_size()
+            for G in _wkv_splits(hd):
+                for D in kw.DEPTHS:
+                    assert library().repro_wkv6_smem_bytes(hd, code, G, D) \
+                        == kw.smem_bytes(hd, es, G, D)
+            assert library().repro_wkv6_smem_bytes(hd, code, 3, 4) == -1
 
 
 def test_rwkv6_swapped_on_the_card(dev, tmp_path):
