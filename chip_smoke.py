@@ -33,8 +33,10 @@ Phases, each printing its wall time:
 5. rwkv6-3b (Finch) at its published widths, depth cut 32 -> 4, random
    weights from a seed: a swapped prefill of 2 x 512 tokens on mmap
    (asked for as ``quant``, which this quant-ineligible model resolves to
-   mmap) in float32 and in bf16, each bitwise equal to the unswapped
-   forward and launching ``wkv6`` once per layer; then weight-streaming
+   mmap) in float32 and in bf16, and of one 512-token prompt in float32
+   (40 rows, which ``wkv6`` splits into two column groups a row), each
+   bitwise equal to the unswapped forward and launching ``wkv6`` once per
+   layer; then weight-streaming
    greedy decode (2 prompts x 16 tokens, 4 new) against the in-memory
    engine on the card;
 6. gemma2-9b at its published widths in bf16, depth cut 42 -> 2 (one
@@ -846,15 +848,16 @@ def check_paged_attention(torch):
 
 # ---------------------------------------------------------------- wkv6
 # (BH, S, hd, dtype, initial state): rwkv6-3b's swapped prefill (2 x 512
-# tokens x 40 heads of 64) and its engine prefill (2 x 16 tokens), in the
-# path's fp32 and in bf16; the reduced config's head_dim 32 at 3 chunks;
-# a carried state
+# tokens x 40 heads of 64, and one 512-token prompt) and its engine prefill
+# (2 x 16 tokens), in the path's fp32 and in bf16; the reduced config's
+# head_dim 32 at 3 chunks; a carried state
 WKV_CASES = [(80, 512, 64, "float32", False), (80, 16, 64, "float32", False),
+             (40, 512, 64, "float32", False),
              (80, 512, 64, "bfloat16", False),
              (80, 16, 64, "bfloat16", False), (3, 48, 32, "float32", False),
              (3, 48, 32, "bfloat16", False), (80, 512, 64, "float32", True),
              (3, 48, 32, "float32", True), (3, 48, 32, "bfloat16", True)]
-WKV_TIMED = [(80, 512, 64), (80, 16, 64)]        # fp32, no state: the path
+WKV_TIMED = [(80, 512, 64), (40, 512, 64), (80, 16, 64)]  # fp32: the path
 # the bitwise checks: the path's shapes, bf16 with a carried state, the
 # reduced config's head_dim 32
 WKV_BITWISE = [(80, 512, 64, "float32", False), (80, 16, 64, "float32", False),
@@ -939,14 +942,13 @@ def check_wkv6(torch):
             "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
-            "plan": kw.launch_plan(BH, hd, 4, n_sm)})
+            "groups": kw.launch_plan(BH, hd, n_sm)})
         del args
     for r in rows:
-        G, D = r.pop("plan")
         print(f"  wkv6 {r['shape']:42s} kernel {r['ms']:.4f} ms"
               f"{earlier(r)}  plain {r['plain_ms']:.4f} ms  library: no "
               f"PyTorch call computes WKV6  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); groups {G}, ring depth {D}", flush=True)
+              f"({r['bound_by']}); groups {r.pop('groups')}", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -963,7 +965,7 @@ def check_wkv6_bitwise(torch, kw):
         args = wkv6_inputs(torch, 300 + i, BH, S, hd, dts[dname], state)
         y, s_fin = kw.wkv6(*args)
         runs = [("a repeated call", kw.wkv6(*args), (y, s_fin))]
-        runs += [(f"groups {G}", kw.wkv6(*args, groups=G), (y, s_fin))
+        runs += [(f"groups {G}", kw._wkv6(*args, G), (y, s_fin))
                  for G in kw.GROUPS if hd % (G * kw.CONSUMER_COLUMNS) == 0]
         if BH > 3:
             for rows in (slice(0, 3), slice(BH - 3, BH)):
@@ -1948,6 +1950,9 @@ def run_rwkv6(torch, main_launches):
                                                 resident, max_alloc)
                 logits_by[dname] = logits
                 if dname == "float32":
+                    results["one prompt"] = rwkv6_one_prompt(
+                        torch, sm, tokens[:1], budget, resident, reset,
+                        collect)
                     results["decode"] = rwkv6_decode(
                         torch, sm, model, params, tokens, reset, collect)
             finally:
@@ -2030,6 +2035,45 @@ def run_gemma_prefill(torch, gmodel, gparams, main_launches):
             sm.close()
     torch.cuda.empty_cache()
     return out
+
+
+def rwkv6_one_prompt(torch, sm, tokens, budget, resident, reset, collect):
+    """One 512-token prompt through the same swapped fp32 model. Its
+    40 WKV rows leave SMs idle at one block a row, so ``wkv6``'s plan
+    splits each row's columns across more than one block: the split runs
+    on the path, once per layer, and the logits equal the unswapped
+    forward's bitwise."""
+    from repro_torch.kernels import wkv6 as kw
+    from repro_torch.models.ssm import rwkv6_dims
+    tag = "rwkv6 float32 one prompt"
+    nh, hd = rwkv6_dims(sm.model.cfg)
+    key = (nh, tokens.shape[1], hd, "float32", False)
+    G = kw.launch_plan(nh, hd, torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+    require(G > 1, f"{tag}: wkv6 plans {G} column group at BH {nh}")
+    batch = {"tokens": tokens}
+    sm.forward(batch)                                              # warm
+    sm.engine.stats.__init__()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    logits, st = sm.forward(batch)
+    counts = collect()
+    max_alloc = torch.cuda.max_memory_allocated()
+    require(counts["wkv6"] == RWKV_LAYERS
+            and set(kw.launches.by_shape) == {key},
+            f"{tag}: wkv6 launches {kw.launches.by_shape}, expected "
+            f"{RWKV_LAYERS} at {key}")
+    require(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    require(tuple(logits.shape) == (1, 1, sm.model.cfg.vocab_size),
+            f"{tag}: logits shape {tuple(logits.shape)}")
+    require(sm.engine.stats.peak_resident <= budget,
+            f"{tag}: peak ledger over budget")
+    require(torch.equal(logits, sm.forward_unswapped(batch)),
+            f"{tag}: swapped logits != unswapped logits")
+    print(f"[{tag}] swapped logits == unswapped logits bitwise; wkv6 at BH "
+          f"{nh} in {G} column groups a row; launches {counts}", flush=True)
+    return report_prefill(tag, sm, st, budget, resident, max_alloc)
 
 
 def rwkv6_decode(torch, sm, model, params, tokens, reset, collect):

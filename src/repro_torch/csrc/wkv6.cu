@@ -29,17 +29,17 @@
 // two state terms, (r e^lprev) S and the update of S, depend on the
 // previous chunk, but a row's chunks must pass through them one after
 // another. Everything else is chunk-local. So a block of 16 warps in four
-// roles passes each chunk through a ring of D stages in shared memory:
+// roles passes each chunk through a ring of DEPTH stages in shared memory:
 //
 // * Loads: chunk c's [Q, hd] tiles of r, k, v, w come in by four
 //   cp.async.bulk copies completed on the stage's mbarrier. Thread 0
-//   issues the first D; after that the IN side of the producers issues
-//   chunk c + D as soon as it is done with chunk c's raw tiles.
+//   issues the first DEPTH; after that the IN side of the producers
+//   issues chunk c + DEPTH as soon as it is done with chunk c's raw tiles.
 // * Decay team (4 warps): the cumulative decay l, e^{l_Q}, r e^lprev and
 //   k e^{l_Q - l} (split into TF32 high and low parts for the tensor
 //   cores), k e^-l and r u k, one channel a thread, every load before the
 //   first store so the expf chains of its items overlap. It starts chunk
-//   c + D once the consumers are done with chunk c.
+//   c + DEPTH once the consumers are done with chunk c.
 // * A and IN team (8 warps), a chunk behind: the 136 entries of the lower
 //   triangle of A (the bonus on the diagonal), one a thread in fp32, and v
 //   split for the consumers; then the intra-chunk output tril(A) v on the
@@ -63,13 +63,17 @@
 // chunk-local terms, which it must have whole. Every column's arithmetic
 // is the same for any G (a launch argument, not a template one), so the
 // result depends on neither G nor BH. The host's plan (kernels/wkv6.py,
-// launch_plan) picks G from BH, hd and the SM count, and D from the shared
-// memory the blocks of one SM can hold.
+// launch_plan) picks G from BH, hd and the SM count. The ring is DEPTH = 3
+// stages deep for every plan: 227 KB holds three of fp32 hd 64's widest
+// block, and on the card a deeper or shallower ring moves a chunk's time by
+// under 1% (PERF.md). With 416 to 512 threads at up to 128 registers a
+// block takes most of an SM's registers, so one block runs on an SM
+// whatever its shared memory.
 //
 // On the card (PERF.md) a chunk of rwkv6-3b's prefill row takes about
-// 3,400 cycles whatever the depth D, and each role waits for the others a
-// quarter to a half of that: the chunk time is set by the roles' shared
-// use of the SM (registers cap every thread at 128; shared-memory
+// 3,400 cycles whatever the ring's depth, and each role waits for the
+// others a quarter to a half of that: the chunk time is set by the roles'
+// shared use of the SM (registers cap every thread at 128; shared-memory
 // traffic), not by one serial chain. No atomics: deterministic, so
 // swapped and unswapped runs agree bitwise.
 #include <cuda_runtime.h>
@@ -86,6 +90,7 @@ constexpr int NB = 256;                       // A and IN team's threads
 constexpr int NP = NA + NB;                   // producer threads
 constexpr int COLS = 16;                      // columns of a consumer warp
 constexpr int AS = 20;                        // row stride of A (float4 rows)
+constexpr int DEPTH = 3;                      // the ring's stages
 constexpr int SMEM_MAX = 232448;              // a block's dynamic limit
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -150,8 +155,8 @@ __device__ __forceinline__ void dot4(float (&acc)[4], float4 a, float4 b) {
 // columns ([16, C + 4]) and VH / VL, v split, in the order of the
 // consumers' mma fragments ([C / 16 warps][2][4][32 lanes]); what the decay
 // team hands the other producers: RDF = r e^lprev and KI = k e^-l ([16,
-// hd + 4]), RK = r u k ([16, hd]). After the D stages: A ([16, 20], zero
-// above the diagonal), U = u [hd], then 4 D mbarriers. Everything but the
+// hd + 4]), RK = r u k ([16, hd]). After the DEPTH stages: A ([16, 20],
+// zero above the diagonal), U = u [hd], then 4 DEPTH mbarriers. Everything but the
 // stage's length, the offsets that follow IN and the scratch's start is
 // known at compile time.
 template <int HD, int ELT>
@@ -178,8 +183,8 @@ struct Lay {
   __host__ __device__ static constexpr int stage(int C) {
     return vl(C) + 64 * C;
   }
-  __host__ __device__ static constexpr int total(int C, int D) {
-    return D * stage(C) + BARS + 4 * D * 8;
+  __host__ __device__ static constexpr int total(int C) {
+    return DEPTH * stage(C) + BARS + 4 * DEPTH * 8;
   }
 };
 
@@ -234,8 +239,8 @@ __global__ void __launch_bounds__(NP + 2 * HD, 1)
 wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ w,
           const T* __restrict__ u, const float* __restrict__ s0,
-          T* __restrict__ y, float* __restrict__ s_out, int S, int Q, int G,
-          int D) {
+          T* __restrict__ y, float* __restrict__ s_out, int S, int Q,
+          int G) {
   extern __shared__ __align__(128) uint8_t smem[];
   using L = Lay<HD, sizeof(T)>;
   const int C = HD / G;                       // this block's columns
@@ -248,18 +253,19 @@ wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;      // mma fragment coordinates
 
-  uint8_t* scratch = smem + D * stage;
+  uint8_t* scratch = smem + DEPTH * stage;
   float* A = reinterpret_cast<float*>(scratch + L::A);
   float* U = reinterpret_cast<float*>(scratch + L::U);
   uint64_t* loaded = reinterpret_cast<uint64_t*>(scratch + L::BARS);
-  uint64_t* decayed = loaded + D;             // step 1 done
-  uint64_t* prepared = decayed + D;           // steps 2 and 3 done
-  uint64_t* consumed = prepared + D;          // the consumers are done
+  uint64_t* decayed = loaded + DEPTH;             // step 1 done
+  uint64_t* prepared = decayed + DEPTH;           // steps 2 and 3 done
+  uint64_t* consumed = prepared + DEPTH;          // the consumers are done
 
-  // chunk c's r, k, v, w tiles into stage c % D, completed on its mbarrier
+  // chunk c's r, k, v, w tiles into stage c % DEPTH, completed on its
+  // mbarrier
   const uint32_t tile = Q * HD * sizeof(T);
   auto load = [&](int c) {
-    const int s = c % D;
+    const int s = c % DEPTH;
     uint8_t* st = smem + s * stage;
     const size_t off = base + (size_t)c * Q * HD;
     mbar_expect_tx(&loaded[s], 4 * tile);
@@ -270,14 +276,14 @@ wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
   };
 
   if (tid == 0) {
-    for (int s = 0; s < D; ++s) {
+    for (int s = 0; s < DEPTH; ++s) {
       mbar_init(&loaded[s], 1);
       mbar_init(&decayed[s], 1);
       mbar_init(&prepared[s], 1);
       mbar_init(&consumed[s], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int c = 0; c < D && c < nc; ++c) load(c);
+    for (int c = 0; c < DEPTH && c < nc; ++c) load(c);
   }
   if (tid < HD) U[tid] = to_f<T>(u[(size_t)row * HD + tid]);
   __syncthreads();
@@ -289,9 +295,9 @@ wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
     const int tg = tid / HD;
     const float uc = U[ch];
     for (int c = 0; c < nc; ++c) {
-      const int s = c % D;
-      mbar_wait(&loaded[s], (c / D) & 1);
-      mbar_wait(&consumed[s], ((c / D) & 1) ^ 1);
+      const int s = c % DEPTH;
+      mbar_wait(&loaded[s], (c / DEPTH) & 1);
+      mbar_wait(&consumed[s], ((c / DEPTH) & 1) ^ 1);
       uint8_t* st = smem + s * stage;
       const T* Wr = reinterpret_cast<const T*>(st + 3 * L::RAW);
       float lw[CHUNK], l[CHUNK];
@@ -339,7 +345,8 @@ wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
   if (warp < NP / 32) {
     // ---- A and IN team: steps 2 and 3 of the chunk the decay team did
     //      before, while that team works on the next one; then the stage's
-    //      raw tiles are free, and the chunk D ahead is loaded into them
+    //      raw tiles are free, and the chunk DEPTH ahead is loaded into
+    //      them
     const int p = tid - NA;
     const int pw = p >> 5;
     // step 2's entry: the p-th of the lower triangle, row by row
@@ -348,9 +355,9 @@ wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
     for (int e = p; e < CHUNK * AS; e += NB) A[e] = 0.f;   // upper: zeros
     named_sync(2, NB);
     for (int c = 0; c < nc; ++c) {
-      const int s = c % D;
-      mbar_wait(&loaded[s], (c / D) & 1);
-      mbar_wait(&decayed[s], (c / D) & 1);
+      const int s = c % DEPTH;
+      mbar_wait(&loaded[s], (c / DEPTH) & 1);
+      mbar_wait(&decayed[s], (c / DEPTH) & 1);
       uint8_t* st = smem + s * stage;
       const T* Vr = reinterpret_cast<const T*>(st + 2 * L::RAW);
       const float* RDF = reinterpret_cast<const float*>(st + L::RDF);
@@ -418,7 +425,7 @@ wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
       named_sync(2, NB);
       if (p == 0) {
         mbar_arrive(&prepared[s]);
-        if (c + D < nc) load(c + D);
+        if (c + DEPTH < nc) load(c + DEPTH);
       }
     }
     return;
@@ -445,8 +452,8 @@ wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
   }
 
   for (int c = 0; c < nc; ++c) {
-    const int s = c % D;
-    mbar_wait(&prepared[s], (c / D) & 1);
+    const int s = c % DEPTH;
+    mbar_wait(&prepared[s], (c / DEPTH) & 1);
     const uint8_t* st = smem + s * stage;
     const uint32_t* RDH = reinterpret_cast<const uint32_t*>(st + L::RDH);
     const uint32_t* RDL = reinterpret_cast<const uint32_t*>(st + L::RDL);
@@ -603,18 +610,20 @@ wkv6_ring(const T* __restrict__ r, const T* __restrict__ k,
   }
 }
 
-bool plan_ok(int hd, int groups, int depth) {
+bool plan_ok(int hd, int groups) {
   return (groups == 1 || groups == 2 || groups == 4) &&
-         hd % (COLS * groups) == 0 && depth >= 2 && depth <= 4;
+         hd % (COLS * groups) == 0;
 }
 
 template <typename T, int HD>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const void* u, const void* s0, void* y, void* s_out, int BH, int S,
-           int Q, int G, int D, cudaStream_t stream) {
+           int Q, int G, cudaStream_t stream) {
+  // a block's columns are at most HD, and its shared memory grows with them
+  static_assert(Lay<HD, sizeof(T)>::total(HD) <= SMEM_MAX,
+                "the ring's stages exceed a block's shared memory");
   const int C = HD / G;
-  const int bytes = Lay<HD, sizeof(T)>::total(C, D);
-  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int bytes = Lay<HD, sizeof(T)>::total(C);
   cudaError_t err = cudaFuncSetAttribute(
       wkv6_ring<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -622,57 +631,40 @@ int launch(const void* r, const void* k, const void* v, const void* w,
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const T*>(u), static_cast<const float*>(s0),
-      static_cast<T*>(y), static_cast<float*>(s_out), S, Q, G, D);
+      static_cast<T*>(y), static_cast<float*>(s_out), S, Q, G);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(const void* r, const void* k, const void* v, const void* w,
               const void* u, const void* s0, void* y, void* s_out, int BH,
-              int S, int Q, int hd, int G, int D, cudaStream_t stream) {
+              int S, int Q, int hd, int G, cudaStream_t stream) {
   if (hd == 64) {
-    return launch<T, 64>(r, k, v, w, u, s0, y, s_out, BH, S, Q, G, D, stream);
+    return launch<T, 64>(r, k, v, w, u, s0, y, s_out, BH, S, Q, G, stream);
   }
-  return launch<T, 32>(r, k, v, w, u, s0, y, s_out, BH, S, Q, G, D, stream);
+  return launch<T, 32>(r, k, v, w, u, s0, y, s_out, BH, S, Q, G, stream);
 }
 
 }  // namespace
 
-// Shared memory, in bytes, of one block of the plan (hd, dtype, groups,
-// depth), or -1 if the plan is not one the kernel runs. The host's plan
-// (kernels/wkv6.py, smem_bytes) computes the same number.
-extern "C" int repro_wkv6_smem_bytes(int hd, int dtype, int groups,
-                                     int depth) {
-  if ((hd != 32 && hd != 64) || dtype < 0 || dtype > 1 ||
-      !plan_ok(hd, groups, depth)) {
-    return -1;
-  }
-  const int C = hd / groups;
-  if (hd == 64) {
-    return dtype == 1 ? Lay<64, 2>::total(C, depth)
-                      : Lay<64, 4>::total(C, depth);
-  }
-  return dtype == 1 ? Lay<32, 2>::total(C, depth) : Lay<32, 4>::total(C, depth);
-}
-
 // dtype: 0 = fp32, 1 = bf16 (r, k, v, w_log, u and y); hd: 32 or 64;
 // S % min(16, S) == 0; s0 may be null (zeros); groups: G blocks a row, each
-// hd / G columns (16 | hd / G); depth: ring stages, 2 to 4. Every pointer
-// 16-byte aligned. Returns cudaGetLastError() after the launch.
+// hd / G columns (16 | hd / G). Every pointer 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
                           const void* w_log, const void* u, const void* s0,
                           void* y, void* s_out, int BH, int S, int hd,
-                          int dtype, int groups, int depth, void* stream) {
+                          int dtype, int groups, void* stream) {
   const int Q = S < CHUNK ? S : CHUNK;
   if (BH <= 0 || S <= 0 || S % Q != 0 || (hd != 32 && hd != 64) ||
-      dtype < 0 || dtype > 1 || !plan_ok(hd, groups, depth)) {
+      dtype < 0 || dtype > 1 || !plan_ok(hd, groups)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return launch_hd<__nv_bfloat16>(r, k, v, w_log, u, s0, y, s_out, BH, S,
-                                    Q, hd, groups, depth, st);
+                                    Q, hd, groups, st);
   }
   return launch_hd<float>(r, k, v, w_log, u, s0, y, s_out, BH, S, Q, hd,
-                          groups, depth, st);
+                          groups, st);
 }

@@ -121,10 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_paged_attention.restype = i
     lib.repro_paged_split_plan.argtypes = [p, i, i, i, i, p, p]
     lib.repro_paged_split_plan.restype = i
-    lib.repro_wkv6.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_wkv6.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.repro_wkv6.restype = i
-    lib.repro_wkv6_smem_bytes.argtypes = [i, i, i, i]
-    lib.repro_wkv6_smem_bytes.restype = i
     lib.repro_swap_linear.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                       i, i, i, i, p]
     lib.repro_swap_linear.restype = i

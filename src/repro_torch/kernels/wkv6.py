@@ -15,13 +15,13 @@ versions here take an optional initial state and return the final one:
 the decode and serving paths carry it on.
 
 The CUDA kernel is ``csrc/wkv6.cu``: each chunk's tiles come in by bulk
-copies through a ring of ``depth`` shared-memory stages, two teams of
+copies through a ring of three shared-memory stages, two teams of
 producer warps compute the chunk-local terms ahead of the serial chain,
 and consumer warps keep only the two state terms on it, on the tensor
 cores in 3xTF32 with the state in registers. A row's hd value columns
-split across ``groups`` blocks (:func:`launch_plan`); each column's
-arithmetic is the same for any split, so the result depends on neither
-the split nor BH.
+split across G blocks (:func:`column_groups`); each column's arithmetic
+is the same for any split, so the result depends on neither the split nor
+BH.
 :func:`wkv6_plain` is the plain PyTorch version of the same chunk body: it
 is what a CPU tensor runs, and what the kernel is held to on the card:
 about 1e-5 relative for fp32 inputs (the sums run in another order),
@@ -41,26 +41,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
 GROUPS = (1, 2, 4)          # column groups a row can split into
 CONSUMER_COLUMNS = 16       # columns of one consumer warp
-DEPTHS = (4, 3, 2)          # ring stages, the deepest that fits first
-SMEM_SM = 233472            # an H100 SM's shared memory (228 KB)
-SMEM_RESERVED = 1024        # the runtime's share of it for each block
 
 launches = LaunchCounter()
-
-
-def smem_bytes(hd: int, itemsize: int, groups: int, depth: int) -> int:
-    """Shared memory of one block (``Lay`` in ``csrc/wkv6.cu``; a change to
-    one must be made to the other): ``depth`` stages, each of the raw r, k,
-    v, w tiles, the decayed r and k split into TF32 high and low parts
-    (rows padded by 8), e^{l_Q}, the decay team's r e^lprev and k e^-l
-    (rows padded by 4) and r u k, the intra-chunk output of the block's
-    ``hd / groups`` columns (rows padded by 4) and their v split in two;
-    the matrix A and u; four mbarriers a stage."""
-    C = hd // groups
-    stage = (4 * CHUNK * hd * itemsize + 4 * CHUNK * (hd + 8) * 4 + hd * 4
-             + 2 * CHUNK * (hd + 4) * 4 + CHUNK * hd * 4
-             + CHUNK * (C + 4) * 4 + 2 * 64 * C)
-    return depth * stage + CHUNK * 20 * 4 + hd * 4 + 4 * depth * 8
 
 
 def column_groups(BH: int, hd: int, n_sm: int) -> int:
@@ -76,29 +58,22 @@ def column_groups(BH: int, hd: int, n_sm: int) -> int:
     return G
 
 
-def ring_depth(BH: int, hd: int, itemsize: int, groups: int,
-               n_sm: int) -> int:
-    """D, the ring's stages: the deepest of 4, 3, 2 whose blocks, as many
-    as one SM gets of the BH * groups, fit in its shared memory together."""
-    per_sm = -(-BH * groups // n_sm)
-    for depth in DEPTHS:
-        if per_sm * (smem_bytes(hd, itemsize, groups, depth)
-                     + SMEM_RESERVED) <= SMEM_SM:
-            return depth
-    return DEPTHS[-1]
-
-
-def launch_plan(BH: int, hd: int, itemsize: int, n_sm: int,
-                groups: Optional[int] = None) -> Tuple[int, int]:
-    """(groups, depth) of a launch: :func:`column_groups` unless ``groups``
-    is given, then :func:`ring_depth`."""
-    if groups is None:
-        groups = column_groups(BH, hd, n_sm)
-    elif groups not in GROUPS or hd % (groups * CONSUMER_COLUMNS):
+def check_groups(hd: int, groups: int) -> int:
+    """``groups`` if the kernel splits head_dim ``hd`` that way, else raise."""
+    if groups not in GROUPS or hd % (groups * CONSUMER_COLUMNS):
         raise ValueError(f"wkv6 splits head_dim {hd} into groups of "
                          f"{CONSUMER_COLUMNS} columns or more, a power of "
                          f"two: groups = {groups} is not one")
-    return groups, ring_depth(BH, hd, itemsize, groups, n_sm)
+    return groups
+
+
+def launch_plan(BH: int, hd: int, n_sm: int,
+                groups: Optional[int] = None) -> int:
+    """The column groups of a launch: :func:`column_groups` unless
+    ``groups`` is given (:func:`check_groups`)."""
+    if groups is None:
+        return column_groups(BH, hd, n_sm)
+    return check_groups(hd, groups)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,20 +142,27 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w_log: torch.Tensor, u: torch.Tensor,
-         state: Optional[torch.Tensor] = None, *,
-         groups: Optional[int] = None
+         state: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, w_log [BH, S, hd]; u [BH, hd] (one dtype, fp32 or bf16);
     state [BH, hd, hd] fp32 or None (zeros) -> (y [BH, S, hd] in r's dtype,
     final state [BH, hd, hd] fp32). S must be at most 16 or a multiple of
-    16. ``groups`` overrides the plan's column groups (the result is the
-    same bitwise for every allowed value).
+    16.
 
     A CUDA tensor launches the kernel or raises; a CPU tensor takes
     :func:`wkv6_plain`."""
+    return _wkv6(r, k, v, w_log, u, state, None)
+
+
+def _wkv6(r, k, v, w_log, u, state, groups: Optional[int]):
+    """:func:`wkv6` with the launch's column groups forced (None: the
+    plan's), for the tests and the sweep that hold every split to the
+    planned one. ``groups`` is checked on either device."""
     BH, S, hd = _check_shapes(r, k, v, w_log, u, state)
     chunk_len(S)
     if r.device.type == "cpu":
+        if groups is not None:
+            check_groups(hd, groups)
         return wkv6_plain(r, k, v, w_log, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
@@ -201,9 +183,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("wkv6 reads its inputs in vectors: they must be "
                          "16-byte aligned")
-    G, D = launch_plan(BH, hd, r.element_size(),
-                       _sm_count(r.device.index if r.device.index is not None
-                                 else torch.cuda.current_device()), groups)
+    G = launch_plan(BH, hd,
+                    _sm_count(r.device.index if r.device.index is not None
+                              else torch.cuda.current_device()), groups)
     y = torch.empty_like(r)
     s_out = torch.empty((BH, hd, hd), dtype=torch.float32, device=r.device)
     if BH == 0:
@@ -211,7 +193,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = library().repro_wkv6(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
         u.data_ptr(), None if state is None else state.data_ptr(),
-        y.data_ptr(), s_out.data_ptr(), BH, S, hd, DTYPES[r.dtype], G, D,
+        y.data_ptr(), s_out.data_ptr(), BH, S, hd, DTYPES[r.dtype], G,
         torch.cuda.current_stream(r.device).cuda_stream)
     check(err, "wkv6 kernel launch")
     launches.bump((BH, S, hd, str(r.dtype).replace("torch.", ""),

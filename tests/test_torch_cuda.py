@@ -375,7 +375,7 @@ def test_wkv6_cuda_tensor_never_runs_plain(dev, monkeypatch):
     with pytest.raises(ValueError):                      # head_dim 16
         kw.wkv6(*(t[..., :16].contiguous() for t in (r, k, v, w, u)))
     with pytest.raises(ValueError, match="groups"):      # 64 / 16 < 8
-        kw.wkv6(r, k, v, w, u, groups=16)
+        kw._wkv6(r, k, v, w, u, None, 16)
 
 
 def _wkv_splits(hd):
@@ -408,7 +408,7 @@ def test_wkv6_column_splits_agree_bitwise(dev, dtype, hd, S):
     y_p, s_p = kw.wkv6_plain(*args)
     assert _rel(y, y_p) <= TOL[dtype] and _rel(s_fin, s_p) <= 1e-5
     for G in _wkv_splits(hd) + [None]:
-        yg, sg = kw.wkv6(*args, groups=G)
+        yg, sg = kw._wkv6(*args, G)
         assert torch.equal(yg, y) and torch.equal(sg, s_fin), G
 
 
@@ -426,21 +426,6 @@ def test_wkv6_state_carried_across_two_calls(dev, dtype, S, cut):
     y2, s2 = kw.wkv6(*tail, u, s1)
     assert torch.equal(torch.cat([y1, y2], dim=1), y)
     assert torch.equal(s2, s_fin)
-
-
-def test_wkv6_shared_memory_matches_the_host_plan(dev):
-    """The kernel's own count of a block's shared memory (``layout`` in
-    ``csrc/wkv6.cu``) equals the host plan's ``smem_bytes`` for every plan
-    it takes, and a split it does not take is refused."""
-    from repro_torch.kernels._build import library
-    for hd in kw.HEAD_DIMS:
-        for dtype, code in kw.DTYPES.items():
-            es = torch.empty((), dtype=dtype).element_size()
-            for G in _wkv_splits(hd):
-                for D in kw.DEPTHS:
-                    assert library().repro_wkv6_smem_bytes(hd, code, G, D) \
-                        == kw.smem_bytes(hd, es, G, D)
-            assert library().repro_wkv6_smem_bytes(hd, code, 3, 4) == -1
 
 
 def test_rwkv6_swapped_on_the_card(dev, tmp_path):

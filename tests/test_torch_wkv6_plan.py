@@ -1,12 +1,12 @@
 """The host-side launch plan of the wkv6 kernel: how many blocks a row's
-value columns split into (``column_groups``), how deep the ring of
-shared-memory stages is (``ring_depth``), and the shared memory a block
-takes (``smem_bytes``, a copy of ``layout`` in ``csrc/wkv6.cu``).
+value columns split into (``column_groups``), and which forced splits the
+kernel takes (``launch_plan``, ``check_groups``).
 
 The plan is pure Python, so it is checked here on the CPU; the kernel that
 follows it runs only on the card (``tests/test_torch_cuda.py`` holds it to
 the plain version, and every split to the planned one bitwise). The
-wrapper's CPU path, which never plans, is checked to ignore the plan.
+wrapper's CPU path, which never plans, is checked to ignore the plan but
+to refuse a split the card would refuse.
 """
 import inspect
 
@@ -20,7 +20,6 @@ from hypothesis import strategies as st  # noqa: E402
 
 from repro_torch.kernels import wkv6 as kw  # noqa: E402
 
-SMEM_BLOCK = 232448          # an H100 block's dynamic shared memory at most
 H100_SMS = 132
 
 
@@ -68,10 +67,12 @@ def test_groups_depend_on_bh_hd_and_sm_count_only():
     is planned the same for every call shape it comes in."""
     assert list(inspect.signature(kw.column_groups).parameters) == [
         "BH", "hd", "n_sm"]
+    assert list(inspect.signature(kw.launch_plan).parameters) == [
+        "BH", "hd", "n_sm", "groups"]
     for BH in (1, 3, 40, 80, 160):
         for hd in kw.HEAD_DIMS:
-            Gs = {kw.launch_plan(BH, hd, es, H100_SMS)[0] for es in (2, 4)}
-            assert len(Gs) == 1
+            assert kw.launch_plan(BH, hd, H100_SMS) == kw.column_groups(
+                BH, hd, H100_SMS)
 
 
 @pytest.mark.parametrize("BH,hd,G", [
@@ -85,80 +86,55 @@ def test_groups_at_the_main_shapes(BH, hd, G):
     assert kw.column_groups(BH, hd, H100_SMS) == G
 
 
-@pytest.mark.parametrize("hd", kw.HEAD_DIMS)
-@pytest.mark.parametrize("itemsize", [2, 4])
-def test_every_plan_fits_a_block(hd, itemsize):
-    """The shallowest ring fits one block's shared memory at every split
-    the kernel takes, and deeper rings take more of it."""
-    for G in kw.GROUPS:
-        if hd % (G * kw.CONSUMER_COLUMNS):
-            continue
-        sizes = [kw.smem_bytes(hd, itemsize, G, D) for D in (2, 3, 4)]
-        assert sizes == sorted(sizes) and sizes[0] <= SMEM_BLOCK
-        assert all(b % 8 == 0 for b in sizes)
-
-
-def test_smem_of_the_prefill_launch():
-    """rwkv6-3b's prefill launch (fp32, hd 64, G 1), counted by hand: a
-    stage of 16 KB of raw tiles, 18 KB of the split decayed r and k (rows
-    of 72 floats), 256 B of e^{l_Q}, 12.5 KB of the decay team's hand-over
-    (rows of 68 and 64 floats), 16 x 68 floats of intra-chunk output and 8
-    KB of split v; A and u; four mbarriers a stage. Three stages fit one
-    block's 227 KB, four do not, so the ring is three deep in fp32 and four
-    in bf16."""
-    stage = (16384 + 4 * 16 * 72 * 4 + 256 + 2 * 16 * 68 * 4 + 4096
-             + 16 * 68 * 4 + 8192)
-    assert stage == 60416
-    assert kw.smem_bytes(64, 4, 1, 3) == 3 * stage + 1280 + 256 + 96 == 182880
-    assert kw.smem_bytes(64, 4, 1, 4) > SMEM_BLOCK
-    assert kw.launch_plan(80, 64, 4, H100_SMS) == (1, 3)
-    assert kw.launch_plan(80, 64, 2, H100_SMS) == (1, 4)
-
-
-@settings(max_examples=200, deadline=None)
-@given(BH=st.integers(1, 4096), hd=st.sampled_from(kw.HEAD_DIMS),
-       itemsize=st.sampled_from([2, 4]), n_sm=st.integers(1, 264))
-def test_ring_depth_fits_the_blocks_of_one_sm(BH, hd, itemsize, n_sm):
-    """D is the deepest ring whose blocks, as many as one SM gets, share
-    its memory; 2 (the shallowest) when none does."""
-    G, D = kw.launch_plan(BH, hd, itemsize, n_sm)
-    assert D in kw.DEPTHS
-    per_sm = -(-BH * G // n_sm)
-
-    def fits(d):
-        return per_sm * (kw.smem_bytes(hd, itemsize, G, d)
-                         + kw.SMEM_RESERVED) <= kw.SMEM_SM
-    deeper = [d for d in kw.DEPTHS if d > D]
-    assert not any(fits(d) for d in deeper)
-    assert fits(D) or D == min(kw.DEPTHS)
-
-
 @pytest.mark.parametrize("hd,groups", [(64, 3), (64, 8), (32, 4), (32, 0)])
 def test_launch_plan_refuses_a_split_the_kernel_does_not_take(hd, groups):
     with pytest.raises(ValueError, match="groups"):
-        kw.launch_plan(80, hd, 4, H100_SMS, groups)
+        kw.launch_plan(80, hd, H100_SMS, groups)
 
 
-@pytest.mark.parametrize("groups", [1, 2, 4])
-def test_explicit_groups_keep_the_depth_rule(groups):
-    G, D = kw.launch_plan(80, 64, 4, H100_SMS, groups)
-    assert G == groups
-    assert D == kw.ring_depth(80, 64, 4, groups, H100_SMS)
+@pytest.mark.parametrize("hd,groups", [(64, 1), (64, 2), (64, 4), (32, 1),
+                                       (32, 2)])
+def test_launch_plan_takes_every_split_the_kernel_does(hd, groups):
+    """A forced split the kernel takes is launched as given, whatever the
+    plan would pick at that BH."""
+    for BH in (1, 80, 160):
+        assert kw.launch_plan(BH, hd, H100_SMS, groups) == groups
+
+
+def _cpu_inputs(hd):
+    rng = np.random.default_rng(0)
+    r, k, v = (torch.from_numpy(rng.standard_normal((2, 32, hd)).astype(
+        np.float32)) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(-5, -1e-4, (2, 32, hd)).astype(
+        np.float32))
+    u = torch.from_numpy(rng.standard_normal((2, hd)).astype(np.float32))
+    return r, k, v, w, u
 
 
 def test_cpu_path_runs_the_plain_version_whatever_the_split():
     """A CPU tensor takes wkv6_plain: no plan, no launch, the same bits for
-    any ``groups``."""
-    rng = np.random.default_rng(0)
-    r, k, v = (torch.from_numpy(rng.standard_normal((2, 32, 32)).astype(
-        np.float32)) for _ in range(3))
-    w = torch.from_numpy(rng.uniform(-5, -1e-4, (2, 32, 32)).astype(
-        np.float32))
-    u = torch.from_numpy(rng.standard_normal((2, 32)).astype(np.float32))
+    every split the kernel takes."""
+    r, k, v, w, u = _cpu_inputs(32)
     before = kw.launches.count
-    y, s = kw.wkv6(r, k, v, w, u)
-    y2, s2 = kw.wkv6(r, k, v, w, u, groups=4)
     yp, sp = kw.wkv6_plain(r, k, v, w, u)
+    runs = [kw.wkv6(r, k, v, w, u)]
+    runs += [kw._wkv6(r, k, v, w, u, None, G) for G in (None, 1, 2)]
     assert kw.launches.count == before
-    for got in ((y, s), (y2, s2)):
+    for got in runs:
         assert torch.equal(got[0], yp) and torch.equal(got[1], sp)
+
+
+@pytest.mark.parametrize("hd,groups", [(64, 3), (64, 8), (32, 4), (32, 0)])
+def test_cpu_path_refuses_a_split_the_kernel_does_not_take(hd, groups):
+    """The CPU path checks a forced split as the card does, so a test
+    that passes here with a split passes there with it."""
+    r, k, v, w, u = _cpu_inputs(hd)
+    with pytest.raises(ValueError, match="groups"):
+        kw._wkv6(r, k, v, w, u, None, groups)
+
+
+def test_public_wrapper_takes_no_split():
+    """Only the plan picks the split on the path: ``wkv6`` has no knob
+    for it."""
+    assert list(inspect.signature(kw.wkv6).parameters) == [
+        "r", "k", "v", "w_log", "u", "state"]

@@ -9,8 +9,8 @@ block 0 writes them out at the end. The copy is made by inserting the
 marks at fixed lines of the source; a source whose lines moved makes this
 script fail, not measure something else. The marks cost a few cycles each.
 
-At rwkv6-3b's prefill (BH 80, S 512, hd 64; fp32 with the planned ring
-depth and at depth 2, and bf16) and its engine prefill (S 16), it prints
+At rwkv6-3b's prefill (BH 80, S 512, hd 64; fp32 and bf16) and its
+engine prefill (S 16), it prints
 the card's name and power limit, the plain launch's device time (CUDA
 events, ``chip_smoke.time_ms``) and, per chunk of block 0, the cycles of:
 the decay team (waiting for the stage, step 1, its barrier), the A and IN
@@ -30,9 +30,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "wkv6_profile"
-# (BH, S, hd, dtype, depth or None for the plan's)
-CASES = [(80, 512, 64, "float32", None), (80, 512, 64, "float32", 2),
-         (80, 512, 64, "bfloat16", None), (80, 16, 64, "float32", None)]
+# (BH, S, hd, dtype)
+CASES = [(80, 512, 64, "float32"), (80, 512, 64, "bfloat16"),
+         (80, 16, 64, "float32")]
 ROLES = [("decay team", ["wait", "step 1", "barrier"]),
          ("A and IN team", ["wait", "step 2 + v split", "barrier",
                             "step 3", "barrier"])]
@@ -54,14 +54,14 @@ def instrument(src: str) -> str:
         "#define MARK(i) { const long long n_ = clock64(); "
         "pacc[i] += n_ - pt; pt = n_; }\n", 1)
     a = s.index("    // ---- decay team")
-    s = at(s, "      mbar_wait(&consumed[s], ((c / D) & 1) ^ 1);\n",
+    s = at(s, "      mbar_wait(&consumed[s], ((c / DEPTH) & 1) ^ 1);\n",
            "      MARK(0)\n", a)
     s = at(s, "      named_sync(1, NA);\n", "      MARK(1)\n", a, False)
     s = at(s, "      named_sync(1, NA);\n", "      MARK(2)\n", a)
     s = at(s, "    return;\n", "    if (blockIdx.x == 0 && tid == 0) "
            "for (int e = 0; e < 3; ++e) g_prof[e] = pacc[e];\n", a, False)
     b = s.index("    // ---- A and IN team")
-    s = at(s, "      mbar_wait(&decayed[s], (c / D) & 1);\n",
+    s = at(s, "      mbar_wait(&decayed[s], (c / DEPTH) & 1);\n",
            "      MARK(0)\n", b)
     s = at(s, "      named_sync(2, NB);\n", "      MARK(1)\n",
            s.index("      // v split for the consumers", b), False)
@@ -69,13 +69,13 @@ def instrument(src: str) -> str:
            s.index("      // v split for the consumers", b))
     i3 = s.index("      // 3. IN", b)
     s = at(s, "      named_sync(2, NB);\n", "      MARK(3)\n", i3, False)
-    s = at(s, "        if (c + D < nc) load(c + D);\n      }\n",
+    s = at(s, "        if (c + DEPTH < nc) load(c + DEPTH);\n      }\n",
            "      MARK(4)\n", i3)
     s = at(s, "    return;\n", "    if (blockIdx.x == 0 && p == 0) "
            "for (int e = 0; e < 5; ++e) g_prof[3 + e] = pacc[e];\n", i3,
            False)
     c = s.index("  // ---- consumers")
-    s = at(s, "    mbar_wait(&prepared[s], (c / D) & 1);\n", "    MARK(0)\n",
+    s = at(s, "    mbar_wait(&prepared[s], (c / DEPTH) & 1);\n", "    MARK(0)\n",
            c)
     s = at(s, "    // y = IN + y^T's transpose", "    MARK(1)\n", c, False)
     s = at(s, "    // the stage's hand-over terms", "    MARK(2)\n", c, False)
@@ -110,7 +110,7 @@ def main() -> int:
     lib = ctypes.CDLL(str(lib_path))
     lib_path.unlink()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_wkv6.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.repro_wkv6.argtypes = [p] * 8 + [i] * 5 + [p]
     lib.repro_wkv6.restype = i
     lib.read_prof.argtypes = [p]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -119,25 +119,24 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    for BH, S, hd, dname, depth in CASES:
+    for BH, S, hd, dname in CASES:
         args = smoke.wkv6_inputs(torch, 7, BH, S, hd, dts[dname], False)
         r, k, v, w, u, _ = args
-        G, D = kw.launch_plan(BH, hd, r.element_size(), n_sm)
-        D = depth or D
+        G = kw.launch_plan(BH, hd, n_sm)
         ms = smoke.time_ms(torch, lambda: kw.wkv6(*args))
         y = torch.empty_like(r)
         s_out = torch.empty((BH, hd, hd), dtype=torch.float32, device="cuda")
         err = lib.repro_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                              w.data_ptr(), u.data_ptr(), None, y.data_ptr(),
                              s_out.data_ptr(), BH, S, hd, kw.DTYPES[r.dtype],
-                             G, D, torch.cuda.current_stream().cuda_stream)
+                             G, torch.cuda.current_stream().cuda_stream)
         smoke.require(err == 0, f"instrumented launch: CUDA error {err}")
         torch.cuda.synchronize()
         buf = (ctypes.c_ulonglong * 64)()
         smoke.require(lib.read_prof(ctypes.addressof(buf)) == 0,
                       "reading the cycle sums")
         nc = S // min(16, S)
-        print(f"wkv6 BH={BH} S={S} hd={hd} {dname} groups {G} depth {D}: "
+        print(f"wkv6 BH={BH} S={S} hd={hd} {dname} groups {G}: "
               f"{ms:.4f} ms (uninstrumented); cycles a chunk, block 0:",
               flush=True)
         base = 0

@@ -1,13 +1,13 @@
-"""Time the port's wkv6 kernel over the choices its launch plan makes.
+"""Time the port's wkv6 kernel over every column split it takes.
 
     python3 tools/torch_wkv6_sweep.py
 
 On one CUDA card, with the inputs of ``chip_smoke.py`` (``wkv6_inputs``):
 for each shape in ``SHAPES`` (rwkv6-3b's prefill at batch 1, 2 and 4, its
-engine prefill, bf16, the reduced config's head_dim 32), every column
-split ``groups`` the kernel takes at that head_dim, and every ring depth,
-the kernel's device time (CUDA events, ``chip_smoke.time_ms``) beside
-the split and depth that ``kernels/wkv6.launch_plan`` picks. Each run is
+engine prefill, bf16, the reduced config's head_dim 32) and every column
+split the kernel takes at that head_dim, the kernel's device time (CUDA
+events, ``chip_smoke.time_ms``) beside the split that
+``kernels/wkv6.launch_plan`` picks. Each run is
 first held to the plain version (``chip_smoke.TOL``) and to the planned
 launch's output, bitwise: the measurement behind the plan's rule.
 
@@ -48,40 +48,28 @@ def main() -> int:
     _build.library()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    depths = kw.DEPTHS
-    try:
-        for BH, S, hd, dname in SHAPES:
-            args = smoke.wkv6_inputs(torch, 7, BH, S, hd, dts[dname], False)
-            y_p, s_p = kw.wkv6_plain(*args)
-            y_0, s_0 = kw.wkv6(*args)
-            plan = kw.launch_plan(BH, hd, args[0].element_size(), n_sm)
-            for G in kw.GROUPS:
-                if hd % (G * kw.CONSUMER_COLUMNS):
-                    continue
-                for D in depths:
-                    if (kw.smem_bytes(hd, args[0].element_size(), G, D)
-                            + kw.SMEM_RESERVED > kw.SMEM_SM):
-                        continue              # more than one block holds
-                    kw.DEPTHS = (D,)
-                    y, s = kw.wkv6(*args, groups=G)
-                    for what, got, want in (("y", y, y_p), ("state", s, s_p)):
-                        _, rel = smoke.rel_err(torch, got, want)
-                        smoke.require(rel <= smoke.TOL[dname],
-                                      f"{(BH, S, hd, dname, G, D)} {what} "
-                                      f"rel err {rel:.3g}")
-                    smoke.require(torch.equal(y, y_0) and torch.equal(s, s_0),
-                                  f"{(BH, S, hd, dname)}: groups {G} depth "
-                                  f"{D} differs from the plan {plan} bitwise")
-                    ms = smoke.time_ms(torch,
-                                       lambda: kw.wkv6(*args, groups=G))
-                    mark = "  <- plan" if (G, D) == plan else ""
-                    print(f"wkv6 BH={BH} S={S} hd={hd} {dname} groups {G} "
-                          f"depth {D} ({BH * G} blocks): {ms:.4f} ms{mark}",
-                          flush=True)
-                    kw.DEPTHS = depths
-            del args, y_p, s_p, y_0, s_0
-    finally:
-        kw.DEPTHS = depths
+    for BH, S, hd, dname in SHAPES:
+        args = smoke.wkv6_inputs(torch, 7, BH, S, hd, dts[dname], False)
+        y_p, s_p = kw.wkv6_plain(*args)
+        y_0, s_0 = kw.wkv6(*args)
+        plan = kw.launch_plan(BH, hd, n_sm)
+        for G in kw.GROUPS:
+            if hd % (G * kw.CONSUMER_COLUMNS):
+                continue
+            y, s = kw._wkv6(*args, G)
+            for what, got, want in (("y", y, y_p), ("state", s, s_p)):
+                _, rel = smoke.rel_err(torch, got, want)
+                smoke.require(rel <= smoke.TOL[dname],
+                              f"{(BH, S, hd, dname, G)} {what} rel err "
+                              f"{rel:.3g}")
+            smoke.require(torch.equal(y, y_0) and torch.equal(s, s_0),
+                          f"{(BH, S, hd, dname)}: groups {G} differs from "
+                          f"the plan's {plan} bitwise")
+            ms = smoke.time_ms(torch, lambda: kw._wkv6(*args, G))
+            mark = "  <- plan" if G == plan else ""
+            print(f"wkv6 BH={BH} S={S} hd={hd} {dname} groups {G} "
+                  f"({BH * G} blocks): {ms:.4f} ms{mark}", flush=True)
+        del args, y_p, s_p, y_0, s_0
     return 0
 
 
