@@ -44,11 +44,27 @@ Phases, each printing its wall time:
    swapped prefill of one 4,200-token prompt on the mmap store, bitwise
    equal to the unswapped forward, with ``flash_attention`` once per layer
    (window 4096 on layer 0, none on layer 1) and ``swap_linear`` seven
-   times per layer.
+   times per layer;
+7. the paper's multi-DNN scenario as the workstation profile serves it:
+   qwen2.5-3b (phase 3's) and gemma2-9b (depth cut 42 -> 6) in one
+   ``MultiModelRuntime`` on the ``directio`` store (its files under
+   ``build/phase7``) under one budget, 1.1x the smallest on a 0.1 GB grid
+   at which both plan with 2 executors and below the stores' resident
+   bytes; one ``ServingScheduler`` with 2 executors serves 4 prefills per
+   tenant at priorities 1 and 8 (a priority-8 request arrives while a
+   priority-1 pass runs, and preempts it) and a paged generation of 2
+   qwen prompts. Every prefill equals its unswapped forward bitwise, the
+   generated tokens those served alone, the ledger stays under the
+   budget and drains to the cache; then io, corrupt, torn and latency
+   faults scripted on gemma's store (``faulty`` around it) are retried
+   to the same logits, a fault past the retries fails its request with
+   no ledger bytes left while qwen beside it stays exact; last one qwen
+   pass in each ablation arm (``copy_in`` over rawio with the dispatch
+   copy, ``dummy_asm``) equals the snet pass and peaks at 3x / 2x.
 
-Every full-precision linear of phases 3 to 6 runs ``swap_linear`` and
+Every full-precision linear of phases 3 to 7 runs ``swap_linear`` and
 every prefill's attention ``flash_attention``; the quantized stores' lazy
-linears run ``swap_linear_q``.
+linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -214,6 +230,21 @@ GEMMA_PREFILL = 4200
 RWKV_LAYERS = 4
 RWKV_BATCH, RWKV_PROMPT = 2, 512
 RWKV_DECODE_PROMPT, RWKV_DECODE_NEW = 16, 4
+
+# phase 7: the workstation profile's runtime settings. gemma2-9b is cut to
+# 6 layers here, not phase 6's 2: with 2 executors, cache and KV reserves
+# of 0.2 each, the budget must give each executor's pipeline 1 / 0.95 of
+# gemma's 3.67 GB embedding unit (12.9 GB in all), more than the 12.65 GB
+# the two stores hold at 2 layers; at 6 they hold 15.8 GB, so the budget
+# stays below the tenants' resident bytes
+P7_GEMMA_LAYERS = 6
+P7_PROMPT, P7_REQUESTS = 32, 4         # prefill requests per tenant
+P7_GEN_PROMPTS, P7_GEN_NEW = 2, 4      # qwen's paged generation
+P7_RUNTIME = dict(executors=2, prefetch_depth=3, cache_frac=0.2,
+                  kv_frac=0.2, page_tokens=16, max_batch=8)
+P7_GRID = 1e8                          # budget search step, 0.1 GB
+P7_BUDGET_OVER_FLOOR = 1.1
+P7_WORKDIR = ROOT / "build" / "phase7"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2108,6 +2139,341 @@ def rwkv6_decode(torch, sm, model, params, tokens, reset, collect):
             "passes": passes, "engine_prefill_s": estats["prefill_s"]}
 
 
+# ---------------------------------------------------------------- multi-DNN
+def wait_until(cond, timeout: float, what: str) -> None:
+    t_end = time.monotonic() + timeout
+    while not cond():
+        require(time.monotonic() < t_end, f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def p7_floor_budget(rt, batch, seq):
+    """The smallest budget on a P7_GRID grid at which ``rt.plan`` is
+    feasible for every tenant, found by planning at each grid point."""
+    b = P7_GRID
+    while True:
+        rt.set_budget(b)
+        try:
+            rt.plan(batch, seq)
+            return b
+        except ValueError:
+            b += P7_GRID
+        require(b < 1e12, "no feasible budget below 1 TB")
+
+
+def p7_percentiles(lat):
+    import numpy as np
+    ms = np.asarray(lat, float) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def p7_check_launches(counts, by_shape) -> None:
+    """Phase 7's kernels ran: B5 and B4 for both tenants (told apart by
+    K and head_dim in their launch keys: the counts are global and both
+    executors launch at once), B3 for qwen's paged decode only."""
+    for name in ("swap_linear", "flash_attention", "paged_attention"):
+        require(counts[name] > 0, f"phase 7: {name} never launched")
+    for tenant, K, hd in (("qwen2.5-3b", 2048, 128), ("gemma2-9b", 3584, 256)):
+        require(any(k[1] == K for k in by_shape["swap_linear"]),
+                f"phase 7: no swap_linear launch of {tenant}")
+        require(any(k[4] == hd for k in by_shape["flash_attention"]),
+                f"phase 7: no flash_attention launch of {tenant}")
+    require(all(k[3] == 128 for k in by_shape["paged_attention"]),
+            "phase 7: paged_attention launched off qwen's decode")
+
+
+def run_multi(torch, qmodel, qparams, gmodel, gparams, main_launches,
+              device="cuda"):
+    """Phase 7: the paper's multi-DNN scenario (the workstation profile):
+    qwen2.5-3b and gemma2-9b in one MultiModelRuntime on the directio
+    store under one budget, two executors with priorities 1 and 8 over one
+    ServingScheduler (prefills and a paged generation), then scripted
+    storage faults on gemma and the copy_in / dummy_asm ablation arms on
+    qwen. Its stores live under ``build/phase7`` in the checkout."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.multi_model import MultiModelRuntime
+    from repro_torch.core.runtime import SwappedModel
+    from repro_torch.core.serving_scheduler import ServingScheduler
+    from repro_torch.errors import SwapCorruptionError, SwapIOError
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import swap_linear as sl
+    from repro_torch.serving.engine import Request
+    from repro_torch.store.faulty import FaultInjector
+
+    reset, collect = launch_counting(main_launches)
+    q, g = "qwen2.5-3b", "gemma2-9b"
+    shutil.rmtree(P7_WORKDIR, ignore_errors=True)
+    P7_WORKDIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rt = MultiModelRuntime(1 << 40, store_backend="directio", device=device,
+                           **P7_RUNTIME)
+    try:
+        rt.add_model(q, qmodel, qparams, str(P7_WORKDIR))
+        rt.add_model(g, gmodel, gparams, str(P7_WORKDIR))
+        qsm, gsm = rt.models[q], rt.models[g]
+        t_build = time.perf_counter() - t0
+        floor = p7_floor_budget(rt, 1, P7_PROMPT)
+        budget = int(P7_BUDGET_OVER_FLOOR * floor)
+        rt.set_budget(budget)
+        rt.plan(1, P7_PROMPT)
+        resident = sum(sm.store.resident_nbytes(n)
+                       for sm in (qsm, gsm) for n in sm.store.order)
+        ratio = resident / budget
+        print(f"[phase7] directio stores built in {t_build:.1f} s under "
+              f"{P7_WORKDIR}; direct_io: {q} "
+              f"{qsm.store.direct_io}, {g} {gsm.store.direct_io}", flush=True)
+        print(f"[phase7] budget {budget / 1e9:.3f} GB = "
+              f"{P7_BUDGET_OVER_FLOOR} x the smallest feasible "
+              f"{floor / 1e9:.1f} GB (2 executors, cache "
+              f"{rt.cache.capacity / 1e9:.3f} GB, KV reserve "
+              f"{rt.kv_reserve() / 1e9:.3f} GB); the stores' resident bytes "
+              f"{resident / 1e9:.3f} GB, ratio {ratio:.3f}", flush=True)
+        require(ratio > 1, f"phase 7: resident / budget {ratio:.3f} <= 1")
+        for name, sm in rt.models.items():
+            print(f"[phase7 {name}] blocks={sm.plan.n_blocks} "
+                  f"{sm.plan.points} m={sm.plan.m}", flush=True)
+
+        rng = np.random.default_rng(7)
+
+        def prompt(cfg):
+            return torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                (1, P7_PROMPT)),
+                                   dtype=torch.int32)
+        batches = {name: [{"tokens": prompt(sm.cfg)}
+                          for _ in range(P7_REQUESTS)]
+                   for name, sm in rt.models.items()}
+        gen_prompts = [list(map(int, rng.integers(0, qmodel.cfg.vocab_size,
+                                                  P7_PROMPT)))
+                       for _ in range(P7_GEN_PROMPTS)]
+        # the unswapped forwards: every unit resident at once, built once
+        # per tenant, then dropped before the traffic
+        t0 = time.perf_counter()
+        refs = {}
+        for name, sm in rt.models.items():
+            res = sm.resident_units()
+            refs[name] = [sm.forward_unswapped(b, resident=res)
+                          for b in batches[name]]
+            del res
+        torch.cuda.empty_cache()
+        print(f"[phase7] unswapped references in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        for name in rt.models:                                   # warm
+            rt.forward(name, batches[name][0])
+        for sm in rt.models.values():
+            sm.engine.stats.__init__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # -------------------------------------------- (a)-(c) the traffic
+        t0 = time.perf_counter()
+        reset()
+        sched = ServingScheduler(rt)
+        prefills, gens = [], []
+        try:
+            for i in range(0, P7_REQUESTS, 2):
+                # a priority-1 pair; once qwen's pass has run a block, a
+                # priority-8 pair arrives while it is still running
+                n_ex = len(qsm.engine.stats.t_ex)
+                prefills += [sched.submit(q, batches[q][i], priority=1.0),
+                             sched.submit(g, batches[g][i], priority=1.0)]
+                wait_until(lambda: len(qsm.engine.stats.t_ex) > n_ex, 600,
+                           "qwen's priority-1 pass to run a block")
+                prefills += [
+                    sched.submit(q, batches[q][i + 1], priority=8.0),
+                    sched.submit(g, batches[g][i + 1], priority=8.0)]
+            gen_reqs = [Request(1000 + i, p, max_new_tokens=P7_GEN_NEW)
+                        for i, p in enumerate(gen_prompts)]
+            gens = [sched.submit_generate(q, r, priority=1.0)
+                    for r in gen_reqs]
+            for r in prefills + gens:
+                r.wait(timeout=600)
+        finally:
+            sched.shutdown(timeout=600)
+        t_traffic = time.perf_counter() - t0
+        by_shape = {"swap_linear": dict(sl.launches.by_shape),
+                    "flash_attention": dict(fa.launches.by_shape),
+                    "paged_attention": dict(pa.launches.by_shape)}
+        counts = collect()
+        max_alloc = torch.cuda.max_memory_allocated()
+        preemptions = sched.preemptions
+        # (a) exact outputs
+        seen = {q: 0, g: 0}
+        for r in prefills:
+            idx = next(i for i, b in enumerate(batches[r.model])
+                       if b is r.batch)
+            require(torch.equal(r.logits, refs[r.model][idx]),
+                    f"phase 7: {r.model} request {r.rid} (priority "
+                    f"{r.priority:g}) logits != the unswapped forward")
+            seen[r.model] += 1
+        require(seen == {q: P7_REQUESTS, g: P7_REQUESTS},
+                f"phase 7: served {seen}")
+        be = rt.batch_engine(q)
+        solo = []
+        for i, p in enumerate(gen_prompts):
+            r = Request(2000 + i, p, max_new_tokens=P7_GEN_NEW)
+            be.submit(r)
+            be.run_all()
+            solo.append(r.output)
+        for r, s in zip(gen_reqs, solo):
+            require(r.output == s and len(s) == P7_GEN_NEW,
+                    f"phase 7: generated {r.output} != alone {s}")
+        # (b) the budget
+        require(rt.ledger.peak <= budget,
+                f"phase 7: ledger peak {rt.ledger.peak} > budget {budget}")
+        require(rt.ledger.resident == rt.cache.resident_bytes
+                and not rt.cache.active_leases(),
+                f"phase 7: {rt.ledger.resident} bytes resident after the "
+                f"drain, the cache holds {rt.cache.resident_bytes}")
+        # (c) preemption
+        pre = [r for r in prefills if r.stats["preemptions"]]
+        require(sched.preemptions >= 1 and pre,
+                f"phase 7: {sched.preemptions} preemptions, preempted "
+                f"prefills {[r.rid for r in pre]}")
+        p7_check_launches(counts, by_shape)
+        print(f"[phase7] {len(prefills)} prefills + {len(gens)} generations"
+              f" through 2 executors in {t_traffic:.1f} s: every prefill "
+              f"== its unswapped forward bitwise, generated tokens == "
+              f"served alone {solo}; preemptions {preemptions} "
+              f"(prefills {[r.rid for r in pre]}); ledger peak "
+              f"{rt.ledger.peak / 1e9:.3f} GB <= budget "
+              f"{budget / 1e9:.3f} GB, drained to the cache's "
+              f"{rt.cache.resident_bytes / 1e9:.3f} GB; launches {counts}",
+              flush=True)
+        lat = {}
+        for r in prefills:
+            lat.setdefault((r.model, r.priority), []).append(r.latency_s)
+        tenants = {}
+        for name, sm in rt.models.items():
+            es = sm.engine.stats
+            stage = {k: es.stage_seconds(k)
+                     for k in ("read", "dispatch", "exec", "wait")}
+            classes = {p: p7_percentiles(v) for (m, p), v in lat.items()
+                       if m == name}
+            rate = es.bytes_swapped / max(stage["read"], 1e-9) / 1e9
+            tenants[name] = {"latency_ms_p50_p99": classes,
+                             "bytes_swapped": es.bytes_swapped,
+                             "stage_s": stage,
+                             "cache_hit_rate": es.cache_hit_rate(),
+                             "peak_ledger": es.peak_resident,
+                             "read_gb_s": rate,
+                             "direct_io": sm.store.direct_io}
+            print(f"[phase7 {name}] " + "; ".join(
+                f"priority {p:g} p50 {v[0]:.1f} ms p99 {v[1]:.1f} ms"
+                for p, v in sorted(classes.items(), reverse=True))
+                + f"; swapped {es.bytes_swapped / 1e9:.3f} GB; s: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stage.items())
+                + f"; cache hit rate {es.cache_hit_rate():.3f}; ledger peak "
+                f"{es.peak_resident / 1e9:.3f} GB; max_memory_allocated "
+                f"{max_alloc / 1e9:.3f} GB; read {rate:.2f} GB/s; "
+                f"direct_io {sm.store.direct_io}; arena host "
+                f"{sm.store.arena.host_bytes / 1e9:.3f} GB", flush=True)
+
+        # -------------------------------------------- (d) storage faults
+        t0 = time.perf_counter()
+        fi = FaultInjector.wrap(gsm.store, p=0.0)
+        gsm.engine.store = fi
+        try:
+            es = gsm.engine.stats
+            retries0, faults0 = es.retries, dict(es.faults)
+            fi.force("io", "corrupt", None, "torn", None, "latency")
+            sched = ServingScheduler(rt)
+            try:
+                rg = sched.submit(g, batches[g][0], priority=1.0)
+                rq = sched.submit(q, batches[q][0], priority=1.0)
+                for r in (rg, rq):
+                    r.wait(timeout=600)
+                require(torch.equal(rg.logits, refs[g][0])
+                        and torch.equal(rq.logits, refs[q][0]),
+                        "phase 7: logits after retried faults != the "
+                        "unswapped forward")
+                require(fi.injected == {"io": 1, "latency": 1, "torn": 1,
+                                        "corrupt": 1}
+                        and es.retries - retries0 == 3,
+                        f"phase 7: injected {fi.injected}, retries "
+                        f"{es.retries - retries0}")
+                added = {k: v - faults0.get(k, 0)
+                         for k, v in es.faults.items()
+                         if v != faults0.get(k, 0)}
+                require(added == {"SwapIOError": 2,
+                                  "SwapCorruptionError": 1},
+                        f"phase 7: faults by class {added}")
+                retried = es.retries - retries0
+                fi.force(*["io"] * (gsm.engine.read_retries + 1))
+                rg = sched.submit(g, batches[g][1], priority=1.0)
+                rq = sched.submit(q, batches[q][1], priority=1.0)
+                failed = None
+                try:
+                    rg.wait(timeout=600)
+                except (SwapIOError, SwapCorruptionError) as e:
+                    failed = e
+                require(failed is not None,
+                        "phase 7: a read past its retries did not fail")
+                rq.wait(timeout=600)
+                require(torch.equal(rq.logits, refs[q][1]),
+                        "phase 7: qwen beside a failed gemma request != "
+                        "the unswapped forward")
+            finally:
+                sched.shutdown(timeout=600)
+            require(rt.ledger.resident == rt.cache.resident_bytes
+                    and not rt.cache.active_leases(),
+                    f"phase 7: {rt.ledger.resident} bytes resident after "
+                    f"the failed request, the cache holds "
+                    f"{rt.cache.resident_bytes}")
+        finally:
+            gsm.engine.store = gsm.store
+            gsm.store.verify = False
+        print(f"[phase7 faults] {g} on faulty(directio): io, corrupt, torn "
+              f"and latency scripted, {retried} retries, "
+              f"logits == unswapped; then {gsm.engine.read_retries + 1} io "
+              f"faults in a row: {type(failed).__name__} ({failed}), no "
+              f"ledger bytes left, {q} beside it == unswapped; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        rt.close()
+
+    # ------------------------------------------------ (e) ablation arms
+    ablation = {}
+    for mode, k, kw in (("copy_in", 3, {"gpu_dispatch": True}),
+                        ("dummy_asm", 2, {})):
+        t0 = time.perf_counter()
+        sm = SwappedModel(qmodel, qparams, str(P7_WORKDIR / mode),
+                          prefetch_depth=1, store_backend="mmap", mode=mode,
+                          device=device, **kw)
+        try:
+            sm.set_plan(qsm.plan.points)
+            logits, st = sm.forward(batches[q][0])
+            require(torch.equal(logits, refs[q][0]),
+                    f"phase 7 {mode}: logits != the snet pass")
+            blocks = [sum(sm.store.nbytes(n) for n in sm.store.order[lo:hi])
+                      for lo, hi in sm.plan.blocks()]
+            peak = sm.engine.stats.peak_resident
+            require(peak == k * max(blocks)
+                    and all(sm.engine.store.resident_nbytes(n)
+                            == k * sm.store.nbytes(n)
+                            for n in sm.store.order),
+                    f"phase 7 {mode}: ledger peak {peak}, blocks {blocks}, "
+                    f"expected {k} x the largest")
+            ablation[mode] = {"latency_s": st["latency_s"],
+                              "peak_ledger": peak,
+                              "largest_block": max(blocks)}
+            print(f"[phase7 {mode}] {q} at m=1 over {sm.plan.points}: logits"
+                  f" == the snet pass bitwise; ledger peak "
+                  f"{peak / 1e9:.3f} GB = {k} x the largest block "
+                  f"{max(blocks) / 1e9:.3f} GB; latency "
+                  f"{st['latency_s'] * 1e3:.1f} ms; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        finally:
+            sm.close()
+    shutil.rmtree(P7_WORKDIR, ignore_errors=True)
+    return {"budget": budget, "floor": floor, "resident": resident,
+            "tenants": tenants, "ablation": ablation,
+            "preemptions": preemptions, "launches": counts}
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -2213,7 +2579,6 @@ def main() -> int:
     with phase("4 paged continuous-batching decode at full width"):
         gmodel, gparams = gemma_model(torch)
         run_paged(torch, cfg, model, params, gmodel, gparams, main_launches)
-    del model, params
     torch.cuda.empty_cache()
 
     with phase("5 rwkv6-3b swapped at full width"):
@@ -2223,10 +2588,24 @@ def main() -> int:
         run_gemma_prefill(torch, gmodel, gparams, main_launches)
     del gmodel, gparams
 
+    with phase("7 two tenants under one budget: the multi-DNN scenario"):
+        gcfg7 = dataclasses.replace(get_arch("gemma2-9b"),
+                                    n_layers=P7_GEMMA_LAYERS)
+        t0 = time.perf_counter()
+        gmodel7 = Model(gcfg7)
+        gparams7 = gmodel7.init(0, device="cpu")
+        print(f"model: {gcfg7.name} at its published widths, reduced: "
+              f"n_layers 42->{P7_GEMMA_LAYERS}; params "
+              f"{sum(p.numel() for p in _leaves(gparams7)) / 1e6:.1f} M "
+              f"(fp32, host), init {time.perf_counter() - t0:.1f} s; with "
+              f"{cfg.name} of phase 3", flush=True)
+        run_multi(torch, model, params, gmodel7, gparams7, main_launches)
+    del model, params, gmodel7, gparams7
+
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 6): " + ", ".join(
+    print("main-path launches (phases 3 to 7): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

@@ -1,15 +1,20 @@
 """SwappedModel: end-to-end swapped inference of a model (paper §3).
 
 Splits a model into swappable units (embedding, each layer, head), stores
-them through a pluggable block store (``mmap`` | ``quant``, see
-``repro_torch.store``) and executes a forward pass block by block under a
-memory budget with a depth-m prefetch pipeline (m=2 is the paper's double
-buffer). On the ``mmap`` store the output is bit-identical to the
+them through a pluggable block store (``mmap`` | ``rawio`` | ``directio``
+| ``quant`` | ``faulty``, see ``repro_torch.store``) and executes a
+forward pass block by block under a memory budget with a depth-m
+prefetch pipeline (m=2 is the paper's double buffer). On the ``mmap`` store the output is bit-identical to the
 in-memory model (:meth:`SwappedModel.forward_unswapped`), the paper's
 lossless property; the ``quant`` store trades a bounded quantization error
 for 4x (int8) to 8x (int4) fewer swap-in bytes and keeps units
 quantized-RESIDENT: 2-D matmul weights stream through the fused
 dequant-matmul kernel, other consumers dequantize at use.
+
+Engines may share a MemoryLedger and BlockCache with other models: the
+multi-DNN serving path (``core/multi_model.py``) keeps several co-resident
+models under ONE budget this way, each model's units named under its own
+prefix so a shared cache never collides.
 
 PyTorch queues device work asynchronously, so a block's memory is safe to
 free only once the compute stream is done with it: :func:`swap_schedule`
@@ -30,7 +35,7 @@ from repro_torch.core.cost_model import (DelayModel, LayerInfo, layer_flops,
                                          resident_infos)
 from repro_torch.core.partition import BlockPlan, PartitionPlanner
 from repro_torch.core.skeleton import assemble, flatten_params, torch_dtype
-from repro_torch.core.swap_engine import SwapEngine
+from repro_torch.core.swap_engine import BlockCache, MemoryLedger, SwapEngine
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.qtensor import (QuantizedTensor, cast_unit_params,
                                          materialize_tree)
@@ -153,25 +158,39 @@ def unit_infos(model: Model, units: Sequence[Unit], batch: int,
     return rows
 
 
-def resolve_backend(cfg, store_backend: Optional[str]) -> str:
-    """Default the store backend to ``mmap``; a model that opts out of
-    quantized swap units (``cfg.quant_eligible``) serves from the exact
-    store."""
+def resolve_backend(cfg, store_backend: Optional[str],
+                    mode: str = "snet") -> str:
+    """Default the store backend to ``mmap`` and reject nonsensical
+    combinations: the engine's ablation ``mode`` flags reinterpret the RAW
+    file format, so they compose only with the mmap backend (rawio IS the
+    copy_in arm; quant files cannot be read through the raw paths). A
+    model that opts out of quantized swap units (``cfg.quant_eligible``)
+    serves from the exact store."""
     backend = store_backend or "mmap"
+    if backend != "mmap" and mode != "snet":
+        raise ValueError(f"store backend {backend!r} requires mode='snet' "
+                         f"(got mode={mode!r})")
     if backend == "quant" and not cfg.quant_eligible:
         return "mmap"
     return backend
 
 
-def store_opts(backend: str, precision: str = "int8") -> dict:
+def store_opts(backend: str, precision: str = "int8",
+               gpu_dispatch: bool = False) -> dict:
     """Per-backend build options. For ``quant``, ``precision`` picks the
     bit-width (int8 | int4, or ``mixed`` with a ``plan=`` in the store
     options) and units come back lazy: fused-routable weights stay
-    quantized. ``store_options={"eager": True}`` selects eager dequant."""
+    quantized. ``store_options={"eager": True}`` selects eager dequant.
+    ``rawio`` takes the dispatch-copy flag; ``faulty`` wraps ``mmap``
+    unless the store options name another ``inner``."""
+    if backend == "rawio":
+        return {"gpu_dispatch": gpu_dispatch}
     if backend == "quant":
         if precision not in ("int8", "int4", "mixed"):
             raise ValueError(f"unknown precision {precision!r}")
         return {"bits": 4 if precision == "int4" else 8, "eager": False}
+    if backend == "faulty":
+        return {"inner": "mmap"}
     return {}
 
 
@@ -190,25 +209,38 @@ def kernel_smem_working_set(precision: str, dtype: str = "bfloat16") -> int:
 
 
 class SwappedModel:
-    """Executes prefill-equivalent inference by swapping blocks."""
+    """Executes prefill-equivalent inference by swapping blocks.
+
+    ``mode`` / ``gpu_dispatch`` select the engine's ablation arm;
+    ``ledger`` / ``cache`` join a shared budget and block cache; ``name``
+    prefixes every unit name (``"<name>/embed"``) so several models can
+    share one cache."""
 
     def __init__(self, model: Model, params: dict, workdir: str,
                  budget: Optional[int] = None, prefetch_depth: int = 2,
                  store_backend: Optional[str] = None,
                  precision: Optional[str] = None,
                  store_options: Optional[dict] = None,
-                 device="cuda"):
+                 device="cuda", mode: str = "snet",
+                 gpu_dispatch: bool = False,
+                 ledger: Optional[MemoryLedger] = None,
+                 cache: Optional[BlockCache] = None,
+                 name: Optional[str] = None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
+        self.name = name or model.cfg.name
         self.prefetch_depth = max(prefetch_depth, 1)
-        self.store_backend = resolve_backend(self.cfg, store_backend)
+        self.store_backend = resolve_backend(self.cfg, store_backend, mode)
         if self.store_backend == "quant":
             self.precision = precision or self.cfg.swap_precision
         else:
             self.precision = "fp"
         self.units = split_units(model, params)
-        opts = store_opts(self.store_backend, self.precision)
+        prefix = f"{name}/" if name else ""
+        for u in self.units:
+            u.name = prefix + u.name
+        opts = store_opts(self.store_backend, self.precision, gpu_dispatch)
         opts.update(store_options or {})
         if self.precision == "mixed" and opts.get("plan") is None:
             raise ValueError("precision='mixed' needs a plan: pass "
@@ -216,7 +248,9 @@ class SwappedModel:
         self.store = build_store([(u.name, u.params) for u in self.units],
                                  workdir, backend=self.store_backend,
                                  device=self.device, **opts)
-        self.engine = SwapEngine(self.store, budget=budget)
+        self.engine = SwapEngine(self.store, mode=mode, budget=budget,
+                                 gpu_dispatch=gpu_dispatch, ledger=ledger,
+                                 cache=cache)
         self.engine.smem_working_set = kernel_smem_working_set(
             self.precision, self.cfg.dtype)
         self.plan: Optional[BlockPlan] = None
@@ -460,24 +494,33 @@ class SwappedModel:
         state, stats = self.forward_partial(batch)
         return state.logits, stats
 
-    def forward_unswapped(self, batch: dict,
-                          unit_params: Optional[List[dict]] = None
-                          ) -> torch.Tensor:
-        """The in-memory model: every unit resident on the device at once,
-        no store, no engine, no pipeline; the same per-unit computation as
-        :meth:`forward`. Each unit is laid out as one flat device buffer,
-        exactly as a swap-in lays it out, so the kernels see the same
-        alignments. ``unit_params`` replaces the units' own params (e.g.
-        :func:`repro_torch.store.quantized_store.roundtrip` of each, the
-        reference for the quantized store). Returns last-position logits.
-        """
-        batch = self._to_device(batch)
+    def resident_units(self, unit_params: Optional[List[dict]] = None
+                       ) -> List[Any]:
+        """Every unit on the device at once, each laid out as one flat
+        device buffer exactly as a swap-in lays it out (so the kernels see
+        the same alignments). ``unit_params`` replaces the units' own
+        params (e.g. :func:`repro_torch.store.quantized_store.roundtrip` of
+        each, the reference for the quantized store)."""
         plist = unit_params or [u.params for u in self.units]
         resident = []
         for p in plist:
             buf, skel = flatten_params(p)
             resident.append(assemble(skel, torch.from_numpy(buf)
                                      .to(self.device)))
+        return resident
+
+    def forward_unswapped(self, batch: dict,
+                          unit_params: Optional[List[dict]] = None,
+                          resident: Optional[List[Any]] = None
+                          ) -> torch.Tensor:
+        """The in-memory model: every unit resident on the device at once
+        (:meth:`resident_units`, or ``resident`` when the caller built them
+        once for several batches), no store, no engine, no pipeline; the
+        same per-unit computation as :meth:`forward`. Returns last-position
+        logits."""
+        batch = self._to_device(batch)
+        if resident is None:
+            resident = self.resident_units(unit_params)
         x = positions = None
         for u, p in zip(self.units, resident):
             x, positions = self._apply_unit(u, p, x, positions, batch)
@@ -486,3 +529,4 @@ class SwappedModel:
 
     def close(self):
         self.engine.close()
+        self.store.close()

@@ -128,3 +128,18 @@ def assemble_np(skel: Skeleton, buf: np.ndarray) -> Any:
     """Host-side assembly by reference over a writable (or copy-on-write
     mapped) numpy byte buffer: zero copies."""
     return assemble(skel, torch.from_numpy(buf))
+
+
+def assemble_dummy(skel: Skeleton, buf: torch.Tensor) -> Any:
+    """ABLATION (w/o-mod-ske): the framework's default assembly. A dummy
+    unit of the same size is allocated on ``buf``'s device and every
+    parameter is copied into it, one copy per tensor, so the unit holds
+    2x its bytes until ``buf`` is dropped."""
+    leaves = []
+    for r in skel.refs:
+        src = buf[r.offset:r.offset + r.nbytes].view(torch_dtype(r.dtype))
+        slot = torch.empty(r.shape, dtype=torch_dtype(r.dtype),
+                           device=buf.device)
+        slot.copy_(src.reshape(r.shape))          # parameter-wise copy
+        leaves.append(slot)
+    return tree_unflatten(skel.treedef, leaves)

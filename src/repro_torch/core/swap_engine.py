@@ -7,6 +7,15 @@ stall time the executor spends waiting on prefetch futures), actual
 storage->host traffic (``SwapStats.bytes_swapped``), and a resident-bytes
 ledger (peak is what the paper's Figs. 11-13 report).
 
+The paper's ablation arms (Fig. 15) are the engine's ``mode`` flag,
+resolved against the store (:func:`repro_torch.store.base.as_reader`):
+  * "snet"      — read the store through its own backend;
+  * "copy_in"   — w/o-uni-add: reinterpret a raw store through RawIOStore
+                  (read() page-cache copy + staging copy + device copy, +
+                  the dispatch copy with ``gpu_dispatch``);
+  * "dummy_asm" — w/o-mod-ske: zero-copy I/O but framework-default dummy
+                  assembly (one copy per tensor, 2x resident).
+
 The ledger may be PRIVATE (one model) or SHARED across several engines
 (co-resident models under one budget). Prefetch runs on a single loader
 thread: one swap-in channel, matching the paper's pipeline model, at any
@@ -27,17 +36,17 @@ import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
 from repro_torch.errors import SwapError, SwapIOError, SwapTimeoutError
 from repro_torch.kernels.qtensor import QuantizedTensor
-from repro_torch.store.base import BlockStore
+from repro_torch.store.base import BlockStore, as_reader
 from repro_torch.tree import tree_leaves
 
-__all__ = ["MemoryLedger", "BlockCache", "BlockHandle", "SwapStats",
-           "SwapEngine"]
+__all__ = ["MemoryLedger", "BlockCache", "size_aware_policy", "BlockHandle",
+           "SwapStats", "SwapEngine"]
 
 
 # ------------------------------------------------------------------ ledger
@@ -161,6 +170,38 @@ class MemoryLedger:
 
 
 # ------------------------------------------------------------------ cache
+def size_aware_policy(unit_sizes: Mapping[str, int],
+                      capacity: int) -> Callable[[str, int], bool]:
+    """Admission informed by the partition table's per-unit sizes: admit
+    exactly the units small enough that the whole admitted set provably
+    co-fits in ``capacity``.
+
+    The threshold is the largest size s such that EVERY unit of size <= s
+    fits in ``capacity`` together (distinct sizes ascending, whole size
+    classes at a time: admitting some but not all units of one size would
+    let the marginal ones thrash the cyclic block scan). Unknown names
+    fall back to their observed size.
+    """
+    sizes = sorted(s for s in unit_sizes.values() if s > 0)
+    cum, threshold, i = 0, 0, 0
+    while i < len(sizes):
+        j = i
+        while j < len(sizes) and sizes[j] == sizes[i]:
+            j += 1
+        group = sizes[i] * (j - i)
+        if cum + group > capacity:
+            break
+        cum += group
+        threshold = sizes[i]
+        i = j
+
+    def policy(name: str, nbytes: int) -> bool:
+        size = unit_sizes.get(name, nbytes)
+        return 0 < size <= threshold
+
+    return policy
+
+
 class BlockCache:
     """LRU cache of assembled units, shared across engines and requests.
 
@@ -171,14 +212,19 @@ class BlockCache:
     ``capacity`` bytes are exceeded, but only when no handle still references
     them (refcounted, so the ledger never loses sight of live bytes).
 
-    Admission is thresholded: only units no larger than ``admit_frac`` of
-    capacity enter. A block traversal is a cyclic scan, so admit-everything
-    LRU would evict each unit just before its next use and hit 0%."""
+    Admission is a pluggable ``policy`` (``(name, nbytes) -> bool``). The
+    default (None) is thresholded: only units no larger than ``admit_frac``
+    of capacity enter. A block traversal is a cyclic scan, so
+    admit-everything LRU would evict each unit just before its next use and
+    hit 0%. :func:`size_aware_policy` upgrades this with the partition
+    table's per-unit sizes (installed by ``MultiModelRuntime.plan``)."""
 
     def __init__(self, capacity: int, ledger: MemoryLedger,
-                 admit_frac: float = 0.25):
+                 admit_frac: float = 0.25,
+                 policy: Optional[Callable[[str, int], bool]] = None):
         self.capacity = capacity
         self.admit_frac = admit_frac
+        self.policy = policy
         self.ledger = ledger
         self._lock = threading.RLock()
         # name -> [params, ledger_bytes, refcount]
@@ -197,13 +243,20 @@ class BlockCache:
         with self._lock:
             return frozenset(self._pinned)
 
+    def set_policy(self,
+                   policy: Optional[Callable[[str, int], bool]]) -> None:
+        with self._lock:
+            self.policy = policy
+
     def admits(self, name: str, nbytes: int) -> bool:
-        """Pinned units always enter; others when no larger than
-        ``admit_frac`` of capacity. ``nbytes`` is the unit's RESIDENT cost
-        when cached (stored bytes for quantized backends)."""
+        """Pinned units always enter; others through the admission policy
+        (per-unit-size aware when installed, else ``admit_frac`` of
+        capacity). ``nbytes`` is the unit's RESIDENT cost when cached."""
         with self._lock:
             if name in self._pinned:
                 return True
+            if self.policy is not None:
+                return self.policy(name, nbytes)
             return 0 < nbytes <= self.capacity * self.admit_frac
 
     # ------------------------------------------------------------ lookup
@@ -439,13 +492,17 @@ class SwapEngine:
     ``ledger`` and ``cache`` may be shared with other engines (multi-model
     serving under one budget); by default each engine gets a private ledger
     seeded from ``budget`` and a pin-only cache (capacity 0: only ``pinned``
-    units are retained)."""
+    units are retained). ``mode`` selects the paper's ablation arms against
+    a raw-format store (see the module docstring)."""
 
-    def __init__(self, store: BlockStore, budget: Optional[int] = None,
+    def __init__(self, store: BlockStore, mode: str = "snet",
+                 budget: Optional[int] = None, gpu_dispatch: bool = False,
                  pinned: Sequence[str] = (),
                  ledger: Optional[MemoryLedger] = None,
                  cache: Optional[BlockCache] = None):
-        self.store = store
+        self.store = as_reader(store, mode=mode, gpu_dispatch=gpu_dispatch)
+        self.mode = mode
+        self.gpu_dispatch = gpu_dispatch
         self.device = store.device
         self.ledger = ledger if ledger is not None else MemoryLedger(budget)
         self.cache = cache if cache is not None else BlockCache(0, self.ledger)
@@ -457,6 +514,15 @@ class SwapEngine:
         # at this store's precision; the runtime sets it and swap_in
         # republishes it into stats so resets don't lose it
         self.smem_working_set = 0
+        # concurrent serving (set by MultiModelRuntime when executors > 1):
+        # reserve_blocking makes an over-budget swap-in WAIT for other
+        # tenants to free bytes (priority wakeup) instead of raising;
+        # priority is the urgency of the request this engine serves (one
+        # pass per engine at a time); the timeout turns a cross-tenant
+        # deadlock into a loud MemoryError
+        self.reserve_blocking = False
+        self.reserve_timeout: Optional[float] = 30.0
+        self.priority = 0.0
         # fault tolerance: a failed unit read is retried up to
         # ``read_retries`` times with exponential backoff from
         # ``retry_backoff_s``; ``read_deadline_s`` bounds one read attempt
@@ -491,11 +557,21 @@ class SwapEngine:
     def resident_bytes(self) -> int:
         return self.ledger.resident
 
+    def set_priority(self, priority: float) -> None:
+        """Urgency of the request this engine is currently serving; swap-ins
+        issued on the loader thread inherit it for ledger priority wakeup."""
+        self.priority = float(priority)
+
     def _ledger_add(self, handle: BlockHandle) -> None:
         what = (f"block[{','.join(handle.names[:3])}...]"
                 if len(handle.names) > 3
                 else f"block[{','.join(handle.names)}]")
-        total = self.ledger.add(id(handle), handle.resident_bytes, what)
+        if self.reserve_blocking:
+            total = self.ledger.reserve(id(handle), handle.resident_bytes,
+                                        what, priority=self.priority,
+                                        timeout=self.reserve_timeout)
+        else:
+            total = self.ledger.add(id(handle), handle.resident_bytes, what)
         # per-engine peak = residency observed while THIS engine was adding;
         # resettable via stats.__init__() (the ledger's .peak is the
         # monotone lifetime number the multi-model stats report).

@@ -1,10 +1,18 @@
-"""Serving of one model, in one of three modes:
+"""Serving of one model, in one of three modes, or of several under one
+budget, in one of two:
 
 * swapped (``--budget-mb``): a swapped prefill under a weight budget, then
   greedy decode of a few tokens with the weights streamed per step;
 * paged (``--paged --budget-mb``): continuous-batching decode through the
   paged KV cache, weight blocks and KV pages under ONE ledger;
-* in-memory (neither): the plain engine, every weight resident.
+* in-memory (neither): the plain engine, every weight resident;
+* multi (``--multi a,b --budget-mb``): the tenants' swapped prefills
+  interleaved round-robin under one shared ledger and block cache, each
+  held to its tenant's unswapped logits;
+* multi-scheduled (``--multi a,b --budget-mb --executors K``, K > 1): K
+  executor threads over the same runtime, requests admitted by
+  urgency-weighted deadline (``--priorities``, assigned round-robin) and
+  lower classes preempted at block boundaries.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --reduce smoke --budget-mb 8 --requests 2 --prompt-len 16
@@ -17,6 +25,9 @@
         --reduce smoke --requests 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --reduce smoke --budget-mb 8 --prompt-len 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --multi qwen2.5-3b,gemma2-9b --reduce smoke --budget-mb 48 \
+        --executors 2 --priorities 1,8 --store directio --device cpu
 
 rwkv6 serves on the swapped and the in-memory paths (``--store quant``
 resolves to mmap: it is quant-ineligible); ``--paged`` refuses it, as the
@@ -25,7 +36,8 @@ prompts of at most 16 tokens or a multiple of 16.
 
 Runs on ``cuda`` unless ``--device`` says otherwise; without CUDA the
 default raises. The flags are the JAX CLI's (``repro.launch.serve``) that
-these modes read, plus ``--device``.
+these modes read, plus ``--device``; ``--profile``, ``--http`` and the
+layered config are not ported yet.
 """
 from __future__ import annotations
 
@@ -39,11 +51,13 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import DelayModel
+from repro_torch.core.multi_model import MultiModelRuntime
 from repro_torch.core.runtime import SwappedModel
+from repro_torch.core.serving_scheduler import ServingScheduler
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Model
 from repro_torch.serving.batch_engine import BatchDecodeEngine
-from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.engine import Request, ServingEngine, pad_prompts
 from repro_torch.serving.paged_kv import PagedKVCache
 
 
@@ -130,10 +144,168 @@ def serve_in_memory(args: argparse.Namespace, mcfg: ModelConfig,
     return {"requests": reqs2, "stats": stats}
 
 
+def _percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, float), q)) if xs else 0.0
+
+
+def _build_multi_runtime(args: argparse.Namespace, workdir: str,
+                         device: torch.device):
+    """The tenants of ``--multi`` (tenant i from seed i) in one planned
+    :class:`MultiModelRuntime`; returns (archs, runtime, {arch: model})."""
+    archs = [a.strip() for a in args.multi.split(",") if a.strip()]
+    if len(archs) < 2:
+        raise SystemExit("--multi wants at least two comma-separated archs")
+    rt = MultiModelRuntime(int(args.budget_mb * 1e6),
+                           prefetch_depth=args.prefetch_depth,
+                           cache_frac=args.cache_frac,
+                           store_backend=args.store,
+                           precision=args.precision,
+                           executors=args.executors, device=device)
+    models = {}
+    for i, arch in enumerate(archs):
+        model = Model(scale_config(get_arch(arch), args.reduce))
+        rt.add_model(arch, model, model.init(i, device="cpu"), workdir)
+        models[arch] = model
+    rt.plan(batch=args.requests, seq=args.prompt_len)
+    return archs, rt, models
+
+
+def _prefill_batch(rng, mcfg: ModelConfig, args: argparse.Namespace) -> dict:
+    reqs = [Request(i, list(map(int, rng.integers(0, mcfg.vocab_size,
+                                                  args.prompt_len))))
+            for i in range(args.requests)]
+    return pad_prompts(mcfg, reqs)
+
+
+def _agreement(rt: MultiModelRuntime, arch: str, logits, batch) -> tuple:
+    """(exact, cosine) of a swapped pass against the tenant's unswapped
+    forward: exact stores must match bitwise; the quantized store's bounded
+    error is reported as the cosine of the two logit vectors."""
+    ref = rt.models[arch].forward_unswapped(batch)
+    a = logits.double().flatten()
+    b = ref.double().flatten()
+    cos = float(a @ b / max(float(a.norm() * b.norm()), 1e-30))
+    return bool(torch.equal(logits, ref)), cos
+
+
+def serve_multi(args: argparse.Namespace, device: torch.device) -> dict:
+    """Two or more models interleaved under ONE weight budget, one pass at
+    a time: the paper's §6 multi-DNN scenario. The first round's logits are
+    held to each tenant's unswapped forward; then peak residency against
+    the budget, overlap efficiency and the cache hit rate."""
+    budget = int(args.budget_mb * 1e6)
+    rng = np.random.default_rng(0)
+    exact, fidelity = True, {}
+    with tempfile.TemporaryDirectory() as d:
+        archs, rt, models = _build_multi_runtime(args, d, device)
+        try:
+            for round_i in range(args.rounds):
+                for arch in archs:          # interleave tenants round-robin
+                    batch = _prefill_batch(rng, models[arch].cfg, args)
+                    logits, _ = rt.forward(arch, batch)
+                    if round_i:
+                        continue
+                    same, cos = _agreement(rt, arch, logits, batch)
+                    if rt.models[arch].store_backend == "quant":
+                        fidelity[arch] = cos
+                    else:
+                        exact = exact and same
+            st = rt.stats()
+        finally:
+            rt.close()
+    parts = []
+    if fidelity:
+        parts.append(f"fidelity={min(fidelity.values()):.4f}")
+    if len(fidelity) < len(archs):
+        parts.append(f"lossless={exact}")
+    peak = st["peak_resident_mb"] * 1e6
+    print(f"[serve-multi] {len(archs)} models under {args.budget_mb:.0f} MB "
+          f"(store={args.store}): peak resident "
+          f"{st['peak_resident_mb']:.1f} MB "
+          f"({'OK' if peak <= budget else 'OVER'}), {' '.join(parts)}, "
+          f"device={device}", flush=True)
+    print(f"[serve-multi] cache {st['cache_resident_mb']:.1f}/"
+          f"{st['cache_capacity_mb']:.1f} MB, "
+          f"hit rate {st['cache_hit_rate']*100:.1f}% "
+          f"({st['cache_hits']} hits / {st['cache_misses']} misses)",
+          flush=True)
+    for name, ms in st["models"].items():
+        print(f"[serve-multi]   {name}: blocks={ms['n_blocks']} m={ms['m']} "
+              f"store={ms['store_backend']}/{ms['precision']} "
+              f"overlap_eff={ms['overlap_efficiency']*100:.1f}% "
+              f"swapped {ms['bytes_swapped_mb']:.1f} MB "
+              f"({ms['bytes_logical_mb']:.1f} MB logical)", flush=True)
+    return {"stats": st, "lossless": exact, "fidelity": fidelity,
+            "peak": peak, "budget": budget}
+
+
+def serve_multi_scheduled(args: argparse.Namespace,
+                          device: torch.device) -> dict:
+    """K concurrent executors + priority-aware preemptive scheduling over
+    the shared-budget runtime: requests carry an urgency class
+    (``--priorities``, assigned round-robin) and are admitted by
+    urgency-weighted deadline; lower classes yield at block boundaries to
+    higher ones. Reports per-class p50 / p99 latency, the preemption count
+    and every request's agreement with its tenant's unswapped model."""
+    classes = [float(p) for p in args.priorities.split(",")]
+    budget = int(args.budget_mb * 1e6)
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as d:
+        archs, rt, models = _build_multi_runtime(args, d, device)
+        try:
+            batches = {a: _prefill_batch(rng, models[a].cfg, args)
+                       for a in archs}
+            refs = {a: rt.models[a].forward_unswapped(batches[a])
+                    for a in archs}
+            for a in archs:
+                rt.forward(a, batches[a])                   # warm
+            sched = ServingScheduler(rt, auto_rebalance=args.rebalance)
+            submitted = []
+            try:
+                for round_i in range(args.rounds):
+                    for j, arch in enumerate(archs):
+                        prio = classes[(round_i * len(archs) + j)
+                                       % len(classes)]
+                        submitted.append(sched.submit(arch, batches[arch],
+                                                      priority=prio))
+                for r in submitted:
+                    r.wait(timeout=600)
+            finally:
+                sched.shutdown(timeout=600)
+            exact = all(torch.equal(r.logits, refs[r.model])
+                        for r in submitted
+                        if rt.models[r.model].store_backend != "quant")
+            st = rt.stats()
+        finally:
+            rt.close()
+    peak = st["peak_resident_mb"] * 1e6
+    print(f"[serve-sched] {len(archs)} models, {args.executors} executors "
+          f"under {args.budget_mb:.0f} MB (store={args.store}): peak "
+          f"resident {st['peak_resident_mb']:.1f} MB "
+          f"({'OK' if peak <= budget else 'OVER'}), lossless={exact}, "
+          f"preemptions={sched.preemptions}, device={device}", flush=True)
+    by_class = sched.latency_by_class()
+    for prio in sorted(by_class, reverse=True):
+        lat = [x * 1e3 for x in by_class[prio]]
+        print(f"[serve-sched]   priority {prio:g}: n={len(lat)} "
+              f"p50={_percentile(lat, 50):.1f} ms "
+              f"p99={_percentile(lat, 99):.1f} ms", flush=True)
+    return {"stats": st, "lossless": exact, "peak": peak, "budget": budget,
+            "preemptions": sched.preemptions, "latency_by_class": by_class}
+
+
 def serve(args: argparse.Namespace) -> dict:
-    """Build the model and run the mode the flags select; returns what it
-    printed."""
+    """Build the model(s) and run the mode the flags select; returns what
+    it printed."""
     device = resolve_device(args.device)
+    if args.multi is not None:
+        if args.budget_mb is None:
+            raise SystemExit("--multi requires --budget-mb")
+        if args.executors > 1:
+            return serve_multi_scheduled(args, device)
+        return serve_multi(args, device)
+    if args.arch is None:
+        raise SystemExit("need --arch (one model) or --multi a,b")
     mcfg = scale_config(get_arch(args.arch), args.reduce)
     if not mcfg.supports_decode():
         raise SystemExit(f"{mcfg.name} is encoder-only: no decode serving")
@@ -191,7 +363,10 @@ def serve(args: argparse.Namespace) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="SwapNet swapped serving (PyTorch/CUDA port)")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--multi", default=None,
+                    help="comma-separated archs served interleaved under one "
+                         "shared weight budget (requires --budget-mb)")
     ap.add_argument("--reduce", default="smoke",
                     choices=["smoke", "100m", "full"])
     ap.add_argument("--budget-mb", type=float, default=None,
@@ -210,17 +385,40 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tokens per KV page (one page spans all layers)")
     ap.add_argument("--max-batch", type=int, default=8,
                     help="decode batch slots for --paged continuous batching")
-    ap.add_argument("--store", default="mmap", choices=["mmap", "quant"],
-                    help="block store: mmap (zero-copy, lossless) or quant "
-                         "(per-channel quantized units kept quantized-"
-                         "resident; 2-D weights stream through the fused "
-                         "dequant-matmul kernel)")
+    ap.add_argument("--store", default="mmap",
+                    choices=["mmap", "rawio", "quant", "directio"],
+                    help="block store: mmap (zero-copy, lossless), rawio "
+                         "(read()-based ablation arm), quant (per-channel "
+                         "quantized units kept quantized-resident; 2-D "
+                         "weights stream through the fused dequant-matmul "
+                         "kernel) or directio (O_DIRECT lossless reads that "
+                         "bypass the page cache; buffered reads on "
+                         "filesystems without O_DIRECT)")
     ap.add_argument("--precision", default=None, choices=["int8", "int4"],
                     help="quant-store precision (default: the arch's "
                          "swap_precision)")
     ap.add_argument("--prefetch-depth", type=int, default=2,
                     help="pipeline residency m (1=serial, 2=double buffer)")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="multi-tenant round-robin passes (repeat requests "
+                         "exercise the shared block cache)")
+    ap.add_argument("--executors", type=int, default=1,
+                    help="concurrent executor threads for --multi serving "
+                         "(>1 runs the priority-aware preemptive scheduler; "
+                         "each model's blocks are planned against a 1/K "
+                         "slice of the block budget so K pipelines co-fit)")
+    ap.add_argument("--priorities", default="1",
+                    help="comma-separated urgency classes assigned "
+                         "round-robin to --multi requests (e.g. '1,8'; "
+                         "higher = more urgent: admitted earlier, preempts "
+                         "lower classes at block boundaries)")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="re-split the block budget (MultiDNNScheduler, "
+                         "Eq. 1) whenever the queued urgency mix changes")
+    ap.add_argument("--cache-frac", type=float, default=0.25,
+                    help="fraction of the budget reserved for the shared "
+                         "hot-block cache (multi-tenant mode)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128,

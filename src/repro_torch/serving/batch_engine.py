@@ -112,6 +112,20 @@ class BatchDecodeEngine:
             self._on_retire[req.rid] = on_retire
             self._pending.append(req)
 
+    def cancel(self, rid: int) -> bool:
+        """Un-submit a still-PENDING request (its retire callback never
+        fires; the caller owns completion signalling). False once the
+        request was admitted: an active sequence holds KV pages and a batch
+        slot that must unwind through retire / evict, not removal."""
+        with self._lock:
+            for i, req in enumerate(self._pending):
+                if req.rid == rid:
+                    del self._pending[i]
+                    self._known.discard(rid)
+                    self._on_retire.pop(rid, None)
+                    return True
+        return False
+
     def is_done(self, rid: int) -> bool:
         with self._lock:
             return rid in self._done
@@ -185,7 +199,7 @@ class BatchDecodeEngine:
                 # error through its retire callback, keep admitting
                 self.prefill_s += time.perf_counter() - t0
                 if e.model is None:
-                    e.model = self.sm.cfg.name
+                    e.model = self.sm.name
                 req.error = e
                 self.failures += 1
                 failed.append(req.rid)

@@ -8,7 +8,11 @@ A :class:`BlockStore` owns exactly that tier. The engine
 :class:`UnitRead` and does the bookkeeping.
 
 Backends: ``MmapStore`` (zero-copy map of the unit file, one copy to the
-device) and ``QuantizedStore`` (int8 / packed int4 per-channel payloads).
+device; ``assembly="dummy"`` is the w/o-mod-ske ablation arm),
+``RawIOStore`` (read() + staging copy, the ``copy_in`` arm),
+``DirectIOStore`` (O_DIRECT reads into an aligned buffer arena),
+``QuantizedStore`` (int8 / packed int4 per-channel payloads) and
+``FaultInjector`` (seeded storage faults around any of them).
 
 Every read ends with its device work complete: :func:`flush` records an
 event on the current stream (the engine's copy stream on the loader
@@ -82,6 +86,13 @@ class BlockStore:
     LOGICAL unit size, ``stored_nbytes`` its size on storage,
     ``resident_nbytes`` what one resident copy costs the ledger, and
     ``meta_bytes`` the resident skeleton overhead (paper Fig. 19a).
+    ``open()`` prepares a store for reading (idempotent); a store SHARED by
+    several engines must tolerate concurrent ``read_unit`` calls from their
+    loader threads.
+
+    ``raw_format`` marks the raw flat layout (one contiguous buffer per
+    unit), which :meth:`attach` can read through another backend: how the
+    engine's ablation ``mode`` reinterprets one set of files.
 
     The integrity tier: ``digests`` holds one CRC32 per unit file, taken at
     build time; with ``verify=True`` every read checks its payload before
@@ -89,6 +100,7 @@ class BlockStore:
     """
 
     backend = "abstract"
+    raw_format = False      # True: on-disk files are the raw flat layout
     suffix = ".bin"
 
     def __init__(self, workdir: str, verify: bool = False,
@@ -125,6 +137,21 @@ class BlockStore:
             fh.write(buf.tobytes())
         self.skeletons[name] = skel
 
+    @classmethod
+    def attach(cls, other: "BlockStore", **opts) -> "BlockStore":
+        """A reader over ANOTHER store's already-built raw files (shared
+        skeletons, order and digests; no rebuild), on its device."""
+        if not (cls.raw_format and other.raw_format):
+            raise TypeError(
+                f"cannot attach {cls.__name__} to {type(other).__name__}: "
+                "both ends must use the raw flat file format")
+        store = cls(other.workdir, device=other.device, **opts)
+        store.skeletons = other.skeletons
+        store.order = other.order
+        store.digests = other.digests
+        store.verify = store.verify or other.verify
+        return store.open()
+
     # ------------------------------------------------------------ integrity
     def _record_digest(self, name: str) -> None:
         crc = 0
@@ -154,10 +181,14 @@ class BlockStore:
 
     # ------------------------------------------------------------ read
     def open(self) -> "BlockStore":
+        """Prepare the store for reading. Idempotent; returns self."""
         return self
 
     def read_unit(self, name: str) -> UnitRead:
         raise NotImplementedError
+
+    def close(self) -> None:
+        """Release what ``open()`` started (a no-op for most backends)."""
 
     def _empty_unit(self, name: str) -> UnitRead:
         skel = self.skeletons[name]
@@ -179,3 +210,22 @@ class BlockStore:
     def meta_bytes(self) -> int:
         return sum(s.meta_bytes() for s in self.skeletons.values())
 
+
+def as_reader(store: BlockStore, mode: str = "snet",
+              gpu_dispatch: bool = False) -> BlockStore:
+    """Resolve the engine's ablation ``mode`` against a built store.
+
+    ``snet`` reads the store through its own backend; ``copy_in`` and
+    ``dummy_asm`` (the paper's Fig. 15 ablation arms) reinterpret a
+    raw-format store through the RawIO / dummy-assembly paths.
+    """
+    from repro_torch.store.mmap_store import MmapStore
+    from repro_torch.store.rawio_store import RawIOStore
+    if mode == "copy_in":
+        return RawIOStore.attach(store, gpu_dispatch=gpu_dispatch)
+    if mode == "dummy_asm":
+        return MmapStore.attach(store, assembly="dummy")
+    if mode != "snet":
+        raise ValueError(f"unknown engine mode {mode!r}; choose from "
+                         "'snet', 'copy_in', 'dummy_asm'")
+    return store.open()

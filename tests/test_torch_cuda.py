@@ -32,7 +32,10 @@ Tolerances, with their reasons:
   * mmap swapped vs unswapped: bitwise (the same ops on the same bytes);
   * paged continuous batching vs solo in-memory decode, float32: equal
     tokens;
-  * rwkv6 swapped vs unswapped on mmap: bitwise.
+  * rwkv6 swapped vs unswapped on mmap: bitwise;
+  * directio against mmap reads, a faulty read retried against a clean
+    one, the copy_in / dummy_asm arms against snet: bitwise (the same
+    bytes through other host paths).
 """
 import dataclasses
 
@@ -817,3 +820,72 @@ def test_gemma_prefill_on_the_card(dev, tmp_path):
     finally:
         sm.close()
     assert bool(torch.isfinite(logits).all())
+
+
+def _reduced_qwen():
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
+    return model, params, {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+
+
+def test_directio_reads_equal_mmap_on_the_card(dev, tmp_path):
+    """Every unit through the directio store lands on the card bitwise the
+    mmap store's, on the O_DIRECT path or the buffered one."""
+    from repro_torch.store import build_store
+    from repro_torch.tree import tree_leaves
+    model, params, _ = _reduced_qwen()
+    from repro_torch.core.runtime import split_units
+    units = [(u.name, u.params) for u in split_units(model, params)]
+    mm = build_store(units, str(tmp_path / "m"), backend="mmap")
+    dio = build_store(units, str(tmp_path / "d"), backend="directio")
+    try:
+        for name in mm.order:
+            a = tree_leaves(mm.read_unit(name).params)
+            b = tree_leaves(dio.read_unit(name).params)
+            assert all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
+    finally:
+        dio.close()
+
+
+def test_faulty_retry_equals_clean_read_on_the_card(dev, tmp_path):
+    """io, corrupt and torn faults scripted into a swapped pass on the
+    card: every read succeeds on retry and the logits equal the
+    unswapped forward bitwise."""
+    model, params, batch = _reduced_qwen()
+    sm = SwappedModel(model, params, str(tmp_path), store_backend="faulty",
+                      store_options={"inner": "directio", "p": 0.0})
+    try:
+        sm.engine.retry_backoff_s = 0.001
+        sm.partition(8 << 20, DelayModel(), 2, 32)
+        sm.store.force("io", "corrupt", None, "torn")
+        logits, st = sm.forward(batch)
+        assert st["retries"] == 3
+        assert torch.equal(logits, sm.forward_unswapped(batch))
+    finally:
+        sm.close()
+
+
+@pytest.mark.parametrize("mode,gpu_dispatch,k", [("copy_in", True, 3),
+                                                 ("dummy_asm", False, 2)])
+def test_ablation_arms_equal_snet_on_the_card(dev, tmp_path, mode,
+                                              gpu_dispatch, k):
+    model, params, batch = _reduced_qwen()
+    out = {}
+    for arm in ("snet", mode):
+        sm = SwappedModel(model, params, str(tmp_path / arm),
+                          prefetch_depth=1, mode=arm,
+                          gpu_dispatch=gpu_dispatch)
+        try:
+            sm.set_plan((1, 3))
+            out[arm], _ = sm.forward(batch)
+            blocks = [sum(sm.store.nbytes(n) for n in sm.store.order[lo:hi])
+                      for lo, hi in sm.plan.blocks()]
+            assert sm.engine.stats.peak_resident == \
+                (1 if arm == "snet" else k) * max(blocks)
+        finally:
+            sm.close()
+    assert torch.equal(out["snet"], out[mode])
+
