@@ -65,6 +65,8 @@ Phases, each printing its wall time:
 Every full-precision linear of phases 3 to 7 runs ``swap_linear`` and
 every prefill's attention ``flash_attention``; the quantized stores' lazy
 linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
+Every shape phase 7 launches a kernel at is one of phase 2's rows, held
+against the plain version there and timed; the script checks it.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -241,8 +243,8 @@ P7_GEMMA_LAYERS = 6
 P7_PROMPT, P7_REQUESTS = 32, 4         # prefill requests per tenant
 P7_GEN_PROMPTS, P7_GEN_NEW = 2, 4      # qwen's paged generation
 P7_RUNTIME = dict(executors=2, prefetch_depth=3, cache_frac=0.2,
-                  kv_frac=0.2, page_tokens=16, max_batch=8)
-P7_GRID = 1e8                          # budget search step, 0.1 GB
+                  kv_frac=0.2, page_tokens=16, max_batch=8, delta=0.05)
+P7_GRID = 10 ** 8                      # budget search step, 0.1 GB
 P7_BUDGET_OVER_FLOOR = 1.1
 P7_WORKDIR = ROOT / "build" / "phase7"
 
@@ -688,6 +690,10 @@ PAGED_TIMED = [
      GEMMA_SCALE, 4096, 50.0),
     ("gemma2-9b bf16 B=2 global", "bfloat16", 2, 16, 8, 256, [4201, 25],
      GEMMA_SCALE, None, 50.0),
+    # phase 7: qwen's two 32-token generations decode at 33 to 35 tokens
+    # (a step alone at B=1 is the B=1 row's shape)
+    ("qwen2.5-3b multi-tenant bf16 B=2", "bfloat16", 2, 16, 2, 128, [34, 34],
+     QWEN_SCALE, None, None),
 ]
 
 
@@ -1095,12 +1101,17 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg):
 
     # the main paths: qwen2.5-3b bf16 prefill (phase 3 mmap and eager),
     # its fp32 decode at batch 2 (phase 4, run A), gemma2-9b's prefill
-    # (phase 6), rwkv6-3b's output projection (phase 5, fp32)
+    # (phase 6), rwkv6-3b's output projection (phase 5, fp32); phase 7's
+    # 32-token prefills of both tenants and qwen's paged decode at 1 or 2
+    # sequences (its two generations may start a step apart), in bf16
     timed = [("qwen2.5-3b", BATCH * PROMPT, "bfloat16", s)
              for s in fp_layer_linears(qcfg)]
     timed += [("qwen2.5-3b", 2, "float32", s) for s in fp_layer_linears(qcfg)]
     timed += [("gemma2-9b", GEMMA_PREFILL, "bfloat16", s)
               for s in fp_layer_linears(gcfg)]
+    timed += [(f"{c.name} multi-tenant", M, "bfloat16", s)
+              for c, Ms in ((qcfg, (P7_PROMPT, 2, 1)), (gcfg, (P7_PROMPT,)))
+              for M in Ms for s in fp_layer_linears(c)]
     timed += [("rwkv6-3b wo", RWKV_BATCH * RWKV_PROMPT, "float32",
                (rcfg.d_model, rcfg.d_model, "none", False))]
     rows = []
@@ -1187,6 +1198,11 @@ FA_TIMED += [("qwen2.5-3b admission", dname, 1, S, 16, 2, 128, QWEN_SCALE,
 FA_TIMED += [("gemma2-9b prefill", "bfloat16", 1, S, 16, 8, 256,
               GEMMA_SCALE, window, 50.0) for S in (GEMMA_PREFILL, 24)
              for window in (4096, None)]
+# phase 7: both tenants' 32-token prefills (qwen's paged admissions too)
+FA_TIMED += [("qwen2.5-3b multi-tenant", "bfloat16", 1, P7_PROMPT, 16, 2,
+              128, QWEN_SCALE, None, None)]
+FA_TIMED += [("gemma2-9b multi-tenant", "bfloat16", 1, P7_PROMPT, 16, 8, 256,
+              GEMMA_SCALE, window, 50.0) for window in (4096, None)]
 
 
 def check_flash_attention(torch):
@@ -2147,24 +2163,68 @@ def wait_until(cond, timeout: float, what: str) -> None:
         time.sleep(0.001)
 
 
-def p7_floor_budget(rt, batch, seq):
-    """The smallest budget on a P7_GRID grid at which ``rt.plan`` is
-    feasible for every tenant, found by planning at each grid point."""
-    b = P7_GRID
-    while True:
-        rt.set_budget(b)
+def p7_slice(budget: int) -> int:
+    """One executor's block budget under ``budget``: the arithmetic of
+    ``MultiModelRuntime.block_budget`` (the cache and the KV reserve off
+    the top; no tenant of phase 7 pins a unit), split over the executors
+    as its ``plan`` splits it."""
+    rest = (budget - int(budget * P7_RUNTIME["cache_frac"])
+            - int(budget * P7_RUNTIME["kv_frac"]))
+    return rest // P7_RUNTIME["executors"]
+
+
+def p7_fits(planners, budget: int) -> list:
+    """Per tenant, whether its block plan fits one executor's slice of
+    ``budget`` (each planner runs ``best_partition``, as the runtime's
+    ``plan`` does through each tenant's ``partition``)."""
+    fits = []
+    for plan in planners:
         try:
-            rt.plan(batch, seq)
-            return b
+            plan(p7_slice(budget))
+            fits.append(True)
         except ValueError:
-            b += P7_GRID
-        require(b < 1e12, "no feasible budget below 1 TB")
+            fits.append(False)
+    return fits
 
 
-def p7_percentiles(lat):
-    import numpy as np
-    ms = np.asarray(lat, float) * 1e3
-    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+def p7_floor_budget(tenants, dm, batch, seq) -> int:
+    """The smallest budget on a P7_GRID grid at which every tenant plans
+    with 2 executors, found before any store is built: the runtime's
+    planner over each tenant's unit table (a directio unit's resident
+    bytes are its host tensors' bytes). ``p7_check_floor`` holds it to
+    the built stores."""
+    from repro_torch.core.partition import PartitionPlanner
+    from repro_torch.core.runtime import split_units, unit_infos
+    planners = []
+    for model, params in tenants:
+        pp = PartitionPlanner(unit_infos(model, split_units(model, params),
+                                         batch, seq),
+                              dm, m=P7_RUNTIME["prefetch_depth"])
+        planners.append(lambda b, pp=pp: pp.best_partition(
+            b, P7_RUNTIME["delta"]))
+    b = P7_GRID
+    while not all(p7_fits(planners, b)):
+        b += P7_GRID
+        require(b < 10 ** 12, "no feasible budget below 1 TB")
+    return b
+
+
+def p7_check_floor(rt, floor, batch, seq) -> None:
+    """The floor against the runtime's tenants on their built stores: the
+    slice arithmetic is the runtime's own, every tenant plans at the
+    floor and some tenant cannot a grid step below it. Ends with the
+    runtime's own ``plan``."""
+    require(p7_slice(rt.budget) == rt.block_budget() // rt.executors,
+            f"phase 7: slice {p7_slice(rt.budget)} != the runtime's "
+            f"{rt.block_budget() // rt.executors}")
+    planners = [lambda b, sm=sm: sm.partition(b, rt.dm, batch, seq,
+                                              delta=rt.delta)
+                for sm in rt.models.values()]
+    require(all(p7_fits(planners, floor))
+            and not all(p7_fits(planners, floor - P7_GRID)),
+            f"phase 7: {floor / 1e9:.1f} GB is not the smallest feasible "
+            f"budget on the stores")
+    rt.plan(batch, seq)
 
 
 def p7_check_launches(counts, by_shape) -> None:
@@ -2193,6 +2253,7 @@ def run_multi(torch, qmodel, qparams, gmodel, gparams, main_launches,
     import shutil
 
     import numpy as np
+    from repro_torch.core.cost_model import DelayModel
     from repro_torch.core.multi_model import MultiModelRuntime
     from repro_torch.core.runtime import SwappedModel
     from repro_torch.core.serving_scheduler import ServingScheduler
@@ -2207,18 +2268,19 @@ def run_multi(torch, qmodel, qparams, gmodel, gparams, main_launches,
     q, g = "qwen2.5-3b", "gemma2-9b"
     shutil.rmtree(P7_WORKDIR, ignore_errors=True)
     P7_WORKDIR.mkdir(parents=True)
+    dm = DelayModel()
+    floor = p7_floor_budget([(qmodel, qparams), (gmodel, gparams)], dm, 1,
+                            P7_PROMPT)
+    budget = int(P7_BUDGET_OVER_FLOOR * floor)
     t0 = time.perf_counter()
-    rt = MultiModelRuntime(1 << 40, store_backend="directio", device=device,
-                           **P7_RUNTIME)
+    rt = MultiModelRuntime(budget, store_backend="directio", device=device,
+                           dm=dm, **P7_RUNTIME)
     try:
         rt.add_model(q, qmodel, qparams, str(P7_WORKDIR))
         rt.add_model(g, gmodel, gparams, str(P7_WORKDIR))
         qsm, gsm = rt.models[q], rt.models[g]
         t_build = time.perf_counter() - t0
-        floor = p7_floor_budget(rt, 1, P7_PROMPT)
-        budget = int(P7_BUDGET_OVER_FLOOR * floor)
-        rt.set_budget(budget)
-        rt.plan(1, P7_PROMPT)
+        p7_check_floor(rt, floor, 1, P7_PROMPT)
         resident = sum(sm.store.resident_nbytes(n)
                        for sm in (qsm, gsm) for n in sm.store.order)
         ratio = resident / budget
@@ -2340,7 +2402,8 @@ def run_multi(torch, qmodel, qparams, gmodel, gparams, main_launches,
               f"served alone {solo}; preemptions {preemptions} "
               f"(prefills {[r.rid for r in pre]}); ledger peak "
               f"{rt.ledger.peak / 1e9:.3f} GB <= budget "
-              f"{budget / 1e9:.3f} GB, drained to the cache's "
+              f"{budget / 1e9:.3f} GB ({rt.ledger.peak / budget:.1%}), "
+              f"drained to the cache's "
               f"{rt.cache.resident_bytes / 1e9:.3f} GB; launches {counts}",
               flush=True)
         lat = {}
@@ -2351,10 +2414,11 @@ def run_multi(torch, qmodel, qparams, gmodel, gparams, main_launches,
             es = sm.engine.stats
             stage = {k: es.stage_seconds(k)
                      for k in ("read", "dispatch", "exec", "wait")}
-            classes = {p: p7_percentiles(v) for (m, p), v in lat.items()
-                       if m == name}
+            # two requests a class: each one's latency, not a percentile
+            classes = {p: sorted(t * 1e3 for t in v)
+                       for (m, p), v in lat.items() if m == name}
             rate = es.bytes_swapped / max(stage["read"], 1e-9) / 1e9
-            tenants[name] = {"latency_ms_p50_p99": classes,
+            tenants[name] = {"latency_ms_by_priority": classes,
                              "bytes_swapped": es.bytes_swapped,
                              "stage_s": stage,
                              "cache_hit_rate": es.cache_hit_rate(),
@@ -2362,7 +2426,8 @@ def run_multi(torch, qmodel, qparams, gmodel, gparams, main_launches,
                              "read_gb_s": rate,
                              "direct_io": sm.store.direct_io}
             print(f"[phase7 {name}] " + "; ".join(
-                f"priority {p:g} p50 {v[0]:.1f} ms p99 {v[1]:.1f} ms"
+                f"priority {p:g} " + ", ".join(f"{t:.1f}" for t in v)
+                + f" ms (n={len(v)})"
                 for p, v in sorted(classes.items(), reverse=True))
                 + f"; swapped {es.bytes_swapped / 1e9:.3f} GB; s: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stage.items())
@@ -2471,12 +2536,30 @@ def run_multi(torch, qmodel, qparams, gmodel, gparams, main_launches,
     shutil.rmtree(P7_WORKDIR, ignore_errors=True)
     return {"budget": budget, "floor": floor, "resident": resident,
             "tenants": tenants, "ablation": ablation,
-            "preemptions": preemptions, "launches": counts}
+            "preemptions": preemptions, "launches": counts,
+            "by_shape": by_shape}
 
 
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
+
+
+def held_key(name: str, key: tuple) -> tuple:
+    """A launch key as phase 2's rows key it: a paged_attention row
+    stands for its shape at any page-table width."""
+    return key[:5] + key[6:] if name == "paged_attention" else key
+
+
+def check_held(rows, by_shape, what: str) -> None:
+    """Every shape ``what`` launched a kernel at is a phase 2 row: held
+    against the plain version there, and timed."""
+    held = {(r["name"], r["key"]) for r in rows}
+    missing = sorted({(name, held_key(name, k))
+                      for name, keys in by_shape.items() for k in keys
+                      if (name, held_key(name, k)) not in held}, key=str)
+    require(not missing, f"{what} launched kernels at shapes phase 2 did "
+            f"not hold against their plain versions: {missing}")
 
 
 def launch_counting(main_launches):
@@ -2599,7 +2682,13 @@ def main() -> int:
               f"{sum(p.numel() for p in _leaves(gparams7)) / 1e6:.1f} M "
               f"(fp32, host), init {time.perf_counter() - t0:.1f} s; with "
               f"{cfg.name} of phase 3", flush=True)
-        run_multi(torch, model, params, gmodel7, gparams7, main_launches)
+        p7 = run_multi(torch, model, params, gmodel7, gparams7,
+                       main_launches)
+        check_held(rows, p7["by_shape"], "phase 7")
+        print("phase 7 launches by held shape: " + "; ".join(
+            f"{name} {held_key(name, k)} x{n}"
+            for name, keys in p7["by_shape"].items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
     del model, params, gmodel7, gparams7
 
     for name, per_shape in main_launches.items():
@@ -2612,13 +2701,8 @@ def main() -> int:
     for r in rows:
         r = dict(r)
         key = r.pop("key")
-        if r["name"] == "paged_attention":
-            # a timing row stands for its shape at any page-table width
-            r["launches"] = sum(
-                n for k, n in main_launches[r["name"]].items()
-                if k[:5] + k[6:] == key)
-        else:
-            r["launches"] = main_launches[r["name"]].get(key, 0)
+        r["launches"] = sum(n for k, n in main_launches[r["name"]].items()
+                            if held_key(r["name"], k) == key)
         r.pop("live_tokens", None)
         r.pop("path", None)
         out.append(r)

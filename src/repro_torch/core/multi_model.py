@@ -178,21 +178,6 @@ class MultiModelRuntime:
         return (self.budget - self.cache.capacity - self._pinned_bytes()
                 - self.kv_reserve())
 
-    def set_budget(self, budget: int) -> None:
-        """Move the shared budget while nothing is resident (the paper's
-        run-time adaptation, §6.2.2): the ledger enforces the new figure,
-        the cache and the KV reserve keep their fractions of it (a batch
-        engine is built anew, its page pool sized from the new reserve),
-        and the models must be planned again before they serve."""
-        if self.ledger.resident:
-            raise RuntimeError(
-                f"set_budget with {self.ledger.resident} bytes resident")
-        self.budget = int(budget)
-        self.ledger.budget = self.budget
-        self.cache.capacity = int(self.budget * self.cache_frac)
-        self._batch_engines.clear()
-        self._planned = False
-
     # ------------------------------------------------------------ planning
     def plan(self, batch: int, seq: int) -> Dict[str, BlockPlan]:
         """Partition every registered model against the shared budget.

@@ -22,11 +22,16 @@ Mechanics (the only backend with alignment constraints):
     buffered into the same arena, and ``direct_io`` records which path is
     live. Accounting and stages are identical either way.
 
-An arena buffer comes round again after ``arena_depth`` reads, so
 :meth:`DirectIOStore.read_unit` returns only once its bytes are off the
-buffer: the device copy has run and :func:`~repro_torch.store.base.flush`
-has waited for it (on the CPU, ``to_device`` copies too, so no returned
-tensor aliases the arena).
+arena buffer: the device copy has run and
+:func:`~repro_torch.store.base.flush` has waited for it (on the CPU,
+``to_device`` copies too, so no returned tensor aliases the arena). So a
+buffer is free again as soon as its read returns, and one buffer per
+store (the largest unit's bytes of host memory) is enough. The store's
+lock is held from the read until the copy is done, so loader threads of
+engines that share a store take turns on it. The JAX package keeps a
+ring of 4 buffers; with each read waiting for its copy, the extra three
+would only hold host memory.
 
 Accounting (the JAX package's, byte for byte): ``io_bytes`` is the
 ALIGNED byte count issued to storage (the padded file size);
@@ -35,6 +40,7 @@ ALIGNED byte count issued to storage (the padded file size);
 from __future__ import annotations
 
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
@@ -60,7 +66,7 @@ class AlignedArena:
     (rounded up to the alignment), growing a slot when a unit is larger
     than anything seen before; slots rotate round-robin."""
 
-    def __init__(self, depth: int = 4):
+    def __init__(self, depth: int = 1):
         if depth < 1:
             raise ValueError(f"arena depth {depth} < 1")
         self._bufs: List[Optional[np.ndarray]] = [None] * depth
@@ -95,12 +101,15 @@ class DirectIOStore(BlockStore):
     raw_format = True
 
     def __init__(self, workdir: str, queue_depth: int = 4,
-                 arena_depth: int = 4, verify: bool = False, device="cpu"):
+                 verify: bool = False, device="cpu"):
         if queue_depth < 1:
             raise ValueError(f"queue_depth {queue_depth} < 1")
         super().__init__(workdir, verify=verify, device=device)
         self.queue_depth = queue_depth
-        self.arena = AlignedArena(arena_depth)
+        self.arena = AlignedArena()
+        # held from arena.take() until the device copy is done (and by the
+        # probe, which reads into the arena too)
+        self._arena_lock = threading.RLock()
         self.direct_io: Optional[bool] = None   # resolved by open()
         self._pool: Optional[ThreadPoolExecutor] = None
 
@@ -116,8 +125,9 @@ class DirectIOStore(BlockStore):
                 fh.write(b"\0" * pad)
 
     def open(self) -> "DirectIOStore":
-        if self.direct_io is None:
-            self.direct_io = self._probe_direct()
+        with self._arena_lock:
+            if self.direct_io is None:
+                self.direct_io = self._probe_direct()
         if self._pool is None and self.queue_depth > 1:
             self._pool = ThreadPoolExecutor(
                 max_workers=self.queue_depth,
@@ -183,19 +193,20 @@ class DirectIOStore(BlockStore):
         if n == 0:
             return self._empty_unit(name)
         aligned = _align_up(n)
-        t0 = time.perf_counter()
-        buf = self.arena.take(aligned)
-        self._read_into(self._path(name), buf)
-        # the digest covers the padded file (what storage delivered)
-        self._verify_payload(name, buf)
-        t1 = time.perf_counter()
-        host = torch.from_numpy(buf[:n])
-        t2 = time.perf_counter()
-        # the copy must be off the arena buffer before it rotates back
-        # around: to_device copies (on the CPU too) and flush waits for it
-        params = assemble(skel, to_device(host, self.device))
-        flush(self.device)
-        t3 = time.perf_counter()
+        with self._arena_lock:
+            t0 = time.perf_counter()
+            buf = self.arena.take(aligned)
+            self._read_into(self._path(name), buf)
+            # the digest covers the padded file (what storage delivered)
+            self._verify_payload(name, buf)
+            t1 = time.perf_counter()
+            host = torch.from_numpy(buf[:n])
+            t2 = time.perf_counter()
+            # the copy must be off the arena buffer before the lock goes:
+            # to_device copies (on the CPU too) and flush waits for it
+            params = assemble(skel, to_device(host, self.device))
+            flush(self.device)
+            t3 = time.perf_counter()
         stages = (("read", t0, t1), ("unpack", t1, t2), ("dispatch", t2, t3))
         return UnitRead(params, aligned, n, t1 - t0, t3 - t1, stages=stages)
 

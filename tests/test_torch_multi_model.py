@@ -231,32 +231,6 @@ def test_units_are_namespaced_per_tenant(tenants, tmp_path):
         rt.close()
 
 
-def test_set_budget_replans_and_refuses_while_resident(tenants, tmp_path):
-    rt = MultiModelRuntime(BUDGET, cache_frac=0.25, kv_frac=0.25,
-                           device="cpu")
-    try:
-        for arch, (_, _, model, params, _) in tenants.items():
-            rt.add_model(arch, model, params, str(tmp_path))
-        rt.plan(batch=2, seq=16)
-        rt.set_budget(BUDGET // 2)
-        assert rt.ledger.budget == rt.budget == BUDGET // 2
-        assert rt.cache.capacity == int(BUDGET // 2 * 0.25)
-        assert rt.kv_reserve() == int(BUDGET // 2 * 0.25)
-        with pytest.raises(RuntimeError):       # must plan again
-            rt.forward("qwen2.5-3b", {})
-        rt.set_budget(100)
-        with pytest.raises(ValueError):         # nothing fits any more
-            rt.plan(batch=2, seq=16)
-        rt.set_budget(BUDGET)
-        rt.plan(batch=2, seq=16)
-        rt.ledger.add("held", 1)
-        with pytest.raises(RuntimeError):
-            rt.set_budget(BUDGET // 2)
-        rt.ledger.drop("held")
-    finally:
-        rt.close()
-
-
 def test_unported_options_name_their_queue_item(tenants, tmp_path):
     with pytest.raises(NotImplementedError, match="A6"):
         MultiModelRuntime.from_config(None)

@@ -151,6 +151,44 @@ def test_ledger_never_exceeds_budget_adversarial():
     assert ledger.resident == 0
 
 
+@pytest.mark.parametrize("impl", ["port", "reference"])
+def test_ledger_reserve_waits_and_wakes_by_priority(impl):
+    """Three reserves that do not fit wait; as bytes free, the
+    priority-8 one is admitted first, then the priority-1 ones in arrival
+    order, the same in the port as in the JAX package."""
+    import time
+    if impl == "port":
+        ledger = MemoryLedger(100)
+    else:
+        from repro.core.swap_engine import MemoryLedger as RefLedger
+        ledger = RefLedger(100)
+    ledger.add("holder", 90)
+    admitted = []
+
+    def waiter(tag, priority):
+        ledger.reserve(tag, 60, priority=priority, timeout=60)
+        admitted.append(tag)
+        ledger.drop(tag)
+
+    threads = []
+    for k, (tag, priority) in enumerate([("first-1", 1.0), ("urgent-8", 8.0),
+                                         ("second-1", 1.0)]):
+        t = threading.Thread(target=waiter, args=(tag, priority))
+        t.start()
+        threads.append(t)
+        t_end = time.monotonic() + 30
+        while len(ledger._waiting) < k + 1:     # queued before the next
+            assert time.monotonic() < t_end
+            time.sleep(0.001)
+    assert admitted == [] and ledger.resident == 90
+    ledger.drop("holder")
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert admitted == ["urgent-8", "first-1", "second-1"]
+    assert ledger.resident == 0 and ledger.peak == 90
+
+
 def test_ledger_add_over_budget_records_nothing():
     ledger = MemoryLedger(100)
     ledger.add("a", 60)

@@ -143,6 +143,38 @@ def test_read_unit_never_aliases_host_buffers(units, tmp_path, kind,
         port.close()
 
 
+@pytest.mark.parametrize("kind", ["directio", "directio-buffered"])
+def test_directio_one_buffer_shared_by_concurrent_readers(units, tmp_path,
+                                                          kind, monkeypatch):
+    """One arena buffer per store: four threads reading every unit of one
+    shared store at once each get the source bits back, and the arena
+    holds one buffer of the largest unit's aligned bytes."""
+    import threading
+    _, port_units, _, _ = units
+    _, port = _build_both(units, tmp_path, kind, monkeypatch)
+    src = dict(port_units)
+    bad = []
+
+    def reader():
+        for name in port.order * 3:
+            got = port.read_unit(name).params
+            if not all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(got), tree_leaves(src[name]))):
+                bad.append(name)
+    try:
+        threads = [threading.Thread(target=reader) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert bad == []
+        largest = max(port.stored_nbytes(n) for n in port.order)
+        assert port.arena.host_bytes == largest + ALIGNMENT
+    finally:
+        port.close()
+
+
 def test_directio_files_padded_to_alignment(units, tmp_path, monkeypatch):
     _, port = _build_both(units, tmp_path, "directio", monkeypatch)
     import os
