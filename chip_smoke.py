@@ -60,13 +60,29 @@ Phases, each printing its wall time:
    to the same logits, a fault past the retries fails its request with
    no ledger bytes left while qwen beside it stays exact; last one qwen
    pass in each ablation arm (``copy_in`` over rawio with the dispatch
-   copy, ``dummy_asm``) equals the snet pass and peaks at 3x / 2x.
+   copy, ``dummy_asm``) equals the snet pass and peaks at 3x / 2x;
+8. the mcu profile through the port's entry points, on phase 3's
+   qwen2.5-3b: the config resolved through its layers (the CLI layer sets
+   only the budget and ``reduce``); ``calibrate_model`` by hand (13
+   swapped passes on mmap at 2 x 16, one round-tripped unit a pass); the
+   budget 1.1x the smallest feasible on a 0.1 GB grid over the mixed
+   store's resident units and below their sum; ``MultiModelRuntime
+   .from_config`` + ``add_model``, whose own calibration must give the
+   same plan JSON byte for byte; the profile's workload through
+   ``ServingScheduler.from_config`` (each result == a swapped pass
+   bitwise, within 2e-2 of the in-memory model on the plan's round-trip,
+   realized rel-L2 <= the 2e-2 target, bytes by precision summing to the
+   bytes swapped, ledger peak <= budget); the same runtime and scheduler
+   behind the HTTP control plane (health, models, two submits == the
+   in-process forward bitwise, a cancel, /metrics == the scheduler's
+   counters, a clean shutdown); where the 2e-2 plan has one quantized
+   width, the plan of a further target of the same profile with both.
 
-Every full-precision linear of phases 3 to 7 runs ``swap_linear`` and
+Every full-precision linear of phases 3 to 8 runs ``swap_linear`` and
 every prefill's attention ``flash_attention``; the quantized stores' lazy
 linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
-Every shape phase 7 launches a kernel at is one of phase 2's rows, held
-against the plain version there and timed; the script checks it.
+Every shape phases 7 and 8 launch a kernel at is one of phase 2's rows,
+held against the plain version there and timed; the script checks it.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -247,6 +263,14 @@ P7_RUNTIME = dict(executors=2, prefetch_depth=3, cache_frac=0.2,
 P7_GRID = 10 ** 8                      # budget search step, 0.1 GB
 P7_BUDGET_OVER_FLOOR = 1.1
 P7_WORKDIR = ROOT / "build" / "phase7"
+
+# phase 8: the mcu profile's workload (requests x prompt_len, which is also
+# the calibration batch: calibrate.CALIB_BATCH x CALIB_SEQ) on phase 3's
+# qwen2.5-3b; the budget from the calibrated plan as phase 7 finds its own
+P8_BATCH, P8_SEQ = 2, 16
+P8_GRID = 10 ** 8                      # budget search step, 0.1 GB
+P8_BUDGET_OVER_FLOOR = 1.1
+P8_WORKDIR = ROOT / "build" / "phase8"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -553,16 +577,24 @@ def check_kernels(torch, cfg):
           f"version", flush=True)
     torch.cuda.synchronize()
 
-    # timing at the main path's shapes
-    rows = []
-    for bits, Ms in ((8, (BATCH * PROMPT, DECODE_BATCH)),
-                     (4, (BATCH * PROMPT,))):
+    # timing at the main paths' shapes: (M of a layer's linears, M of the
+    # head, which projects the last position) per width. Phase 3's prefill
+    # (4 x 128) at both widths and its int8 decode (2 rows); phase 8's
+    # 2 x 16 prefills of the mixed store at both widths
+    rows, seen = [], set()
+    for bits, Ms in ((8, ((BATCH * PROMPT, BATCH),
+                          (DECODE_BATCH, DECODE_BATCH),
+                          (P8_BATCH * P8_SEQ, P8_BATCH))),
+                     (4, ((BATCH * PROMPT, BATCH),
+                          (P8_BATCH * P8_SEQ, P8_BATCH)))):
         for (K, N, act, dname, has_bias) in slice_linear_shapes(cfg):
             q, s = weights(K, N, bits)
             dt = dts[dname]
-            for M in Ms:
-                if N == V and M == BATCH * PROMPT:
-                    M = BATCH       # the head projects the last position
+            for M_layer, M_head in Ms:
+                M = M_head if N == V else M_layer
+                if (M, K, N, bits, dname, act) in seen:
+                    continue
+                seen.add((M, K, N, bits, dname, act))
                 x = torch.randn((M, K), generator=g, device=dev).to(dt)
                 b = ((torch.randn((N,), generator=g, device=dev) * 0.1).to(dt)
                      if has_bias else None)
@@ -1103,7 +1135,8 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg):
     # its fp32 decode at batch 2 (phase 4, run A), gemma2-9b's prefill
     # (phase 6), rwkv6-3b's output projection (phase 5, fp32); phase 7's
     # 32-token prefills of both tenants and qwen's paged decode at 1 or 2
-    # sequences (its two generations may start a step apart), in bf16
+    # sequences (its two generations may start a step apart), in bf16;
+    # phase 8's 2 x 16 prefills launch at the same M = 32 as phase 7's
     timed = [("qwen2.5-3b", BATCH * PROMPT, "bfloat16", s)
              for s in fp_layer_linears(qcfg)]
     timed += [("qwen2.5-3b", 2, "float32", s) for s in fp_layer_linears(qcfg)]
@@ -1203,6 +1236,9 @@ FA_TIMED += [("qwen2.5-3b multi-tenant", "bfloat16", 1, P7_PROMPT, 16, 2,
               128, QWEN_SCALE, None, None)]
 FA_TIMED += [("gemma2-9b multi-tenant", "bfloat16", 1, P7_PROMPT, 16, 8, 256,
               GEMMA_SCALE, window, 50.0) for window in (4096, None)]
+# phase 8: the mcu profile's 2 x 16 prefills (calibration and serving)
+FA_TIMED += [("qwen2.5-3b mcu", "bfloat16", P8_BATCH, P8_SEQ, 16, 2, 128,
+              QWEN_SCALE, None, None)]
 
 
 def check_flash_attention(torch):
@@ -2540,6 +2576,542 @@ def run_multi(torch, qmodel, qparams, gmodel, gparams, main_launches,
             "by_shape": by_shape}
 
 
+# ---------------------------------------------------------------- mcu
+def prom_samples(text: str, family: str) -> dict:
+    """{tuple(sorted(label pairs)): value} of one metric family in a
+    Prometheus text scrape."""
+    out = {}
+    for line in text.splitlines():
+        if not line.startswith(family) or line.startswith("#"):
+            continue
+        rest = line[len(family):]
+        if rest[:1] not in ("{", " "):
+            continue            # a longer family name sharing the prefix
+        labels = ()
+        if rest.startswith("{"):
+            inner, _, rest = rest[1:].partition("}")
+            labels = tuple(sorted(
+                (k, v.strip('"')) for k, v in
+                (p.split("=", 1) for p in inner.split(",") if p)))
+        out[labels] = float(rest.strip())
+    return out
+
+
+def http_call(base: str, path: str, body=None, timeout: float = 600.0):
+    """One control-plane call: JSON (or Prometheus text) back."""
+    import urllib.request
+    req = urllib.request.Request(
+        base + path, method="POST" if body is not None else "GET",
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        raw = resp.read()
+        if "text/plain" in resp.headers.get("Content-Type", ""):
+            return raw.decode()
+        return json.loads(raw)
+
+
+def http_poll(base: str, rid: int, timeout: float = 600.0) -> dict:
+    t_end = time.monotonic() + timeout
+    while True:
+        out = http_call(base, f"/v1/requests/{rid}")
+        if out["status"] != "pending":
+            return out
+        require(time.monotonic() < t_end, f"rid {rid} pending after "
+                f"{timeout} s")
+        time.sleep(0.01)
+
+
+def p8_resident_table(units, name: str, bits_map: dict) -> dict:
+    """Per unit, the bytes a lazy quant store built from ``bits_map``
+    holds resident (the ledger's charge): a fused-streamable 2-D weight
+    its quantized payload and scales, any other leaf its logical bytes
+    (the embedding is widened to fp32 on the host). Computed before the
+    store exists; ``run_mcu`` holds it to the built store."""
+    from repro_torch.store.quantized_store import (FUSED_STREAM_KEYS,
+                                                   MIN_QUANT_SIZE, leaf_meta,
+                                                   quantizable)
+    from repro_torch.tree import tree_flatten_with_path
+    table = {}
+    for u in units:
+        key = f"{name}/{u.name}"
+        bits = bits_map.get(key, 0)
+        total = 0
+        for path, leaf in tree_flatten_with_path(u.params)[0]:
+            shape, dname, nbytes = leaf_meta(leaf)
+            if (bits and quantizable(shape, dname, MIN_QUANT_SIZE)
+                    and len(shape) == 2 and path[-1] in FUSED_STREAM_KEYS):
+                rows = shape[0] if bits == 8 else (shape[0] + 1) // 2
+                total += rows * shape[1] + 4 * shape[1]
+            else:
+                total += nbytes
+        table[key] = total
+    return table
+
+
+def p8_block_budget(budget: int, cfg8) -> int:
+    """``MultiModelRuntime.block_budget`` of the mcu runtime: the cache
+    off the top (no KV reserve, no pinned unit), one executor."""
+    return budget - int(budget * cfg8.runtime.cache_frac)
+
+
+def p8_floor_budget(model, units, name, table, cfg8, grid) -> int:
+    """The smallest budget on a ``grid`` at which the runtime's planner
+    packs the mixed store's resident unit table at the profile's
+    prefetch depth, found before the store is built."""
+    import types
+
+    from repro_torch.core.cost_model import DelayModel, resident_infos
+    from repro_torch.core.partition import PartitionPlanner
+    from repro_torch.core.runtime import unit_infos
+    wl = cfg8.workload
+    infos = resident_infos(
+        unit_infos(model, units, wl.requests, wl.prompt_len),
+        types.SimpleNamespace(resident_nbytes=table.__getitem__),
+        [f"{name}/{u.name}" for u in units])
+    pp = PartitionPlanner(infos, DelayModel(), m=cfg8.runtime.prefetch_depth)
+    b = grid
+    while True:
+        try:
+            pp.best_partition(p8_block_budget(b, cfg8), 0.05)
+            return b
+        except ValueError:
+            b += grid
+            require(b < 10 ** 12, "phase 8: no feasible budget below 1 TB")
+
+
+def p8_widths(plan) -> set:
+    """The quantized widths a plan gives units with linears (every unit
+    but the embedding, whose quantized leaf is widened on the host): the
+    widths ``swap_linear_q`` launches at."""
+    return {p for n, p in plan.assignments.items()
+            if p != "fp" and not n.endswith("/embed")}
+
+
+def p8_mixed_target(prof, fidelity: float) -> float:
+    """The target nearest ``fidelity`` (steps of 5%, looser first) whose
+    plan, from the same profile, gives units with linears both int4 and
+    int8: the ladder's trajectory does not depend on the target, so it is
+    read off the profile."""
+    from repro_torch.calibrate import assign_precisions
+    for i in range(1, 400):
+        for t in (fidelity * 1.05 ** i, fidelity / 1.05 ** i):
+            if p8_widths(assign_precisions(prof, t)) == {"int4", "int8"}:
+                return t
+    raise RuntimeError("phase 8: no target of the profile mixes int4 and "
+                       "int8")
+
+
+def p8_serve(torch, rt, sched, name, batch, plan, rounds, reset, collect):
+    """The profile's workload through the scheduler (``rounds`` requests of
+    one batch), counted; then held: each result equals a swapped pass of
+    the runtime bitwise and is within 2e-2 of the in-memory model on the
+    plan's round-tripped weights; the realized rel-L2 against the fp
+    model. Returns (requests, launches, realized error, error against
+    the round-tripped model, seconds, max_memory_allocated of the
+    traffic: the card's allocator peak since the caller's reset, and the
+    seconds of each engine span the traffic added)."""
+    from repro_torch.calibrate.profiler import _rel_l2
+    from repro_torch.store.quantized_store import roundtrip
+    sm = rt.models[name]
+    spans = ("read", "unpack", "dispatch", "exec", "wait")
+    before = {k: sm.engine.stats.stage_seconds(k) for k in spans}
+    t0 = time.perf_counter()
+    reset()
+    reqs = [sched.submit(name, batch, priority=1.0) for _ in range(rounds)]
+    for r in reqs:
+        r.wait(timeout=600)
+    counts = collect()
+    t_serve = time.perf_counter() - t0
+    on_card = rt.device.type == "cuda"
+    max_alloc = torch.cuda.max_memory_allocated() if on_card else 0
+    stage = {k: sm.engine.stats.stage_seconds(k) - v
+             for k, v in before.items()}
+    again, _ = rt.forward(name, batch)
+    ref = sm.forward_unswapped(batch, unit_params=[
+        roundtrip(u.params, plan.bits_for(u.name)) for u in sm.units])
+    fp = sm.forward_unswapped(batch)
+    for r in reqs:
+        require(bool(torch.isfinite(r.logits).all())
+                and tuple(r.logits.shape) == tuple(fp.shape),
+                f"phase 8: request {r.rid} logits shape "
+                f"{tuple(r.logits.shape)}")
+        require(torch.equal(r.logits, again), f"phase 8: request {r.rid} "
+                f"!= a swapped pass of the runtime")
+        err = rel_err(torch, r.logits, ref)
+        require(err[1] <= 2e-2, f"phase 8: request {r.rid} vs the "
+                f"round-tripped in-memory model rel err {err[1]:.3g} > 2e-2")
+    return (reqs, counts, _rel_l2(reqs[0].logits, fp), err, t_serve,
+            max_alloc, stage)
+
+
+def p8_check_launches(by_shape) -> None:
+    """Phase 8's kernels ran: B5 and B4 (calibration and fp units), B1 at
+    int8 and at int4 (its quantized units), and no other."""
+    for name in ("swap_linear", "flash_attention", "swap_linear_q"):
+        require(by_shape[name], f"phase 8: {name} never launched")
+    widths = {k[3] for k in by_shape["swap_linear_q"]}
+    require(widths == {8, 4}, f"phase 8: swap_linear_q at bits {widths}")
+    others = [n for n in ("dequant_int8", "paged_attention", "wkv6")
+              if by_shape[n]]
+    require(not others, f"phase 8: {others} launched")
+
+
+def run_mcu(torch, model, params, main_launches, device="cuda"):
+    """Phase 8: the mcu profile through the port's entry points. The config
+    resolves through its layers (the CLI layer sets only budget_mb and
+    reduce); a calibration by hand, the budget from its plan, then the
+    runtime through ``MultiModelRuntime.from_config`` and ``add_model``
+    (which calibrates again: the plans must agree byte for byte), the
+    profile's workload through ``ServingScheduler.from_config``, and the
+    same runtime and scheduler behind the HTTP control plane. Its store
+    lives under ``build/phase8``."""
+    import shutil
+
+    import numpy as np
+
+    import repro_torch.calibrate as calibrate
+    from repro_torch.calibrate import calibrate_model, calibration_batch
+    from repro_torch.calibrate.profiler import _rel_l2
+    from repro_torch.config import explain_layers, resolve_config
+    from repro_torch.core.multi_model import MultiModelRuntime
+    from repro_torch.core.runtime import split_units
+    from repro_torch.core.serving_scheduler import ServingScheduler
+    from repro_torch.launch.serve import dispatch_mode
+    from repro_torch.serving.control_plane import ControlPlane
+    from repro_torch.serving.engine import Request, pad_prompts
+    from repro_torch.serving.metrics import MetricsRegistry
+
+    on_card = torch.device(device).type == "cuda"
+    launches = {k: {} for k in main_launches}
+    reset, collect = launch_counting(launches)
+    name = model.cfg.name
+    secs, counts = {}, {}
+    shutil.rmtree(P8_WORKDIR, ignore_errors=True)
+    P8_WORKDIR.mkdir(parents=True)
+
+    # (1) the profile's config; the budget comes from the plan (3)
+    cfg0 = resolve_config(profile="mcu", cli={"reduce": "full"})
+    rtc, wl = cfg0.runtime, cfg0.workload
+    require(rtc.precision == "mixed" and rtc.store == "quant",
+            f"phase 8: mcu resolved to {rtc.store}/{rtc.precision}")
+    require((wl.requests, wl.prompt_len) == (P8_BATCH, P8_SEQ),
+            f"phase 8: mcu's workload {wl.requests} x {wl.prompt_len} is "
+            f"not phase 2's rows' {P8_BATCH} x {P8_SEQ}")
+
+    # (2) calibration by hand on the card
+    base = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()    # what earlier phases hold
+    t0 = time.perf_counter()
+    reset()
+    prof, plan = calibrate_model(model, params, fidelity=rtc.fidelity,
+                                 method="output", name=name,
+                                 prefetch_depth=rtc.prefetch_depth,
+                                 device=device)
+    counts["calibration"] = collect()
+    secs["calibration"] = time.perf_counter() - t0
+    units = split_units(model, params)
+    largest = max(sum(x.numel() * x.element_size() for x in _leaves(u.params))
+                  for u in units)
+    rise = torch.cuda.max_memory_allocated() - base if on_card else 0
+    q = sum(1 for row in prof.units.values()
+            if row["bytes_int4"] < row["bytes_fp"])
+    hist = plan.histogram()
+    print(f"[phase8] calibration (output, batch {prof.batch_shape}, "
+          f"{1 + 2 * q} swapped passes on mmap, one unit a block at m = "
+          f"{rtc.prefetch_depth}) in {secs['calibration']:.1f} s: "
+          f"{json.dumps(hist)}, predicted_err {plan.predicted_err:.4g} "
+          f"(target {rtc.fidelity:g}), stored {plan.stored_bytes / 1e9:.3f}"
+          f" GB; max_memory_allocated rose {rise / 1e9:.3f} GB (above "
+          f"the {base / 1e9:.3f} GB earlier phases hold) beside the "
+          f"throwaway model's ledger peak, its largest unit "
+          f"{largest / 1e9:.3f} GB; launches {counts['calibration']}",
+          flush=True)
+    for n, row in sorted(prof.units.items()):
+        print(f"[phase8]   {n}: err int8 {row['err_int8']:.4g} int4 "
+              f"{row['err_int4']:.4g}; bytes fp {row['bytes_fp']} int8 "
+              f"{row['bytes_int8']} int4 {row['bytes_int4']} -> "
+              f"{plan.assignments[n]}", flush=True)
+    require(q == len(units), f"phase 8: {q} quantizable units of "
+            f"{len(units)}")
+    if on_card:
+        # the substituted unit is one device copy beside the swapped one,
+        # dropped after its pass: at most one unit above the ledger's
+        require(rise <= 2 * largest + (64 << 20),
+                f"phase 8: calibration max_memory_allocated rose {rise} > "
+                f"two units ({2 * largest}) + 64 MiB")
+
+    # (3) the budget from that plan
+    table = p8_resident_table(units, name, plan.bits_map())
+    grid = P8_GRID
+    floor = p8_floor_budget(model, units, name, table, cfg0, grid)
+    budget = int(P8_BUDGET_OVER_FLOOR * floor)
+    resident = sum(table.values())
+    ratio = resident / budget
+    print(f"[phase8] budget {budget / 1e9:.3f} GB = {P8_BUDGET_OVER_FLOOR} "
+          f"x the smallest feasible {floor / 1e9:.3f} GB at m = "
+          f"{rtc.prefetch_depth} (cache {rtc.cache_frac:g} of it); the "
+          f"mixed store's resident bytes {resident / 1e9:.3f} GB, ratio "
+          f"{ratio:.3f}", flush=True)
+    require(ratio > 1, f"phase 8: resident / budget {ratio:.3f} <= 1")
+
+    # (4) the runtime through the config path
+    cfg8 = resolve_config(profile="mcu", cli={
+        "reduce": "full", "runtime": {"budget_mb": budget / 1e6}})
+    require(dataclasses.replace(cfg8.runtime, budget_mb=rtc.budget_mb)
+            == rtc, "phase 8: the budget override changed other fields")
+    print("[phase8] config " + json.dumps({
+        "resolved": cfg8.to_dict(), "mode": dispatch_mode(cfg8),
+        "layers": {k: v for k, v in explain_layers(
+            profile="mcu", cli={"reduce": "full", "runtime": {
+                "budget_mb": budget / 1e6}}) if k != "defaults"}},
+        sort_keys=True), flush=True)
+    seen = []
+    inner = calibrate.calibrate_model
+
+    def spy(*a, **kw):
+        t1 = time.perf_counter()
+        out = inner(*a, **kw)
+        seen.append((out[1], time.perf_counter() - t1))
+        return out
+    t0 = time.perf_counter()
+    calibrate.calibrate_model = spy
+    reset()
+    try:
+        rt = MultiModelRuntime.from_config(cfg8, device=device)
+        sm = rt.add_model(name, model, params, str(P8_WORKDIR))
+        rt.plan(batch=wl.requests, seq=wl.prompt_len)
+    finally:
+        calibrate.calibrate_model = inner
+    counts["build"] = collect()
+    secs["build"] = time.perf_counter() - t0
+    try:
+        require(len(seen) == 1 and seen[0][0].to_json() == plan.to_json(),
+                "phase 8: add_model's plan != the calibration's: "
+                f"{[p.to_json() for p, _ in seen]} vs {plan.to_json()}")
+        require(sm.store.plan == plan.bits_map(),
+                "phase 8: the store's plan != the calibration's")
+        got = {n: sm.store.resident_nbytes(n) for n in sm.store.order}
+        require(got == table, f"phase 8: resident bytes {got} != {table}")
+        require(plan.stored_bytes == sum(sm.store.stored_nbytes(n)
+                                         for n in sm.store.order),
+                "phase 8: the plan's stored bytes != the store's")
+        require(rt.block_budget() == p8_block_budget(budget, cfg8),
+                "phase 8: block budget arithmetic")
+        for b, fits in ((floor, True), (floor - grid, False)):
+            try:
+                sm.partition(p8_block_budget(b, cfg8), rt.dm, wl.requests,
+                             wl.prompt_len, delta=rt.delta)
+                ok = True
+            except ValueError:
+                ok = False
+            require(ok == fits, f"phase 8: {b / 1e9:.1f} GB is "
+                    f"{'' if ok else 'not '}feasible on the built store")
+        rt.plan(batch=wl.requests, seq=wl.prompt_len)
+        by_prec = {}
+        for n, p in plan.assignments.items():
+            by_prec[p] = by_prec.get(p, 0) + prof.units[n][f"bytes_{p}"]
+        print(f"[phase8] runtime from_config + add_model in "
+              f"{secs['build']:.1f} s (its calibration {seen[0][1]:.1f} s): "
+              f"plan JSON == the calibration's byte for byte; "
+              f"{json.dumps(hist)}, predicted_err {plan.predicted_err:.4g};"
+              f" stored bytes by precision {json.dumps(by_prec)}; "
+              f"blocks={sm.plan.n_blocks} {sm.plan.points} m={sm.plan.m}; "
+              f"launches {counts['build']}", flush=True)
+
+        # (5) the profile's workload through the scheduler
+        rng = np.random.default_rng(0)
+        batch = pad_prompts(model.cfg, [
+            Request(i, list(map(int, rng.integers(0, model.cfg.vocab_size,
+                                                  wl.prompt_len))))
+            for i in range(wl.requests)])
+        reset()
+        rt.forward(name, batch)                                  # warm
+        counts["warm"] = collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        sched = ServingScheduler.from_config(rt, cfg8)
+        try:
+            (reqs, counts["traffic"], realized, err, secs["traffic"],
+             max_alloc, stage) = p8_serve(torch, rt, sched, name, batch,
+                                          plan, wl.rounds, reset, collect)
+            es = sm.engine.stats
+            present = {p for p, v in es.bytes_by_precision.items() if v}
+            require(sum(es.bytes_by_precision.values()) == es.bytes_swapped,
+                    f"phase 8: bytes by precision {es.bytes_by_precision} "
+                    f"!= swapped {es.bytes_swapped}")
+            require({p for p, n in hist.items() if n} <= present,
+                    f"phase 8: precisions swapped {present}, plan {hist}")
+            require(realized <= rtc.fidelity, f"phase 8: realized rel-L2 "
+                    f"{realized:.4g} > target {rtc.fidelity:g}")
+            require(rt.ledger.peak <= budget, f"phase 8: ledger peak "
+                    f"{rt.ledger.peak} > budget {budget}")
+            lat = sorted(r.latency_s * 1e3 for r in reqs)
+            print(f"[phase8] {len(reqs)} requests of {wl.requests} x "
+                  f"{wl.prompt_len} through 1 executor in "
+                  f"{secs['traffic']:.1f} s (latency "
+                  f"{', '.join(f'{x:.1f}' for x in lat)} ms): each == a "
+                  f"swapped pass bitwise; vs the round-tripped in-memory "
+                  f"model (abs, rel) {err[0]:.3g}, {err[1]:.3g} <= 2e-2; "
+                  f"realized rel-L2 vs the fp model {realized:.4g} beside "
+                  f"predicted_err {plan.predicted_err:.4g} (target "
+                  f"{rtc.fidelity:g}); bytes swapped by precision "
+                  f"{json.dumps(es.bytes_by_precision)} = "
+                  f"{es.bytes_swapped}; ledger peak "
+                  f"{rt.ledger.peak / 1e9:.3f} GB <= budget "
+                  f"{budget / 1e9:.3f} GB ({rt.ledger.peak / budget:.1%}); "
+                  f"max_memory_allocated {max_alloc / 1e9:.3f} GB; "
+                  f"blocks {sm.plan.points} m={sm.plan.m}; span s: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
+                  + f"; launches {counts['traffic']}", flush=True)
+
+            # (6) the same runtime and scheduler behind the control plane
+            t0 = time.perf_counter()
+            cp = ControlPlane(rt, sched, MetricsRegistry(rt, sched),
+                              host="127.0.0.1", port=0,
+                              plan_shape=(wl.requests, wl.prompt_len),
+                              reduce=cfg8.reduce, workdir=str(P8_WORKDIR))
+            cp.start()
+            try:
+                base = cp.url
+                health = http_call(base, "/healthz")
+                require(health["status"] == "ok"
+                        and health["models"] == {name: True},
+                        f"phase 8: /healthz {health}")
+                info = http_call(base, "/v1/models")["models"][name]
+                require(info["store"] == "quant"
+                        and info["precision"] == "mixed"
+                        and info["n_blocks"] == sm.plan.n_blocks,
+                        f"phase 8: /v1/models {info}")
+                rows = [[[int(t) for t in rng.integers(
+                    0, model.cfg.vocab_size, wl.prompt_len)]
+                    for _ in range(wl.requests)] for _ in range(2)]
+                reset()
+                subs = [http_call(base, "/v1/submit",
+                                  {"model": name, "tokens": r})
+                        for r in rows]
+                extra = http_call(base, "/v1/submit", {
+                    "model": name, "requests": wl.requests,
+                    "prompt_len": wl.prompt_len, "seed": 5})
+                cancel = http_call(
+                    base, f"/v1/requests/{extra['rid']}/cancel", {})
+                outs = [http_poll(base, s["rid"]) for s in subs]
+                counts["http"] = collect()
+                cancelled = http_poll(base, extra["rid"])
+                require(cancel["cancelled"]
+                        and cancelled["status"] == "cancelled",
+                        f"phase 8: cancel {cancel}, then {cancelled}")
+                for s, r, out in zip(subs, rows, outs):
+                    require(out["status"] == "done",
+                            f"phase 8: rid {s['rid']} {out}")
+                    full = http_call(base, f"/v1/requests/{s['rid']}"
+                                     f"?logits=1")
+                    got = torch.tensor(full["logits"],
+                                       dtype=torch.float64).float()
+                    want, _ = rt.forward(name, pad_prompts(
+                        model.cfg, [Request(i, x) for i, x in enumerate(r)]))
+                    require(torch.equal(got, want.cpu()),
+                            f"phase 8: HTTP rid {s['rid']} logits != the "
+                            f"in-process forward")
+                by_class = sched.latency_by_class()
+                quant = cp.metrics.latency_quantiles()
+                text = http_call(base, "/metrics")
+                done = prom_samples(text, "swapnet_requests_completed_total")
+                q_lat = prom_samples(text, "swapnet_request_latency_seconds")
+                for prio, lats in by_class.items():
+                    key = ("priority", f"{prio:g}")
+                    require(done[(key,)] == float(len(lats))
+                            and q_lat[(key, ("quantile", "0.5"))]
+                            == quant[prio]["p50_s"]
+                            and q_lat[(key, ("quantile", "0.99"))]
+                            == quant[prio]["p99_s"],
+                            f"phase 8: /metrics latency samples != the "
+                            f"scheduler's ({prio:g})")
+                for fam, want in (
+                        ("swapnet_ledger_peak_bytes", float(rt.ledger.peak)),
+                        ("swapnet_cache_hit_rate", rt.cache.hit_rate()),
+                        ("swapnet_preemptions_total",
+                         float(sched.preemptions))):
+                    require(prom_samples(text, fam)[()] == want,
+                            f"phase 8: /metrics {fam} != {want}")
+                require(prom_samples(text, "swapnet_model_bytes_swapped_total")
+                        [(("model", name),)] == float(es.bytes_swapped),
+                        "phase 8: /metrics bytes swapped")
+                shut = http_call(base, "/v1/shutdown", {})
+                require(shut == {"shutting_down": True}
+                        and cp.shutdown_requested.wait(60),
+                        f"phase 8: /v1/shutdown {shut}")
+            finally:
+                cp.stop()
+            require(cp._thread is None, "phase 8: the HTTP server thread "
+                    "outlived stop()")
+        finally:
+            sched.shutdown(timeout=600)         # raises if an executor lives
+        secs["http"] = time.perf_counter() - t0
+        print(f"[phase8] HTTP on {base}: /healthz, /v1/models, 2 submits "
+              f"polled to done (logits == the in-process forward bitwise), "
+              f"1 cancel (cancelled), /metrics == the scheduler's counters "
+              f"({len(text.splitlines())} lines), /v1/shutdown then a clean"
+              f" stop, in {secs['http']:.1f} s; launches {counts['http']}",
+              flush=True)
+    finally:
+        rt.close()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (5b) a plan with both quantized widths, where 2e-2's has one
+    mixed = plan
+    if p8_widths(plan) != {"int4", "int8"}:
+        t0 = time.perf_counter()
+        target = p8_mixed_target(prof, rtc.fidelity)
+        mixed = calibrate.assign_precisions(prof, target)
+        rt = MultiModelRuntime.from_config(cfg8, device=device)
+        try:
+            reset()
+            sm = rt.add_model(name, model, params, str(P8_WORKDIR / "b"),
+                              store_options={"plan": mixed})
+            rt.plan(batch=wl.requests, seq=wl.prompt_len)
+            rt.forward(name, batch)                              # warm
+            counts["mixed_build"] = collect()
+            sched = ServingScheduler.from_config(rt, cfg8)
+            try:
+                _, counts["mixed_traffic"], realized_b, err_b, _, _, _ = \
+                    p8_serve(torch, rt, sched, name, batch, mixed, 1, reset,
+                             collect)
+            finally:
+                sched.shutdown(timeout=600)
+            require(rt.ledger.peak <= budget, "phase 8: second plan's ledger"
+                    " peak over the budget")
+            bp = sm.engine.stats.bytes_by_precision
+            require({"int8", "int4"} <= {p for p, v in bp.items() if v},
+                    f"phase 8: second plan swapped {bp}")
+        finally:
+            rt.close()
+        secs["mixed"] = time.perf_counter() - t0
+        print(f"[phase8] target {target:.4g} of the same profile: "
+              f"{json.dumps(mixed.histogram())}, predicted_err "
+              f"{mixed.predicted_err:.4g}; served 1 request == a swapped "
+              f"pass bitwise, vs the round-tripped in-memory model (abs, "
+              f"rel) {err_b[0]:.3g}, {err_b[1]:.3g} <= 2e-2, realized "
+              f"rel-L2 {realized_b:.4g}; bytes swapped by precision "
+              f"{json.dumps(bp)}; launches {counts['mixed_traffic']}; "
+              f"{secs['mixed']:.1f} s", flush=True)
+    shutil.rmtree(P8_WORKDIR, ignore_errors=True)
+    for k, per_shape in launches.items():
+        for key, n in per_shape.items():
+            main_launches[k][key] = main_launches[k].get(key, 0) + n
+    print(f"[phase8] wall s: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in secs.items()),
+          flush=True)
+    return {"budget": budget, "floor": floor, "resident": resident,
+            "plan": plan, "mixed": mixed, "realized": realized,
+            "seconds": secs, "launches": counts, "by_shape": launches}
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -2689,12 +3261,23 @@ def main() -> int:
             f"{name} {held_key(name, k)} x{n}"
             for name, keys in p7["by_shape"].items()
             for k, n in sorted(keys.items(), key=str)), flush=True)
-    del model, params, gmodel7, gparams7
+    del gmodel7, gparams7
+
+    with phase("8 the mcu profile: calibration, mixed store, config, HTTP"):
+        print(f"model: {cfg.name} of phase 3 (n_layers 36->{N_LAYERS}, "
+              f"seed 0)", flush=True)
+        p8 = run_mcu(torch, model, params, main_launches)
+        p8_check_launches(p8["by_shape"])
+        check_held(rows, p8["by_shape"], "phase 8")
+        print("phase 8 launches by held shape: " + "; ".join(
+            f"{name} {k} x{n}" for name, keys in p8["by_shape"].items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+    del model, params
 
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 7): " + ", ".join(
+    print("main-path launches (phases 3 to 8): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

@@ -38,10 +38,11 @@ side by side, but a tensor one stream allocated and another reads (a
 cache entry made on tenant A's copy stream and read by tenant B) would
 then need ``record_stream`` or an event; it is not done here.
 
-Left out of the port for now: ``from_config`` needs ``config/`` (ROADMAP
-A6) and ``precision="mixed"`` with a ``fidelity`` target needs the
-calibration pass (``calibrate/``, ROADMAP A5); both raise
-``NotImplementedError``.
+With ``precision="mixed"`` on the quant store, :meth:`add_model` runs the
+calibration pass (``repro_torch/calibrate``) on the arriving model against
+the runtime's ``fidelity`` target and builds the store from the plan;
+:meth:`MultiModelRuntime.from_config` builds the runtime from a resolved
+``repro_torch.config.ServeConfig``.
 """
 from __future__ import annotations
 
@@ -81,16 +82,14 @@ class MultiModelRuntime:
                  kv_frac: float = 0.0, page_tokens: int = 16,
                  max_batch: int = 8,
                  fidelity: Optional[float] = None,
+                 calib_method: str = "output",
+                 calib_seed: int = 0,
                  device="cuda"):
         if not 0.0 <= cache_frac < 1.0:
             raise ValueError(f"cache_frac {cache_frac} outside [0, 1)")
         if not (0.0 <= kv_frac < 1.0 and cache_frac + kv_frac < 1.0):
             raise ValueError(f"kv_frac {kv_frac} with cache_frac "
                              f"{cache_frac} leaves no block budget")
-        if fidelity is not None:
-            raise NotImplementedError(
-                "a fidelity target drives the calibration pass, which is "
-                "not ported yet (ROADMAP A5)")
         self.device = resolve_device(device)
         self.budget = int(budget)
         # paged-KV serving reserve: kv_frac of the budget is carved out for
@@ -103,6 +102,11 @@ class MultiModelRuntime:
         self.mode = mode
         self.store_backend = store_backend
         self.precision = precision
+        # mixed-precision knobs: the fidelity target the calibration in
+        # add_model solves against, and the profiler's method and seed
+        self.fidelity = fidelity
+        self.calib_method = calib_method
+        self.calib_seed = int(calib_seed)
         self.prefetch_depth = max(prefetch_depth, 1)
         self.delta = delta
         self.executors = max(int(executors), 1)
@@ -115,10 +119,27 @@ class MultiModelRuntime:
         self._planned = False
 
     @classmethod
-    def from_config(cls, cfg) -> "MultiModelRuntime":
-        raise NotImplementedError(
-            "MultiModelRuntime.from_config needs the layered config "
-            "(config/), which is not ported yet (ROADMAP A6)")
+    def from_config(cls, cfg, device="cuda") -> "MultiModelRuntime":
+        """Construct from a resolved :class:`repro_torch.config.ServeConfig`:
+        every knob comes off its ``runtime`` section. Requires
+        ``runtime.budget_mb``; the KV reserve is carved only when paging
+        is on."""
+        rt_cfg = cfg.runtime
+        if rt_cfg.budget_mb is None:
+            raise ValueError("runtime.budget_mb is required to build a "
+                             "MultiModelRuntime (unswapped serving has no "
+                             "shared ledger)")
+        return cls(int(rt_cfg.budget_mb * 1e6),
+                   prefetch_depth=rt_cfg.prefetch_depth,
+                   cache_frac=rt_cfg.cache_frac,
+                   store_backend=rt_cfg.store,
+                   precision=rt_cfg.precision,
+                   executors=rt_cfg.executors,
+                   kv_frac=rt_cfg.kv_frac if rt_cfg.paged else 0.0,
+                   page_tokens=rt_cfg.page_tokens,
+                   max_batch=rt_cfg.max_batch,
+                   fidelity=rt_cfg.fidelity,
+                   device=device)
 
     # ------------------------------------------------------------ registry
     def add_model(self, name: str, model: Model, params: dict,
@@ -132,7 +153,13 @@ class MultiModelRuntime:
         (int8 | int4) for the quant backend; ``store_options`` passes extra
         backend build options through (the faulty backend's ``inner`` /
         ``p`` / ``seed``: how fault injection is wired into ONE tenant of
-        a shared-ledger runtime)."""
+        a shared-ledger runtime).
+
+        With ``precision='mixed'`` (per model or runtime-wide) and no
+        ``plan`` in ``store_options``, registration runs the calibration
+        pass HERE on the runtime's device: profile the arriving model on
+        a synthetic batch, solve the assignment against ``self.fidelity``
+        and build the quant store from the plan."""
         if name in self.models:
             raise ValueError(f"duplicate model name {name!r}")
         backend = store_backend or self.store_backend
@@ -140,10 +167,17 @@ class MultiModelRuntime:
         if (backend == "quant" and eff_precision == "mixed"
                 and model.cfg.quant_eligible
                 and (store_options or {}).get("plan") is None):
-            raise NotImplementedError(
-                "precision='mixed' without a plan runs the calibration "
-                "pass, which is not ported yet (ROADMAP A5); pass "
-                "store_options={'plan': {unit: bits}}")
+            if self.fidelity is None:
+                raise ValueError(
+                    "precision='mixed' needs a fidelity target: construct "
+                    "the runtime with fidelity=... (runtime.fidelity)")
+            from repro_torch.calibrate import calibrate_model
+            _, plan = calibrate_model(
+                model, params, fidelity=self.fidelity,
+                method=self.calib_method, seed=self.calib_seed, name=name,
+                prefetch_depth=self.prefetch_depth, device=self.device)
+            store_options = dict(store_options or {})
+            store_options["plan"] = plan
         sm = SwappedModel(model, params, os.path.join(workdir, name),
                           mode=self.mode, prefetch_depth=self.prefetch_depth,
                           ledger=self.ledger, cache=self.cache, name=name,

@@ -44,7 +44,7 @@ from repro_torch.models.layers import linear, rms_norm, softcap
 from repro_torch.models.transformer import (Model, alloc_layer_cache,
                                             apply_layer, layer_slice)
 from repro_torch.store import build_store
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 
 def swap_schedule(eng: SwapEngine, blocks, unit_names: Sequence[str], m: int):
@@ -254,6 +254,10 @@ class SwappedModel:
         self.engine.smem_working_set = kernel_smem_working_set(
             self.precision, self.cfg.dtype)
         self.plan: Optional[BlockPlan] = None
+        # calibration seam (repro_torch/calibrate): fn(Unit, params) ->
+        # params, applied in forward_partial's unit loop once the unit's
+        # block is resident (see _overridden)
+        self.param_override: Optional[Any] = None
 
     # ------------------------------------------------------------ partition
     def partition(self, budget: int, dm: DelayModel, batch: int, seq: int,
@@ -308,6 +312,19 @@ class SwappedModel:
         if collect is not None:
             collect[unit.layer_id] = new_cache
         return x, positions
+
+    def _overridden(self, unit: Unit, uparams):
+        """``param_override(unit, uparams)``, its params on this model's
+        device in the unit's own dtypes. A substituted unit is an extra
+        device copy outside the ledger, dropped once the unit has run."""
+        new = self.param_override(unit, uparams)
+        if new is uparams:
+            return uparams
+        leaves, treedef = tree_flatten(new)
+        dts = [leaf.dtype for leaf in tree_leaves(unit.params)]
+        return tree_unflatten(treedef, [
+            torch.as_tensor(leaf).to(self.device, dt)
+            for leaf, dt in zip(leaves, dts)])
 
     # ------------------------------------------------------------ decode
     def decode_loop(self, prompt_tokens, max_new_tokens: int = 8,
@@ -449,6 +466,8 @@ class SwappedModel:
             for bi, lo, hi, handle in gen:
                 t0 = time.perf_counter()
                 for u, p in zip(self.units[lo:hi], handle.params):
+                    if self.param_override is not None:
+                        p = self._overridden(u, p)
                     state.x, state.positions = self._apply_unit(
                         u, p, state.x, state.positions, batch,
                         collect=state.caches)

@@ -279,6 +279,16 @@ class ServingScheduler:
         for t in self._threads:
             t.start()
 
+    @classmethod
+    def from_config(cls, runtime: MultiModelRuntime, cfg) -> "ServingScheduler":
+        """Construct from a resolved :class:`repro_torch.config.ServeConfig`'s
+        ``scheduler`` section (the runtime carries the executor count)."""
+        s = cfg.scheduler
+        return cls(runtime, preempt=s.preempt, default_slack=s.default_slack,
+                   auto_rebalance=s.rebalance,
+                   fail_fast_after=s.fail_fast_after,
+                   shed_deadlines=s.shed_deadlines)
+
     # ---------------------------------------------------------- submission
     def submit(self, model: str, batch: dict, priority: float = 1.0,
                deadline: Optional[float] = None) -> ServingRequest:

@@ -4,12 +4,14 @@
 :class:`ServingEngine` is the solo reference the swapped paged engine
 (``serving/batch_engine.py``) is held to: greedy decode is deterministic,
 so a request's tokens must come out the same either way.
+:class:`MultiModelServingEngine` serves tagged requests over a planned
+multi-model runtime, one at a time (serve's round-robin ``--multi`` mode).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,3 +112,42 @@ class ServingEngine:
         return {"prefill_s": t_prefill, "total_s": total,
                 "decode_steps": n_steps,
                 "tok_per_s": decoded / max(total - t_prefill, 1e-9)}
+
+
+class MultiModelServingEngine:
+    """Interleaved multi-tenant serving under one shared weight budget.
+
+    Wraps a planned :class:`~repro_torch.core.multi_model.MultiModelRuntime`:
+    requests name the model they target and are served in arrival order,
+    one at a time (the single-executor edge-device model; for K concurrent
+    executors see :class:`repro_torch.core.serving_scheduler
+    .ServingScheduler`). Every forward streams the target model's blocks
+    through the shared ledger; hot units of recently served models stay in
+    the shared cache.
+    """
+
+    def __init__(self, runtime):
+        self.runtime = runtime
+
+    def prefill(self, name: str, reqs: Sequence[Request]) -> torch.Tensor:
+        """Swapped prefill of a same-model request batch; returns the
+        last-position logits."""
+        sm = self.runtime.models[name]
+        logits, _ = self.runtime.forward(name, pad_prompts(sm.cfg, reqs))
+        return logits
+
+    def generate(self, tagged_reqs: Sequence[Tuple[str, Request]],
+                 max_len: int = 128) -> Dict[str, float]:
+        """Serve (model_name, request) pairs in order, greedy decoding each
+        under the shared budget. Outputs land in ``request.output``."""
+        t0 = time.perf_counter()
+        for name, req in tagged_reqs:
+            prompt = torch.as_tensor([req.prompt], dtype=torch.int32)
+            gen, _ = self.runtime.decode(name, prompt,
+                                         max_new_tokens=req.max_new_tokens,
+                                         max_len=max_len)
+            req.output.extend(int(t) for t in gen[0].tolist())
+        st = self.runtime.stats()
+        st["total_s"] = time.perf_counter() - t0
+        st["requests"] = len(tagged_reqs)
+        return st

@@ -32,8 +32,12 @@ is the payload delivered still quantized; ``nbytes`` stays LOGICAL.
 What gets quantized: float leaves with ndim >= 2 and >= ``min_quant_size``
 elements. 1-D leaves (norm gains, biases) and small tensors are stored raw.
 
-``plan=`` assigns the bit-width PER UNIT as a ``{unit: 0|4|8}`` dict
-(0 = raw fp); units the plan does not name are stored raw.
+``plan=`` assigns the bit-width PER UNIT: a ``{unit: 0|4|8}`` dict (0 =
+raw fp) or any object with a ``bits_map()`` method returning one (a
+``repro_torch.calibrate.PrecisionPlan``; duck-typed so this module never
+imports the calibrate package). Units the plan does not name are stored
+raw. :func:`unit_stored_nbytes` gives a unit's exact payload at a
+bit-width without building the store.
 """
 from __future__ import annotations
 
@@ -44,12 +48,14 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.skeleton import ALIGN, host_array, skeleton_of, torch_dtype
+from repro_torch.core.skeleton import (ALIGN, _align, dtype_name, host_array,
+                                       skeleton_of, torch_dtype)
 from repro_torch.kernels.dequant import (dequant_int8, quantize_int4,
                                          quantize_int8, unpack_int4)
 from repro_torch.kernels.qtensor import FUSED_WEIGHT_KEYS, QuantizedTensor
 from repro_torch.store.base import BlockStore, UnitRead, flush, to_device
-from repro_torch.tree import tree_flatten, tree_flatten_with_path, tree_unflatten
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
+                              tree_unflatten)
 
 MIN_QUANT_SIZE = 1024       # elements; smaller leaves are stored raw
 
@@ -70,31 +76,70 @@ def quantizable(shape, dtype: str, min_quant_size: int = MIN_QUANT_SIZE
             and dtype in _FLOATS)
 
 
+def leaf_meta(leaf) -> Tuple[Tuple[int, ...], str, int]:
+    """(shape, dtype name, nbytes) of a tensor or array leaf, no copy."""
+    if isinstance(leaf, torch.Tensor):
+        return (tuple(leaf.shape), dtype_name(leaf.dtype),
+                leaf.numel() * leaf.element_size())
+    arr = np.asarray(leaf)
+    return arr.shape, str(arr.dtype), arr.nbytes
+
+
+def quantizable_leaf(leaf, min_quant_size: int = MIN_QUANT_SIZE) -> bool:
+    """:func:`quantizable` of a leaf (tensor or numpy array): the form the
+    calibration profiler asks of a unit's leaves."""
+    shape, dname, _ = leaf_meta(leaf)
+    return quantizable(shape, dname, min_quant_size)
+
+
+def unit_stored_nbytes(params, bits: int,
+                       min_quant_size: int = MIN_QUANT_SIZE) -> int:
+    """Exact stored payload of one unit at a bit-width (0 = all raw)
+    WITHOUT building the store: every segment pads to ALIGN, so the sum of
+    aligned segment sizes equals the file size byte for byte. The
+    precision policy packs against this table."""
+    if bits not in (0, 4, 8):
+        raise ValueError(f"bits must be 0, 4 or 8, got {bits}")
+    total = 0
+    for leaf in tree_leaves(params):
+        shape, dname, nbytes = leaf_meta(leaf)
+        if bits and quantizable(shape, dname, min_quant_size):
+            rows = int(np.prod(shape[:-1]))
+            cols = int(shape[-1])
+            qrows = rows if bits == 8 else (rows + 1) // 2
+            total += _align(qrows * cols) + _align(4 * cols)
+        else:
+            total += _align(nbytes)
+    return total
+
+
 def _float_array(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().to(torch.float32).numpy()
     return np.asarray(leaf, np.float32)
 
 
-def roundtrip(params, bits: int, min_quant_size: int = MIN_QUANT_SIZE):
-    """The tree this store's quantization gives back: every leaf the store
-    would quantize at ``bits``, quantized and dequantized on the host in
-    fp32 exactly as a read does (the reference for the fused and eager
-    paths)."""
+def roundtrip_leaf(leaf, bits: int, min_quant_size: int = MIN_QUANT_SIZE):
+    """One leaf as this store gives it back at ``bits``: a leaf the store
+    would quantize comes back quantized and dequantized on the host in fp32
+    exactly as a read does, cast to the leaf's dtype (a host tensor); any
+    other leaf, and every leaf at ``bits=0``, comes back as it is."""
+    shape, name, _ = leaf_meta(leaf)
+    if not (bits and quantizable(shape, name, min_quant_size)):
+        return leaf
     quantize = quantize_int8 if bits == 8 else quantize_int4
+    q, s = quantize(_float_array(leaf))
+    vals = unpack_int4(q, int(np.prod(shape[:-1]))) if bits == 4 else q
+    fp = np.multiply(vals, s[None, :], dtype=np.float32)
+    return torch.from_numpy(fp.reshape(shape)).to(torch_dtype(name))
 
-    def one(leaf):
-        arr, name = host_array(leaf)
-        if not (bits and quantizable(arr.shape, name, min_quant_size)):
-            return leaf
-        q, s = quantize(_float_array(leaf))
-        rows = int(np.prod(arr.shape[:-1]))
-        vals = unpack_int4(q, rows) if bits == 4 else q
-        fp = np.multiply(vals, s[None, :], dtype=np.float32)
-        return torch.from_numpy(fp.reshape(arr.shape)).to(torch_dtype(name))
 
-    leaves, treedef = tree_flatten(params)
-    return tree_unflatten(treedef, [one(x) for x in leaves])
+def roundtrip(params, bits: int, min_quant_size: int = MIN_QUANT_SIZE):
+    """The tree this store's quantization gives back at ``bits``
+    (:func:`roundtrip_leaf` of every leaf): the reference for the fused
+    and eager paths, and the perturbed unit of the calibration profiler."""
+    return tree_map(lambda x: roundtrip_leaf(x, bits, min_quant_size),
+                    params)
 
 
 @dataclass(frozen=True)
@@ -136,7 +181,8 @@ class QuantizedStore(BlockStore):
         self.min_quant_size = min_quant_size
         self.bits = bits
         self.eager = eager
-        self.plan = dict(plan) if plan is not None else None
+        bm = plan.bits_map() if hasattr(plan, "bits_map") else plan
+        self.plan = dict(bm) if bm is not None else None
         if self.plan is not None:
             bad = {b for b in self.plan.values() if b not in (0, 4, 8)}
             if bad:

@@ -889,3 +889,33 @@ def test_ablation_arms_equal_snet_on_the_card(dev, tmp_path, mode,
             sm.close()
     assert torch.equal(out["snet"], out[mode])
 
+
+
+def test_calibration_repeats_and_mixed_pass_is_bitwise_on_the_card(dev,
+                                                                   tmp_path):
+    """calibrate_model on a small bf16 qwen on the card twice: the same
+    plan JSON byte for byte (every pass bitwise repeatable); then its mixed
+    store's swapped pass equals the pass repeated, bitwise."""
+    from repro_torch.calibrate import calibrate_model, calibration_batch
+    cfg = get_arch("qwen2.5-3b").reduced()
+    assert cfg.dtype == "bfloat16"
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    runs = [calibrate_model(model, params, fidelity=2e-2,
+                            workdir=str(tmp_path)) for _ in range(2)]
+    assert runs[0][0].to_json() == runs[1][0].to_json()
+    assert runs[0][1].to_json() == runs[1][1].to_json()
+    plan = runs[0][1]
+    sm = SwappedModel(model, params, str(tmp_path / "mixed"),
+                      store_backend="quant", precision="mixed",
+                      store_options={"plan": plan})
+    try:
+        sm.set_plan(tuple(range(1, len(sm.units))))
+        batch = calibration_batch(cfg, seed=1)
+        first, st = sm.forward(batch)
+        again, _ = sm.forward(batch)
+        assert first.is_cuda and bool(torch.isfinite(first).all())
+        assert torch.equal(first, again)
+        assert sum(st["bytes_by_precision"].values()) == st["bytes_swapped"]
+    finally:
+        sm.close()

@@ -231,17 +231,30 @@ def test_units_are_namespaced_per_tenant(tenants, tmp_path):
         rt.close()
 
 
-def test_unported_options_name_their_queue_item(tenants, tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
-        MultiModelRuntime.from_config(None)
-    with pytest.raises(NotImplementedError, match="A5"):
-        MultiModelRuntime(BUDGET, fidelity=1e-2, device="cpu")
-    rt = MultiModelRuntime(BUDGET, store_backend="quant", precision="mixed",
-                           device="cpu")
-    _, _, model, params, _ = tenants["qwen2.5-3b"]
-    with pytest.raises(NotImplementedError, match="A5"):
-        rt.add_model("q", model, params, str(tmp_path))
+def test_mixed_without_fidelity_and_config_without_budget_raise(
+        tenants, tmp_path):
+    """As the reference: a mixed-precision tenant needs the runtime's
+    fidelity target, and from_config needs runtime.budget_mb; both are
+    ValueErrors with the reference's messages."""
+    from repro.config import resolve_config as ref_resolve
+    from repro_torch.config import resolve_config
+    ref_model, ref_params, model, params, _ = tenants["qwen2.5-3b"]
+    kw = dict(store_backend="quant", precision="mixed")
+    ref = RefMultiModelRuntime(BUDGET, **kw)
+    with pytest.raises(ValueError, match="fidelity") as want:
+        ref.add_model("q", ref_model, ref_params, str(tmp_path / "ref"))
+    rt = MultiModelRuntime(BUDGET, device="cpu", **kw)
+    with pytest.raises(ValueError, match="fidelity") as got:
+        rt.add_model("q", model, params, str(tmp_path / "port"))
+    assert str(got.value) == str(want.value) and not rt.models
     rt.close()
+    cli = {"arch": "qwen2.5-3b"}
+    with pytest.raises(ValueError, match="budget_mb") as want:
+        RefMultiModelRuntime.from_config(ref_resolve(env={}, cli=cli))
+    with pytest.raises(ValueError, match="budget_mb") as got:
+        MultiModelRuntime.from_config(resolve_config(env={}, cli=cli),
+                                      device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_abandoned_pass_releases_the_shared_ledger(tenants, tmp_path):
