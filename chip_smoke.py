@@ -76,13 +76,26 @@ Phases, each printing its wall time:
    behind the HTTP control plane (health, models, two submits == the
    in-process forward bitwise, a cancel, /metrics == the scheduler's
    counters, a clean shutdown); where the 2e-2 plan has one quantized
-   width, the plan of a further target of the same profile with both.
+   width, the plan of a further target of the same profile with both;
+9. llama4-scout-17b-a16e's MoE stack at its published widths (16 routed
+   experts top-1 of 8192 plus a shared one, vocab 202,048), depth cut
+   48 -> 4 (layers 0-2 block-local in 8,192-token chunks, layer 3
+   global), seed-0 weights drawn on the card: one 43.5 GB mmap store
+   (under ``build/phase9``, removed after) under a budget 1.1x the
+   smallest at which the planner packs it at m = 2 (the store over the
+   budget printed, above 2), a warm and a timed swapped prefill of one
+   8,704-token prompt, bitwise equal to the unswapped forward, with
+   ``flash_attention`` at chunk 8192 on layers 0-2 and none on layer 3
+   and ``swap_linear`` seven times a layer; then two paged generations
+   (prompts of 40 and 100 tokens, 3 new each) through the batch engine
+   on the same store and budget, equal to each request served alone.
 
-Every full-precision linear of phases 3 to 8 runs ``swap_linear`` and
+Every full-precision linear of phases 3 to 9 runs ``swap_linear`` and
 every prefill's attention ``flash_attention``; the quantized stores' lazy
 linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
-Every shape phases 7 and 8 launch a kernel at is one of phase 2's rows,
-held against the plain version there and timed; the script checks it.
+Every shape phases 7, 8 and 9 launch a kernel at is one of phase 2's
+rows, held against the plain version there and timed; the script checks
+it.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -271,6 +284,21 @@ P8_BATCH, P8_SEQ = 2, 16
 P8_GRID = 10 ** 8                      # budget search step, 0.1 GB
 P8_BUDGET_OVER_FLOOR = 1.1
 P8_WORKDIR = ROOT / "build" / "phase8"
+
+# phase 9: llama4-scout-17b-a16e at its published widths, depth cut 48 -> 4
+# (layers 0-2 attend block-locally in 8,192-token chunks, layer 3
+# globally); one 8,704-token prompt (8192 + 512), so the local layers'
+# chunk cuts it; the budget 1.1x the smallest on a 0.1 GB grid at which
+# the planner packs the units at the paper's m = 2; two paged generations
+LLAMA_LAYERS = 4
+LLAMA_PROMPT, LLAMA_CHUNK = 8704, 8192
+LLAMA_SCALE = 128 ** -0.5
+LLAMA_PAGED_PROMPTS, LLAMA_PAGED_NEW = [40, 100], 3
+LLAMA_MAX_PAGES = 16                   # 3 + 7 pages live at the last step
+P9_M = 2
+P9_GRID = 10 ** 8                      # budget search step, 0.1 GB
+P9_BUDGET_OVER_FLOOR = 1.1
+P9_WORKDIR = ROOT / "build" / "phase9"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -726,6 +754,12 @@ PAGED_TIMED = [
     # (a step alone at B=1 is the B=1 row's shape)
     ("qwen2.5-3b multi-tenant bf16 B=2", "bfloat16", 2, 16, 2, 128, [34, 34],
      QWEN_SCALE, None, None),
+    # phase 9: llama4-scout's 40- and 100-token prompts at their first
+    # decode step, batched and each served alone
+    ("llama4-scout bf16 B=2", "bfloat16", 2, 40, 8, 128,
+     [n + 1 for n in LLAMA_PAGED_PROMPTS], LLAMA_SCALE, None, None),
+    ("llama4-scout bf16 B=1", "bfloat16", 1, 40, 8, 128,
+     [LLAMA_PAGED_PROMPTS[-1] + 1], LLAMA_SCALE, None, None),
 ]
 
 
@@ -1064,10 +1098,13 @@ def check_wkv6_bitwise(torch, kw):
 
 # ---------------------------------------------------------------- swap_linear
 def fp_layer_linears(cfg):
-    """(K, N, act, bias) of a dense layer's full-precision linears, one
-    entry per launch key (M, K, N, dtype, act): where two share a
-    key (qwen's wq and attention wo) the first wins."""
+    """(K, N, act, bias) of a layer's full-precision linears (a moe
+    layer's are its attention's and its shared expert's), one entry per
+    launch key (M, K, N, dtype, act): where two share a key (qwen's wq and
+    attention wo) the first wins."""
     D, F = cfg.d_model, cfg.d_ff
+    if cfg.moe is not None:
+        F = cfg.moe.d_shared or cfg.moe.d_expert * cfg.moe.n_shared
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gate = "silu" if cfg.act == "swiglu" else "gelu"
     out = {}
@@ -1081,7 +1118,7 @@ def fp_layer_linears(cfg):
     return [k + (b,) for k, b in out.items()]
 
 
-def check_swap_linear(torch, qcfg, gcfg, rcfg):
+def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg):
     """Phase 2 for B5: the kernel against its plain version over ragged
     shapes and qwen2.5-3b's linears at decode and prefill, then timed at
     the main paths' shapes. Returns the timing rows."""
@@ -1147,6 +1184,11 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg):
               for M in Ms for s in fp_layer_linears(c)]
     timed += [("rwkv6-3b wo", RWKV_BATCH * RWKV_PROMPT, "float32",
                (rcfg.d_model, rcfg.d_model, "none", False))]
+    # phase 9: llama4-scout's 8,704-token prefill, its paged admissions and
+    # its decode steps at 2 sequences (batched) and 1 (served alone)
+    timed += [(f"{lcfg.name}", M, "bfloat16", s)
+              for M in (LLAMA_PROMPT, *LLAMA_PAGED_PROMPTS, 2, 1)
+              for s in fp_layer_linears(lcfg)]
     rows = []
     for label, M, dname, (K, N, act, has_bias) in timed:
         dt = dts[dname]
@@ -1212,33 +1254,42 @@ def fa_inputs(torch, seed, B, S, H, KV, hd, dtype, shuffled=False):
     return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
-def attended_pairs(S, window) -> int:
+def attended_pairs(S, window, chunk=None) -> int:
     """(query, key) pairs a causal prefill of S tokens attends to under a
-    window (None: none), per batch row and head."""
+    window and a block-local chunk (None: none), per batch row and head."""
     w = S if window is None else min(window, S)
-    return sum(min(i + 1, w) for i in range(S))
+    c = S if chunk is None else chunk
+    return sum(min(i + 1, w, i % c + 1) for i in range(S))
 
 
-# (label, dtype, B, S, H, KV, hd, scale, window, softcap): the main paths'
-# prefills. qwen2.5-3b's swapped prefill (phase 3, bf16) and its paged
-# admissions (phase 4: run A fp32, run B bf16, one prompt each); gemma2-9b's
-# 4,200-token prefill (phases 4 C and 6) and its 24-token admission (4 C)
+# (label, dtype, B, S, H, KV, hd, scale, window, softcap, chunk): the main
+# paths' prefills. qwen2.5-3b's swapped prefill (phase 3, bf16) and its
+# paged admissions (phase 4: run A fp32, run B bf16, one prompt each);
+# gemma2-9b's 4,200-token prefill (phases 4 C and 6) and its 24-token
+# admission (4 C)
 FA_TIMED = [("qwen2.5-3b prefill", "bfloat16", BATCH, PROMPT, 16, 2, 128,
-             QWEN_SCALE, None, None)]
+             QWEN_SCALE, None, None, None)]
 FA_TIMED += [("qwen2.5-3b admission", dname, 1, S, 16, 2, 128, QWEN_SCALE,
-              None, None) for dname in ("float32", "bfloat16")
+              None, None, None) for dname in ("float32", "bfloat16")
              for S in PAGED_PROMPTS]
 FA_TIMED += [("gemma2-9b prefill", "bfloat16", 1, S, 16, 8, 256,
-              GEMMA_SCALE, window, 50.0) for S in (GEMMA_PREFILL, 24)
+              GEMMA_SCALE, window, 50.0, None) for S in (GEMMA_PREFILL, 24)
              for window in (4096, None)]
 # phase 7: both tenants' 32-token prefills (qwen's paged admissions too)
 FA_TIMED += [("qwen2.5-3b multi-tenant", "bfloat16", 1, P7_PROMPT, 16, 2,
-              128, QWEN_SCALE, None, None)]
+              128, QWEN_SCALE, None, None, None)]
 FA_TIMED += [("gemma2-9b multi-tenant", "bfloat16", 1, P7_PROMPT, 16, 8, 256,
-              GEMMA_SCALE, window, 50.0) for window in (4096, None)]
+              GEMMA_SCALE, window, 50.0, None) for window in (4096, None)]
 # phase 8: the mcu profile's 2 x 16 prefills (calibration and serving)
 FA_TIMED += [("qwen2.5-3b mcu", "bfloat16", P8_BATCH, P8_SEQ, 16, 2, 128,
-              QWEN_SCALE, None, None)]
+              QWEN_SCALE, None, None, None)]
+# phase 9: llama4-scout's 8,704-token prefill and its paged admissions,
+# chunk 8192 on the local layers 0-2 and none on the global layer 3
+FA_TIMED += [(f"llama4-scout {what}", "bfloat16", 1, S, 40, 8, 128,
+              LLAMA_SCALE, None, None, chunk)
+             for what, S in [("prefill", LLAMA_PROMPT)]
+             + [("admission", n) for n in LLAMA_PAGED_PROMPTS]
+             for chunk in (LLAMA_CHUNK, None)]
 
 
 def check_flash_attention(torch):
@@ -1248,8 +1299,12 @@ def check_flash_attention(torch):
     (no softcap) or compiled flex_attention (softcap). Returns the rows."""
     from repro_torch.kernels import flash_attention as fa
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    masks = [(True, None, None), (True, 7, None), (True, None, 50.0),
-             (False, None, None), (True, 64, 30.0)]
+    # (causal, window, softcap, chunk); a chunk of 48 or 64 cuts S of 129
+    # and more at one to 87 block-local boundaries
+    masks = [(True, None, None, None), (True, 7, None, None),
+             (True, None, 50.0, None), (False, None, None, None),
+             (True, 64, 30.0, None), (True, None, None, 48),
+             (True, 20, 50.0, 64)]
     # (B, S, H, KV, hd, scale, shuffled positions)
     shapes = [(1, 256, 4, 2, 64, None, False),
               (BATCH, PROMPT, 16, 2, 128, QWEN_SCALE, False),
@@ -1263,9 +1318,10 @@ def check_flash_attention(torch):
         for dname, dt in dts.items():
             q, k, v, pos = fa_inputs(torch, 300 + i, B, S, H, KV, hd, dt,
                                      shuffled)
-            for causal, window, softcap in masks:
+            for causal, window, softcap, chunk in masks:
                 kw = dict(scale=hd ** -0.5 if scale is None else scale,
-                          causal=causal, window=window, softcap=softcap)
+                          causal=causal, window=window, softcap=softcap,
+                          chunk=chunk)
                 got = fa.flash_attention(q, k, v, pos, **kw)
                 want = fa.flash_attention_plain(q, k, v, pos, **kw)
                 _, rel = rel_err(torch, got, want)
@@ -1274,7 +1330,8 @@ def check_flash_attention(torch):
                 require(rel <= TOL[dname],
                         f"flash_attention {dname} {(B, S, H, KV, hd)} "
                         f"causal {causal} window {window} softcap "
-                        f"{softcap}: rel err {rel:.3g} > {TOL[dname]}")
+                        f"{softcap} chunk {chunk}: rel err {rel:.3g} > "
+                        f"{TOL[dname]}")
                 worst[dname] = max(worst[dname], rel)
                 n_checked += 1
     # the tensor-core kernel at S of one or two tokens, around its 64-key
@@ -1283,29 +1340,35 @@ def check_flash_attention(torch):
         for i, S in enumerate((1, 2, 63, 64, 65, 127, 128, 129, 4200)):
             q, k, v, pos = fa_inputs(torch, 400 + i, 2 if S < 4200 else 1, S,
                                      4, 2, hd, torch.bfloat16)
-            for causal, window, softcap in masks:
+            for causal, window, softcap, chunk in masks:
                 kw = dict(scale=hd ** -0.5, causal=causal, window=window,
-                          softcap=softcap)
+                          softcap=softcap, chunk=chunk)
                 got = fa.flash_attention(q, k, v, pos, **kw)
                 _, rel = rel_err(torch, got, fa.flash_attention_plain(
                     q, k, v, pos, **kw))
                 require(rel <= TOL["bfloat16"] and
                         bool(torch.isfinite(got).all()),
                         f"flash_attention bf16 S={S} hd={hd} causal {causal}"
-                        f" window {window} softcap {softcap}: rel {rel:.3g}")
+                        f" window {window} softcap {softcap} chunk {chunk}: "
+                        f"rel {rel:.3g}")
                 worst["bfloat16"] = max(worst["bfloat16"], rel)
                 n_checked += 1
     print(f"flash_attention: {n_checked} cases match the plain version "
           f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
           f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
     # bitwise: row b of a 4-row call == the 1-row call on that row, and two
-    # identical calls agree, on both kernels
+    # identical calls agree, on both kernels, with a window and softcap and
+    # with llama4's heads under a block-local chunk
     n_bits = 0
-    for i, (S, H, KV, hd, dname) in enumerate(
-            [(PROMPT, 16, 2, 128, "bfloat16"), (300, 16, 8, 256, "bfloat16"),
-             (200, 16, 2, 128, "float32"), (37, 4, 2, 80, "bfloat16")]):
+    for i, (S, H, KV, hd, dname, masked) in enumerate(
+            [(PROMPT, 16, 2, 128, "bfloat16", {}),
+             (300, 16, 8, 256, "bfloat16", {}),
+             (200, 16, 2, 128, "float32", {}), (37, 4, 2, 80, "bfloat16", {}),
+             (300, 40, 8, 128, "bfloat16", {"chunk": 128}),
+             (300, 40, 8, 128, "float32", {"chunk": 128})]):
         q, k, v, pos = fa_inputs(torch, 500 + i, 4, S, H, KV, hd, dts[dname])
-        kw = dict(scale=hd ** -0.5, window=64, softcap=50.0)
+        kw = dict(scale=hd ** -0.5, **(masked or {"window": 64,
+                                                  "softcap": 50.0}))
         full = fa.flash_attention(q, k, v, pos, **kw)
         require(torch.equal(full, fa.flash_attention(q, k, v, pos, **kw)),
                 f"flash_attention {dname} S={S} hd={hd}: two identical calls "
@@ -1317,17 +1380,27 @@ def check_flash_attention(torch):
                     f"flash_attention {dname} S={S} hd={hd}: row {b} of a "
                     f"4-row call differs from its 1-row call")
         n_bits += 5
+    # a block-local chunk of S or more runs the tiles and the arithmetic of
+    # no chunk
+    for dname, hd in (("bfloat16", 128), ("float32", 128)):
+        q, k, v, pos = fa_inputs(torch, 520, 1, 300, 40, 8, hd, dts[dname])
+        kw = dict(scale=hd ** -0.5)
+        require(torch.equal(fa.flash_attention(q, k, v, pos, chunk=300, **kw),
+                            fa.flash_attention(q, k, v, pos, **kw)),
+                f"flash_attention {dname}: a chunk of S differs from none")
+        n_bits += 1
     print(f"flash_attention: {n_bits} bitwise checks pass (rows of 4-row "
-          f"calls == their 1-row calls, repeated calls equal; tensor-core "
-          f"and CUDA-core kernels)", flush=True)
+          f"calls == their 1-row calls, repeated calls equal, a chunk of S "
+          f"== no chunk; tensor-core and CUDA-core kernels)", flush=True)
     torch.cuda.synchronize()
 
     rows = []
-    for (label, dname, B, S, H, KV, hd, scale, window,
-         softcap) in FA_TIMED:
+    for (label, dname, B, S, H, KV, hd, scale, window, softcap,
+         chunk) in FA_TIMED:
         dt = dts[dname]
         q, k, v, pos = fa_inputs(torch, 9, B, S, H, KV, hd, dt)
-        kw = dict(scale=scale, causal=True, window=window, softcap=softcap)
+        kw = dict(scale=scale, causal=True, window=window, softcap=softcap,
+                  chunk=chunk)
         got = fa.flash_attention(q, k, v, pos, **kw)
         want = fa.flash_attention_plain(q, k, v, pos, **kw)
         err, rel = rel_err(torch, got, want)
@@ -1338,9 +1411,9 @@ def check_flash_attention(torch):
                                                                **kw))
         # library yardstick on [B, heads, S, hd] copies made beforehand (not
         # timed): SDPA, or compiled flex_attention where the softcap needs a
-        # score_mod
+        # score_mod or the chunk a block-local mask_mod
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if softcap is None:
+        if softcap is None and chunk is None:
             G = H // KV
             kt = kt.repeat_interleave(G, dim=1)
             vt = vt.repeat_interleave(G, dim=1)
@@ -1365,12 +1438,15 @@ def check_flash_attention(torch):
                 m = kv_idx <= q_idx
                 if window is not None:
                     m = m & (q_idx - kv_idx < window)
+                if chunk is not None:
+                    m = m & (q_idx // chunk == kv_idx // chunk)
                 return m
             block_mask = flex_mod.create_block_mask(live, B, None, S, S,
                                                     device="cuda")
 
             def lib():
-                return flex(qt, kt, vt, score_mod=capped,
+                return flex(qt, kt, vt,
+                            score_mod=capped if softcap is not None else None,
                             block_mask=block_mask, scale=scale,
                             enable_gqa=True)
         _, lrel = rel_err(torch, lib().transpose(1, 2), want)
@@ -1381,16 +1457,17 @@ def check_flash_attention(torch):
         es = q.element_size()
         nbytes = (2 * B * S * H * hd * es + 2 * B * S * KV * hd * es
                   + B * S * 4)
-        ops = 4.0 * hd * H * B * attended_pairs(S, window)
+        ops = 4.0 * hd * H * B * attended_pairs(S, window, chunk)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[dname] * 1e3
         rows.append({
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:26",
-            "key": (B, S, H, KV, hd, dname, True, window, softcap),
+            "key": (B, S, H, KV, hd, dname, True, window, softcap, chunk),
             "shape": f"{label} B={B} S={S} {H}/{KV} heads hd={hd} {dname} "
-                     f"window={window} softcap={softcap}",
+                     f"window={window} softcap={softcap}"
+                     + (f" chunk={chunk}" if chunk is not None else ""),
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
             "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3112,6 +3189,245 @@ def run_mcu(torch, model, params, main_launches, device="cuda"):
             "seconds": secs, "launches": counts, "by_shape": launches}
 
 
+# ---------------------------------------------------------------- llama4
+def mem_total_gb() -> float:
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def p9_floor_budget(model, params, batch, seq) -> int:
+    """The smallest budget on a P9_GRID grid at which the planner packs
+    the unit table at m = P9_M without degrading the pipeline, found
+    before the store is built (an mmap unit's resident bytes are its host
+    tensors' bytes)."""
+    from repro_torch.core.cost_model import DelayModel
+    from repro_torch.core.partition import PartitionPlanner
+    from repro_torch.core.runtime import split_units, unit_infos
+    infos = unit_infos(model, split_units(model, params), batch, seq)
+    pp = PartitionPlanner(infos, DelayModel(), m=P9_M)
+    b = max(r.size for r in infos) // P9_GRID * P9_GRID
+    while True:
+        try:
+            pp.best_partition(b, 0.05, allow_degrade=False)
+            return b
+        except ValueError:
+            b += P9_GRID
+            require(b < 10 ** 12, "phase 9: no feasible budget below 1 TB")
+
+
+def host_copy(torch, tree):
+    """Each leaf of a device tree copied to the host, the device leaf
+    dropped as soon as its copy is made (the device never holds both)."""
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    leaves, treedef = tree_flatten(tree)
+    del tree
+    out = []
+    while leaves:
+        out.append(leaves.pop(0).cpu())
+    torch.cuda.empty_cache()
+    return tree_unflatten(treedef, out)
+
+
+def run_llama4(torch, card, main_launches):
+    """Phase 9: llama4-scout's MoE stack at its published widths, 4
+    layers (3 block-local, 1 global), swapped from one mmap store under a
+    budget less than half the store: an 8,704-token prefill bitwise equal
+    to the unswapped forward (B4 at chunk 8192 on layers 0-2 and none on
+    layer 3, B5 seven times a layer), then two paged generations equal to
+    each request served alone."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.cost_model import DelayModel
+    from repro_torch.core.runtime import SwappedModel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.paged_kv import PagedKVCache
+    from repro_torch.tree import tree_map
+
+    reset, collect = launch_counting(main_launches)
+    before = {name: dict(keys) for name, keys in main_launches.items()}
+    cfg = dataclasses.replace(get_arch("llama4-scout-17b-a16e"),
+                              n_layers=LLAMA_LAYERS)
+    e = cfg.moe
+    print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, "
+          f"{e.n_routed} routed experts (top {e.top_k}) of {e.d_expert} + "
+          f"{e.n_shared} shared of {e.d_shared}, capacity factor "
+          f"{e.capacity_factor}, vocab {cfg.vocab_size}, attn_chunk "
+          f"{cfg.attn_chunk} on layers "
+          f"{[i for i in range(cfg.n_layers) if cfg.is_local_layer(i)]}, "
+          f"frontend stub {cfg.d_frontend}, {cfg.dtype}; reduced: n_layers "
+          f"48->{LLAMA_LAYERS}", flush=True)
+    print(f"[phase9] {card}; host MemTotal {mem_total_gb():.1f} GB",
+          flush=True)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    # 10.9 B values: drawn on the card, then the host holds the store's
+    # source
+    params = host_copy(torch, model.init(0, device="cuda"))
+    n_params = sum(p.numel() for p in _leaves(params))
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    init_s = time.perf_counter() - t0
+    print(f"params: {n_params / 1e9:.3f} B, {n_bytes / 1e9:.2f} GB (fp32, "
+          f"host), init on the card and copied down in {init_s:.1f} s",
+          flush=True)
+    floor = p9_floor_budget(model, params, 1, LLAMA_PROMPT)
+    budget = int(P9_BUDGET_OVER_FLOOR * floor)
+    rng = np.random.default_rng(9)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, LLAMA_PROMPT)),
+                             dtype=torch.int32)
+    batch = {"tokens": tokens}
+    tag = "phase9 llama4-scout bf16 mmap"
+    out = {"budget": budget, "floor": floor, "params": n_params}
+    shutil.rmtree(P9_WORKDIR, ignore_errors=True)
+    t_store = time.perf_counter()
+    sm = SwappedModel(model, params, str(P9_WORKDIR), device="cuda",
+                      store_backend="mmap", prefetch_depth=P9_M)
+    try:
+        resident = sum(sm.store.resident_nbytes(u.name) for u in sm.units)
+        out["store_s"] = time.perf_counter() - t_store
+        sm.engine.ledger.budget = budget                  # enforced
+        # the floor against the built store: m = 2 there, not a grid step
+        # below it (where the planner degrades the pipeline or fails)
+        sm.partition(floor, DelayModel(), 1, LLAMA_PROMPT)
+        at_floor = sm.plan.m
+        try:
+            sm.partition(floor - P9_GRID, DelayModel(), 1, LLAMA_PROMPT)
+            below = sm.plan.m
+        except ValueError:
+            below = 0
+        sm.partition(budget, DelayModel(), 1, LLAMA_PROMPT)
+        ratio = resident / budget
+        out.update(resident=resident, ratio=ratio)
+        print(f"[{tag}] store of {resident / 1e9:.3f} GB built in "
+              f"{out['store_s']:.1f} s; units (GB): " + ", ".join(
+                  f"{u.name} {sm.store.resident_nbytes(u.name) / 1e9:.3f}"
+                  for u in sm.units), flush=True)
+        print(f"[{tag}] budget {budget / 1e9:.3f} GB = "
+              f"{P9_BUDGET_OVER_FLOOR} x the smallest feasible "
+              f"{floor / 1e9:.1f} GB at m = {P9_M}; resident / budget "
+              f"{ratio:.3f}; blocks={sm.plan.n_blocks} {sm.plan.points} "
+              f"m={sm.plan.m}", flush=True)
+        require(sm.plan.m == P9_M, f"{tag}: planned m={sm.plan.m}")
+        require(at_floor == P9_M and below != P9_M,
+                f"{tag}: {floor / 1e9:.1f} GB is not the smallest budget at "
+                f"m = {P9_M} on the store (m {at_floor} there, {below} a "
+                f"step below)")
+        require(ratio > 2, f"{tag}: resident / budget {ratio:.3f} <= 2")
+        # the store is the weights' only home from here on: the host
+        # copies go, so the page cache can hold the unit files
+        for u in sm.units:
+            u.params = tree_map(lambda a: torch.empty(
+                a.shape, dtype=a.dtype, device="meta"), u.params)
+        del params
+
+        t0 = time.perf_counter()
+        sm.forward(batch)                                          # warm
+        warm_s = time.perf_counter() - t0
+        sm.engine.stats.__init__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        logits, st = sm.forward(batch)
+        counts = collect()
+        max_alloc = torch.cuda.max_memory_allocated()
+        chunks = sorted((k[9] or 0) for k, n in fa.launches.by_shape.items()
+                        for _ in range(n))
+        require(counts["flash_attention"] == LLAMA_LAYERS
+                and chunks == [0] + [LLAMA_CHUNK] * (LLAMA_LAYERS - 1),
+                f"{tag}: flash_attention launches {fa.launches.by_shape}, "
+                f"expected {LLAMA_LAYERS - 1} at chunk {LLAMA_CHUNK} and "
+                f"one with none")
+        require(counts["swap_linear"] == 7 * LLAMA_LAYERS,
+                f"{tag}: swap_linear launched {counts['swap_linear']} times, "
+                f"expected {7 * LLAMA_LAYERS}")
+        require(counts["swap_linear_q"] == 0, f"{tag}: swap_linear_q "
+                f"launched {counts['swap_linear_q']} times")
+        require(bool(torch.isfinite(logits).all()),
+                f"{tag}: non-finite logits")
+        require(tuple(logits.shape) == (1, 1, cfg.vocab_size),
+                f"{tag}: logits shape {tuple(logits.shape)}")
+        require(sm.engine.stats.peak_resident <= budget,
+                f"{tag}: peak ledger {sm.engine.stats.peak_resident} over "
+                f"budget {budget}")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        units = [sm.store.read_unit(u.name).params for u in sm.units]
+        want = sm.forward_unswapped(batch, resident=units)
+        del units
+        torch.cuda.empty_cache()
+        unswapped_s = time.perf_counter() - t0
+        require(torch.equal(logits, want),
+                f"{tag}: swapped logits != unswapped logits")
+        print(f"[{tag}] swapped logits == unswapped logits bitwise (1 x "
+              f"{LLAMA_PROMPT} tokens, {LLAMA_LAYERS} layers at published "
+              f"widths, the "
+              f"unswapped model holding all {resident / 1e9:.1f} GB; "
+              f"{unswapped_s:.1f} s); flash_attention at chunk "
+              f"{LLAMA_CHUNK} x {LLAMA_LAYERS - 1} (layers 0-2) and none x "
+              f"1 (layer 3); warm pass {warm_s:.1f} s; launches {counts}",
+              flush=True)
+        out["prefill"] = report_prefill(tag, sm, st, budget, resident,
+                                        max_alloc)
+        out["prefill"]["warm_s"] = warm_s
+
+        # two paged generations on the same store and budget, then each
+        # request alone
+        prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+                   for n in LLAMA_PAGED_PROMPTS]
+        new = [LLAMA_PAGED_NEW] * len(prompts)
+        kv = PagedKVCache(cfg, sm.engine.ledger, page_tokens=PAGE_TOKENS,
+                          max_pages=LLAMA_MAX_PAGES, device="cuda")
+        t0 = time.perf_counter()
+        reqs, be, pcounts, windows, alloc0 = drive_paged(
+            torch, sm, kv, prompts, new, len(prompts), reset, collect)
+        out["paged"] = report_paged(torch, "phase9 paged", sm, kv, be,
+                                    budget, windows, alloc0)
+        check_paged_run("phase9 paged", kv, be, pcounts, LLAMA_LAYERS,
+                        budget)
+        paged_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solo = []
+        for p, n in zip(prompts, new):
+            sreqs, sbe, scounts, _, _ = drive_paged(
+                torch, sm, kv, [p], [n], 1, reset, collect)
+            check_paged_run("phase9 alone", kv, sbe, scounts, LLAMA_LAYERS,
+                            budget)
+            solo.append(sreqs[0].output)
+        solo_s = time.perf_counter() - t0
+        got = [r.output for r in reqs]
+        require(got == solo and all(len(t) == LLAMA_PAGED_NEW for t in got),
+                f"{tag}: paged tokens {got} != served alone {solo}")
+        steps = sum(1 for t in be.trace if t.batch)
+        print(f"[phase9 paged] {len(prompts)} requests (prompts "
+              f"{LLAMA_PAGED_PROMPTS}, {LLAMA_PAGED_NEW} new tokens each) "
+              f"== each served alone: {got}; {steps} decode steps, "
+              f"paged_attention x {pcounts['paged_attention']} "
+              f"({LLAMA_LAYERS} layers x {steps}); batched {paged_s:.1f} s, alone {solo_s:.1f} s; "
+              f"launches {pcounts}", flush=True)
+        out["paged"].update(tokens=got, batched_s=paged_s, solo_s=solo_s)
+        print(f"[phase9] wall s: init {init_s:.1f}, store {out['store_s']:.1f}"
+              f", warm pass {warm_s:.1f}, timed pass {st['latency_s']:.1f}, "
+              f"unswapped {unswapped_s:.1f}, paged {paged_s:.1f}, alone "
+              f"{solo_s:.1f}", flush=True)
+    finally:
+        sm.close()
+        shutil.rmtree(P9_WORKDIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # every shape the phase's main-path runs launched a kernel at
+    out["by_shape"] = {
+        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
+               if n > before[name].get(k, 0)}
+        for name, keys in main_launches.items()}
+    return out
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -3209,7 +3525,8 @@ def main() -> int:
         rows = check_kernels(torch, cfg)
         rows += check_paged_attention(torch)
         rows += check_wkv6(torch)
-        rows += check_swap_linear(torch, cfg, gcfg, get_arch("rwkv6-3b"))
+        rows += check_swap_linear(torch, cfg, gcfg, get_arch("rwkv6-3b"),
+                                  get_arch("llama4-scout-17b-a16e"))
         rows += check_flash_attention(torch)
 
     from repro_torch.models.transformer import Model
@@ -3273,11 +3590,20 @@ def main() -> int:
             f"{name} {k} x{n}" for name, keys in p8["by_shape"].items()
             for k, n in sorted(keys.items(), key=str)), flush=True)
     del model, params
+    torch.cuda.empty_cache()
+
+    with phase("9 llama4-scout's MoE stack at full width, 2x over budget"):
+        p9 = run_llama4(torch, card, main_launches)
+        check_held(rows, p9["by_shape"], "phase 9")
+        print("phase 9 launches by held shape: " + "; ".join(
+            f"{name} {held_key(name, k)} x{n}"
+            for name, keys in p9["by_shape"].items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
 
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 8): " + ", ".join(
+    print("main-path launches (phases 3 to 9): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

@@ -113,17 +113,21 @@ class PassState:
 @dataclass
 class Unit:
     name: str
-    kind: str                 # embed | head | dense | rwkv6
+    kind: str                 # embed | head | dense | moe | rwkv6
     layer_id: Optional[int]
     params: dict
 
 
 def split_units(model: Model, params: dict) -> List[Unit]:
     """The paper's get_layers(Net): one-time layer-wise division. Layer
-    params are views of the stacked segments."""
+    params are views of the stacked segments. The embed unit holds every
+    input-side leaf the params have (``embed``, llama4's unread
+    ``frontend`` stub), as the JAX package's does."""
     cfg = model.cfg
     units: List[Unit] = [Unit("embed", "embed", None,
-                              {"embed": params["embed"]})]
+                              {k: params[k] for k in
+                               ("embed", "frontend", "mask_emb")
+                               if k in params})]
     for si, seg in enumerate(model.plan):
         stacked = params["segments"][si]
         for j, lid in enumerate(seg.layer_ids):

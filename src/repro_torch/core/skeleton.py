@@ -18,6 +18,7 @@ dtype strings follow numpy's names (``"float32"``, ``"bfloat16"``, ...);
 """
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
 from typing import Any, List, Tuple
 
@@ -112,6 +113,26 @@ def flatten_params(tree) -> Tuple[np.ndarray, Skeleton]:
         arr, _ = host_array(leaf)
         buf[ref.offset:ref.offset + arr.nbytes] = arr.view(np.uint8).reshape(-1)
     return buf, skel
+
+
+def write_flat(tree, fh) -> Tuple[Skeleton, int]:
+    """Write a param tree to the binary file ``fh`` in the layout of
+    :func:`flatten_params` (the same bytes), leaf by leaf, so no host copy
+    of the whole unit is made; returns the skeleton and the CRC32 of the
+    bytes written."""
+    skel = skeleton_of(tree)
+    crc, cursor = 0, 0
+    for leaf, ref in zip(tree_flatten(tree)[0], skel.refs):
+        pad = bytes(ref.offset - cursor)
+        arr, _ = host_array(leaf)
+        data = arr.reshape(-1).view(np.uint8)
+        for chunk in (pad, data):
+            fh.write(chunk)
+            crc = zlib.crc32(chunk, crc)
+        cursor = ref.offset + data.nbytes
+    pad = bytes(skel.nbytes - cursor)
+    fh.write(pad)
+    return skel, zlib.crc32(pad, crc)
 
 
 def assemble(skel: Skeleton, buf: torch.Tensor) -> Any:

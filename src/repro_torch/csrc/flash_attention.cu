@@ -12,11 +12,12 @@
 //
 // Semantics (those of the port's models/attention.py::online_attention
 // with no kv_valid_len): key j (its index) attends to a query at position
-// p = q_pos[b, i] iff, when causal, j <= p and p - j < window; a
-// non-causal call attends to every key and takes no window (the entry
-// refuses one: the TPU kernel would window it, online_attention would
-// not). Query head h reads KV head h / (H / KV) directly: no repeated K/V
-// copies. A score is q.k * scale, then the softcap (cap * tanh(s / cap)),
+// p = q_pos[b, i] iff, when causal, j <= p, p - j < window and, with a
+// chunk (llama4's block-local iRoPE layers; the TPU kernel has no such
+// mask), p / chunk == j / chunk; a non-causal call attends to every key
+// and takes no window and no chunk (the entry refuses them: the TPU
+// kernel would window it, online_attention would not). Query head h
+// reads KV head h / (H / KV) directly: no repeated K/V copies. A score is q.k * scale, then the softcap (cap * tanh(s / cap)),
 // then the mask, whose value is the finite NEG_INF = -0.7 * f32max; the
 // softmax runs online over KV tiles with the running (m, l, acc) in fp32
 // and l clamped at 1e-30 at the end. S need not be a multiple of any
@@ -24,8 +25,9 @@
 //
 // Block skip, as the TPU kernel's, taken from q_pos: a block visits only
 // the KV tiles that hold a key some of its rows may attend to, the tiles
-// from the one holding min(q_pos) - window + 1 up to the one holding
-// max(q_pos). A skipped tile would add exp(NEG_INF - m) = 0 to every row,
+// from the one holding min(q_pos) - window + 1 (or, with a chunk, the
+// first key of min(q_pos)'s chunk, if that is later) up to the one
+// holding max(q_pos). A skipped tile would add exp(NEG_INF - m) = 0 to every row,
 // so the result is that of the unskipped scan for every row that has a
 // key to attend to (any row with 0 <= q_pos < S). No split over keys and
 // no atomics: a row's output depends on its batch row alone, so a B-row
@@ -119,32 +121,38 @@ __device__ __forceinline__ void block_minmax(int& lo, int& hi, int* red) {
 }
 
 // the keys [kv_lo, kv_hi) that hold every key a row with a position in
-// [lo, hi] may attend to
+// [lo, hi] may attend to (chunk > 0 only on a causal call)
 __device__ __forceinline__ void key_range(int lo, int hi, int S, int causal,
-                                          int window, int& kv_lo,
+                                          int window, int chunk, int& kv_lo,
                                           int& kv_hi) {
   kv_lo = 0;
   kv_hi = S;
   if (causal) {
     kv_hi = (int)min((long long)S, (long long)hi + 1);
     if (window > 0) kv_lo = (int)max(0LL, (long long)lo - window + 1);
+    if (chunk > 0 && lo > 0) kv_lo = max(kv_lo, lo / chunk * chunk);
   }
   if (kv_hi < kv_lo) kv_hi = kv_lo;
 }
 
-// every row with a position in [lo, hi] attends to every key of [j0, j1)
+// every row with a position in [lo, hi] attends to every key of [j0, j1);
+// a causal true needs j1 - 1 <= lo, so lo, hi, j0 >= 0 in the chunk test
 __device__ __forceinline__ bool all_attend(int j0, int j1, int lo, int hi,
-                                           int S, int causal, int window) {
+                                           int S, int causal, int window,
+                                           int chunk) {
   if (j1 > S) return false;
   if (!causal) return true;
-  return j1 - 1 <= lo && (window <= 0 || (long long)hi - j0 < window);
+  return j1 - 1 <= lo && (window <= 0 || (long long)hi - j0 < window) &&
+         (chunk <= 0 || j0 / chunk == hi / chunk);
 }
 
+// j <= qp comes first, so qp >= j >= 0 in the chunk test
 __device__ __forceinline__ bool attends(int j, int qp, int S, int causal,
-                                        int window) {
+                                        int window, int chunk) {
   if (j >= S) return false;
   if (!causal) return true;
-  return j <= qp && (window <= 0 || qp - j < window);
+  return j <= qp && (window <= 0 || qp - j < window) &&
+         (chunk <= 0 || j / chunk == qp / chunk);
 }
 
 // ------------------------------------------------------ tensor-core kernel
@@ -338,7 +346,7 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
       const __grid_constant__ CUtensorMap tm_k,
       const __grid_constant__ CUtensorMap tm_v,
       const int32_t* __restrict__ q_pos, __nv_bfloat16* __restrict__ out,
-      int S, int H, int KV, float scale, int causal, int window,
+      int S, int H, int KV, float scale, int causal, int window, int chunk,
       float softcap) {
   using L = TcAttn<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -373,7 +381,7 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
   }
   block_minmax<TC_THREADS>(lo, hi, red);     // its barrier publishes the init
   int kv_lo, kv_hi;
-  key_range(lo, hi, S, causal, window, kv_lo, kv_hi);
+  key_range(lo, hi, S, causal, window, chunk, kv_lo, kv_hi);
   const int t_lo = kv_lo / TC_BKV;
   const int ntiles = (kv_hi + TC_BKV - 1) / TC_BKV - t_lo;
 
@@ -452,7 +460,8 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
     // scale, softcap (tanh.approx: within the bf16 tolerance), mask
     // unless every row attends to the whole tile; register 4 j + q holds
     // row (q < 2 ? a : b), key j0 + 8 j + col + q % 2
-    const bool full = all_attend(j0, j0 + TC_BKV, lo, hi, S, causal, window);
+    const bool full =
+        all_attend(j0, j0 + TC_BKV, lo, hi, S, causal, window, chunk);
     float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -461,7 +470,7 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
         float x = sc[4 * j + q] * scale;
         if (softcap > 0.0f) x = softcap * tanh_approx(x * inv_cap);
         if (!full && !attends(j0 + 8 * j + col + (q & 1), q < 2 ? qp_a : qp_b,
-                              S, causal, window)) {
+                              S, causal, window, chunk)) {
           x = NEG_INF;
         }
         sc[4 * j + q] = x;
@@ -616,7 +625,7 @@ __global__ void __launch_bounds__(ST_THREADS, 1)
 fa_simt(const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, const int32_t* __restrict__ q_pos,
         T* __restrict__ out, int S, int H, int KV, int hd, float scale,
-        int causal, int window, float softcap, int vec) {
+        int causal, int window, int chunk, float softcap, int vec) {
   using L = SimtAttn<T, HD>;
   constexpr int RT = ST_RT;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -658,7 +667,7 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
   }
   block_minmax<ST_THREADS>(lo, hi, red);     // also publishes the zeros and Q
   int kv_lo, kv_hi;
-  key_range(lo, hi, S, causal, window, kv_lo, kv_hi);
+  key_range(lo, hi, S, causal, window, chunk, kv_lo, kv_hi);
   const int t_lo = kv_lo / L::BK;
   const int ntiles = (kv_hi + L::BK - 1) / L::BK - t_lo;
 
@@ -725,7 +734,8 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     // scale, softcap, mask, online softmax: each score's tanh and exp once
-    const bool full = all_attend(j0, j0 + nk, lo, hi, S, causal, window);
+    const bool full = all_attend(j0, j0 + nk, lo, hi, S, causal, window,
+                                 chunk);
     float corr[RT];
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
@@ -738,7 +748,7 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
           x = s[r][c] * scale;
           if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
           if (j >= nk ||
-              (!full && !attends(j0 + j, qp[r], S, causal, window))) {
+              (!full && !attends(j0 + j, qp[r], S, causal, window, chunk))) {
             x = NEG_INF;
           }
         }
@@ -838,7 +848,7 @@ bool encode_4d(CUtensorMap* map, const void* base, int hd, int heads, int S,
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, const void* qpos,
               void* out, int B, int S, int H, int KV, float scale, int causal,
-              int window, float softcap, cudaStream_t st) {
+              int window, int chunk, float softcap, cudaStream_t st) {
   using L = TcAttn<HD>;
   const int qtiles = (S + TC_BQ - 1) / TC_BQ;
   if (qtiles > 65535 || !aligned16(q) || !aligned16(k) || !aligned16(v)) {
@@ -860,14 +870,15 @@ int launch_tc(const void* q, const void* k, const void* v, const void* qpos,
   fa_tc<HD><<<grid, TC_THREADS, L::SMEM_BYTES, st>>>(
       tq, tk, tv, static_cast<const int32_t*>(qpos),
       static_cast<__nv_bfloat16*>(out), S, H, KV, scale, causal, window,
-      softcap);
+      chunk, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int launch_simt(const void* q, const void* k, const void* v, const void* qpos,
                 void* out, int B, int S, int H, int KV, int hd, float scale,
-                int causal, int window, float softcap, cudaStream_t st) {
+                int causal, int window, int chunk, float softcap,
+                cudaStream_t st) {
   using L = SimtAttn<T, HD>;
   const long long rows = (long long)S * (H / KV);  // int in the kernel
   if (rows > 0x7fffffffLL - ST_BR || KV > 65535) {
@@ -883,32 +894,34 @@ int launch_simt(const void* q, const void* k, const void* v, const void* qpos,
   fa_simt<T, HD><<<grid, ST_THREADS, L::SMEM_BYTES, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(qpos),
-      static_cast<T*>(out), S, H, KV, hd, scale, causal, window, softcap,
-      vec);
+      static_cast<T*>(out), S, H, KV, hd, scale, causal, window, chunk,
+      softcap, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int run_simt(const void* q, const void* k, const void* v, const void* qpos,
              void* out, int B, int S, int H, int KV, int hd, float scale,
-             int causal, int window, float softcap, cudaStream_t st) {
+             int causal, int window, int chunk, float softcap,
+             cudaStream_t st) {
   if (hd <= 64) {
     return launch_simt<T, 64>(q, k, v, qpos, out, B, S, H, KV, hd, scale,
-                              causal, window, softcap, st);
+                              causal, window, chunk, softcap, st);
   }
   if (hd <= 128) {
     return launch_simt<T, 128>(q, k, v, qpos, out, B, S, H, KV, hd, scale,
-                               causal, window, softcap, st);
+                               causal, window, chunk, softcap, st);
   }
   return launch_simt<T, 256>(q, k, v, qpos, out, B, S, H, KV, hd, scale,
-                             causal, window, softcap, st);
+                             causal, window, chunk, softcap, st);
 }
 
 }  // namespace
 
 // q, k, v and out in one dtype (0 = fp32, 1 = bf16), contiguous; q_pos
-// int32 [B, S]. causal: 0 or 1; window <= 0 means no window (a non-causal
-// call must pass none), softcap <= 0 no softcap; 1 <= hd <= 256. path: 0 =
+// int32 [B, S]. causal: 0 or 1; window <= 0 means no window and chunk <=
+// 0 no block-local chunk (a non-causal call must pass neither), softcap
+// <= 0 no softcap; 1 <= hd <= 256. path: 0 =
 // the tensor cores (bf16, hd 64 / 128 / 256, 16-byte aligned q, k, v), 1 =
 // the CUDA cores (either dtype, any hd), as kernels/flash_attention.py
 // chooses. Returns the first CUDA error of the launch, or
@@ -917,11 +930,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, const void* q_pos,
                                      void* out, int B, int S, int H, int KV,
                                      int hd, float scale, int causal,
-                                     int window, float softcap, int dtype,
-                                     int path, void* stream) {
+                                     int window, int chunk, float softcap,
+                                     int dtype, int path, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       hd <= 0 || hd > 256 || dtype < 0 || dtype > 1 ||
-      (!causal && window > 0)) {
+      (!causal && (window > 0 || chunk > 0))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -930,13 +943,13 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     switch (hd) {
       case 64:
         return launch_tc<64>(q, k, v, q_pos, out, B, S, H, KV, scale, causal,
-                             window, softcap, st);
+                             window, chunk, softcap, st);
       case 128:
         return launch_tc<128>(q, k, v, q_pos, out, B, S, H, KV, scale,
-                              causal, window, softcap, st);
+                              causal, window, chunk, softcap, st);
       case 256:
         return launch_tc<256>(q, k, v, q_pos, out, B, S, H, KV, scale,
-                              causal, window, softcap, st);
+                              causal, window, chunk, softcap, st);
       default:
         return (int)cudaErrorInvalidValue;
     }
@@ -944,8 +957,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (path != PATH_SIMT) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     return run_simt<__nv_bfloat16>(q, k, v, q_pos, out, B, S, H, KV, hd,
-                                   scale, causal, window, softcap, st);
+                                   scale, causal, window, chunk, softcap, st);
   }
   return run_simt<float>(q, k, v, q_pos, out, B, S, H, KV, hd, scale, causal,
-                         window, softcap, st);
+                         window, chunk, softcap, st);
 }

@@ -15,6 +15,14 @@ both mean no window. A non-causal call with a window raises
 ``ValueError``: the TPU kernel windows it, ``online_attention`` does not,
 and no model makes that call.
 
+``chunk`` is llama4's block-local (iRoPE) mask, which the TPU kernel
+lacks: a causal key j also needs ``q_pos // chunk == j // chunk``, the
+``block_local`` test of ``online_attention``. ``None`` and any chunk of
+``LARGE_WINDOW`` or more mean none; a non-causal call refuses a chunk as
+it refuses a window. The kernels start a block's KV scan at the first key
+of the chunk holding its smallest position, so a local layer visits at
+most its own chunk's tiles (two chunks' for a block across a boundary).
+
 The CUDA kernels are in ``csrc/flash_attention.cu``; :func:`path` picks
 one from (dtype, head_dim) on the host. bf16 at head_dim 64, 128 or 256
 (every bf16 prefill of the main path) takes the tensor cores: a block of
@@ -49,7 +57,7 @@ PATHS = {"tc": 0, "simt": 1}
 launches = LaunchCounter()
 
 
-def _check_args(q, k, v, q_pos, causal, window, softcap):
+def _check_args(q, k, v, q_pos, causal, window, softcap, chunk):
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"q must be [B, S, H, hd] and k, v [B, S, KV, hd], "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -66,12 +74,18 @@ def _check_args(q, k, v, q_pos, causal, window, softcap):
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0 or None, got {softcap}")
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be >= 1 or None, got {chunk}")
     window = None if window is None or window >= LARGE_WINDOW else int(window)
+    chunk = None if chunk is None or chunk >= LARGE_WINDOW else int(chunk)
     if not causal and window is not None:
         raise ValueError(f"a non-causal call takes no window (got {window}):"
                          f" the TPU kernel would window it, online_attention"
                          f" would not")
-    return B, S, H, KV, hd, window
+    if not causal and chunk is not None:
+        raise ValueError(f"a non-causal call takes no chunk (got {chunk}): "
+                         f"block-local masking is a causal decoder's")
+    return B, S, H, KV, hd, window, chunk
 
 
 def path(dtype: torch.dtype, hd: int) -> str:
@@ -83,11 +97,12 @@ def path(dtype: torch.dtype, hd: int) -> str:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_pos: torch.Tensor, *, scale: float,
                           causal: bool = True, window: Optional[int] = None,
-                          softcap: Optional[float] = None) -> torch.Tensor:
+                          softcap: Optional[float] = None,
+                          chunk: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version: dense fp32 scores over the whole sequence,
     softcap, mask, softmax; the result in q's dtype."""
-    B, S, H, KV, hd, window = _check_args(q, k, v, q_pos, causal, window,
-                                           softcap)
+    B, S, H, KV, hd, window, chunk = _check_args(q, k, v, q_pos, causal,
+                                                  window, softcap, chunk)
     G = H // KV
     qf = q.reshape(B, S, KV, G, hd).to(torch.float32)
     s = torch.einsum("bqkgh,bckh->bkgqc", qf, k.to(torch.float32)) * scale
@@ -99,6 +114,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = j <= qp
         if window is not None:
             mask = mask & ((qp - j) < window)
+        if chunk is not None:
+            mask = mask & (torch.div(qp, chunk, rounding_mode="floor")
+                           == torch.div(j, chunk, rounding_mode="floor"))
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p, v.to(torch.float32))
@@ -108,18 +126,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, *, scale: float, causal: bool = True,
                     window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    chunk: Optional[int] = None) -> torch.Tensor:
     """q [B, S, H, hd]; k, v [B, S, KV, hd], q's dtype (fp32 or bf16);
     q_pos [B, S] integer positions -> [B, S, H, hd] in q's dtype.
 
     A CUDA tensor launches the kernel or raises; a CPU tensor takes
     :func:`flash_attention_plain`."""
-    B, S, H, KV, hd, window = _check_args(q, k, v, q_pos, causal, window,
-                                           softcap)
+    B, S, H, KV, hd, window, chunk = _check_args(q, k, v, q_pos, causal,
+                                                  window, softcap, chunk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, scale=scale,
                                      causal=causal, window=window,
-                                     softcap=softcap)
+                                     softcap=softcap, chunk=chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -146,11 +165,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         out.data_ptr(), B, S, H, KV, hd, float(scale), int(bool(causal)),
-        0 if window is None else window,
+        0 if window is None else window, 0 if chunk is None else chunk,
         0.0 if softcap is None else float(softcap), DTYPES[q.dtype],
         PATHS[kernel],
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention kernel launch")
     launches.bump((B, S, H, KV, hd, str(q.dtype).replace("torch.", ""),
-                   bool(causal), window, softcap))
+                   bool(causal), window, softcap, chunk))
     return out

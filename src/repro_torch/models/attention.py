@@ -11,10 +11,12 @@ TPU kernel is prefill-only, so this is no plain version of it on the card.
 :func:`online_attention` scans KV in chunks with running (m, l, acc)
 statistics, so the [Sq, Skv] score matrix never materializes at full
 sequence length. Masking is positional, as in the JAX package: kv position
-j attends iff ``j <= q_pos`` (causal), ``q_pos - j < window`` and
-``j < kv_valid_len``; masked scores are ``NEG_INF`` (finite, so a fully
-masked chunk cannot produce NaN) and ``l`` is clamped at 1e-30. The
-prefill kernel keeps these semantics.
+j attends iff ``j <= q_pos`` (causal), ``q_pos - j < window``,
+``q_pos // block_local == j // block_local`` (llama4's iRoPE local
+layers) and ``j < kv_valid_len``; masked scores are ``NEG_INF`` (finite,
+so a fully masked chunk cannot produce NaN) and ``l`` is clamped at
+1e-30. The prefill kernel keeps these semantics (``block_local`` is its
+``chunk``).
 """
 from __future__ import annotations
 
@@ -33,10 +35,11 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_pos: torch.Tensor,
                      kv_valid_len: Optional[torch.Tensor], *, causal: bool,
                      window: Optional[int], scale: float,
-                     logit_cap: Optional[float], chunk: int = 1024
-                     ) -> torch.Tensor:
+                     logit_cap: Optional[float], chunk: int = 1024,
+                     block_local: Optional[int] = None) -> torch.Tensor:
     """q [B,Sq,H,hd], k/v [B,Skv,KV,hd], q_pos [B,Sq] absolute positions
-    -> [B,Sq,H,vd] fp32."""
+    -> [B,Sq,H,vd] fp32. ``block_local`` (None: none) confines a query to
+    the keys of its own ``block_local``-token block."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     vd = v.shape[-1]
@@ -62,6 +65,10 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = pc < Skv
         if causal:
             mask = mask & (pc <= qp) & ((qp - pc) < window)
+        if block_local is not None:
+            mask = mask & (torch.div(qp, block_local, rounding_mode="floor")
+                           == torch.div(pc, block_local,
+                                        rounding_mode="floor"))
         if valid_len is not None:
             mask = mask & (pc < valid_len)
         s = s.masked_fill(~mask, NEG_INF)
@@ -121,6 +128,10 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
             window = cfg.sliding_window
         else:       # alternating local/global: is_local is a python bool
             window = cfg.sliding_window if is_local else LARGE_WINDOW
+    block_local = None
+    if cfg.attn_chunk is not None and cfg.layer_pattern == "chunked":
+        # llama4 iRoPE: 3/4 layers attend within attn_chunk-sized blocks
+        block_local = cfg.attn_chunk if is_local else None
     if cache is not None and decode_pos is not None:
         rows = torch.arange(B, device=x.device)
         cache["k"][rows, decode_pos] = k[:, 0].to(cache["k"].dtype)
@@ -128,11 +139,13 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
         out = online_attention(q, cache["k"], cache["v"], positions,
                                decode_pos + 1, causal=not cfg.is_encoder,
                                window=window, scale=_attn_scale(cfg),
-                               logit_cap=cfg.attn_logit_softcap, chunk=chunk)
+                               logit_cap=cfg.attn_logit_softcap, chunk=chunk,
+                               block_local=block_local)
     else:
         out = flash_attention(q, k, v, positions, scale=_attn_scale(cfg),
                               causal=not cfg.is_encoder, window=window,
-                              softcap=cfg.attn_logit_softcap)
+                              softcap=cfg.attn_logit_softcap,
+                              chunk=block_local)
     out = linear(out.reshape(B, S, H * hd).to(x.dtype), p["wo"])
     new_cache = cache if cache is not None else {"k": k, "v": v}
     return out, new_cache
@@ -149,7 +162,10 @@ def gqa_apply_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     ``paged`` is a layer-bound attend hook (``PagedBatchView.bind``). A
     global layer passes ``window=None``, not ``LARGE_WINDOW``, so the
-    kernel sees a real "no window"."""
+    kernel sees a real "no window". As in the JAX package, only the
+    window reaches the hook: a llama4 local layer's ``block_local`` mask
+    is not applied here, so past ``attn_chunk`` tokens a paged step
+    attends globally where prefill and the contiguous decode do not."""
     B, S, D = x.shape
     if S != 1:
         raise ValueError(f"paged attention decodes one token, got S={S}")

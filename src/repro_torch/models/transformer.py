@@ -1,4 +1,4 @@
-"""Config-driven decoder: the dense and rwkv6 kinds.
+"""Config-driven decoder: the dense, moe and rwkv6 kinds.
 
 The layer list (``cfg.layer_kinds()``) is grouped into *segments* of
 consecutive identical kinds; each segment's params are stacked [n, ...],
@@ -8,9 +8,13 @@ over its layers (views of the stacked tensors) where the JAX package
 scans. Per-layer variation that only changes masking (gemma2 local/global)
 is a Python bool per layer.
 
-A model is either all dense (attention + MLP) or all rwkv6 (time-mix +
-channel-mix, ``models/ssm.py``). MoE, MLA, mamba2, zamba2's shared
-attention and the vision and audio frontends raise ``NotImplementedError``.
+A model is a stack of dense (attention + MLP) and moe (attention +
+mixture of experts, ``models/moe.py``) layers, or all rwkv6 (time-mix +
+channel-mix, ``models/ssm.py``). MLA, mamba2, zamba2's shared attention,
+M-RoPE and the vision and audio frontends raise ``NotImplementedError``.
+A config with ``d_frontend`` whose family reads no frontend (llama4's
+vision stub) still carries the ``frontend`` parameter, as the JAX
+package's tree does; the forward never reads it.
 
 Modes: "prefill" runs full sequences; "decode" runs one token against a
 decode cache (updated in place: K/V rows for dense layers, the recurrent
@@ -28,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.skeleton import torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (layer_norm, mlp_apply, mlp_defs,
                                        rms_norm, softcap)
@@ -57,12 +62,13 @@ def build_plan(cfg: ModelConfig) -> List[Segment]:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds())
-    if kinds not in ({"dense"}, {"rwkv6"}) or cfg.mla is not None:
+    if not (kinds <= {"dense", "moe"} or kinds == {"rwkv6"}) \
+            or cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)}"
             f"{' with MLA' if cfg.mla else ''} are not ported yet "
-            f"(all dense or all rwkv6 only)")
-    if not cfg.embed_inputs or cfg.d_frontend or cfg.is_encoder:
+            f"(dense / moe stacks or all rwkv6 only)")
+    if not cfg.embed_inputs or cfg.is_encoder or cfg.family == "vlm":
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
                                   f"ported yet")
     if cfg.rope_type == "mrope":
@@ -73,7 +79,7 @@ def _check_supported(cfg: ModelConfig) -> None:
 def layer_defs(cfg: ModelConfig, kind: str) -> dict:
     if kind == "rwkv6":
         return ssm_mod.rwkv6_defs(cfg)
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     D = cfg.d_model
     norm = "zeros" if cfg.post_norms else "ones"
@@ -83,7 +89,10 @@ def layer_defs(cfg: ModelConfig, kind: str) -> dict:
     if cfg.post_norms:
         d["post_ln1"] = ParamDef((D,), init="zeros")
         d["post_ln2"] = ParamDef((D,), init="zeros")
-    d["ffn"] = mlp_defs(cfg, D, cfg.d_ff)
+    if kind == "moe":
+        d["ffn"] = moe_mod.moe_defs(cfg)
+    else:
+        d["ffn"] = mlp_defs(cfg, D, cfg.d_ff)
     return d
 
 
@@ -95,6 +104,8 @@ def model_defs(cfg: ModelConfig) -> Tuple[dict, List[Segment]]:
         "final_norm": ParamDef((D,), init="zeros" if cfg.post_norms
                                else "ones"),
         "embed": ParamDef((V, D), init="small")}
+    if cfg.d_frontend:
+        defs["frontend"] = ParamDef((cfg.d_frontend, D))
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((D, V), init="small")
     defs["segments"] = [layer_defs(cfg, s.kind) for s in plan]
@@ -112,7 +123,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     returned."""
     if kind == "rwkv6":
         return _apply_rwkv6(cfg, p, x, cache, mode)
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     h = rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
     if paged is not None and mode == "decode":
@@ -126,7 +137,10 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         a_out = rms_norm(a_out, p["post_ln1"], cfg.norm_eps, plus_one=True)
     x = x + a_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norms)
-    f_out = mlp_apply(cfg, p["ffn"], h)
+    if kind == "moe":       # the aux loss is a training term: dropped here
+        f_out, _ = moe_mod.moe_apply(cfg, p["ffn"], h)
+    else:
+        f_out = mlp_apply(cfg, p["ffn"], h)
     if cfg.post_norms:
         f_out = rms_norm(f_out, p["post_ln2"], cfg.norm_eps, plus_one=True)
     return x + f_out, new_cache

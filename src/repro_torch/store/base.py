@@ -29,7 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.skeleton import Skeleton, assemble_np, flatten_params
+from repro_torch.core.skeleton import Skeleton, assemble_np, write_flat
 from repro_torch.errors import SwapCorruptionError
 
 
@@ -124,18 +124,21 @@ class BlockStore:
             if name in store.skeletons:     # shared unit: stored once
                 continue
             store._write_unit(name, params)
-            store._record_digest(name)
+            if name not in store.digests:   # not taken while writing
+                store._record_digest(name)
         return store.open()
 
     def _write_unit(self, name: str, params: dict) -> None:
         raise NotImplementedError
 
     def _write_raw(self, name: str, params: dict) -> None:
-        """Shared raw layout: one contiguous flat buffer per unit."""
-        buf, skel = flatten_params(params)
+        """Shared raw layout: one contiguous flat buffer per unit, written
+        leaf by leaf; the unit's digest is taken from the bytes on their
+        way to the file (a 43.5 GB model is not read back to check it)."""
         with open(self._path(name), "wb") as fh:
-            fh.write(buf.tobytes())
+            skel, crc = write_flat(params, fh)
         self.skeletons[name] = skel
+        self.digests[name] = crc
 
     @classmethod
     def attach(cls, other: "BlockStore", **opts) -> "BlockStore":

@@ -42,6 +42,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -123,6 +124,7 @@ class DirectIOStore(BlockStore):
         if pad:
             with open(path, "ab") as fh:
                 fh.write(b"\0" * pad)
+            self.digests[name] = zlib.crc32(b"\0" * pad, self.digests[name])
 
     def open(self) -> "DirectIOStore":
         with self._arena_lock:

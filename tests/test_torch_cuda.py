@@ -26,7 +26,9 @@ Tolerances, with their reasons:
     against a weight of distinct values: exact;
   * flash_attention: 1e-5 fp32 (online against dense softmax), 2e-2 bf16
     (P and the output rounded to bf16); a row of a B-row call against the
-    1-row call on it, and two identical calls: bitwise;
+    1-row call on it, and two identical calls: bitwise; a block-local
+    chunk of S or more against no chunk: bitwise (the same tiles and the
+    same arithmetic);
   * paged_attention: a sequence alone against the same sequence in
     batches of other lengths, and two identical calls: bitwise;
   * mmap swapped vs unswapped: bitwise (the same ops on the same bytes);
@@ -796,6 +798,50 @@ def test_flash_attention_non_causal_window_raises_on_the_card(dev):
         assert torch.equal(a, b)
 
 
+# (B, S, H, KV, chunk, shuffled positions): S across 1, 2 and 3 chunk
+# boundaries, llama4's 40 / 8 heads, a chunk that is no multiple of the
+# kernels' 64-key tiles, and permuted positions
+FA_CHUNK_CASES = [(2, 100, 8, 2, 64, False), (1, 300, 40, 8, 128, False),
+                  (2, 200, 4, 2, 64, False), (1, 1100, 8, 2, 500, False),
+                  (2, 129, 4, 4, 32, True)]
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_chunk_matches_plain(dev, dtype, hd, window):
+    """Block-local (iRoPE) masking on both kernels: the launch carries the
+    chunk and matches the plain version; a chunk of S or more gives the
+    bits of no chunk."""
+    for i, (B, S, H, KV, chunk, shuffled) in enumerate(FA_CHUNK_CASES):
+        q, k, v, pos = _fa_inputs(B, S, H, KV, hd, dtype, 60 + i, shuffled)
+        kw = dict(scale=hd ** -0.5, window=window)
+        fa.launches.reset()
+        got = fa.flash_attention(q, k, v, pos, chunk=chunk, **kw)
+        assert list(fa.launches.by_shape)[0][-1] == chunk
+        want = fa.flash_attention_plain(q, k, v, pos, chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), (S, chunk)
+        assert _rel(got, want) <= TOL[dtype], (B, S, H, KV, chunk)
+        assert torch.equal(fa.flash_attention(q, k, v, pos, chunk=S, **kw),
+                           fa.flash_attention(q, k, v, pos, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_chunk_rows_do_not_depend_on_the_batch(dev, dtype):
+    """With a chunk: row b of a 4-row call equals the 1-row call on that
+    row bitwise, and two identical calls give equal bits."""
+    q, k, v, pos = _fa_inputs(4, 300, 40, 8, 128, dtype, 9)
+    kw = dict(scale=128 ** -0.5, chunk=128)
+    full = fa.flash_attention(q, k, v, pos, **kw)
+    assert torch.equal(full, fa.flash_attention(q, k, v, pos, **kw))
+    for b in range(4):
+        one = fa.flash_attention(q[b:b + 1].contiguous(),
+                                 k[b:b + 1].contiguous(),
+                                 v[b:b + 1].contiguous(), pos[b:b + 1], **kw)
+        assert torch.equal(full[b:b + 1], one), b
+
+
 def test_gemma_prefill_on_the_card(dev, tmp_path):
     """Reduced gemma2-9b (window 24, shorter than the prompt) swapped on
     mmap on the card: bitwise equal to the unswapped forward, every layer's
@@ -815,6 +861,34 @@ def test_gemma_prefill_on_the_card(dev, tmp_path):
         logits, _ = sm.forward(batch)
         assert fa.launches.count == cfg.n_layers
         assert sorted(k[7] or 0 for k in fa.launches.by_shape) == [0, 24]
+        assert sl.launches.count == 7 * cfg.n_layers
+        assert torch.equal(logits, sm.forward_unswapped(batch))
+    finally:
+        sm.close()
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_llama4_prefill_on_the_card(dev, tmp_path):
+    """Reduced llama4-scout (4 layers, attn_chunk 8, a 20-token prompt)
+    swapped on mmap on the card: bitwise equal to the unswapped forward,
+    flash_attention at chunk 8 on the local layers 0-2 and without one on
+    the global layer 3, swap_linear 7 times a layer (q, k, v, o and the
+    shared expert's three; the routed experts and the router are batched
+    library matmuls, as the reference leaves them to XLA)."""
+    cfg = dataclasses.replace(get_arch("llama4-scout-17b-a16e").reduced(),
+                              n_layers=4, dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+    sm = SwappedModel(model, params, str(tmp_path))
+    try:
+        sm.partition(8 * 1024 * 1024, DelayModel(), 2, 20)
+        fa.launches.reset()
+        sl.launches.reset()
+        logits, _ = sm.forward(batch)
+        assert sorted(k[-1] or 0 for k, n in fa.launches.by_shape.items()
+                      for _ in range(n)) == [0, 8, 8, 8]
         assert sl.launches.count == 7 * cfg.n_layers
         assert torch.equal(logits, sm.forward_unswapped(batch))
     finally:
