@@ -3,9 +3,10 @@
 # its power limit, host memory, the filesystem under the checkout and
 # TMPDIR, the disk's write rate (3.2 GB through dd with fdatasync), and
 # the rates of one pageable 10.8 GB copy down from and up to the card
-# (torch only, no JAX). Run from the root of a checkout:
+# (torch only, no JAX). Run from the root of a checkout on the machine
+# that holds the card (one H100, about four minutes):
 #
-#     chiprun --timeout 240 -- bash tools/torch_host_probe.sh
+#     bash tools/torch_host_probe.sh
 set -x
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 head -3 /proc/meminfo
