@@ -88,14 +88,28 @@ Phases, each printing its wall time:
    ``flash_attention`` at chunk 8192 on layers 0-2 and none on layer 3
    and ``swap_linear`` seven times a layer; then two paged generations
    (prompts of 40 and 100 tokens, 3 new each) through the batch engine
-   on the same store and budget, equal to each request served alone.
+   on the same store and budget, equal to each request served alone;
+10. the paper's conv workloads (``models/vision.py``'s sims at their own
+   layer lists, batch 4, random weights from a seed) through
+   ``SwappedSequential``: the self-driving fleet (yolo, fcn, vgg, resnet)
+   under one ``MultiDNNScheduler`` budget, 0.72 of its demand, on mmap
+   with one shared ledger, each model bitwise its in-memory forward and
+   its ledger peak within its budget; again after ``adapt`` shrinks the
+   budget; the rsu and uav fleets once; vgg on rawio (the dispatch copy),
+   eager int8 (``dequant_int8``) and fused int8 / int4 (its fc layers
+   through ``swap_linear_q``), each quant arm within 1e-4 of its
+   round-tripped forward (its distance from the fp forward printed); DCha (4 channel groups, within 1e-5) and TPrg
+   (its cosine fidelity) in memory; ``calibrate_sequential`` twice (one
+   plan JSON) and a mixed store under that plan; the 12 x 1280 fc stack
+   at batch 64 on mmap (bitwise) and fused int8 / int4 (within 1e-4),
+   each planned with ``DelayModel.calibrated`` on its store under half
+   its resident bytes.
 
-Every full-precision linear of phases 3 to 9 runs ``swap_linear`` and
+Every full-precision linear of phases 3 to 10 runs ``swap_linear`` and
 every prefill's attention ``flash_attention``; the quantized stores' lazy
 linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
-Every shape phases 7, 8 and 9 launch a kernel at is one of phase 2's
-rows, held against the plain version there and timed; the script checks
-it.
+Every shape phases 7 to 10 launch a kernel at is one of phase 2's rows,
+held against the plain version there and timed; the script checks it.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -299,6 +313,31 @@ P9_M = 2
 P9_GRID = 10 ** 8                      # budget search step, 0.1 GB
 P9_BUDGET_OVER_FLOOR = 1.1
 P9_WORKDIR = ROOT / "build" / "phase9"
+
+# phase 10: the paper's conv workloads (``repro_torch.models.vision``'s
+# sims at their own layer lists). The three fleets (model i's weights from
+# seed i) are ``benchmarks/common.py::scenario_models``; the batch and the
+# budget, 0.72 of a fleet's demand, ``benchmarks/bench_scenarios.py``'s;
+# the adaptation ``examples/multi_dnn_scheduling.py``'s; the fc stack (12
+# layers of 1280 at batch 64, seed 3) ``benchmarks/bench_overhead.py``'s
+P10_SCENARIOS = {
+    "self_driving": ["yolo", "fcn", "vgg", "resnet"],
+    "rsu": ["yolo", "yolo", "resnet", "resnet", "vgg"],
+    "uav": ["yolo", "resnet"],
+}
+P10_BATCH = 4
+P10_BUDGET_FRAC = 0.72
+P10_ADAPT = 0.65                       # x available, at least 1.05 x floors
+P10_GROUPS = 4                         # DCha's channel groups
+P10_FIDELITY = 2e-2                    # calibrate_sequential's target
+# quantized swapped vs the in-memory forward on its round-tripped weights:
+# the two differ only in summation order (swap_linear_q against a widened
+# weight through swap_linear), so the bound sits far under the 2e-2 that
+# quantization itself costs against the fp forward
+P10_RTTOL = 1e-4
+P10_STACK = (12, 1280, 64, 3)          # fc layers, width, batch, seed
+P10_STACK_BUDGET = 0.5                 # x the store's resident bytes
+P10_WORKDIR = ROOT / "build" / "phase10"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -537,9 +576,10 @@ def check_row_independence(torch, g, which):
             f"one-hot rows the weight's rows")
 
 
-def check_kernels(torch, cfg):
+def check_kernels(torch, cfg, conv_path):
     """Phase 2: every kernel against its plain version on the card.
-    Returns the timing rows of the main-path shapes."""
+    Returns the timing rows of the main-path shapes (``conv_path``: phase
+    10's, :func:`p10_kernel_shapes`)."""
     from repro_torch.kernels import dequant as dq
     from repro_torch.kernels import swap_linear_q as slq
 
@@ -610,6 +650,52 @@ def check_kernels(torch, cfg):
     # (4 x 128) at both widths and its int8 decode (2 rows); phase 8's
     # 2 x 16 prefills of the mixed store at both widths
     rows, seen = [], set()
+
+    def q_row(M, K, N, bits, dname, act, has_bias, q, s):
+        """Hold swap_linear_q at one main-path shape against its plain
+        version and time it beside cuBLAS and its bound: one row."""
+        dt = dts[dname]
+        x = torch.randn((M, K), generator=g, device=dev).to(dt)
+        b = ((torch.randn((N,), generator=g, device=dev) * 0.1).to(dt)
+             if has_bias else None)
+        got = slq.swap_linear_q(x, q, s, b, bits=bits, act=act)
+        want = slq.swap_linear_q_plain(x, q, s, b, bits=bits, act=act)
+        err, rel = rel_err(torch, got, want)
+        require(rel <= TOL[dname], f"timing case {(M, K, N)} rel {rel}")
+        k_ms = time_ms(torch, lambda: slq.swap_linear_q(
+            x, q, s, b, bits=bits, act=act))
+        p_ms = time_ms(torch, lambda: slq.swap_linear_q_plain(
+            x, q, s, b, bits=bits, act=act))
+        # library yardstick: cuBLAS on the weight dequantized beforehand
+        # (not timed), in x's dtype, + the epilogue
+        vals = dq.unpack_int4_tensor(q, K) if bits == 4 else q
+        w_lib = (vals.float() * s[None, :]).to(dt)
+        fn = {"silu": torch.nn.functional.silu}.get(act)
+
+        def lib():
+            r = torch.addmm(b, x, w_lib) if b is not None else x @ w_lib
+            return fn(r) if fn else r
+        l_ms = time_ms(torch, lib)
+        del w_lib
+        xs = 2 if dname == "bfloat16" else 4
+        shape = f"M={M} K={K} N={N} int{bits} x={dname} act={act}"
+        nbytes = (M * K * xs + q.numel() + 4 * N
+                  + (N * xs if b is not None else 0) + M * N * xs)
+        ops = 2.0 * M * N * K
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS[dname] * 1e3
+        rows.append({
+            "name": "swap_linear_q", "route": "cuda",
+            "source": "src/repro_torch/csrc/swap_linear_q.cu",
+            "replaces": "src/repro/kernels/swap_linear_q.py:44",
+            "key": (M, K, N, bits, dname, act),
+            "shape": shape,
+            "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": l_ms})
+
     for bits, Ms in ((8, ((BATCH * PROMPT, BATCH),
                           (DECODE_BATCH, DECODE_BATCH),
                           (P8_BATCH * P8_SEQ, P8_BATCH))),
@@ -617,55 +703,21 @@ def check_kernels(torch, cfg):
                           (P8_BATCH * P8_SEQ, P8_BATCH)))):
         for (K, N, act, dname, has_bias) in slice_linear_shapes(cfg):
             q, s = weights(K, N, bits)
-            dt = dts[dname]
             for M_layer, M_head in Ms:
                 M = M_head if N == V else M_layer
                 if (M, K, N, bits, dname, act) in seen:
                     continue
                 seen.add((M, K, N, bits, dname, act))
-                x = torch.randn((M, K), generator=g, device=dev).to(dt)
-                b = ((torch.randn((N,), generator=g, device=dev) * 0.1).to(dt)
-                     if has_bias else None)
-                got = slq.swap_linear_q(x, q, s, b, bits=bits, act=act)
-                want = slq.swap_linear_q_plain(x, q, s, b, bits=bits, act=act)
-                err, rel = rel_err(torch, got, want)
-                require(rel <= TOL[dname], f"timing case {(M, K, N)} rel {rel}")
-                k_ms = time_ms(torch, lambda: slq.swap_linear_q(
-                    x, q, s, b, bits=bits, act=act))
-                p_ms = time_ms(torch, lambda: slq.swap_linear_q_plain(
-                    x, q, s, b, bits=bits, act=act))
-                # library yardstick: cuBLAS on the weight dequantized
-                # beforehand (not timed), in x's dtype, + the epilogue
-                vals = dq.unpack_int4_tensor(q, K) if bits == 4 else q
-                w_lib = (vals.float() * s[None, :]).to(dt)
-                fn = {"silu": torch.nn.functional.silu}.get(act)
-
-                def lib():
-                    r = torch.addmm(b, x, w_lib) if b is not None else x @ w_lib
-                    return fn(r) if fn else r
-                l_ms = time_ms(torch, lib)
-                del w_lib
-                xs = 2 if dname == "bfloat16" else 4
-                shape = f"M={M} K={K} N={N} int{bits} x={dname} act={act}"
-                nbytes = (M * K * xs + q.numel() + 4 * N
-                          + (N * xs if b is not None else 0) + M * N * xs)
-                ops = 2.0 * M * N * K
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = ops / PEAK_OPS[dname] * 1e3
-                rows.append({
-                    "name": "swap_linear_q", "route": "cuda",
-                    "source": "src/repro_torch/csrc/swap_linear_q.cu",
-                    "replaces": "src/repro/kernels/swap_linear_q.py:44",
-                    "key": (M, K, N, bits, dname, act),
-                    "shape": shape,
-                    "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
-                    "plain_ms": p_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": l_ms})
+                q_row(M, K, N, bits, dname, act, has_bias, q, s)
+            del q, s
+    # phase 10: the conv workloads' fused fc layers (fp32 x, with a bias)
+    for (M, K, N) in conv_path["q"]:
+        for bits in (8, 4):
+            q, s = weights(K, N, bits)
+            q_row(M, K, N, bits, "float32", "none", True, q, s)
             del q, s
     for (R, C) in [(D, D), (D, cfg.n_kv_heads * cfg.resolved_head_dim),
-                   (D, F), (F, D), (V, D), (D, V)]:
+                   (D, F), (F, D), (V, D), (D, V)] + conv_path["dequant"]:
         q = torch.randint(-127, 128, (R, C), generator=g, device=dev,
                           dtype=torch.int8)
         s = torch.rand((C,), generator=g, device=dev)
@@ -1118,10 +1170,11 @@ def fp_layer_linears(cfg):
     return [k + (b,) for k, b in out.items()]
 
 
-def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg):
+def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, conv_path):
     """Phase 2 for B5: the kernel against its plain version over ragged
     shapes and qwen2.5-3b's linears at decode and prefill, then timed at
-    the main paths' shapes. Returns the timing rows."""
+    the main paths' shapes (phase 10's from ``conv_path``). Returns the
+    timing rows."""
     from repro_torch.kernels import swap_linear as sl
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -1189,6 +1242,9 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg):
     timed += [(f"{lcfg.name}", M, "bfloat16", s)
               for M in (LLAMA_PROMPT, *LLAMA_PAGED_PROMPTS, 2, 1)
               for s in fp_layer_linears(lcfg)]
+    # phase 10: the conv workloads' fc layers and the fc stack, fp32
+    timed += [(label, M, "float32", (K, N, "none", True))
+              for label, (M, K, N) in conv_path["fp"]]
     rows = []
     for label, M, dname, (K, N, act, has_bias) in timed:
         dt = dts[dname]
@@ -3428,6 +3484,469 @@ def run_llama4(torch, card, main_launches):
     return out
 
 
+# ---------------------------------------------------------------- conv nets
+def p10_infos(layers, hw: int, batch: int):
+    """The info rows of a conv net from its layer list alone (the rows of
+    ``benchmarks/common.py::vision_infos``: a layer's fp32 bytes, its leaf
+    count or 1, ``layer_flops_conv`` at its input size)."""
+    from repro_torch.core.cost_model import LayerInfo
+    from repro_torch.models.vision import layer_flops_conv, trace_hw
+    rows = []
+    for i, (l, h) in enumerate(zip(layers, trace_hw(layers, hw))):
+        n = {"conv": l.k * l.k * l.cin * l.cout, "res": l.k * l.k * l.cin
+             * l.cout, "fc": l.cin * l.cout}.get(l.kind, 0)
+        rows.append(LayerInfo(f"{l.kind}{i:02d}", 4 * (n + l.cout) if n else 0,
+                              2 if n else 1, layer_flops_conv(l, h, batch)))
+    return rows
+
+
+def p10_scheduler(kinds, planners: dict):
+    """``MultiDNNScheduler`` over a fleet under P10_BUDGET_FRAC of its
+    demand: model i is ``f"{kind}{i}"`` (its weights from seed i, as
+    ``bench_scenarios.py`` builds them). Models of one kind share one
+    ``PartitionPlanner`` from ``planners``: the same rows, so the same
+    lookup tables, each built once for all fleets. Returns (scheduler,
+    demand bytes)."""
+    from repro_torch.core.cost_model import DelayModel
+    from repro_torch.core.partition import PartitionPlanner
+    from repro_torch.core.scheduler import MultiDNNScheduler, ScheduledModel
+    from repro_torch.models import vision
+    models = []
+    for i, kind in enumerate(kinds):
+        if kind not in planners:
+            _, layers, hw = vision.MODELS[kind]()
+            planners[kind] = PartitionPlanner(
+                p10_infos(layers, hw, P10_BATCH), DelayModel())
+        models.append(ScheduledModel(f"{kind}{i}", planners[kind]))
+    total = sum(float(sum(m.planner.sizes)) for m in models)
+    return MultiDNNScheduler(models, total * P10_BUDGET_FRAC), total
+
+
+def p10_vgg(sched):
+    """(seed, budget) of the self-driving fleet's vgg as planned."""
+    (i, m), = [(i, m) for i, m in enumerate(sched.models)
+               if m.name.startswith("vgg")]
+    return i, m.budget
+
+
+def p10_tprg_keep(sched) -> float:
+    """TPrg's keep fraction at vgg's budget (``bench_scenarios.py``)."""
+    i, budget = p10_vgg(sched)
+    total = float(sum(sched.models[i].planner.sizes))
+    return max(0.25, min(1.0, budget / (total * 2.2)))
+
+
+def p10_kernel_shapes(sched) -> dict:
+    """Every shape phase 10 launches a matmul or dequant kernel at, from
+    the layer lists: ``fp``: (label, (M, K, N)) of B5 (vgg's and resnet's
+    fc layers, TPrg's first fc, the fc stack); ``q``: (M, K, N) of B1 at
+    int8 and int4 (vgg's fc layers, the fc stack); ``dequant``: (R, C) of
+    B2 (vgg's quantized leaves, conv weights as k * k * cin rows)."""
+    from repro_torch.models import vision
+    from repro_torch.store.quantized_store import MIN_QUANT_SIZE
+    _, vgg, _ = vision.vgg_sim()
+    _, resnet, _ = vision.resnet_sim()
+    n, dim, batch, _ = P10_STACK
+    vfc = [(P10_BATCH, l.cin, l.cout) for l in vgg if l.kind == "fc"]
+    rfc = [(P10_BATCH, l.cin, l.cout) for l in resnet if l.kind == "fc"]
+    last = [l for l in vgg if l.kind == "conv"][-1].cout
+    kept = max(1, int(round(last * p10_tprg_keep(sched))))
+    stack = (batch, dim, dim)
+    fp = ([("vgg_sim fc", s) for s in vfc]
+          + [("resnet_sim fc", s) for s in rfc if s not in vfc]
+          + [("vgg_sim TPrg fc", (P10_BATCH, kept, vfc[0][2]))]
+          + [(f"fc stack {n} x {dim}", stack)])
+    deq = []
+    for l in vgg:
+        rows = l.k * l.k * l.cin if l.kind in ("conv", "res") else l.cin
+        if l.kind in ("conv", "res", "fc") and rows * l.cout >= MIN_QUANT_SIZE:
+            deq.append((rows, l.cout))
+    return {"fp": fp, "q": vfc + [stack], "dequant": deq}
+
+
+def p10_resident(torch, params, dev):
+    """Every unit on the device, each one flat buffer cut as a swap-in
+    cuts it (``SwappedModel.resident_units``): the in-memory model."""
+    from repro_torch.core.skeleton import assemble, flatten_params
+    out = []
+    for p in params:
+        buf, skel = flatten_params(p)
+        out.append(assemble(skel, torch.from_numpy(buf).to(dev)))
+    return out
+
+
+def p10_pass(sw, x, reset, collect):
+    """A warm swapped pass, then the counted one with fresh stats.
+    Returns (output, stats, launches)."""
+    sw.forward(x)
+    sw.engine.stats.__init__()
+    reset()
+    out, st = sw.forward(x)
+    return out, st, collect()
+
+
+P10_SPANS = ("read", "unpack", "dispatch", "exec", "wait")
+
+
+def p10_row(tag, sw, st, budget) -> dict:
+    """Print one swapped pass's row and return it (``budget`` None: the
+    engine enforced none)."""
+    es = sw.engine.stats
+    row = {"tag": tag, "blocks": sw.plan.n_blocks, "m": sw.plan.m,
+           "points": list(sw.plan.points), "budget": budget and int(budget),
+           "peak": int(es.peak_resident),
+           "latency_ms": st["latency_s"] * 1e3,
+           "spans_ms": {k: es.stage_seconds(k) * 1e3 for k in P10_SPANS},
+           "overlap": st["overlap_efficiency"],
+           "swapped": st["bytes_swapped"],
+           "by_precision": st["bytes_by_precision"]}
+    print(f"[phase10 {tag}] {row['blocks']} blocks at m={row['m']} "
+          f"{tuple(row['points'])}; latency {row['latency_ms']:.3f} ms ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in row["spans_ms"].items())
+          + f" ms); overlap {row['overlap']:.3f}; peak ledger "
+          f"{row['peak'] / 1e6:.3f} MB of "
+          + (f"budget {budget / 1e6:.3f} MB; " if budget else "no budget; ")
+          + f"swapped {row['swapped'] / 1e6:.3f} MB {row['by_precision']}",
+          flush=True)
+    return row
+
+
+def run_conv(torch, sd_sched, planners, main_launches, device="cuda"):
+    """Phase 10: the paper's conv workloads through ``SwappedSequential``.
+    The three application scenarios under ``MultiDNNScheduler`` on mmap
+    (self-driving before and after ``adapt``), vgg's store arms, DCha and
+    TPrg, ``calibrate_sequential`` and a mixed store, then the fc stack.
+    Stores live under ``build/phase10``. Returns launches per counted
+    run and every launched shape (``by_shape``)."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.calibrate import calibrate_sequential
+    from repro_torch.calibrate.profiler import _rel_l2
+    from repro_torch.core.cost_model import (DelayModel, LayerInfo,
+                                             packing_density)
+    from repro_torch.core.runtime import SwappedSequential
+    from repro_torch.core.swap_engine import MemoryLedger
+    from repro_torch.models import vision
+    from repro_torch.store.quantized_store import quantizable_leaf, roundtrip
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device(device)
+    reset, collect = launch_counting(main_launches)
+    before = {k: dict(v) for k, v in main_launches.items()}
+    out = {"counts": {}, "rows": []}
+    nets = {}
+    dm = DelayModel()
+
+    def net(kind, seed):
+        """(layers, host params, in-memory params, x, in-memory output)
+        of one sim: weights from a torch.Generator at ``seed`` on the host
+        (the store's source), x from a numpy seed."""
+        if (kind, seed) not in nets:
+            _, layers, hw = vision.MODELS[kind]()
+            g = torch.Generator()
+            g.manual_seed(seed)
+            params = vision.init_convnet(layers, g)
+            got = [sum(a.numel() * 4 for a in tree_leaves(p)) for p in params]
+            want = [r.size for r in p10_infos(layers, hw, P10_BATCH)]
+            require(got == want, f"phase 10: {kind} unit bytes {got} != "
+                    f"the planner's rows {want}")
+            x = torch.from_numpy(np.random.default_rng(seed + 99)
+                                 .standard_normal((P10_BATCH, hw, hw, 3))
+                                 .astype(np.float32)).to(dev)
+            resident = p10_resident(torch, params, dev)
+            nets[(kind, seed)] = (layers, params, resident, x,
+                                  vision.apply_convnet(layers, resident, x))
+        return nets[(kind, seed)]
+
+    def seq(layers, units, workdir, **kw):
+        return SwappedSequential(
+            units, lambda i, p, xx: vision.apply_layer(layers[i], p, xx),
+            str(P10_WORKDIR / workdir), device=dev, **kw)
+
+    def conv_seq(kind, seed, workdir, **kw):
+        layers, params, _, _, _ = net(kind, seed)
+        return seq(layers, [(f"{kind}{seed}_{i:02d}", p)
+                            for i, p in enumerate(params)], workdir, **kw)
+
+    def run_fleet(scen, sched, stage, ledger):
+        """Every model of ``sched`` swapped on mmap at its allotted budget
+        and plan, on one shared ledger: bitwise the in-memory forward,
+        its ledger peak within its budget. The executors stay open in
+        ``sws`` for a later stage."""
+        demand = sum(float(sum(m.planner.sizes)) for m in sched.models)
+        print(f"[phase10 {scen} {stage}] demand {demand / 1e6:.3f} MB over "
+              f"the budget {sched.available / 1e6:.3f} MB: "
+              f"{demand / sched.available:.3f}x", flush=True)
+        for i, (kind, m) in enumerate(zip(P10_SCENARIOS[scen],
+                                          sched.models)):
+            key = f"{scen}/{m.name}"
+            if key not in sws:
+                sws[key] = conv_seq(kind, i, key, ledger=ledger)
+            sw = sws[key]
+            # the scheduler's plan, with its own m: a budget at a model's
+            # floor (vgg's, yolo's) degrades it to m = 1
+            sw.plan = m.plan
+            _, _, _, x, ref = net(kind, i)
+            y, st, counts = p10_pass(sw, x, reset, collect)
+            out["counts"][f"{scen} {stage} {m.name}"] = counts
+            require(torch.equal(y, ref), f"phase 10: {scen} {stage} "
+                    f"{m.name} swapped != in-memory")
+            require(sw.engine.stats.peak_resident <= m.budget,
+                    f"phase 10: {scen} {stage} {m.name} peak "
+                    f"{sw.engine.stats.peak_resident} > budget {m.budget}")
+            out["rows"].append(p10_row(f"{scen} {stage} {m.name}", sw, st,
+                                       m.budget))
+        require(ledger.peak <= sched.available, f"phase 10: {scen} ledger "
+                f"peak {ledger.peak} > {sched.available}")
+        return demand / sched.available
+
+    shutil.rmtree(P10_WORKDIR, ignore_errors=True)
+    sws = {}
+    try:
+        # 1. self-driving, as planned, then adapted to a smaller budget
+        seed, budget = p10_vgg(sd_sched)
+        keep = p10_tprg_keep(sd_sched)
+        ledger = MemoryLedger(int(sd_sched.available))
+        ratio = run_fleet("self_driving", sd_sched, "planned", ledger)
+        floors = sum(m.planner.min_feasible_budget()
+                     for m in sd_sched.models)
+        avail = max(sd_sched.available * P10_ADAPT, floors * 1.05)
+        t_adapt = sd_sched.adapt(avail)
+        ledger.budget = int(avail)
+        print(f"[phase10 self_driving] adapt to {avail / 1e6:.3f} MB "
+              f"(max of {P10_ADAPT} x available, 1.05 x the floors "
+              f"{floors / 1e6:.3f} MB) in {t_adapt * 1e3:.1f} ms", flush=True)
+        ratio_adapted = run_fleet("self_driving", sd_sched, "adapted",
+                                  ledger)
+        require(ratio_adapted > ratio > 1, f"phase 10: demand over budget "
+                f"{ratio:.3f}, adapted {ratio_adapted:.3f}")
+        # 2. the two other scenarios, each planned and run once
+        for scen in ("rsu", "uav"):
+            sched, _ = p10_scheduler(P10_SCENARIOS[scen], planners)
+            run_fleet(scen, sched, "planned",
+                      MemoryLedger(int(sched.available)))
+        for sw in sws.values():
+            sw.close()
+        sws.clear()
+
+        # 3. vgg's store arms at its self-driving budget
+        layers, params, resident, x, ref = net("vgg", seed)
+        _, _, hw = vision.vgg_sim()
+        infos = p10_infos(layers, hw, P10_BATCH)
+        floor = planners["vgg"].min_feasible_budget()
+        n_quant = sum(quantizable_leaf(a) for p in params
+                      for a in tree_leaves(p))
+        rt = {bits: p10_resident(torch, [roundtrip(p, bits) for p in params],
+                                 dev) for bits in (8, 4)}
+        for arm, opts in (("rawio", dict(store_backend="rawio",
+                                         gpu_dispatch=True)),
+                          ("int8 eager", dict(store_backend="quant",
+                                              precision="int8")),
+                          ("int8 fused", dict(store_backend="quant",
+                                              precision="int8", fused=True)),
+                          ("int4 fused", dict(store_backend="quant",
+                                              precision="int4", fused=True))):
+            raw = arm == "rawio"
+            # rawio holds three copies with the dispatch copy: plan a third
+            # of the budget, lifted to the floor (bench_scenarios.py)
+            sw = conv_seq("vgg", seed, f"vgg_{arm.replace(' ', '_')}",
+                     budget=None if raw else int(budget), **opts)
+            try:
+                sw.partition_with(infos, max(budget / 3, floor) if raw
+                                  else budget, dm)
+                y, st, counts = p10_pass(sw, x, reset, collect)
+                out["counts"][f"vgg {arm}"] = counts
+                if raw:
+                    require(torch.equal(y, ref), "phase 10: vgg rawio != "
+                            "in-memory")
+                else:
+                    bits = 4 if arm.startswith("int4") else 8
+                    want = vision.apply_convnet(layers, rt[bits], x)
+                    err = rel_err(torch, y, want)
+                    require(err[1] <= P10_RTTOL, f"phase 10: vgg {arm} vs "
+                            f"the round-tripped forward {err[1]:.3g}")
+                    print(f"[phase10 vgg {arm}] vs the round-tripped "
+                          f"in-memory forward: max abs {err[0]:.3g}, rel "
+                          f"{err[1]:.3g} <= {P10_RTTOL}; vs the fp forward "
+                          f"rel {rel_err(torch, y, ref)[1]:.3g}", flush=True)
+                out["rows"].append(p10_row(f"vgg {arm}", sw, st,
+                                           None if raw else budget))
+            finally:
+                sw.close()
+        out["vgg_quant_leaves"] = n_quant
+        out["vgg_fc"] = sum(l.kind == "fc" for l in layers)
+
+        # 4. DCha and TPrg in memory
+        reset()
+        dcha = vision.apply_convnet_channel_split(layers, resident, x,
+                                                  P10_GROUPS)
+        pl, pp = vision.prune_convnet(layers, resident, keep)
+        tprg = vision.apply_convnet(pl, pp, x)
+        out["counts"]["vgg DCha + TPrg"] = collect()
+        err = rel_err(torch, dcha, ref)
+        require(err[1] <= 1e-5, f"phase 10: DCha vs the full forward "
+                f"{err[1]:.3g} > 1e-5")
+        a = tprg.double().flatten()
+        b = ref.double().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+        print(f"[phase10 vgg DCha] {P10_GROUPS} channel groups: rel err "
+              f"{err[1]:.3g} <= 1e-5; [TPrg] keep {keep:.4f} ("
+              f"{pl[-3].cin} of {layers[-3].cin} channels into fc): cosine "
+              f"fidelity {cos:.6f}", flush=True)
+
+        # 5. calibrate_sequential twice on mmap, then the mixed store
+        sw = conv_seq("vgg", seed, "vgg_calib", budget=int(budget))
+        try:
+            sw.partition_with(infos, budget, dm)
+            reset()
+            t0 = time.perf_counter()
+            runs = [calibrate_sequential(sw, x, P10_FIDELITY)
+                    for _ in range(2)]
+            t_cal = time.perf_counter() - t0
+            out["counts"]["vgg calibration"] = collect()
+        finally:
+            sw.close()
+        prof, plan = runs[0]
+        require(runs[1][1].to_json() == plan.to_json()
+                and runs[1][0].to_json() == prof.to_json(),
+                "phase 10: two calibrations gave two plans")
+        sw = conv_seq("vgg", seed, "vgg_mixed", budget=int(budget),
+                 store_backend="quant", precision="mixed", fused=True,
+                 store_options={"plan": plan})
+        try:
+            sw.partition_with(infos, budget, dm)
+            y, st, counts = p10_pass(sw, x, reset, collect)
+            out["counts"]["vgg mixed"] = counts
+            bm = plan.bits_map()
+            want = vision.apply_convnet(layers, p10_resident(torch, [
+                roundtrip(p, bm.get(n, 0)) for n, p in sw.named_units],
+                dev), x)
+            err = rel_err(torch, y, want)
+            realized = _rel_l2(y, ref)
+            require(err[1] <= P10_RTTOL, f"phase 10: mixed vs its round "
+                    f"trip {err[1]:.3g}")
+            require(realized <= plan.fidelity_target, f"phase 10: mixed "
+                    f"realized rel-L2 {realized:.4g} > "
+                    f"{plan.fidelity_target}")
+            require(sum(st["bytes_by_precision"].values())
+                    == st["bytes_swapped"], "phase 10: bytes by precision")
+            print(f"[phase10 vgg calibration] 2 x calibrate_sequential "
+                  f"(output, {1 + 2 * n_quant} passes each) in {t_cal:.1f} "
+                  f"s: the same plan JSON; plan {plan.histogram()}, "
+                  f"predicted rel-L2 {plan.predicted_err:.4g}, realized "
+                  f"{realized:.4g} <= target {plan.fidelity_target:g}; vs "
+                  f"its round trip rel {err[1]:.3g} <= {P10_RTTOL}",
+                  flush=True)
+            out["rows"].append(p10_row("vgg mixed", sw, st, budget))
+            out["mixed"] = {"predicted": plan.predicted_err,
+                            "realized": realized,
+                            "histogram": plan.histogram()}
+        finally:
+            sw.close()
+
+        # 6. the fc stack on mmap and int8 / int4 fused
+        n, dim, batch, sseed = P10_STACK
+        layers = [vision.Layer("fc", dim, dim) for _ in range(n)]
+        g = torch.Generator()
+        g.manual_seed(sseed)
+        params = vision.init_convnet(layers, g)
+        units = [(f"fc{i:02d}", p) for i, p in enumerate(params)]
+        infos = [LayerInfo(f"mlp{i:02d}", sum(a.numel() * 4
+                                              for a in tree_leaves(p)),
+                           len(tree_leaves(p)), 2.0 * batch * dim * dim)
+                 for i, p in enumerate(params)]
+        x = torch.from_numpy(np.random.default_rng(sseed + 99)
+                             .standard_normal((batch, dim))
+                             .astype(np.float32)).to(dev)
+        resident = p10_resident(torch, params, dev)
+        full = vision.apply_convnet(layers, resident, x)
+        rt = {bits: vision.apply_convnet(layers, p10_resident(
+            torch, [roundtrip(p, bits) for p in params], dev), x)
+              for bits in (8, 4)}
+        for arm, opts in (("mmap", {}),
+                          ("int8 fused", dict(store_backend="quant",
+                                              precision="int8", fused=True)),
+                          ("int4 fused", dict(store_backend="quant",
+                                              precision="int4", fused=True))):
+            sw = seq(layers, units, f"stack_{arm.replace(' ', '_')}", **opts)
+            try:
+                resident_bytes = sum(sw.store.resident_nbytes(u)
+                                     for u, _ in units)
+                budget = int(resident_bytes * P10_STACK_BUDGET)
+                sw.engine.ledger.budget = budget
+                cdm = DelayModel().calibrated(sw.store)
+                sw.partition_with(infos, budget, cdm)
+                y, st, counts = p10_pass(sw, x, reset, collect)
+                out["counts"][f"stack {arm}"] = counts
+                if arm == "mmap":
+                    require(torch.equal(y, full), "phase 10: fc stack mmap "
+                            "!= in-memory")
+                else:
+                    err = rel_err(torch, y, rt[4 if "int4" in arm else 8])
+                    require(err[1] <= P10_RTTOL, f"phase 10: fc stack {arm} "
+                            f"vs the round-tripped forward {err[1]:.3g}")
+                    print(f"[phase10 fc stack {arm}] vs the round-tripped "
+                          f"in-memory forward: max abs {err[0]:.3g}, rel "
+                          f"{err[1]:.3g} <= {P10_RTTOL}; vs the fp forward "
+                          f"rel {rel_err(torch, y, full)[1]:.3g}", flush=True)
+                print(f"[phase10 fc stack {arm}] {n} x {dim} at batch "
+                      f"{batch}: resident {resident_bytes / 1e6:.3f} MB over "
+                      f"the budget {budget / 1e6:.3f} MB "
+                      f"({resident_bytes / budget:.3f}x); calibrated alpha "
+                      f"{cdm.alpha:.4g} s/B; packing density "
+                      f"{packing_density(sw.plan):.3f} layers a block",
+                      flush=True)
+                row = p10_row(f"fc stack {arm}", sw, st, budget)
+                row["packing_density"] = packing_density(sw.plan)
+                out["rows"].append(row)
+            finally:
+                sw.close()
+        out["stack_layers"] = n
+    finally:
+        for sw in sws.values():
+            sw.close()
+        shutil.rmtree(P10_WORKDIR, ignore_errors=True)
+    out["by_shape"] = {
+        name: {k: c - before[name].get(k, 0) for k, c in keys.items()
+               if c > before[name].get(k, 0)}
+        for name, keys in main_launches.items()}
+    return out
+
+
+def p10_check_launches(p10) -> None:
+    """Phase 10's kernels ran where its paths put them: fused int8 streams
+    vgg's fc weights through B1 once each a pass and widens nothing on the
+    card; eager int8 widens every quantized leaf with B2 and runs its fc
+    through B5; the fc stack's fused arms run B1 once a layer; mmap passes
+    run B5 and no other matmul."""
+    c = p10["counts"]
+    nfc, nq, nst = p10["vgg_fc"], p10["vgg_quant_leaves"], p10["stack_layers"]
+    for key, want in (("vgg int8 fused", {"swap_linear_q": nfc,
+                                          "dequant_int8": 0,
+                                          "swap_linear": 0}),
+                      ("vgg int4 fused", {"swap_linear_q": nfc,
+                                          "dequant_int8": 0,
+                                          "swap_linear": 0}),
+                      ("vgg int8 eager", {"swap_linear_q": 0,
+                                          "dequant_int8": nq,
+                                          "swap_linear": nfc}),
+                      ("vgg rawio", {"swap_linear": nfc}),
+                      ("stack mmap", {"swap_linear": nst,
+                                      "swap_linear_q": 0}),
+                      ("stack int8 fused", {"swap_linear_q": nst,
+                                            "swap_linear": 0}),
+                      ("stack int4 fused", {"swap_linear_q": nst,
+                                            "swap_linear": 0})):
+        got = {k: c[key][k] for k in want}
+        require(got == want, f"phase 10: {key} launched {got}, not {want}")
+    for name in ("swap_linear", "swap_linear_q", "dequant_int8"):
+        require(p10["by_shape"].get(name), f"phase 10: {name} never "
+                "launched")
+    for name in ("paged_attention", "flash_attention", "wkv6"):
+        require(not p10["by_shape"].get(name), f"phase 10: {name} launched")
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -3494,6 +4013,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phase 10 holds swapped conv nets to their in-memory forward bitwise:
+    # cuDNN must pick the same algorithm for the same shapes every call,
+    # and none whose sums depend on a race or a timing run
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     t_all = time.perf_counter()
 
     with phase("1 device"):
@@ -3521,12 +4045,21 @@ def main() -> int:
 
     cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=N_LAYERS)
     gcfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=GEMMA_LAYERS)
+    # phase 10's self-driving plans, from the layer lists alone: they fix
+    # TPrg's kept channels, so the shapes phase 2 must hold
+    t0 = time.perf_counter()
+    p10_planners = {}
+    sd_sched, _ = p10_scheduler(P10_SCENARIOS["self_driving"], p10_planners)
+    conv_path = p10_kernel_shapes(sd_sched)
+    print(f"phase 10's self-driving fleet planned in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     with phase("2 kernels against their plain versions"):
-        rows = check_kernels(torch, cfg)
+        rows = check_kernels(torch, cfg, conv_path)
         rows += check_paged_attention(torch)
         rows += check_wkv6(torch)
         rows += check_swap_linear(torch, cfg, gcfg, get_arch("rwkv6-3b"),
-                                  get_arch("llama4-scout-17b-a16e"))
+                                  get_arch("llama4-scout-17b-a16e"),
+                                  conv_path)
         rows += check_flash_attention(torch)
 
     from repro_torch.models.transformer import Model
@@ -3600,10 +4133,20 @@ def main() -> int:
             for name, keys in p9["by_shape"].items()
             for k, n in sorted(keys.items(), key=str)), flush=True)
 
+    with phase("10 the paper's conv workloads: three scenarios, vgg's "
+               "store arms, the fc stack"):
+        p10 = run_conv(torch, sd_sched, p10_planners, main_launches)
+        p10_check_launches(p10)
+        check_held(rows, p10["by_shape"], "phase 10")
+        print("phase 10 launches by held shape: " + "; ".join(
+            f"{name} {k} x{n}" for name, keys in p10["by_shape"].items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+        print("[phase10] rows " + json.dumps(p10["rows"]), flush=True)
+
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 9): " + ", ".join(
+    print("main-path launches (phases 3 to 10): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

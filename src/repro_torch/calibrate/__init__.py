@@ -1,16 +1,18 @@
 """Calibration pass + precision policy for per-unit mixed-precision
 swapping (the JAX package's ``repro/calibrate``, ported).
 
-1. :func:`profiler.profile_model` measures each swap unit's output error
-   at int8 and int4 on a small calibration batch (a versioned
-   ``SensitivityProfile``).
+1. :func:`profiler.profile_model` / :func:`profiler.profile_sequential`
+   measure each swap unit's output error at int8 and int4 on a small
+   calibration batch (a versioned ``SensitivityProfile``).
 2. :func:`policy.assign_precisions` solves the per-unit int4 / int8 / fp
    assignment against a fidelity target (:class:`policy.PrecisionPlan`).
 3. ``QuantizedStore(plan=...)`` writes each unit at its assigned bits.
 
-:func:`calibrate_model` bundles 1 and 2 for a model: it measures on a
-throwaway LOSSLESS (mmap) swapped instance on the caller's device, since
-calibration must see the exact weights. ``python -m repro_torch.calibrate``
+:func:`calibrate_sequential` bundles 1 and 2 for a planned
+``SwappedSequential`` (the conv workloads). :func:`calibrate_model` bundles
+them for a model: it measures on a throwaway LOSSLESS (mmap) swapped
+instance on the caller's device, since calibration must see the exact
+weights. ``python -m repro_torch.calibrate``
 is the CLI.
 """
 from __future__ import annotations
@@ -26,13 +28,14 @@ from repro_torch.calibrate.policy import (PLAN_VERSION, PRECISION_BITS,
                                           assign_precisions)
 from repro_torch.calibrate.profiler import (PROFILE_VERSION,
                                             SensitivityProfile, profile_model,
+                                            profile_sequential,
                                             unit_precision_bytes)
 
 __all__ = [
     "PLAN_VERSION", "PROFILE_VERSION", "PRECISION_BITS", "PRECISION_LADDER",
     "PrecisionPlan", "SensitivityProfile", "assign_precisions",
-    "calibrate_model", "calibration_batch", "profile_model",
-    "unit_precision_bytes",
+    "calibrate_model", "calibrate_sequential", "calibration_batch",
+    "profile_model", "profile_sequential", "unit_precision_bytes",
 ]
 
 # small by design: calibration rides the production swap path, so its
@@ -51,6 +54,18 @@ def calibration_batch(cfg, batch: int = CALIB_BATCH, seq: int = CALIB_SEQ,
             0, cfg.vocab_size, (batch, seq)).astype(np.int32)}
     return {"features": rng.standard_normal(
         (batch, seq, cfg.d_frontend)).astype(np.float32)}
+
+
+def calibrate_sequential(sw, x, fidelity: float, method: str = "output",
+                         seed: int = 0, min_quant_size: int = 1024,
+                         headroom: float = 0.7
+                         ) -> Tuple[SensitivityProfile, PrecisionPlan]:
+    """Profile + assign for a planned SwappedSequential on input ``x``. It
+    measures on ``sw`` itself, so ``sw`` should hold the exact weights (an
+    mmap store)."""
+    prof = profile_sequential(sw, x, method=method, seed=seed,
+                              min_quant_size=min_quant_size)
+    return prof, assign_precisions(prof, fidelity, headroom=headroom)
 
 
 def calibrate_model(model, params: dict, fidelity: float,

@@ -20,8 +20,11 @@ The artifact is byte-compatible with the JAX package's: the same unit
 signature strings (a shape tuple's repr and the dtype's numpy name), the
 same leaf order (sorted keys), the same float64 sums.
 
-``profile_sequential`` (the conv workloads' ``SwappedSequential``) is not
-ported yet: it comes with that runtime.
+``profile_model`` sweeps a ``SwappedModel`` and ``profile_sequential``
+the conv workloads' ``SwappedSequential``, through one shared sweep.
+``store/quantized_store.roundtrip`` (bytes equal to the JAX package's
+``quantize_unit_params``, per leaf its ``quantize_roundtrip``) makes the
+perturbed unit.
 """
 from __future__ import annotations
 
@@ -146,6 +149,65 @@ def shape_signature(named_units) -> str:
     return h.hexdigest()[:16]
 
 
+def _profile(named_units, run_clean, run_override, arch: str, method: str,
+             seed: int, min_quant_size: int,
+             batch_shape: tuple) -> SensitivityProfile:
+    """The sweep both profilers share. ``run_clean()`` -> reference output;
+    ``run_override(name, qparams)`` -> the output with one unit's params
+    substituted (neither is called for ``method="weight"``)."""
+    if method not in ("output", "weight"):
+        raise ValueError(f"unknown method {method!r}")
+    prof = SensitivityProfile(
+        arch=arch, method=method, seed=seed,
+        signature=shape_signature(named_units), batch_shape=batch_shape)
+    y_ref = run_clean() if method == "output" else None
+    for name, params in named_units:
+        row: Dict[str, float] = {
+            f"bytes_{k}": int(v)
+            for k, v in unit_precision_bytes(params, min_quant_size).items()}
+        has_q = any(quantizable_leaf(a, min_quant_size)
+                    for a in tree_leaves(params))
+        for prec, bits in CANDIDATE_BITS.items():
+            if not has_q:
+                err = 0.0
+            elif method == "weight":
+                err = _weight_err(params, bits, min_quant_size)
+            else:
+                qp = roundtrip(params, bits, min_quant_size)
+                err = _rel_l2(run_override(name, qp), y_ref)
+                del qp
+            row[f"err_{prec}"] = err
+        prof.units[name] = row
+    return prof
+
+
+def profile_sequential(sw, x, method: str = "output", seed: int = 0,
+                       min_quant_size: int = 1024) -> SensitivityProfile:
+    """Profile a planned :class:`~repro_torch.core.runtime.SwappedSequential`
+    on input ``x``: the perturbed passes run through ``sw.forward`` with
+    its ``param_override`` seam, block by block under the executor's
+    plan."""
+    if sw.plan is None:
+        raise RuntimeError("call partition_with()/set_plan() first")
+    names = [n for n, _ in sw.named_units]
+
+    def run(override):
+        sw.param_override = override
+        try:
+            return sw.forward(x)[0]
+        finally:
+            sw.param_override = None
+
+    return _profile(
+        sw.named_units,
+        run_clean=lambda: run(None),
+        run_override=lambda name, qp: run(
+            lambda i, p: qp if names[i] == name else p),
+        arch="sequential", method=method, seed=seed,
+        min_quant_size=min_quant_size,
+        batch_shape=tuple(int(s) for s in x.shape))
+
+
 def profile_model(sm, batch: dict, method: str = "output", seed: int = 0,
                   min_quant_size: int = 1024) -> SensitivityProfile:
     """Profile a planned :class:`~repro_torch.core.runtime.SwappedModel` on
@@ -153,8 +215,6 @@ def profile_model(sm, batch: dict, method: str = "output", seed: int = 0,
     store and planner see them, so the resulting plan's keys line up."""
     if sm.plan is None:
         raise RuntimeError("call partition()/set_plan() first")
-    if method not in ("output", "weight"):
-        raise ValueError(f"unknown method {method!r}")
     seen, named = set(), []
     for u in sm.units:
         if u.name not in seen:
@@ -168,27 +228,11 @@ def profile_model(sm, batch: dict, method: str = "output", seed: int = 0,
         finally:
             sm.param_override = None
 
-    prof = SensitivityProfile(
+    return _profile(
+        named,
+        run_clean=lambda: run(None),
+        run_override=lambda name, qp: run(
+            lambda u, p: qp if u.name == name else p),
         arch=sm.cfg.name, method=method, seed=seed,
-        signature=shape_signature(named),
+        min_quant_size=min_quant_size,
         batch_shape=tuple(int(s) for s in next(iter(batch.values())).shape))
-    y_ref = run(None) if method == "output" else None
-    for name, params in named:
-        row: Dict[str, float] = {
-            f"bytes_{k}": int(v)
-            for k, v in unit_precision_bytes(params, min_quant_size).items()}
-        has_q = any(quantizable_leaf(a, min_quant_size)
-                    for a in tree_leaves(params))
-        for prec, bits in CANDIDATE_BITS.items():
-            if not has_q:
-                err = 0.0
-            elif method == "weight":
-                err = _weight_err(params, bits, min_quant_size)
-            else:
-                qp = roundtrip(params, bits, min_quant_size)
-                err = _rel_l2(run(lambda u, p, _n=name, _q=qp:
-                                  _q if u.name == _n else p), y_ref)
-                del qp
-            row[f"err_{prec}"] = err
-        prof.units[name] = row
-    return prof

@@ -24,5 +24,7 @@ def _leaf(a) -> torch.Tensor:
 
 
 def params_from_jax(np_tree):
-    """Nested dicts/lists of numpy arrays -> the same tree of tensors."""
+    """Nested dicts/lists of numpy arrays -> the same tree of tensors: a
+    model's dict with its stacked segments, or a conv net's list of
+    per-layer dicts (``{}`` for a pool or gap layer) as it is."""
     return tree_map(_leaf, np_tree)

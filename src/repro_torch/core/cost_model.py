@@ -20,12 +20,15 @@ overlap) until the per-block overhead eats the gain.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import synchronize
+from repro_torch.kernels.qtensor import is_quantized
 from repro_torch.tree import tree_leaves
 
 
@@ -88,6 +91,57 @@ class DelayModel:
         return DelayModel(float(alpha), float(beta), gamma, eta,
                           max(float(kappa), 0.0))
 
+    def calibrated(self, store, names: Optional[Sequence[str]] = None
+                   ) -> "DelayModel":
+        """Re-anchor ``alpha`` to a STORE's measured swap channel.
+
+        The profiled coefficients describe one channel. Store backends
+        change the per-byte cost structurally (the quantized store adds
+        host unpack work per byte, rawio staging copies), and planning a
+        backend with another backend's alpha puts the block-count search in
+        the wrong regime: it under-costs fused swap-ins, concludes swap-in
+        is nearly free and stops at a shallow plan whose large cold first
+        block caps the overlap.
+
+        Reads every non-empty unit once through ``store.read_unit`` (a warm
+        page cache, so this measures the host-side channel cost: the read,
+        the unpack, the copy to the device) and rescales ONLY alpha so the
+        model's total swap-in time over the store equals the measured
+        total, net of the depth / intercept terms, which keep their values:
+
+            alpha' = max(0, (sum t - beta * sum d - kappa * n) / sum s)
+
+        with s the unit's RESIDENT bytes, the currency ``resident_infos``
+        feeds the planner. The clock stops once the store's device is done
+        with the read (the JAX package's ``block_until_ready``)."""
+        names = list(store.order) if names is None else list(names)
+        t_sum = s_sum = d_sum = n_read = 0.0
+        for name in names:
+            if store.skeletons[name].nbytes == 0:
+                continue
+            t0 = time.perf_counter()
+            r = store.read_unit(name)
+            synchronize(store.device)
+            t_sum += time.perf_counter() - t0
+            s_sum += store.resident_nbytes(name)
+            # a quantized-resident leaf is two tensors (values, scales),
+            # as the JAX package's pytree of it counts
+            d_sum += sum(2 if is_quantized(x) else 1
+                         for x in tree_leaves(r.params))
+            n_read += 1
+        if s_sum <= 0:
+            return self
+        alpha = (t_sum - self.beta * d_sum - self.kappa * n_read) / s_sum
+        return dataclasses.replace(self, alpha=max(alpha, 0.0))
+
+    def r2_in(self, samples_in) -> float:
+        """Coefficient of determination of :meth:`t_in` over
+        ``(size, depth, measured_t_in)`` samples."""
+        y = np.asarray([t for *_, t in samples_in])
+        pred = np.asarray([self.t_in(s, d) for s, d, _ in samples_in])
+        ss = np.sum((y - y.mean()) ** 2)
+        return 1.0 - float(np.sum((y - pred) ** 2) / max(ss, 1e-30))
+
 def resident_infos(infos: Sequence[LayerInfo], store,
                    names: Optional[Sequence[str]] = None) -> List[LayerInfo]:
     """Re-cost the info table in RESIDENT bytes so ``simulate_pipeline`` /
@@ -107,6 +161,13 @@ def resident_infos(infos: Sequence[LayerInfo], store,
             continue
         out.append(dataclasses.replace(r, size=min(r.size, resident)))
     return out
+
+
+def packing_density(plan) -> float:
+    """Mean layers per block of a BlockPlan: the figure the mixed-precision
+    policy maximizes (more layers per block = fewer, larger, better
+    overlapped swap-ins; see ``repro_torch/calibrate/policy.py``)."""
+    return plan.n_layers / plan.n_blocks
 
 
 # ---------------------------------------------------------------- info table

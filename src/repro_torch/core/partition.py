@@ -81,6 +81,19 @@ def simulate_pipeline(s, d, f, dm: DelayModel, m: int = 2) -> float:
     return freed[-1]
 
 
+def paper_objective(s, d, f, dm: DelayModel) -> float:
+    """The paper's Eq. 4 surrogate: sum_i max(t_i^ov, 0) with
+    t_i^ov = (t_{i-1}^out + t_{i+1}^in) - (t_i^ex + t_{i-1}^ov)."""
+    n = len(s)
+    total, prev_ov = 0.0, 0.0
+    for i in range(1, n):
+        t_next_in = dm.t_in(s[i], d[i])
+        ov = (dm.t_out(d[i - 1]) + t_next_in) - (dm.t_ex(f[i - 1]) + prev_ov)
+        total += max(ov, 0.0)
+        prev_ov = max(ov, 0.0)
+    return total
+
+
 def n_blocks_for_budget(total_size: float, budget: float, m: int = 2) -> int:
     """Paper: n = ceil(m * s / b)."""
     return max(m, int(math.ceil(m * total_size / max(budget, 1.0))))
@@ -191,6 +204,14 @@ class PartitionPlanner:
                              simulate_pipeline(s, d, f, self.dm, m)))
             self._rows_cache[key] = rows
         return self._rows_cache[key]
+
+    def prewarm(self, budgets: Sequence[float]) -> None:
+        """Precompute tables for the block counts the given budgets imply."""
+        total = float(np.sum(self.sizes))
+        for b in budgets:
+            n0 = min(max(n_blocks_for_budget(total, b, self.m), 1), self.L)
+            for n in range(n0, min(n0 + 3, self.L) + 1):
+                self._rows(n, self.m)
 
     def lookup_table(self, n: int, budget: float, delta: float = 0.05,
                      m: Optional[int] = None) -> List[TableRow]:

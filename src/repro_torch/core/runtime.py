@@ -169,12 +169,13 @@ def resolve_backend(cfg, store_backend: Optional[str],
     file format, so they compose only with the mmap backend (rawio IS the
     copy_in arm; quant files cannot be read through the raw paths). A
     model that opts out of quantized swap units (``cfg.quant_eligible``)
-    serves from the exact store."""
+    serves from the exact store; ``cfg=None`` (a unit list with no model
+    config, :class:`SwappedSequential`) opts out of nothing."""
     backend = store_backend or "mmap"
     if backend != "mmap" and mode != "snet":
         raise ValueError(f"store backend {backend!r} requires mode='snet' "
                          f"(got mode={mode!r})")
-    if backend == "quant" and not cfg.quant_eligible:
+    if backend == "quant" and cfg is not None and not cfg.quant_eligible:
         return "mmap"
     return backend
 
@@ -210,6 +211,140 @@ def kernel_smem_working_set(precision: str, dtype: str = "bfloat16") -> int:
         return swap_linear.smem_bytes(item)
     bits = 4 if precision == "int4" else 8
     return swap_linear_q.smem_bytes(bits, item)
+
+
+def _to_device_like(new, like, device: torch.device):
+    """``new`` (a substituted unit from a ``param_override``) on ``device``
+    in the dtypes of ``like``'s leaves: an extra device copy outside the
+    ledger, dropped once the unit has run."""
+    leaves, treedef = tree_flatten(new)
+    dts = [leaf.dtype for leaf in tree_leaves(like)]
+    return tree_unflatten(treedef, [
+        torch.as_tensor(leaf).to(device, dt)
+        for leaf, dt in zip(leaves, dts)])
+
+
+class SwappedSequential:
+    """Generic swapped executor over an arbitrary unit list: the paper's
+    conv workloads (``models/vision.py``) and fc stacks.
+
+    ``named_units``: ``[(name, params)]``; ``apply_fn(i, params, x) -> x``
+    runs unit ``i``. A block is a plain loop over its units on the device
+    (the JAX package jits one function a block); :func:`swap_schedule`
+    waits for the device before each swap-out.
+
+    ``precision`` / ``fused`` apply to the quant backend only, with the
+    JAX package's meaning: ``fused=False`` (the default) dequantizes every
+    quantized leaf at swap-in with ``dequant_int8`` (eager), ``fused=True``
+    hands ``apply_fn`` :class:`QuantizedTensor` weights that
+    ``models/layers.linear`` streams through ``swap_linear_q`` (other
+    consumers materialize them at use; the store widens quantized leaves
+    no linear streams on the loader). ``store_options`` overlays extra
+    backend build options (``inner`` / ``p`` / ``seed`` for ``faulty``, a
+    ``plan`` for ``precision="mixed"``).
+
+    ``param_override(i, params) -> params`` (the calibration seam) runs on
+    each swapped-in unit before ``apply_fn``; a substituted unit is copied
+    to the device in the unit's dtypes."""
+
+    def __init__(self, named_units, apply_fn, workdir: str,
+                 mode: str = "snet", budget: Optional[int] = None,
+                 gpu_dispatch: bool = False, prefetch_depth: int = 2,
+                 ledger: Optional[MemoryLedger] = None,
+                 cache: Optional[BlockCache] = None,
+                 store_backend: Optional[str] = None,
+                 precision: str = "int8", fused: bool = False,
+                 store_options: Optional[dict] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.named_units = list(named_units)
+        self.apply_fn = apply_fn
+        self.prefetch_depth = max(prefetch_depth, 1)
+        self.store_backend = resolve_backend(None, store_backend, mode)
+        quant = self.store_backend == "quant"
+        self.precision = precision if quant else "fp"
+        self.fused = fused and quant
+        opts = store_opts(self.store_backend, precision, gpu_dispatch)
+        if quant:
+            opts["eager"] = not fused
+        opts.update(store_options or {})
+        if self.precision == "mixed" and opts.get("plan") is None:
+            raise ValueError("precision='mixed' needs a calibration plan: "
+                             "pass store_options={'plan': ...} (see "
+                             "repro_torch.calibrate.calibrate_sequential)")
+        self.store = build_store(self.named_units, workdir,
+                                 backend=self.store_backend,
+                                 device=self.device, **opts)
+        self.engine = SwapEngine(self.store, mode=mode, budget=budget,
+                                 gpu_dispatch=gpu_dispatch, ledger=ledger,
+                                 cache=cache)
+        # the eager arm widens before the matmul, so its kernel streams fp
+        # tiles: only the fused path earns the quantized figure
+        self.engine.smem_working_set = kernel_smem_working_set(
+            self.precision if self.fused else "fp", "float32")
+        self.plan: Optional[BlockPlan] = None
+        self.param_override: Optional[Any] = None
+
+    def partition_with(self, infos, budget: int, dm: DelayModel,
+                       delta: float = 0.05) -> BlockPlan:
+        """Plan against RESIDENT unit costs (rows align 1:1 with the
+        units): quantized swap units shrink the working set the budget
+        must hold."""
+        infos = resident_infos(infos, self.engine.store,
+                               [n for n, _ in self.named_units])
+        planner = PartitionPlanner(infos, dm, m=self.prefetch_depth)
+        self.plan, self.table = planner.best_partition(budget, delta)
+        self.planner = planner
+        return self.plan
+
+    def set_plan(self, points) -> None:
+        self.plan = BlockPlan(tuple(points), len(self.named_units),
+                              m=self.prefetch_depth)
+
+    def forward(self, x) -> Tuple[torch.Tensor, Dict]:
+        """Swapped forward pass of ``x`` (moved to the device). Returns
+        (output, stats)."""
+        if self.plan is None:
+            raise RuntimeError("call partition_with()/set_plan() first")
+        eng = self.engine
+        names = [n for n, _ in self.named_units]
+        x = torch.as_tensor(x).to(self.device)
+        t_start = time.perf_counter()
+        gen = swap_schedule(eng, self.plan.blocks(), names, self.plan.m)
+        try:
+            for bi, lo, hi, handle in gen:
+                t0 = time.perf_counter()
+                for i, p in zip(range(lo, hi), handle.params):
+                    if self.param_override is not None:
+                        new = self.param_override(i, p)
+                        if new is not p:
+                            p = _to_device_like(new, self.named_units[i][1],
+                                                self.device)
+                    x = self.apply_fn(i, p, x)
+                synchronize(self.device)
+                eng.record_exec(time.perf_counter() - t0)
+        finally:
+            gen.close()     # drains in-flight prefetches on early exit
+        total = time.perf_counter() - t_start
+        st = eng.stats
+        return x, {"latency_s": total,
+                   "peak_resident_mb": st.peak_resident / 1e6,
+                   "peak_device_weights_mb": st.peak_device_weights / 1e6,
+                   "t_in": list(st.t_in), "t_ex": list(st.t_ex),
+                   "t_out": list(st.t_out),
+                   "overlap_efficiency": st.overlap_efficiency(),
+                   "cache_hit_rate": st.cache_hit_rate(),
+                   "store_backend": self.store_backend,
+                   "precision": self.precision,
+                   "bytes_swapped": st.bytes_swapped,
+                   "bytes_logical": st.bytes_logical,
+                   "bytes_resident_quantized": st.bytes_resident_quantized,
+                   "bytes_by_precision": dict(st.bytes_by_precision),
+                   "smem_working_set": st.smem_working_set,
+                   "retries": st.retries, "faults": dict(st.faults)}
+
+    def close(self):
+        self.engine.close()
+        self.store.close()
 
 
 class SwappedModel:
@@ -319,16 +454,11 @@ class SwappedModel:
 
     def _overridden(self, unit: Unit, uparams):
         """``param_override(unit, uparams)``, its params on this model's
-        device in the unit's own dtypes. A substituted unit is an extra
-        device copy outside the ledger, dropped once the unit has run."""
+        device in the unit's own dtypes (:func:`_to_device_like`)."""
         new = self.param_override(unit, uparams)
         if new is uparams:
             return uparams
-        leaves, treedef = tree_flatten(new)
-        dts = [leaf.dtype for leaf in tree_leaves(unit.params)]
-        return tree_unflatten(treedef, [
-            torch.as_tensor(leaf).to(self.device, dt)
-            for leaf, dt in zip(leaves, dts)])
+        return _to_device_like(new, unit.params, self.device)
 
     # ------------------------------------------------------------ decode
     def decode_loop(self, prompt_tokens, max_new_tokens: int = 8,

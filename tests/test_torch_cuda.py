@@ -37,7 +37,10 @@ Tolerances, with their reasons:
   * rwkv6 swapped vs unswapped on mmap: bitwise;
   * directio against mmap reads, a faulty read retried against a clean
     one, the copy_in / dummy_asm arms against snet: bitwise (the same
-    bytes through other host paths).
+    bytes through other host paths);
+  * the conv workloads: vgg_sim swapped on mmap against its in-memory
+    forward bitwise (deterministic cuDNN), its quantized stores within
+    2e-2 of the round-tripped forward.
 """
 import dataclasses
 
@@ -993,3 +996,91 @@ def test_calibration_repeats_and_mixed_pass_is_bitwise_on_the_card(dev,
         assert sum(st["bytes_by_precision"].values()) == st["bytes_swapped"]
     finally:
         sm.close()
+
+
+# ------------------------------------------------------ the conv workloads
+# the linears of the conv workloads' path: vgg_sim's three fc layers and
+# resnet_sim's head at batch 4, and the 12 x 1280 fc stack at batch 64
+CONV_PATH_LINEARS = [(4, 256, 4096), (4, 4096, 1024), (4, 1024, 100),
+                     (4, 256, 100), (64, 1280, 1280)]
+# vgg_sim's quantized leaves as dequant sees them: HWIO conv weights as
+# (k * k * cin) x cout, then the fc weights
+CONV_PATH_DEQUANT = [(288, 64), (576, 128), (1152, 128), (1152, 256),
+                     (2304, 256), (256, 4096), (4096, 1024), (1024, 100)]
+
+
+@pytest.mark.parametrize("M,K,N", CONV_PATH_LINEARS)
+@pytest.mark.parametrize("bits", [0, 8, 4], ids=["fp32", "int8", "int4"])
+def test_conv_path_linears_match_plain(dev, bits, M, K, N):
+    """swap_linear (bits 0) and swap_linear_q at the conv workloads'
+    shapes, fp32 x with a bias: 1e-5 of the plain version."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g).to(dev)
+    b = (torch.randn((N,), generator=g) * 0.1).to(dev)
+    if bits:
+        q, s = _weights(bits, K, N, seed=K + N)
+        q, s = q.to(dev), s.to(dev)
+        got = slq.swap_linear_q(x, q, s, b, bits=bits)
+        want = slq.swap_linear_q_plain(x, q, s, b, bits=bits)
+    else:
+        w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dev)
+        got = sl.swap_linear(x, w, b)
+        want = sl.swap_linear_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (M, N)
+    assert _rel(got, want) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("R,C", CONV_PATH_DEQUANT)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_conv_path_dequant_matches_plain(dev, bits, R, C):
+    q, s = _weights(bits, R, C, seed=R + C)
+    q, s = q.to(dev), s.to(dev)
+    got = dq.dequant_int8(q, s, torch.float32, bits=bits, rows=R)
+    assert torch.equal(got, dq.dequant_int8_plain(q, s, torch.float32,
+                                                  bits=bits, rows=R))
+
+
+@pytest.mark.parametrize("kind", ["mmap", "int8-fused", "int8-eager"])
+def test_vgg_swapped_on_the_card(dev, tmp_path, kind):
+    """vgg_sim through SwappedSequential at 4 x 32 x 32: mmap equals the
+    in-memory forward bitwise; fused int8 streams its three fc weights
+    through swap_linear_q, eager int8 widens its 8 quantized leaves with
+    dequant_int8, both within 1e-4 of the round-tripped forward (they
+    differ from it only in summation order)."""
+    from repro_torch.core.runtime import SwappedSequential
+    from repro_torch.models import vision
+    from repro_torch.store.quantized_store import roundtrip
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    _, layers, hw = vision.vgg_sim()
+    g = torch.Generator().manual_seed(0)
+    params = vision.init_convnet(layers, g)
+    x = torch.randn((4, hw, hw, 3), generator=g).to(dev)
+    opts = {"mmap": {},
+            "int8-fused": dict(store_backend="quant", fused=True),
+            "int8-eager": dict(store_backend="quant")}[kind]
+    sw = SwappedSequential([(f"vgg{i:02d}", p) for i, p in enumerate(params)],
+                           lambda i, p, xx: vision.apply_layer(layers[i], p,
+                                                               xx),
+                           str(tmp_path), budget=24 << 20, **opts)
+    try:
+        sw.set_plan((3, 7, 11, 12))
+        slq.launches.reset()
+        dq.launches.reset()
+        out, st = sw.forward(x)
+        ref_params = ([roundtrip(p, 8) for p in params] if opts
+                      else params)
+        want = vision.apply_convnet(
+            layers, [{k: v.to(dev) for k, v in p.items()}
+                     for p in ref_params], x)
+        if kind == "mmap":
+            assert torch.equal(out, want)
+        else:
+            assert _rel(out, want) <= 1e-4
+        assert slq.launches.count == (3 if kind == "int8-fused" else 0)
+        assert dq.launches.count == (8 if kind == "int8-eager" else 0)
+    finally:
+        sw.close()
+    assert out.is_cuda and tuple(out.shape) == (4, 100)
+    assert st["peak_resident_mb"] * 1e6 <= 24 << 20
