@@ -103,12 +103,32 @@ Phases, each printing its wall time:
    plan JSON) and a mixed store under that plan; the 12 x 1280 fc stack
    at batch 64 on mmap (bitwise) and fused int8 / int4 (within 1e-4),
    each planned with ``DelayModel.calibrated`` on its store under half
-   its resident bytes.
+   its resident bytes;
+11. deepseek-v2-lite-16b's Multi-head Latent Attention and MoE stack at
+   its published widths (MLA kv_lora_rank 512, q / k head dim 128 + 64,
+   v 128; 64 routed experts top-6 of 1408 plus a shared one of 2816, vocab
+   102,400), depth cut 27 -> 6, seed-0 fp32 weights drawn on the card:
+   one 15.7 GB mmap store (under
+   ``build/phase11``, removed after) at least 2.32x over a budget 1.1x
+   the smallest at which the planner packs it at m = 2; a warm and a timed
+   swapped prefill of one 4,096-token prompt, bitwise equal to the
+   unswapped forward, with ``flash_attention`` once a layer at q, k 192 /
+   v 128 and ``swap_linear`` five times a layer; then ``decode_loop`` (2
+   prompts of 4 tokens, 2 new) on the same store and budget, each step's
+   logits bitwise those of ``Model.decode_step`` on the card with the
+   store's fp32 head (the in-memory bf16 head's gap printed), and the
+   latent cache's bytes beside a GQA cache's; then ``ServingEngine`` on
+   the same prompts in fp32, where its first new token's logits
+   (``flash_attention`` over the prompt) must lie within 1e-5 of
+   ``Model.decode_step``'s absorbed decode, and in bf16, where they must
+   lie within 5e-2 of the fp32 engine's for each prompt whose last token
+   is routed alike at every layer (each layer's flips printed; the
+   absorbed decode's bf16 gap printed).
 
-Every full-precision linear of phases 3 to 10 runs ``swap_linear`` and
+Every full-precision linear of phases 3 to 11 runs ``swap_linear`` and
 every prefill's attention ``flash_attention``; the quantized stores' lazy
 linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
-Every shape phases 7 to 10 launch a kernel at is one of phase 2's rows,
+Every shape phases 7 to 11 launch a kernel at is one of phase 2's rows,
 held against the plain version there and timed; the script checks it.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
@@ -314,6 +334,24 @@ P9_GRID = 10 ** 8                      # budget search step, 0.1 GB
 P9_BUDGET_OVER_FLOOR = 1.1
 P9_WORKDIR = ROOT / "build" / "phase9"
 
+# phase 11: deepseek-v2-lite-16b at its published widths, depth cut 27 -> 6
+# (every layer Multi-head Latent Attention + 64 routed experts top-6 and a
+# shared expert): one 4,096-token prompt swapped under a budget found as
+# phase 9 finds its own, the store at least 2.32x over it (the paper's low
+# end);
+# then weight-streaming decode and the in-memory engine on 2 x 4 tokens
+DS_LAYERS = 6
+DS_PROMPT = 4096
+DS_SCALE = 192 ** -0.5                 # (qk_nope + qk_rope) ** -0.5
+DS_BATCH, DS_DECODE_PROMPT, DS_DECODE_NEW = 2, 4, 2
+DS_MIN_RATIO = 2.32
+# the bf16 engine's first-token logits against the fp32 engine's, for a
+# prompt whose last token is routed alike at every layer: each bf16 path of
+# this 6-layer MoE stack lies about 3% of the largest logit from its fp32
+# result (PERF.md), and a routing flip moves it far more
+DS_BF16_TOL = 5e-2
+P11_WORKDIR = ROOT / "build" / "phase11"
+
 # phase 10: the paper's conv workloads (``repro_torch.models.vision``'s
 # sims at their own layer lists). The three fleets (model i's weights from
 # seed i) are ``benchmarks/common.py::scenario_models``; the batch and the
@@ -415,8 +453,9 @@ def gemm_ptxas(log: str) -> list:
 
 
 ATTENTION_KERNELS = [
-    ("fa_tc", r"fa_tcILi(\d+)E", "hd {0}"),
-    ("fa_simt", r"fa_simtI(f|13__nv_bfloat16)Li(\d+)E", "{0} hd {1}"),
+    ("fa_tc", r"fa_tcILi(\d+)ELi(\d+)E", "hd {0} dv {1}"),
+    ("fa_simt", r"fa_simtI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+     "{0} hd {1} dv {2}"),
     ("paged_attention_kernel",
      r"paged_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
      "{0} hd {1} G {2}"),
@@ -1151,26 +1190,33 @@ def check_wkv6_bitwise(torch, kw):
 # ---------------------------------------------------------------- swap_linear
 def fp_layer_linears(cfg):
     """(K, N, act, bias) of a layer's full-precision linears (a moe
-    layer's are its attention's and its shared expert's), one entry per
-    launch key (M, K, N, dtype, act): where two share a key (qwen's wq and
-    attention wo) the first wins."""
+    layer's are its attention's and its shared expert's; an MLA layer's
+    attention has wq and wo only, its latent projections being plain
+    matmuls), one entry per launch key (M, K, N, dtype, act): where two
+    share a key (qwen's wq and attention wo) the first wins."""
     D, F = cfg.d_model, cfg.d_ff
     if cfg.moe is not None:
         F = cfg.moe.d_shared or cfg.moe.d_expert * cfg.moe.n_shared
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gate = "silu" if cfg.act == "swiglu" else "gelu"
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = [(D, H * (m.qk_nope_head_dim + m.qk_rope_head_dim), "none",
+                 False),                                         # wq
+                (H * m.v_head_dim, D, "none", False)]            # attn wo
+    else:
+        attn = [(D, H * hd, "none", cfg.attn_bias),              # wq
+                (D, KV * hd, "none", cfg.attn_bias),             # wk, wv
+                (H * hd, D, "none", False)]                      # attn wo
     out = {}
-    for K, N, act, b in [(D, H * hd, "none", cfg.attn_bias),     # wq
-                         (D, KV * hd, "none", cfg.attn_bias),    # wk, wv
-                         (H * hd, D, "none", False),             # attn wo
-                         (D, F, gate, False),                    # wi0
-                         (D, F, "none", False),                  # wi1
-                         (F, D, "none", False)]:                 # ffn wo
+    for K, N, act, b in attn + [(D, F, gate, False),             # wi0
+                                (D, F, "none", False),           # wi1
+                                (F, D, "none", False)]:          # ffn wo
         out.setdefault((K, N, act), b)
     return [k + (b,) for k, b in out.items()]
 
 
-def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, conv_path):
+def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, conv_path):
     """Phase 2 for B5: the kernel against its plain version over ragged
     shapes and qwen2.5-3b's linears at decode and prefill, then timed at
     the main paths' shapes (phase 10's from ``conv_path``). Returns the
@@ -1242,11 +1288,19 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, conv_path):
     timed += [(f"{lcfg.name}", M, "bfloat16", s)
               for M in (LLAMA_PROMPT, *LLAMA_PAGED_PROMPTS, 2, 1)
               for s in fp_layer_linears(lcfg)]
+    # phase 11: deepseek-v2-lite's 4,096-token prefill, the engine's
+    # 2 x 4-token prefill and the decode steps at 2 sequences
+    timed += [(f"{dcfg.name}", M, "bfloat16", s)
+              for M in (DS_PROMPT, DS_BATCH * DS_DECODE_PROMPT, DS_BATCH)
+              for s in fp_layer_linears(dcfg)]
     # phase 10: the conv workloads' fc layers and the fc stack, fp32
     timed += [(label, M, "float32", (K, N, "none", True))
               for label, (M, K, N) in conv_path["fp"]]
-    rows = []
+    rows, seen = [], set()
     for label, M, dname, (K, N, act, has_bias) in timed:
+        if (M, K, N, dname, act) in seen:   # one row a launch key: deepseek's
+            continue                        # M 2 wo is qwen's M 2 wq / wo
+        seen.add((M, K, N, dname, act))
         dt = dts[dname]
         x, w, b = inputs(M, K, N, dt)
         b = b if has_bias else None
@@ -1296,14 +1350,16 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, conv_path):
 
 
 # ------------------------------------------------------------ flash attention
-def fa_inputs(torch, seed, B, S, H, KV, hd, dtype, shuffled=False):
-    """q [B,S,H,hd], k, v [B,S,KV,hd] ~ 0.5 N(0, 1) and int32 positions
-    (an arange, or a permutation per row), on the card."""
+def fa_inputs(torch, seed, B, S, H, KV, hd, dtype, shuffled=False, dv=None):
+    """q [B,S,H,hd], k [B,S,KV,hd], v [B,S,KV,dv] (dv None: hd) ~ 0.5 N(0,
+    1) and int32 positions (an arange, or a permutation per row), on the
+    card."""
     import numpy as np
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    q, k, v = ((torch.randn((B, S, n, hd), generator=g, device="cuda")
-                * 0.5).to(dtype) for n in (H, KV, KV))
+    q, k, v = ((torch.randn((B, S, n, d), generator=g, device="cuda")
+                * 0.5).to(dtype) for n, d in ((H, hd), (KV, hd),
+                                              (KV, dv or hd)))
     rng = np.random.default_rng(seed)
     pos = (np.stack([rng.permutation(S) for _ in range(B)]) if shuffled
            else np.broadcast_to(np.arange(S), (B, S)))
@@ -1318,41 +1374,117 @@ def attended_pairs(S, window, chunk=None) -> int:
     return sum(min(i + 1, w, i % c + 1) for i in range(S))
 
 
-# (label, dtype, B, S, H, KV, hd, scale, window, softcap, chunk): the main
-# paths' prefills. qwen2.5-3b's swapped prefill (phase 3, bf16) and its
+# (label, dtype, B, S, H, KV, hd, dv, scale, window, softcap, chunk): the
+# main paths' prefills. qwen2.5-3b's swapped prefill (phase 3, bf16) and its
 # paged admissions (phase 4: run A fp32, run B bf16, one prompt each);
 # gemma2-9b's 4,200-token prefill (phases 4 C and 6) and its 24-token
 # admission (4 C)
 FA_TIMED = [("qwen2.5-3b prefill", "bfloat16", BATCH, PROMPT, 16, 2, 128,
-             QWEN_SCALE, None, None, None)]
-FA_TIMED += [("qwen2.5-3b admission", dname, 1, S, 16, 2, 128, QWEN_SCALE,
-              None, None, None) for dname in ("float32", "bfloat16")
-             for S in PAGED_PROMPTS]
-FA_TIMED += [("gemma2-9b prefill", "bfloat16", 1, S, 16, 8, 256,
+             128, QWEN_SCALE, None, None, None)]
+FA_TIMED += [("qwen2.5-3b admission", dname, 1, S, 16, 2, 128, 128,
+              QWEN_SCALE, None, None, None)
+             for dname in ("float32", "bfloat16") for S in PAGED_PROMPTS]
+FA_TIMED += [("gemma2-9b prefill", "bfloat16", 1, S, 16, 8, 256, 256,
               GEMMA_SCALE, window, 50.0, None) for S in (GEMMA_PREFILL, 24)
              for window in (4096, None)]
 # phase 7: both tenants' 32-token prefills (qwen's paged admissions too)
 FA_TIMED += [("qwen2.5-3b multi-tenant", "bfloat16", 1, P7_PROMPT, 16, 2,
-              128, QWEN_SCALE, None, None, None)]
+              128, 128, QWEN_SCALE, None, None, None)]
 FA_TIMED += [("gemma2-9b multi-tenant", "bfloat16", 1, P7_PROMPT, 16, 8, 256,
-              GEMMA_SCALE, window, 50.0, None) for window in (4096, None)]
+              256, GEMMA_SCALE, window, 50.0, None) for window in (4096, None)]
 # phase 8: the mcu profile's 2 x 16 prefills (calibration and serving)
 FA_TIMED += [("qwen2.5-3b mcu", "bfloat16", P8_BATCH, P8_SEQ, 16, 2, 128,
-              QWEN_SCALE, None, None, None)]
+              128, QWEN_SCALE, None, None, None)]
 # phase 9: llama4-scout's 8,704-token prefill and its paged admissions,
 # chunk 8192 on the local layers 0-2 and none on the global layer 3
-FA_TIMED += [(f"llama4-scout {what}", "bfloat16", 1, S, 40, 8, 128,
+FA_TIMED += [(f"llama4-scout {what}", "bfloat16", 1, S, 40, 8, 128, 128,
               LLAMA_SCALE, None, None, chunk)
              for what, S in [("prefill", LLAMA_PROMPT)]
              + [("admission", n) for n in LLAMA_PAGED_PROMPTS]
              for chunk in (LLAMA_CHUNK, None)]
+# phase 11: deepseek-v2-lite's MLA (q, k at 192, v at 128, 16 heads each)
+# over its 4,096-token prefill and the in-memory engine's 2 x 4 prompts
+FA_TIMED += [(f"deepseek-v2-lite {what}", "bfloat16", B, S, 16, 16, 192, 128,
+              DS_SCALE, None, None, None)
+             for what, B, S in [("prefill", 1, DS_PROMPT),
+                                ("engine", DS_BATCH, DS_DECODE_PROMPT)]]
+
+
+def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
+               window, softcap, chunk):
+    """(name, device ms) of one PyTorch call computing a timed row's
+    attention, on [B, heads, S, hd] copies made beforehand (not timed):
+    SDPA, or compiled flex_attention where the softcap needs a score_mod
+    or the chunk a block-local mask_mod. With a value head dim of its own
+    (MLA) the first of the two that takes it and agrees with the plain
+    version; (None, None) where neither does."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    G = H // KV
+
+    def sdpa_call():
+        kr = kt.repeat_interleave(G, dim=1)
+        vr = vt.repeat_interleave(G, dim=1)
+        mask = None
+        if window is not None:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (
+                i[:, None] - i[None, :] < window)
+        return lambda: sdpa(qt, kr, vr, attn_mask=mask,
+                            is_causal=mask is None, scale=scale)
+
+    def flex_call():
+        from torch.nn.attention import flex_attention as flex_mod
+        flex = torch.compile(flex_mod.flex_attention)
+
+        def capped(s, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(s / softcap)
+
+        def live(b, h, q_idx, kv_idx):
+            m = kv_idx <= q_idx
+            if window is not None:
+                m = m & (q_idx - kv_idx < window)
+            if chunk is not None:
+                m = m & (q_idx // chunk == kv_idx // chunk)
+            return m
+        block_mask = flex_mod.create_block_mask(live, B, None, S, S,
+                                                device="cuda")
+        return lambda: flex(qt, kt, vt,
+                            score_mod=capped if softcap is not None else None,
+                            block_mask=block_mask, scale=scale,
+                            enable_gqa=True)
+
+    if q.shape[-1] == v.shape[-1]:
+        calls = [("sdpa", sdpa_call) if softcap is None and chunk is None
+                 else ("flex_attention", flex_call)]
+    else:
+        calls = [("sdpa", sdpa_call), ("flex_attention", flex_call)]
+    for name, make in calls:
+        try:
+            lib = make()
+            _, lrel = rel_err(torch, lib().transpose(1, 2), want)
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            require(q.shape[-1] != v.shape[-1], f"flash_attention library "
+                    f"yardstick {name} {label} S={S}: {e}")
+            print(f"  flash_attention {label}: {name} does not take dv != "
+                  f"hd ({type(e).__name__}: {str(e)[:120]})", flush=True)
+            continue
+        if q.shape[-1] != v.shape[-1] and lrel > TOL[dname]:
+            print(f"  flash_attention {label}: {name} disagrees with the "
+                  f"plain version at dv != hd (rel {lrel:.3g})", flush=True)
+            continue
+        require(lrel <= TOL[dname], f"flash_attention library yardstick "
+                f"{label} S={S}: {lrel:.3g}")
+        return name, time_ms(torch, lib)
+    return None, None
 
 
 def check_flash_attention(torch):
     """Phase 2 for B4: the kernel against its plain version over the
-    reference test's masks, the main paths' shapes, odd head dims and
-    shuffled positions, then timed at the main paths' shapes beside SDPA
-    (no softcap) or compiled flex_attention (softcap). Returns the rows."""
+    reference test's masks, the main paths' shapes, odd head dims, a value
+    head dim of its own (MLA) and shuffled positions, then timed at the
+    main paths' shapes beside SDPA (no softcap) or compiled flex_attention
+    (softcap, chunk) (``fa_library``). Returns the rows."""
     from repro_torch.kernels import flash_attention as fa
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     # (causal, window, softcap, chunk); a chunk of 48 or 64 cuts S of 129
@@ -1361,19 +1493,23 @@ def check_flash_attention(torch):
              (True, None, 50.0, None), (False, None, None, None),
              (True, 64, 30.0, None), (True, None, None, 48),
              (True, 20, 50.0, 64)]
-    # (B, S, H, KV, hd, scale, shuffled positions)
-    shapes = [(1, 256, 4, 2, 64, None, False),
-              (BATCH, PROMPT, 16, 2, 128, QWEN_SCALE, False),
-              (1, 37, 16, 2, 128, QWEN_SCALE, False),
-              (1, 129, 16, 2, 128, QWEN_SCALE, False),
-              (1, 300, 16, 8, 256, GEMMA_SCALE, False),
-              (2, 37, 4, 2, 80, None, False), (1, 100, 8, 1, 120, None, False),
-              (2, 129, 4, 4, 64, None, True)]
+    # (B, S, H, KV, hd, dv, scale, shuffled positions); the last two are
+    # deepseek-v2's MLA (q, k at 192, v at 128) and its reduced (48, 32)
+    shapes = [(1, 256, 4, 2, 64, 64, None, False),
+              (BATCH, PROMPT, 16, 2, 128, 128, QWEN_SCALE, False),
+              (1, 37, 16, 2, 128, 128, QWEN_SCALE, False),
+              (1, 129, 16, 2, 128, 128, QWEN_SCALE, False),
+              (1, 300, 16, 8, 256, 256, GEMMA_SCALE, False),
+              (2, 37, 4, 2, 80, 80, None, False),
+              (1, 100, 8, 1, 120, 120, None, False),
+              (2, 129, 4, 4, 64, 64, None, True),
+              (1, 300, 16, 16, 192, 128, DS_SCALE, False),
+              (2, 37, 4, 4, 48, 32, None, True)]
     n_checked, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
-    for i, (B, S, H, KV, hd, scale, shuffled) in enumerate(shapes):
+    for i, (B, S, H, KV, hd, dv, scale, shuffled) in enumerate(shapes):
         for dname, dt in dts.items():
             q, k, v, pos = fa_inputs(torch, 300 + i, B, S, H, KV, hd, dt,
-                                     shuffled)
+                                     shuffled, dv=dv)
             for causal, window, softcap, chunk in masks:
                 kw = dict(scale=hd ** -0.5 if scale is None else scale,
                           causal=causal, window=window, softcap=softcap,
@@ -1381,21 +1517,23 @@ def check_flash_attention(torch):
                 got = fa.flash_attention(q, k, v, pos, **kw)
                 want = fa.flash_attention_plain(q, k, v, pos, **kw)
                 _, rel = rel_err(torch, got, want)
-                require(bool(torch.isfinite(got).all()),
-                        f"flash_attention non-finite at {(B, S, H, KV, hd)}")
+                require(bool(torch.isfinite(got).all())
+                        and tuple(got.shape) == (B, S, H, dv),
+                        f"flash_attention non-finite or misshapen at "
+                        f"{(B, S, H, KV, hd, dv)}")
                 require(rel <= TOL[dname],
-                        f"flash_attention {dname} {(B, S, H, KV, hd)} "
+                        f"flash_attention {dname} {(B, S, H, KV, hd, dv)} "
                         f"causal {causal} window {window} softcap "
                         f"{softcap} chunk {chunk}: rel err {rel:.3g} > "
                         f"{TOL[dname]}")
                 worst[dname] = max(worst[dname], rel)
                 n_checked += 1
     # the tensor-core kernel at S of one or two tokens, around its 64-key
-    # and 128-row tiles and at gemma2-9b's 4,200, at each head dim it takes
-    for hd in fa.TC_HEAD_DIMS:
+    # and 128-row tiles and at gemma2-9b's 4,200, at each (hd, dv) it takes
+    for hd, dv in fa.TC_HEAD_DIMS:
         for i, S in enumerate((1, 2, 63, 64, 65, 127, 128, 129, 4200)):
             q, k, v, pos = fa_inputs(torch, 400 + i, 2 if S < 4200 else 1, S,
-                                     4, 2, hd, torch.bfloat16)
+                                     4, 2, hd, torch.bfloat16, dv=dv)
             for causal, window, softcap, chunk in masks:
                 kw = dict(scale=hd ** -0.5, causal=causal, window=window,
                           softcap=softcap, chunk=chunk)
@@ -1403,8 +1541,10 @@ def check_flash_attention(torch):
                 _, rel = rel_err(torch, got, fa.flash_attention_plain(
                     q, k, v, pos, **kw))
                 require(rel <= TOL["bfloat16"] and
-                        bool(torch.isfinite(got).all()),
-                        f"flash_attention bf16 S={S} hd={hd} causal {causal}"
+                        bool(torch.isfinite(got).all()) and
+                        fa.path(torch.bfloat16, hd, dv) == "tc",
+                        f"flash_attention bf16 S={S} hd={hd} dv={dv} causal "
+                        f"{causal}"
                         f" window {window} softcap {softcap} chunk {chunk}: "
                         f"rel {rel:.3g}")
                 worst["bfloat16"] = max(worst["bfloat16"], rel)
@@ -1416,25 +1556,29 @@ def check_flash_attention(torch):
     # identical calls agree, on both kernels, with a window and softcap and
     # with llama4's heads under a block-local chunk
     n_bits = 0
-    for i, (S, H, KV, hd, dname, masked) in enumerate(
-            [(PROMPT, 16, 2, 128, "bfloat16", {}),
-             (300, 16, 8, 256, "bfloat16", {}),
-             (200, 16, 2, 128, "float32", {}), (37, 4, 2, 80, "bfloat16", {}),
-             (300, 40, 8, 128, "bfloat16", {"chunk": 128}),
-             (300, 40, 8, 128, "float32", {"chunk": 128})]):
-        q, k, v, pos = fa_inputs(torch, 500 + i, 4, S, H, KV, hd, dts[dname])
+    for i, (S, H, KV, hd, dv, dname, masked) in enumerate(
+            [(PROMPT, 16, 2, 128, 128, "bfloat16", {}),
+             (300, 16, 8, 256, 256, "bfloat16", {}),
+             (200, 16, 2, 128, 128, "float32", {}),
+             (37, 4, 2, 80, 80, "bfloat16", {}),
+             (300, 40, 8, 128, 128, "bfloat16", {"chunk": 128}),
+             (300, 40, 8, 128, 128, "float32", {"chunk": 128}),
+             (200, 16, 16, 192, 128, "bfloat16", {}),
+             (200, 16, 16, 192, 128, "float32", {})]):
+        q, k, v, pos = fa_inputs(torch, 500 + i, 4, S, H, KV, hd, dts[dname],
+                                 dv=dv)
         kw = dict(scale=hd ** -0.5, **(masked or {"window": 64,
                                                   "softcap": 50.0}))
         full = fa.flash_attention(q, k, v, pos, **kw)
         require(torch.equal(full, fa.flash_attention(q, k, v, pos, **kw)),
-                f"flash_attention {dname} S={S} hd={hd}: two identical calls "
-                f"differ")
+                f"flash_attention {dname} S={S} hd={hd} dv={dv}: two "
+                f"identical calls differ")
         for b in range(4):
             one = fa.flash_attention(*(t[b:b + 1].contiguous()
                                        for t in (q, k, v, pos)), **kw)
             require(torch.equal(full[b:b + 1], one),
-                    f"flash_attention {dname} S={S} hd={hd}: row {b} of a "
-                    f"4-row call differs from its 1-row call")
+                    f"flash_attention {dname} S={S} hd={hd} dv={dv}: row {b} "
+                    f"of a 4-row call differs from its 1-row call")
         n_bits += 5
     # a block-local chunk of S or more runs the tiles and the arithmetic of
     # no chunk
@@ -1451,10 +1595,10 @@ def check_flash_attention(torch):
     torch.cuda.synchronize()
 
     rows = []
-    for (label, dname, B, S, H, KV, hd, scale, window, softcap,
+    for (label, dname, B, S, H, KV, hd, dv, scale, window, softcap,
          chunk) in FA_TIMED:
         dt = dts[dname]
-        q, k, v, pos = fa_inputs(torch, 9, B, S, H, KV, hd, dt)
+        q, k, v, pos = fa_inputs(torch, 9, B, S, H, KV, hd, dt, dv=dv)
         kw = dict(scale=scale, causal=True, window=window, softcap=softcap,
                   chunk=chunk)
         got = fa.flash_attention(q, k, v, pos, **kw)
@@ -1465,75 +1609,37 @@ def check_flash_attention(torch):
         k_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, pos, **kw))
         p_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, pos,
                                                                **kw))
-        # library yardstick on [B, heads, S, hd] copies made beforehand (not
-        # timed): SDPA, or compiled flex_attention where the softcap needs a
-        # score_mod or the chunk a block-local mask_mod
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if softcap is None and chunk is None:
-            G = H // KV
-            kt = kt.repeat_interleave(G, dim=1)
-            vt = vt.repeat_interleave(G, dim=1)
-            mask = None
-            if window is not None:
-                i = torch.arange(S, device="cuda")
-                mask = (i[None, :] <= i[:, None]) & (
-                    i[:, None] - i[None, :] < window)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-
-            def lib():
-                return sdpa(qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                            scale=scale)
-        else:
-            from torch.nn.attention import flex_attention as flex_mod
-            flex = torch.compile(flex_mod.flex_attention)
-
-            def capped(s, b, h, q_idx, kv_idx):
-                return softcap * torch.tanh(s / softcap)
-
-            def live(b, h, q_idx, kv_idx):
-                m = kv_idx <= q_idx
-                if window is not None:
-                    m = m & (q_idx - kv_idx < window)
-                if chunk is not None:
-                    m = m & (q_idx // chunk == kv_idx // chunk)
-                return m
-            block_mask = flex_mod.create_block_mask(live, B, None, S, S,
-                                                    device="cuda")
-
-            def lib():
-                return flex(qt, kt, vt,
-                            score_mod=capped if softcap is not None else None,
-                            block_mask=block_mask, scale=scale,
-                            enable_gqa=True)
-        _, lrel = rel_err(torch, lib().transpose(1, 2), want)
-        require(lrel <= TOL[dname], f"flash_attention library yardstick "
-                f"{label} S={S}: {lrel:.3g}")
-        l_ms = time_ms(torch, lib)
-        del qt, kt, vt
+        lib_name, l_ms = fa_library(torch, q, k, v, want, label, dname, B, S,
+                                    H, KV, scale, window, softcap, chunk)
         es = q.element_size()
-        nbytes = (2 * B * S * H * hd * es + 2 * B * S * KV * hd * es
-                  + B * S * 4)
-        ops = 4.0 * hd * H * B * attended_pairs(S, window, chunk)
+        nbytes = ((B * S * H * hd + B * S * KV * hd + B * S * KV * dv
+                   + B * S * H * dv) * es + B * S * 4)
+        ops = 2.0 * (hd + dv) * H * B * attended_pairs(S, window, chunk)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[dname] * 1e3
         rows.append({
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:26",
-            "key": (B, S, H, KV, hd, dname, True, window, softcap, chunk),
+            "key": (B, S, H, KV, hd, dv, dname, True, window, softcap,
+                    chunk),
             "shape": f"{label} B={B} S={S} {H}/{KV} heads hd={hd} {dname} "
                      f"window={window} softcap={softcap}"
-                     + (f" chunk={chunk}" if chunk is not None else ""),
+                     + (f" chunk={chunk}" if chunk is not None else "")
+                     + (f" dv={dv}" if dv != hd else ""),
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
             "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": l_ms, "path": fa.path(dt, hd)})
+            "library_ms": l_ms, "library_call": lib_name,
+            "path": fa.path(dt, hd, dv)})
         del q, k, v, got, want
     for r in rows:
+        lib = ("none takes dv != hd" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms ({r['library_call']})")
         print(f"  flash_attention {r['shape']:78s} ({r['path']}) kernel "
               f"{r['ms']:.4f} ms{earlier(r)}  plain {r['plain_ms']:.4f} ms  "
-              f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} "
-              f"ms ({r['bound_by']})", flush=True)
+              f"library {lib}  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -2220,14 +2326,14 @@ def run_gemma_prefill(torch, gmodel, gparams, main_launches):
             logits, st = sm.forward(batch)
             counts = collect()
             max_alloc = torch.cuda.max_memory_allocated()
-            windows = sorted((k[7] or 0) for k in fa.launches.by_shape
+            windows = sorted((k[8] or 0) for k in fa.launches.by_shape
                              for _ in range(fa.launches.by_shape[k]))
             require(counts["flash_attention"] == GEMMA_LAYERS
                     and windows == [0, gcfg.sliding_window],
                     f"{tag}: flash_attention launches "
                     f"{fa.launches.by_shape}, expected one at window "
                     f"{gcfg.sliding_window} and one with none")
-            require(all(k[1] == GEMMA_PREFILL and k[8] == 50.0
+            require(all(k[1] == GEMMA_PREFILL and k[9] == 50.0
                         for k in fa.launches.by_shape),
                     f"{tag}: flash_attention keys {fa.launches.by_shape}")
             require(counts["swap_linear"] == 7 * GEMMA_LAYERS,
@@ -3274,6 +3380,45 @@ def p9_floor_budget(model, params, batch, seq) -> int:
             require(b < 10 ** 12, "phase 9: no feasible budget below 1 TB")
 
 
+def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag) -> int:
+    """Plan a built store for one ``seq``-token prompt under ``budget``
+    (the ledger enforces it) after checking ``floor`` against the store:
+    m = P9_M there, not a grid step below it (where the planner degrades
+    the pipeline or fails). The host copies of the units then go: the
+    store is the weights' only home, so the page cache can hold its
+    files. Returns the store's resident bytes."""
+    from repro_torch.core.cost_model import DelayModel
+    from repro_torch.tree import tree_map
+    resident = sum(sm.store.resident_nbytes(u.name) for u in sm.units)
+    sm.engine.ledger.budget = budget
+    sm.partition(floor, DelayModel(), 1, seq)
+    at_floor = sm.plan.m
+    try:
+        sm.partition(floor - P9_GRID, DelayModel(), 1, seq)
+        below = sm.plan.m
+    except ValueError:
+        below = 0
+    sm.partition(budget, DelayModel(), 1, seq)
+    print(f"[{tag}] store of {resident / 1e9:.3f} GB built in "
+          f"{store_s:.1f} s; units (GB): " + ", ".join(
+              f"{u.name} {sm.store.resident_nbytes(u.name) / 1e9:.3f}"
+              for u in sm.units), flush=True)
+    print(f"[{tag}] budget {budget / 1e9:.3f} GB = "
+          f"{P9_BUDGET_OVER_FLOOR} x the smallest feasible "
+          f"{floor / 1e9:.1f} GB at m = {P9_M}; resident / budget "
+          f"{resident / budget:.3f}; blocks={sm.plan.n_blocks} "
+          f"{sm.plan.points} m={sm.plan.m}", flush=True)
+    require(sm.plan.m == P9_M, f"{tag}: planned m={sm.plan.m}")
+    require(at_floor == P9_M and below != P9_M,
+            f"{tag}: {floor / 1e9:.1f} GB is not the smallest budget at "
+            f"m = {P9_M} on the store (m {at_floor} there, {below} a "
+            f"step below)")
+    for u in sm.units:
+        u.params = tree_map(lambda a: torch.empty(
+            a.shape, dtype=a.dtype, device="meta"), u.params)
+    return resident
+
+
 def host_copy(torch, tree):
     """Each leaf of a device tree copied to the host, the device leaf
     dropped as soon as its copy is made (the device never holds both)."""
@@ -3298,12 +3443,10 @@ def run_llama4(torch, card, main_launches):
 
     import numpy as np
     from repro_torch.configs import get_arch
-    from repro_torch.core.cost_model import DelayModel
     from repro_torch.core.runtime import SwappedModel
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.transformer import Model
     from repro_torch.serving.paged_kv import PagedKVCache
-    from repro_torch.tree import tree_map
 
     reset, collect = launch_counting(main_launches)
     before = {name: dict(keys) for name, keys in main_launches.items()}
@@ -3346,41 +3489,12 @@ def run_llama4(torch, card, main_launches):
     sm = SwappedModel(model, params, str(P9_WORKDIR), device="cuda",
                       store_backend="mmap", prefetch_depth=P9_M)
     try:
-        resident = sum(sm.store.resident_nbytes(u.name) for u in sm.units)
         out["store_s"] = time.perf_counter() - t_store
-        sm.engine.ledger.budget = budget                  # enforced
-        # the floor against the built store: m = 2 there, not a grid step
-        # below it (where the planner degrades the pipeline or fails)
-        sm.partition(floor, DelayModel(), 1, LLAMA_PROMPT)
-        at_floor = sm.plan.m
-        try:
-            sm.partition(floor - P9_GRID, DelayModel(), 1, LLAMA_PROMPT)
-            below = sm.plan.m
-        except ValueError:
-            below = 0
-        sm.partition(budget, DelayModel(), 1, LLAMA_PROMPT)
+        resident = plan_at_floor(torch, sm, floor, budget, LLAMA_PROMPT,
+                                 out["store_s"], tag)
         ratio = resident / budget
         out.update(resident=resident, ratio=ratio)
-        print(f"[{tag}] store of {resident / 1e9:.3f} GB built in "
-              f"{out['store_s']:.1f} s; units (GB): " + ", ".join(
-                  f"{u.name} {sm.store.resident_nbytes(u.name) / 1e9:.3f}"
-                  for u in sm.units), flush=True)
-        print(f"[{tag}] budget {budget / 1e9:.3f} GB = "
-              f"{P9_BUDGET_OVER_FLOOR} x the smallest feasible "
-              f"{floor / 1e9:.1f} GB at m = {P9_M}; resident / budget "
-              f"{ratio:.3f}; blocks={sm.plan.n_blocks} {sm.plan.points} "
-              f"m={sm.plan.m}", flush=True)
-        require(sm.plan.m == P9_M, f"{tag}: planned m={sm.plan.m}")
-        require(at_floor == P9_M and below != P9_M,
-                f"{tag}: {floor / 1e9:.1f} GB is not the smallest budget at "
-                f"m = {P9_M} on the store (m {at_floor} there, {below} a "
-                f"step below)")
         require(ratio > 2, f"{tag}: resident / budget {ratio:.3f} <= 2")
-        # the store is the weights' only home from here on: the host
-        # copies go, so the page cache can hold the unit files
-        for u in sm.units:
-            u.params = tree_map(lambda a: torch.empty(
-                a.shape, dtype=a.dtype, device="meta"), u.params)
         del params
 
         t0 = time.perf_counter()
@@ -3393,7 +3507,7 @@ def run_llama4(torch, card, main_launches):
         logits, st = sm.forward(batch)
         counts = collect()
         max_alloc = torch.cuda.max_memory_allocated()
-        chunks = sorted((k[9] or 0) for k, n in fa.launches.by_shape.items()
+        chunks = sorted((k[10] or 0) for k, n in fa.launches.by_shape.items()
                         for _ in range(n))
         require(counts["flash_attention"] == LLAMA_LAYERS
                 and chunks == [0] + [LLAMA_CHUNK] * (LLAMA_LAYERS - 1),
@@ -3477,6 +3591,298 @@ def run_llama4(torch, card, main_launches):
         shutil.rmtree(P9_WORKDIR, ignore_errors=True)
     torch.cuda.empty_cache()
     # every shape the phase's main-path runs launched a kernel at
+    out["by_shape"] = {
+        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
+               if n > before[name].get(k, 0)}
+        for name, keys in main_launches.items()}
+    return out
+
+
+# ---------------------------------------------------------------- deepseek
+def run_deepseek(torch, main_launches):
+    """Phase 11: deepseek-v2-lite's MLA stack at its published widths, 6
+    layers, swapped from one fp32 mmap store at least 2.32x over its
+    budget: (a) a 4,096-token prefill bitwise equal to the unswapped
+    forward (B4 once a layer at q, k 192 / v 128, B5 at wq, wo and the
+    shared expert's three); (b) ``decode_loop`` on the same store, each
+    step's logits bitwise those of ``Model.decode_step`` on the card;
+    (c) ``ServingEngine`` on the same prompts (B4 over the prompt, then
+    the absorbed decode): in fp32 the absorption's identity, its first
+    new token's logits within 1e-5 of ``Model.decode_step``'s absorbed
+    decode; in bf16 its first-token logits within DS_BF16_TOL of the fp32
+    engine's for each prompt whose last token is routed alike at every
+    layer, each layer's routing flips and the bf16 gap to (b) printed."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime import SwappedModel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    reset, collect = launch_counting(main_launches)
+    before = {name: dict(keys) for name, keys in main_launches.items()}
+    cfg = dataclasses.replace(get_arch("deepseek-v2-lite-16b"),
+                              n_layers=DS_LAYERS)
+    m, e = cfg.mla, cfg.moe
+    print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"MLA kv_lora_rank {m.kv_lora_rank}, qk_nope {m.qk_nope_head_dim}"
+          f", qk_rope {m.qk_rope_head_dim}, v {m.v_head_dim}; "
+          f"{e.n_routed} routed experts (top {e.top_k}) of {e.d_expert} + "
+          f"a shared expert of {e.d_shared}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}, {cfg.dtype}; reduced: n_layers "
+          f"27->{DS_LAYERS}", flush=True)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = host_copy(torch, model.init(0, device="cuda"))
+    n_params = sum(p.numel() for p in _leaves(params))
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    init_s = time.perf_counter() - t0
+    P11_WORKDIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(P11_WORKDIR.parent).free
+    print(f"params: {n_params / 1e9:.3f} B, {n_bytes / 1e9:.2f} GB (fp32, "
+          f"host), init on the card and copied down in {init_s:.1f} s; "
+          f"{free / 1e9:.1f} GB free under build/", flush=True)
+    require(free > 1.1 * n_bytes, f"phase 11: {free / 1e9:.1f} GB free, the "
+            f"store needs {n_bytes / 1e9:.1f} GB")
+    floor = p9_floor_budget(model, params, 1, DS_PROMPT)
+    budget = int(P9_BUDGET_OVER_FLOOR * floor)
+    rng = np.random.default_rng(11)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, DS_PROMPT)), dtype=torch.int32)}
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (DS_BATCH, DS_DECODE_PROMPT)).astype(np.int32)
+    tag = "phase11 deepseek-v2-lite bf16 mmap"
+    out = {"budget": budget, "floor": floor, "params": n_params}
+    shutil.rmtree(P11_WORKDIR, ignore_errors=True)
+    t_store = time.perf_counter()
+    sm = SwappedModel(model, params, str(P11_WORKDIR), device="cuda",
+                      store_backend="mmap", prefetch_depth=P9_M)
+    try:
+        out["store_s"] = time.perf_counter() - t_store
+        resident = plan_at_floor(torch, sm, floor, budget, DS_PROMPT,
+                                 out["store_s"], tag)
+        ratio = resident / budget
+        out.update(resident=resident, ratio=ratio)
+        require(ratio >= DS_MIN_RATIO, f"{tag}: resident / budget "
+                f"{ratio:.3f} < {DS_MIN_RATIO}")
+        del params
+
+        # ---- (a) the swapped prefill
+        t0 = time.perf_counter()
+        sm.forward(batch)                                          # warm
+        warm_s = time.perf_counter() - t0
+        sm.engine.stats.__init__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        logits, st = sm.forward(batch)
+        counts = collect()
+        max_alloc = torch.cuda.max_memory_allocated()
+        want_key = (1, DS_PROMPT, cfg.n_heads, cfg.n_heads,
+                    m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim,
+                    cfg.dtype, True, None, None, None)
+        require(counts["flash_attention"] == DS_LAYERS
+                and dict(fa.launches.by_shape) == {want_key: DS_LAYERS},
+                f"{tag}: flash_attention launches {fa.launches.by_shape}, "
+                f"expected {DS_LAYERS} at {want_key}")
+        require(counts["swap_linear"] == 5 * DS_LAYERS,
+                f"{tag}: swap_linear launched {counts['swap_linear']} times, "
+                f"expected {5 * DS_LAYERS} (wq, wo, the shared expert's 3)")
+        require(counts["swap_linear_q"] == 0, f"{tag}: swap_linear_q "
+                f"launched {counts['swap_linear_q']} times")
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (1, 1, cfg.vocab_size),
+                f"{tag}: logits {tuple(logits.shape)}, finite "
+                f"{bool(torch.isfinite(logits).all())}")
+        require(sm.engine.stats.peak_resident <= budget,
+                f"{tag}: peak ledger {sm.engine.stats.peak_resident} over "
+                f"budget {budget}")
+        t0 = time.perf_counter()
+        units = [sm.store.read_unit(u.name).params for u in sm.units]
+        want = sm.forward_unswapped(batch, resident=units)
+        unswapped_s = time.perf_counter() - t0
+        require(torch.equal(logits, want),
+                f"{tag}: swapped logits != unswapped logits")
+        print(f"[{tag}] swapped logits == unswapped logits bitwise (1 x "
+              f"{DS_PROMPT} tokens, {DS_LAYERS} layers at published widths,"
+              f" the unswapped model holding all {resident / 1e9:.1f} GB; "
+              f"{unswapped_s:.1f} s); flash_attention x {DS_LAYERS} at "
+              f"{want_key[:6]}; warm pass {warm_s:.1f} s; launches {counts}",
+              flush=True)
+        out["prefill"] = report_prefill(tag, sm, st, budget, resident,
+                                        max_alloc)
+        out["prefill"]["warm_s"] = warm_s
+        dev_params = resident_params(torch, sm, units)
+        del units
+
+        # ---- (b) weight-streaming decode, each step's logits recorded
+        steps = []
+        head = sm._head_logits
+
+        def recording(uparams, h):
+            r = head(uparams, h)
+            steps.append(r)
+            return r
+        sm._head_logits = recording
+        t0 = time.perf_counter()
+        reset()
+        try:
+            gen, dstats = sm.decode_loop(
+                torch.from_numpy(prompts), max_new_tokens=DS_DECODE_NEW,
+                max_len=DS_DECODE_PROMPT + DS_DECODE_NEW)
+        finally:
+            del sm._head_logits
+        dcounts = collect()
+        decode_s = time.perf_counter() - t0
+        passes = DS_DECODE_PROMPT + DS_DECODE_NEW - 1
+        require(tuple(gen.shape) == (DS_BATCH, DS_DECODE_NEW)
+                and len(steps) == passes,
+                f"{tag}: decode {tuple(gen.shape)}, {len(steps)} steps")
+        require(dcounts["flash_attention"] == 0
+                and dcounts["swap_linear"] == 5 * DS_LAYERS * passes,
+                f"{tag}: decode launches {dcounts}")
+        require(dstats["peak_resident_mb"] * 1e6 <= budget,
+                f"{tag}: decode peak ledger over budget")
+        fed = np.concatenate([prompts, gen[:, :-1].cpu().numpy()], axis=1)
+        cache = model.alloc_cache(DS_BATCH, DS_DECODE_PROMPT + DS_DECODE_NEW,
+                                  device="cuda")
+        for t in range(passes):
+            step_logits, cache = model.decode_step(dev_params, cache, {
+                "token": torch.as_tensor(fed[:, t:t + 1]).to("cuda"),
+                "pos": torch.full((DS_BATCH,), t, dtype=torch.long,
+                                  device="cuda")})
+            require(torch.equal(step_logits, steps[t]),
+                    f"{tag}: decode step {t} logits != Model.decode_step's")
+        latent = sum(n * torch.empty((), dtype=dt).element_size()
+                     for seg in model.cache_struct(
+                         DS_BATCH, DS_DECODE_PROMPT + DS_DECODE_NEW)
+                     for shape, dt in seg.values()
+                     for n in [int(np.prod(shape))])
+        hd = cfg.resolved_head_dim
+        gqa = (DS_LAYERS * DS_BATCH * (DS_DECODE_PROMPT + DS_DECODE_NEW)
+               * 2 * cfg.n_heads * hd * 2)
+        print(f"[phase11 decode] {DS_BATCH} prompts x {DS_DECODE_PROMPT} "
+              f"tokens, {DS_DECODE_NEW} new: {gen.tolist()}; {passes} "
+              f"swapped passes in {decode_s:.1f} s, each step's logits == "
+              f"Model.decode_step's bitwise; latent cache {latent} B "
+              f"({latent // (DS_LAYERS * DS_BATCH * (passes + 1))}"
+              f" B a token a layer) against {gqa} B for K and V of "
+              f"{cfg.n_heads} heads x {hd} ({gqa / latent:.2f}x); launches "
+              f"{dcounts}", flush=True)
+        out["decode"] = {"tokens": gen.tolist(), "wall_s": decode_s,
+                         "latent_cache_bytes": latent,
+                         "gqa_cache_bytes": gqa, "launches": dcounts}
+
+        # ---- (c) the in-memory engine: flash_attention over the prompt,
+        # then the absorbed decode. The absorption's identity is held in
+        # fp32: the engine's first-token logits (flash_attention on the
+        # CUDA cores at q, k 192 / v 128) against Model.decode_step's
+        # absorbed decode over the prompt, within 1e-5. The bf16 engine
+        # (flash_attention on the tensor cores) is held to the fp32 one
+        # within DS_BF16_TOL on each prompt whose last token takes the same
+        # top-k experts at every layer in both runs; a flip is printed.
+        L = DS_DECODE_PROMPT + DS_DECODE_NEW
+
+        def engine_first(mdl):
+            """The engine's first-token logits [B, 1, V], its tokens, and
+            per layer the sorted experts of each prompt's last token
+            [B, top_k] in its prefill."""
+            first, routes = [], []
+            prefill, route = mdl.prefill, moe.route
+
+            def recording_route(c, router, xf):
+                r = route(c, router, xf)
+                routes.append(r[1])
+                return r
+
+            def recording_prefill(p, b):
+                moe.route = recording_route
+                try:
+                    r = prefill(p, b)
+                finally:
+                    moe.route = route
+                first.append(r[0])
+                return r
+            mdl.prefill = recording_prefill
+            reqs = [Request(i, list(map(int, p)),
+                            max_new_tokens=DS_DECODE_NEW)
+                    for i, p in enumerate(prompts)]
+            try:
+                ServingEngine(mdl, dev_params, max_len=L,
+                              device="cuda").generate(reqs)
+            finally:
+                del mdl.prefill
+            require(len(first) == 1 and len(routes) == DS_LAYERS,
+                    f"{tag}: {len(first)} engine prefills, {len(routes)} "
+                    f"routings")
+            last = [e.view(DS_BATCH, DS_DECODE_PROMPT, -1)[:, -1].sort(-1)
+                    .values for e in routes]
+            return first[0], [r.output for r in reqs], last
+
+        t0 = time.perf_counter()
+        reset()
+        first16, etokens, routes16 = engine_first(model)
+        ecounts = collect()
+        engine_s = time.perf_counter() - t0
+        require(ecounts["flash_attention"] == DS_LAYERS
+                and bool(torch.isfinite(first16).all())
+                and tuple(first16.shape) == (DS_BATCH, 1, cfg.vocab_size),
+                f"{tag}: engine launches {ecounts}, logits "
+                f"{tuple(first16.shape)}")
+        model32 = Model(dataclasses.replace(cfg, dtype="float32"))
+        first32, etokens32, routes32 = engine_first(model32)
+        cache = model32.alloc_cache(DS_BATCH, L, device="cuda")
+        for t in range(DS_DECODE_PROMPT):
+            absorbed32, cache = model32.decode_step(dev_params, cache, {
+                "token": torch.as_tensor(prompts[:, t:t + 1]).to("cuda"),
+                "pos": torch.full((DS_BATCH,), t, dtype=torch.long,
+                                  device="cuda")})
+        ierr = rel_err(torch, first32, absorbed32)
+        require(ierr[1] <= TOL["float32"], f"{tag}: fp32 engine first-token "
+                f"logits vs the absorbed decode's: rel {ierr[1]:.3g} > "
+                f"{TOL['float32']}")
+        # flips[b][l]: prompt b's last token takes other experts at layer l
+        flips = [[int(not torch.equal(a[b], c[b]))
+                  for a, c in zip(routes16, routes32)]
+                 for b in range(DS_BATCH)]
+        gaps = [rel_err(torch, first16[b], first32[b])[1]
+                for b in range(DS_BATCH)]
+        held = [b for b in range(DS_BATCH) if not any(flips[b])]
+        require(held, f"{tag}: every prompt's last token routed otherwise "
+                f"in bf16 than in fp32 (flips by layer {flips}); no bf16 "
+                f"engine logits held")
+        for b in held:
+            require(gaps[b] <= DS_BF16_TOL, f"{tag}: bf16 engine first-token "
+                    f"logits of prompt {b} vs the fp32 engine's: rel "
+                    f"{gaps[b]:.4g} > {DS_BF16_TOL}")
+        ref = steps[DS_DECODE_PROMPT - 1]
+        gap16 = rel_err(torch, first16, ref)[1]
+        print(f"[phase11 engine] bf16 ServingEngine tokens {etokens} "
+              f"(decode_loop's {gen.tolist()}); fp32 {etokens32}; "
+              f"first-token logits, flash_attention over the prompt vs the "
+              f"absorbed decode: fp32 rel {ierr[1]:.3g} <= "
+              f"{TOL['float32']} (max abs {ierr[0]:.3g}); bf16 vs fp32 "
+              f"engine by prompt rel {[float(f'{g:.4g}') for g in gaps]}, "
+              f"held <= {DS_BF16_TOL} on prompts {held} (last-token routing "
+              f"flips by prompt and layer {flips}); bf16 engine vs bf16 "
+              f"absorbed decode rel {gap16:.4g} (printed); bf16 engine "
+              f"{engine_s:.2f} s; launches {ecounts}", flush=True)
+        out["engine"] = {"tokens": etokens, "tokens_fp32": etokens32,
+                         "fp32_rel_err": ierr[1], "bf16_vs_fp32": gaps,
+                         "routing_flips": flips, "bf16_rel_gap": gap16,
+                         "launches": ecounts}
+        del dev_params, cache
+        print(f"[phase11] wall s: init {init_s:.1f}, store "
+              f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
+              f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}, decode "
+              f"{decode_s:.1f}, engine {engine_s:.1f}", flush=True)
+    finally:
+        sm.close()
+        shutil.rmtree(P11_WORKDIR, ignore_errors=True)
+    torch.cuda.empty_cache()
     out["by_shape"] = {
         name: {k: n - before[name].get(k, 0) for k, n in keys.items()
                if n > before[name].get(k, 0)}
@@ -4059,6 +4465,7 @@ def main() -> int:
         rows += check_wkv6(torch)
         rows += check_swap_linear(torch, cfg, gcfg, get_arch("rwkv6-3b"),
                                   get_arch("llama4-scout-17b-a16e"),
+                                  get_arch("deepseek-v2-lite-16b"),
                                   conv_path)
         rows += check_flash_attention(torch)
 
@@ -4143,10 +4550,19 @@ def main() -> int:
             for k, n in sorted(keys.items(), key=str)), flush=True)
         print("[phase10] rows " + json.dumps(p10["rows"]), flush=True)
 
+    with phase("11 deepseek-v2-lite's MLA stack at full width, 3x over "
+               "budget"):
+        p11 = run_deepseek(torch, main_launches)
+        check_held(rows, p11["by_shape"], "phase 11")
+        print("phase 11 launches by held shape: " + "; ".join(
+            f"{name} {held_key(name, k)} x{n}"
+            for name, keys in p11["by_shape"].items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 10): " + ", ".join(
+    print("main-path launches (phases 3 to 11): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []
@@ -4157,6 +4573,7 @@ def main() -> int:
                             if held_key(r["name"], k) == key)
         r.pop("live_tokens", None)
         r.pop("path", None)
+        r.pop("library_call", None)
         out.append(r)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(card, flush=True)

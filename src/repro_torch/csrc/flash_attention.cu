@@ -6,9 +6,11 @@
 // generality the port's prefill needs; it is not a block-by-block copy of
 // the Pallas grid.
 //
-//   q [B, S, H, hd], k and v [B, S, KV, hd] (the projections' layout, one
-//   dtype, fp32 or bf16); q_pos [B, S] int32 -> out [B, S, H, hd] in q's
-//   dtype.
+//   q [B, S, H, hd], k [B, S, KV, hd] and v [B, S, KV, dv] (the
+//   projections' layout, one dtype, fp32 or bf16); q_pos [B, S] int32 ->
+//   out [B, S, H, dv] in q's dtype. The value head dim may differ from the
+//   query-key one: deepseek-v2's Multi-head Latent Attention scores at 192
+//   (128 + a 64-wide RoPE part) and reads values of 128.
 //
 // Semantics (those of the port's models/attention.py::online_attention
 // with no kv_valid_len): key j (its index) attends to a query at position
@@ -34,18 +36,21 @@
 // call gives each row the bits of a 1-row call, and swapped and unswapped
 // passes agree bitwise.
 //
-// What bounds it on an H100: operations, about 4 hd flops per (query,
+// What bounds it on an H100: operations, 2 (hd + dv) flops per (query,
 // key, head) pair that is not skipped, against reading q, k, v once and
-// writing out once. Two kernels, chosen by the caller from (dtype, hd)
+// writing out once. Two kernels, chosen by the caller from (dtype, hd, dv)
 // (kernels/flash_attention.py::path), never as a reaction to a failure:
 //
-// * fa_tc, bf16 at hd 64, 128 or 256 (every bf16 prefill of the main
-//   path): the tensor cores. One block per (128 query rows, query head,
-//   batch row): two consumer warpgroups of 64 rows and a producer
-//   warpgroup whose one thread issues the TMA loads: Q once, then K and V
-//   tiles of 64 keys into a ring of stages (2 at hd 256, where Q and one
-//   stage take 64 KB each, 3 below), each with its own mbarrier so the
-//   scores start when K lands. The tensor maps are 4-D (hd, head, S,
+// * fa_tc, bf16 at (hd, dv) of (64, 64), (128, 128), (256, 256) or
+//   (192, 128) (every bf16 prefill of the main path): the tensor cores.
+//   One block per (128 query rows, query head, batch row): two consumer
+//   warpgroups of 64 rows and a producer warpgroup whose one thread issues
+//   the TMA loads: Q once, then K and V tiles of 64 keys into a ring of
+//   stages (2 at hd 256, where Q and one stage take 64 KB each, 3 below:
+//   at (192, 128) Q takes 48 KB and a stage 24 + 16 KB), each with its own
+//   mbarrier so the scores start when K lands. Q and K are hd / 64 boxes
+//   of 64 columns and V dv / 64, each read at its own width (no padding
+//   of V to hd). The tensor maps are 4-D (head dim, head, S,
 //   batch), so a box never reads the next batch row past S (TMA zero-fills
 //   there) and keys j >= S are masked explicitly. S = Q K^T is wgmma
 //   m64n64k16 with both operands in shared memory (K is the K-major B);
@@ -53,8 +58,8 @@
 //   (skipped on tiles every row attends to whole) and the online-softmax
 //   update run on the fp32 accumulator in registers, the row max and sum
 //   over the 4 threads that share a row (quad shuffles). P is rounded to bf16 in registers and is
-//   the register A operand of O += P V (wgmma m64n{hd}k16, V the MN-major
-//   B with the transpose flag, as sm90_gemm.cuh's weight operand). At hd
+//   the register A operand of O += P V (wgmma m64n{dv}k16, V the MN-major
+//   B with the transpose flag, as sm90_gemm.cuh's weight operand). At dv
 //   256 O is 128 fp32 registers a thread; setmaxnreg gives the consumers
 //   232 registers and the producer 40. GQA: the G query heads of a KV head
 //   are neighbouring blocks (blockIdx.x is the head), so they run together
@@ -64,14 +69,15 @@
 //   but tie the block's row count to G. Causal blocks run the longest
 //   query tiles first.
 // * fa_simt, fp32 (1e-5 parity with the plain version rules out TF32 and
-//   bf16 tensor cores) and bf16 at any other hd: the CUDA cores in fp32.
+//   bf16 tensor cores) and bf16 at any other (hd, dv): the CUDA cores in
+//   fp32, hd and dv each rounded up to a template width of 64, 128 or 256.
 //   One block of 256 threads per (32 (query, head) rows of one KV head's G
 //   heads, KV head, batch row), so each K / V tile is staged once for all
-//   G heads. K / V tiles of 64 keys (32 at hd > 128) arrive by 16-byte
-//   cp.async into two stages while the block computes the tile before
-//   (plain loads where rows are not 16-byte aligned). Each thread owns 2
-//   rows x tile / 16 keys of the scores (float4 reads of Q and K),
-//   computes each score's tanh and exp once, and then those rows x hd / 16
+//   G heads. K / V tiles of 64 keys (32 where hd or dv > 128) arrive by
+//   16-byte cp.async into two stages while the block computes the tile
+//   before (plain loads where rows are not 16-byte aligned). Each thread
+//   owns 2 rows x tile / 16 keys of the scores (float4 reads of Q and K),
+//   computes each score's tanh and exp once, and then those rows x dv / 16
 //   columns of the output, with P passed through shared memory. Keys past
 //   the block's last attended key are skipped, and the mask is skipped on
 //   tiles every row attends to whole. Two barriers a tile.
@@ -299,12 +305,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+template <int HDV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HDV / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 64) {
+  if constexpr (HDV == 64) {
     wgmma_rs_m64n64k16(o, a, db);
-  } else if constexpr (HD == 128) {
+  } else if constexpr (HDV == 128) {
     wgmma_rs_m64n128k16(o, a, db);
   } else {
     wgmma_rs_m64n256k16(o, a, db);
@@ -329,18 +335,22 @@ constexpr int TC_BKV = 64;            // keys a K / V tile
 constexpr int TC_THREADS = 384;       // two consumer warpgroups + producer
 constexpr int TC_BOX = 64 * 128;      // one 64-row, 128-byte-swizzled box
 
-template <int HD> struct TcAttn {
-  static constexpr int NB = HD / 64;                // 64-column boxes
+template <int HD, int HDV> struct TcAttn {
+  static constexpr int NB = HD / 64;                // Q / K 64-column boxes
+  static constexpr int NBV = HDV / 64;              // V 64-column boxes
   static constexpr int STAGES = HD == 256 ? 2 : 3;
   static constexpr int Q_BYTES = TC_BQ * HD * 2;    // NB boxes of 128 rows
-  static constexpr int KV_BYTES = TC_BKV * HD * 2;  // NB boxes of 64 rows
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // K, then V
+  static constexpr int K_BYTES = TC_BKV * HD * 2;   // NB boxes of 64 rows
+  static constexpr int V_BYTES = TC_BKV * HDV * 2;  // NBV boxes of 64 rows
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;  // K, then V
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   // + the mbarriers (Q; K, V and empty per stage) + slack to align to 1 KB
   static constexpr int SMEM_BYTES = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
+  static_assert(HD % 64 == 0 && HDV % 64 == 0 && HDV <= 256, "64-col boxes");
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
 };
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 fa_tc(const __grid_constant__ CUtensorMap tm_q,
       const __grid_constant__ CUtensorMap tm_k,
@@ -348,7 +358,7 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
       const int32_t* __restrict__ q_pos, __nv_bfloat16* __restrict__ out,
       int S, int H, int KV, float scale, int causal, int window, int chunk,
       float softcap) {
-  using L = TcAttn<HD>;
+  using L = TcAttn<HD, HDV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem + L::Q_BYTES;
@@ -398,13 +408,13 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
         const int j0 = (t_lo + i) * TC_BKV;
         mbar_wait(&empty[s], ((i / L::STAGES) & 1) ^ 1);
         uint8_t* ks = ring + s * L::STAGE_BYTES;
-        mbar_expect_tx(&kfull[s], L::KV_BYTES);
+        mbar_expect_tx(&kfull[s], L::K_BYTES);
         for (int c = 0; c < L::NB; ++c) {
           tma_load_4d(ks + c * TC_BOX, &tm_k, &kfull[s], c * 64, kvh, j0, b);
         }
-        mbar_expect_tx(&vfull[s], L::KV_BYTES);
-        for (int c = 0; c < L::NB; ++c) {
-          tma_load_4d(ks + L::KV_BYTES + c * TC_BOX, &tm_v, &vfull[s],
+        mbar_expect_tx(&vfull[s], L::V_BYTES);
+        for (int c = 0; c < L::NBV; ++c) {
+          tma_load_4d(ks + L::K_BYTES + c * TC_BOX, &tm_v, &vfull[s],
                       c * 64, kvh, j0, b);
         }
       }
@@ -426,9 +436,9 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
   const int col = 2 * (lane & 3);
   const float inv_cap = softcap > 0.0f ? 1.0f / softcap : 0.0f;
 
-  float o[HD / 2];
+  float o[HDV / 2];
 #pragma unroll
-  for (int e = 0; e < HD / 2; ++e) o[e] = 0.0f;
+  for (int e = 0; e < HDV / 2; ++e) o[e] = 0.0f;
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.0f, l_b = 0.0f;
   const uint32_t qa = smem_u32(smem) + wg * (64 * 128);
   mbar_wait(qfull, 0);
@@ -438,7 +448,7 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t phase = (i / L::STAGES) & 1;
     const int j0 = (t_lo + i) * TC_BKV;
     const uint32_t ka = smem_u32(ring + s * L::STAGE_BYTES);
-    const uint32_t va = ka + L::KV_BYTES;
+    const uint32_t va = ka + L::K_BYTES;
 
     // S = Q K^T: K-major operands, k16 steps 32 bytes into a box's rows
     float sc[32];
@@ -504,7 +514,7 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
     l_a = l_a * corr_a + ps_a;       // this thread's share of the row sum
     l_b = l_b * corr_b + ps_b;
 #pragma unroll
-    for (int e = 0; e < HD / 2; ++e) o[e] *= (e & 2) ? corr_b : corr_a;
+    for (int e = 0; e < HDV / 2; ++e) o[e] *= (e & 2) ? corr_b : corr_a;
     // P as the A operand: k16 step kk covers keys 16 kk .. 16 kk + 15,
     // registers 8 kk .. 8 kk + 7 of the scores, already in A's layout
     uint32_t pa[4][4];
@@ -521,7 +531,7 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_pv<HD>(o, pa[kk], sw128_desc(va + kk * 2048, TC_BOX, 1024));
+      wgmma_pv<HDV>(o, pa[kk], sw128_desc(va + kk * 2048, TC_BOX, 1024));
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
@@ -537,16 +547,16 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < HDV / 8; ++j) {
     const int c = 8 * j + col;
     if (row_a < S) {
       *reinterpret_cast<__nv_bfloat162*>(
-          out + (((size_t)b * S + row_a) * H + h) * HD + c) =
+          out + (((size_t)b * S + row_a) * H + h) * HDV + c) =
           __floats2bfloat162_rn(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
     }
     if (row_b < S) {
       *reinterpret_cast<__nv_bfloat162*>(
-          out + (((size_t)b * S + row_b) * H + h) * HD + c) =
+          out + (((size_t)b * S + row_b) * H + h) * HDV + c) =
           __floats2bfloat162_rn(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
     }
   }
@@ -558,20 +568,23 @@ constexpr int ST_THREADS = 256;
 constexpr int ST_BR = 32;           // (query, head) rows a block
 constexpr int ST_RT = ST_BR / 16;   // rows a thread
 
-template <typename T, int HD> struct SimtAttn {
-  static constexpr int BK = HD > 128 ? 32 : 64;     // keys a tile
+template <typename T, int HD, int HDV> struct SimtAttn {
+  static constexpr int BK = HD > 128 || HDV > 128 ? 32 : 64;  // keys a tile
   static constexpr int VEC = 16 / sizeof(T);         // elements per 16 bytes
-  static constexpr int LD = HD + VEC;                // K / V row stride
+  static constexpr int LD = HD + VEC;                // K row stride
+  static constexpr int LDV = HDV + VEC;              // V row stride
   static constexpr int QLD = HD + 4;                 // fp32 Q row stride
   static constexpr int PLD = ST_BR + 4;              // fp32 P^T row stride
   static constexpr int KC = BK / 16;                 // keys a thread
-  static constexpr int DC = HD / 64;                 // float4 columns a thread
+  static constexpr int DC = HDV / 64;                // float4 columns a thread
   static constexpr int Q_BYTES = ST_BR * QLD * 4;
-  static constexpr int TILE = BK * LD;               // elements of a K or V tile
-  static constexpr int TILE_BYTES = TILE * (int)sizeof(T);
+  static constexpr int K_TILE = BK * LD;             // elements of a K tile
+  static constexpr int STAGE = K_TILE + BK * LDV;    // K, then V
+  static constexpr int STAGE_BYTES = STAGE * (int)sizeof(T);
   static constexpr int P_BYTES = BK * PLD * 4;
   // Q, two stages of K and V, P^T
-  static constexpr int SMEM_BYTES = Q_BYTES + 4 * TILE_BYTES + P_BYTES;
+  static constexpr int SMEM_BYTES = Q_BYTES + 2 * STAGE_BYTES + P_BYTES;
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
 };
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -586,52 +599,58 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(fa.x, fa.y, fb.x, fb.y);
 }
 
-// Keys j0 .. j0 + BK - 1 of K and V into one stage: 16-byte cp.async
-// where rows are 16-byte aligned (vec), else plain loads; zeros past S.
-// Columns past hd are never written (zero since the block began).
-template <typename T, int HD>
-__device__ __forceinline__ void simt_tile(T* ks, T* vs, const T* k,
-                                          const T* v, int b, int S, int KV,
-                                          int kvh, int hd, int j0, bool vec,
-                                          int tid) {
-  using L = SimtAttn<T, HD>;
+// Keys j0 .. j0 + BK - 1 of one tensor (K at width n = hd, or V at n = dv)
+// into a stage's tile of row stride ld: 16-byte cp.async where rows are
+// 16-byte aligned (vec), else plain loads; zeros past S. Columns past n
+// are never written (zero since the block began).
+template <typename T, int BK>
+__device__ __forceinline__ void simt_rows(T* dst, int ld, const T* src,
+                                          int b, int S, int KV, int kvh,
+                                          int n, int j0, bool vec, int tid) {
+  constexpr int VEC = 16 / sizeof(T);
   if (vec) {
-    const int rv = hd / L::VEC;
-    for (int e = tid; e < L::BK * rv; e += ST_THREADS) {
-      const int r = e / rv, c = (e % rv) * L::VEC;
+    const int rv = n / VEC;
+    for (int e = tid; e < BK * rv; e += ST_THREADS) {
+      const int r = e / rv, c = (e % rv) * VEC;
       const bool ok = j0 + r < S;
       const size_t off =
-          (((size_t)b * S + (ok ? j0 + r : 0)) * KV + kvh) * hd + c;
-      cp_async16(ks + r * L::LD + c, k + off, ok);
-      cp_async16(vs + r * L::LD + c, v + off, ok);
+          (((size_t)b * S + (ok ? j0 + r : 0)) * KV + kvh) * n + c;
+      cp_async16(dst + r * ld + c, src + off, ok);
     }
   } else {
-    for (int e = tid; e < L::BK * hd; e += ST_THREADS) {
-      const int r = e / hd, c = e % hd;
-      T kx = from_f<T>(0.0f), vx = from_f<T>(0.0f);
-      if (j0 + r < S) {
-        const size_t off = (((size_t)b * S + j0 + r) * KV + kvh) * hd + c;
-        kx = k[off];
-        vx = v[off];
-      }
-      ks[r * L::LD + c] = kx;
-      vs[r * L::LD + c] = vx;
+    for (int e = tid; e < BK * n; e += ST_THREADS) {
+      const int r = e / n, c = e % n;
+      T x = from_f<T>(0.0f);
+      if (j0 + r < S) x = src[(((size_t)b * S + j0 + r) * KV + kvh) * n + c];
+      dst[r * ld + c] = x;
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
+__device__ __forceinline__ void simt_tile(T* stage, const T* k, const T* v,
+                                          int b, int S, int KV, int kvh,
+                                          int hd, int dv, int j0, bool vec,
+                                          int tid) {
+  using L = SimtAttn<T, HD, HDV>;
+  simt_rows<T, L::BK>(stage, L::LD, k, b, S, KV, kvh, hd, j0, vec, tid);
+  simt_rows<T, L::BK>(stage + L::K_TILE, L::LDV, v, b, S, KV, kvh, dv, j0,
+                      vec, tid);
+}
+
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(ST_THREADS, 1)
 fa_simt(const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, const int32_t* __restrict__ q_pos,
-        T* __restrict__ out, int S, int H, int KV, int hd, float scale,
-        int causal, int window, int chunk, float softcap, int vec) {
-  using L = SimtAttn<T, HD>;
+        T* __restrict__ out, int S, int H, int KV, int hd, int dv,
+        float scale, int causal, int window, int chunk, float softcap,
+        int vec) {
+  using L = SimtAttn<T, HD, HDV>;
   constexpr int RT = ST_RT;
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem);
   T* stages = reinterpret_cast<T*>(smem + L::Q_BYTES);  // K0 V0 K1 V1
-  float* pt = reinterpret_cast<float*>(smem + L::Q_BYTES + 4 * L::TILE_BYTES);
+  float* pt = reinterpret_cast<float*>(smem + L::Q_BYTES + 2 * L::STAGE_BYTES);
   __shared__ int red[2 * ST_THREADS / 32];
 
   const int G = H / KV;
@@ -644,8 +663,8 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
 
-  if (hd < HD) {                 // columns past hd stay zero
-    for (int e = tid; e < L::TILE_BYTES / 4; e += ST_THREADS) {
+  if (hd < HD || dv < HDV) {     // columns past hd / dv stay zero
+    for (int e = tid; e < 2 * L::STAGE_BYTES / 16; e += ST_THREADS) {
       reinterpret_cast<uint4*>(stages)[e] = make_uint4(0u, 0u, 0u, 0u);
     }
   }
@@ -689,21 +708,20 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (ntiles > 0) {
-    simt_tile<T, HD>(stages, stages + L::TILE, k, v, b, S, KV, kvh, hd,
-                     t_lo * L::BK, vec, tid);
+    simt_tile<T, HD, HDV>(stages, k, v, b, S, KV, kvh, hd, dv, t_lo * L::BK,
+                          vec, tid);
     cp_async_commit();
   }
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<0>();
     __syncthreads();                 // tile i is in; tile i - 1 is done
     if (i + 1 < ntiles) {
-      T* nx = stages + ((i + 1) & 1) * 2 * L::TILE;
-      simt_tile<T, HD>(nx, nx + L::TILE, k, v, b, S, KV, kvh, hd,
-                       (t_lo + i + 1) * L::BK, vec, tid);
+      simt_tile<T, HD, HDV>(stages + ((i + 1) & 1) * L::STAGE, k, v, b, S, KV,
+                            kvh, hd, dv, (t_lo + i + 1) * L::BK, vec, tid);
       cp_async_commit();
     }
-    const T* ks = stages + (i & 1) * 2 * L::TILE;
-    const T* vs = ks + L::TILE;
+    const T* ks = stages + (i & 1) * L::STAGE;
+    const T* vs = ks + L::K_TILE;
     const int j0 = (t_lo + i) * L::BK;
     const int nk = min(L::BK, kv_hi - j0);   // keys past kv_hi: skipped
 
@@ -792,7 +810,7 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
       const float pr[RT] = {pv.x, pv.y};
 #pragma unroll
       for (int cc = 0; cc < L::DC; ++cc) {
-        const float4 vv = load4(vs + kk * L::LD + 4 * tx + 64 * cc);
+        const float4 vv = load4(vs + kk * L::LDV + 4 * tx + 64 * cc);
 #pragma unroll
         for (int r = 0; r < RT; ++r) {
           acc[r][cc][0] = fmaf(pr[r], vv.x, acc[r][cc][0]);
@@ -813,13 +831,13 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
     const int rr = r0 + RT * ty + r;
     if (rr >= rows) continue;
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
-    T* o = out + (((size_t)b * S + rr / G) * H + kvh * G + rr % G) * hd;
+    T* o = out + (((size_t)b * S + rr / G) * H + kvh * G + rr % G) * dv;
 #pragma unroll
     for (int cc = 0; cc < L::DC; ++cc)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = 4 * tx + 64 * cc + e;
-        if (d < hd) o[d] = from_f<T>(acc[r][cc][e] * inv);
+        if (d < dv) o[d] = from_f<T>(acc[r][cc][e] * inv);
       }
   }
 }
@@ -845,11 +863,11 @@ bool encode_4d(CUtensorMap* map, const void* base, int hd, int heads, int S,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_tc(const void* q, const void* k, const void* v, const void* qpos,
               void* out, int B, int S, int H, int KV, float scale, int causal,
               int window, int chunk, float softcap, cudaStream_t st) {
-  using L = TcAttn<HD>;
+  using L = TcAttn<HD, HDV>;
   const int qtiles = (S + TC_BQ - 1) / TC_BQ;
   if (qtiles > 65535 || !aligned16(q) || !aligned16(k) || !aligned16(v)) {
     return (int)cudaErrorInvalidValue;
@@ -860,59 +878,79 @@ int launch_tc(const void* q, const void* k, const void* v, const void* qpos,
   memset(&tv, 0, sizeof(tv));
   if (!encode_4d(&tq, q, HD, H, S, B, TC_BQ) ||
       !encode_4d(&tk, k, HD, KV, S, B, TC_BKV) ||
-      !encode_4d(&tv, v, HD, KV, S, B, TC_BKV)) {
+      !encode_4d(&tv, v, HDV, KV, S, B, TC_BKV)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      fa_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
+      fa_tc<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, qtiles, B);
-  fa_tc<HD><<<grid, TC_THREADS, L::SMEM_BYTES, st>>>(
+  fa_tc<HD, HDV><<<grid, TC_THREADS, L::SMEM_BYTES, st>>>(
       tq, tk, tv, static_cast<const int32_t*>(qpos),
       static_cast<__nv_bfloat16*>(out), S, H, KV, scale, causal, window,
       chunk, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch_simt(const void* q, const void* k, const void* v, const void* qpos,
-                void* out, int B, int S, int H, int KV, int hd, float scale,
-                int causal, int window, int chunk, float softcap,
+                void* out, int B, int S, int H, int KV, int hd, int dv,
+                float scale, int causal, int window, int chunk, float softcap,
                 cudaStream_t st) {
-  using L = SimtAttn<T, HD>;
+  using L = SimtAttn<T, HD, HDV>;
   const long long rows = (long long)S * (H / KV);  // int in the kernel
   if (rows > 0x7fffffffLL - ST_BR || KV > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      fa_simt<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_simt<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int vec = (hd * (int)sizeof(T)) % 16 == 0 && aligned16(k) &&
+  const int vec = (hd * (int)sizeof(T)) % 16 == 0 &&
+                  (dv * (int)sizeof(T)) % 16 == 0 && aligned16(k) &&
                   aligned16(v);
   const dim3 grid((unsigned)((rows + ST_BR - 1) / ST_BR), KV, B);
-  fa_simt<T, HD><<<grid, ST_THREADS, L::SMEM_BYTES, st>>>(
+  fa_simt<T, HD, HDV><<<grid, ST_THREADS, L::SMEM_BYTES, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(qpos),
-      static_cast<T*>(out), S, H, KV, hd, scale, causal, window, chunk,
+      static_cast<T*>(out), S, H, KV, hd, dv, scale, causal, window, chunk,
       softcap, vec);
   return (int)cudaGetLastError();
 }
 
+// the CUDA-core kernel at the template widths hd and dv round up to
+template <typename T, int HD>
+int run_simt_dv(const void* q, const void* k, const void* v,
+                const void* qpos, void* out, int B, int S, int H, int KV,
+                int hd, int dv, float scale, int causal, int window,
+                int chunk, float softcap, cudaStream_t st) {
+  if (dv <= 64) {
+    return launch_simt<T, HD, 64>(q, k, v, qpos, out, B, S, H, KV, hd, dv,
+                                  scale, causal, window, chunk, softcap, st);
+  }
+  if (dv <= 128) {
+    return launch_simt<T, HD, 128>(q, k, v, qpos, out, B, S, H, KV, hd, dv,
+                                   scale, causal, window, chunk, softcap, st);
+  }
+  return launch_simt<T, HD, 256>(q, k, v, qpos, out, B, S, H, KV, hd, dv,
+                                 scale, causal, window, chunk, softcap, st);
+}
+
 template <typename T>
 int run_simt(const void* q, const void* k, const void* v, const void* qpos,
-             void* out, int B, int S, int H, int KV, int hd, float scale,
-             int causal, int window, int chunk, float softcap,
+             void* out, int B, int S, int H, int KV, int hd, int dv,
+             float scale, int causal, int window, int chunk, float softcap,
              cudaStream_t st) {
   if (hd <= 64) {
-    return launch_simt<T, 64>(q, k, v, qpos, out, B, S, H, KV, hd, scale,
+    return run_simt_dv<T, 64>(q, k, v, qpos, out, B, S, H, KV, hd, dv, scale,
                               causal, window, chunk, softcap, st);
   }
   if (hd <= 128) {
-    return launch_simt<T, 128>(q, k, v, qpos, out, B, S, H, KV, hd, scale,
-                               causal, window, chunk, softcap, st);
+    return run_simt_dv<T, 128>(q, k, v, qpos, out, B, S, H, KV, hd, dv,
+                               scale, causal, window, chunk, softcap, st);
   }
-  return launch_simt<T, 256>(q, k, v, qpos, out, B, S, H, KV, hd, scale,
+  return run_simt_dv<T, 256>(q, k, v, qpos, out, B, S, H, KV, hd, dv, scale,
                              causal, window, chunk, softcap, st);
 }
 
@@ -921,44 +959,49 @@ int run_simt(const void* q, const void* k, const void* v, const void* qpos,
 // q, k, v and out in one dtype (0 = fp32, 1 = bf16), contiguous; q_pos
 // int32 [B, S]. causal: 0 or 1; window <= 0 means no window and chunk <=
 // 0 no block-local chunk (a non-causal call must pass neither), softcap
-// <= 0 no softcap; 1 <= hd <= 256. path: 0 =
-// the tensor cores (bf16, hd 64 / 128 / 256, 16-byte aligned q, k, v), 1 =
-// the CUDA cores (either dtype, any hd), as kernels/flash_attention.py
-// chooses. Returns the first CUDA error of the launch, or
-// cudaErrorInvalidValue for a call the kernel does not take.
+// <= 0 no softcap; 1 <= hd, dv <= 256 (q and k at hd, v and out at dv).
+// path: 0 = the tensor cores (bf16, (hd, dv) of (64, 64), (128, 128),
+// (256, 256) or (192, 128), 16-byte aligned q, k, v), 1 = the CUDA cores
+// (either dtype, any hd and dv), as kernels/flash_attention.py chooses.
+// Returns the first CUDA error of the launch, or cudaErrorInvalidValue for
+// a call the kernel does not take.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, const void* q_pos,
                                      void* out, int B, int S, int H, int KV,
-                                     int hd, float scale, int causal,
+                                     int hd, int dv, float scale, int causal,
                                      int window, int chunk, float softcap,
                                      int dtype, int path, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      hd <= 0 || hd > 256 || dtype < 0 || dtype > 1 ||
+      hd <= 0 || hd > 256 || dv <= 0 || dv > 256 || dtype < 0 || dtype > 1 ||
       (!causal && (window > 0 || chunk > 0))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == PATH_TC) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    switch (hd) {
-      case 64:
-        return launch_tc<64>(q, k, v, q_pos, out, B, S, H, KV, scale, causal,
-                             window, chunk, softcap, st);
-      case 128:
-        return launch_tc<128>(q, k, v, q_pos, out, B, S, H, KV, scale,
-                              causal, window, chunk, softcap, st);
-      case 256:
-        return launch_tc<256>(q, k, v, q_pos, out, B, S, H, KV, scale,
-                              causal, window, chunk, softcap, st);
-      default:
-        return (int)cudaErrorInvalidValue;
+    if (hd == 64 && dv == 64) {
+      return launch_tc<64, 64>(q, k, v, q_pos, out, B, S, H, KV, scale,
+                               causal, window, chunk, softcap, st);
     }
+    if (hd == 128 && dv == 128) {
+      return launch_tc<128, 128>(q, k, v, q_pos, out, B, S, H, KV, scale,
+                                 causal, window, chunk, softcap, st);
+    }
+    if (hd == 256 && dv == 256) {
+      return launch_tc<256, 256>(q, k, v, q_pos, out, B, S, H, KV, scale,
+                                 causal, window, chunk, softcap, st);
+    }
+    if (hd == 192 && dv == 128) {
+      return launch_tc<192, 128>(q, k, v, q_pos, out, B, S, H, KV, scale,
+                                 causal, window, chunk, softcap, st);
+    }
+    return (int)cudaErrorInvalidValue;
   }
   if (path != PATH_SIMT) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    return run_simt<__nv_bfloat16>(q, k, v, q_pos, out, B, S, H, KV, hd,
+    return run_simt<__nv_bfloat16>(q, k, v, q_pos, out, B, S, H, KV, hd, dv,
                                    scale, causal, window, chunk, softcap, st);
   }
-  return run_simt<float>(q, k, v, q_pos, out, B, S, H, KV, hd, scale, causal,
-                         window, chunk, softcap, st);
+  return run_simt<float>(q, k, v, q_pos, out, B, S, H, KV, hd, dv, scale,
+                         causal, window, chunk, softcap, st);
 }

@@ -126,8 +126,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_swap_linear.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                       i, i, i, i, p]
     lib.repro_swap_linear.restype = i
-    lib.repro_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
-                                          i, i, f, i, i, p]
+    lib.repro_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f,
+                                          i, i, i, f, i, i, p]
     lib.repro_flash_attention.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -2,9 +2,12 @@
 
 The function of the JAX package's ``kernels/flash_attention.py`` (oracle
 ``kernels/ref.py:flash_attention_ref``) with the generality the port's
-prefill needs: q [B, S, H, hd] and k, v [B, S, KV, hd] in the projections'
-layout, grouped-query heads read in place (query head h reads KV head
-``h // (H / KV)``), explicit query positions and any S. The semantics are
+prefill needs: q [B, S, H, hd], k [B, S, KV, hd] and v [B, S, KV, dv] in
+the projections' layout, grouped-query heads read in place (query head h
+reads KV head ``h // (H / KV)``), explicit query positions and any S. The
+value head dim ``dv`` may differ from the query-key one: deepseek-v2's
+Multi-head Latent Attention scores at 192 (128 + a 64-wide RoPE part) and
+reads values of 128, and the output is [B, S, H, dv]. The semantics are
 those of :func:`repro_torch.models.attention.online_attention` with no
 ``kv_valid_len``, on the calls that function and the TPU kernel agree on:
 key j (its index) attends to a query at position ``q_pos[b, i]`` iff,
@@ -24,17 +27,17 @@ of the chunk holding its smallest position, so a local layer visits at
 most its own chunk's tiles (two chunks' for a block across a boundary).
 
 The CUDA kernels are in ``csrc/flash_attention.cu``; :func:`path` picks
-one from (dtype, head_dim) on the host. bf16 at head_dim 64, 128 or 256
-(every bf16 prefill of the main path) takes the tensor cores: a block of
-128 query rows of one head, TMA loads of Q and of a ring of 64-key K / V
-tiles, ``wgmma`` for ``Q K^T`` and ``P V`` with P rounded to bf16 in
-registers. fp32, and bf16 at any other head_dim, take the CUDA cores in
-fp32: a block of 64 (or, where that leaves SMs idle, 32) (query, head)
-rows of one KV head's G heads, so each K / V tile is staged once for
-all of them. Both visit only the KV tiles
+one from (dtype, hd, dv) on the host. bf16 at (hd, dv) of (64, 64),
+(128, 128), (256, 256) or (192, 128) (every bf16 prefill of the main
+path) takes the tensor cores: a block of 128 query rows of one head, TMA
+loads of Q and of a ring of 64-key K / V tiles, ``wgmma`` for ``Q K^T``
+and ``P V`` with P rounded to bf16 in registers. fp32, and bf16 at any
+other pair, take the CUDA cores in fp32: a block of 32 (query, head)
+rows of one KV head's G heads, so each K / V tile is staged once for all
+of them. Both visit only the KV tiles
 that hold a key some of the block's rows may attend to (the TPU kernel's
 block skip, taken from q_pos). :func:`flash_attention_plain` is the plain
-PyTorch version, ``flash_attention_ref`` with GQA and q_pos: one dense
+PyTorch version, ``flash_attention_ref`` with GQA, q_pos and dv: one dense
 fp32 softmax. It is what a CPU tensor runs, and what the kernels are held
 to on the card: about 1e-5 relative for fp32 (the online softmax sums in
 another order), about 2e-2 for bf16 (P and the output rounded to bf16).
@@ -51,21 +54,27 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LARGE_WINDOW = 1 << 30           # models/attention.py's "no window"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (64, 128, 256)    # the tensor-core kernel's head dims
+# the tensor-core kernel's (hd, dv) pairs: equal ones, and MLA's 192 / 128
+TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 PATHS = {"tc": 0, "simt": 1}
 
 launches = LaunchCounter()
 
 
 def _check_args(q, k, v, q_pos, causal, window, softcap, chunk):
-    if q.ndim != 4 or k.ndim != 4:
-        raise ValueError(f"q must be [B, S, H, hd] and k, v [B, S, KV, hd], "
-                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"q must be [B, S, H, hd], k [B, S, KV, hd] and v "
+                         f"[B, S, KV, dv], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     B, S, H, hd = q.shape
-    KV = k.shape[2]
-    if tuple(k.shape) != (B, S, KV, hd) or tuple(v.shape) != tuple(k.shape):
+    KV, dv = k.shape[2], v.shape[3]
+    if tuple(k.shape) != (B, S, KV, hd) or tuple(v.shape[:3]) != (B, S, KV):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)} (prefill: Sq == Skv)")
+                         f"match q {tuple(q.shape)} (prefill: Sq == Skv; q "
+                         f"and k share hd)")
+    if not 1 <= dv <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes a value head_dim (dv) of "
+                         f"1 to {MAX_HEAD_DIM}, got {dv}")
     if KV == 0 or H % KV != 0:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
     if tuple(q_pos.shape) != (B, S):
@@ -85,13 +94,16 @@ def _check_args(q, k, v, q_pos, causal, window, softcap, chunk):
     if not causal and chunk is not None:
         raise ValueError(f"a non-causal call takes no chunk (got {chunk}): "
                          f"block-local masking is a causal decoder's")
-    return B, S, H, KV, hd, window, chunk
+    return B, S, H, KV, hd, dv, window, chunk
 
 
-def path(dtype: torch.dtype, hd: int) -> str:
-    """The kernel a CUDA call runs: "tc" (tensor cores) for bf16 at a head
-    dim of 64, 128 or 256, "simt" (CUDA cores, fp32) otherwise."""
-    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "simt"
+def path(dtype: torch.dtype, hd: int, dv: Optional[int] = None) -> str:
+    """The kernel a CUDA call runs: "tc" (tensor cores) for bf16 at a
+    (hd, dv) pair of :data:`TC_HEAD_DIMS` (``dv`` None: ``hd``), "simt"
+    (CUDA cores, fp32) otherwise."""
+    pair = (hd, hd if dv is None else dv)
+    return ("tc" if dtype == torch.bfloat16 and pair in TC_HEAD_DIMS
+            else "simt")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,9 +112,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           softcap: Optional[float] = None,
                           chunk: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version: dense fp32 scores over the whole sequence,
-    softcap, mask, softmax; the result in q's dtype."""
-    B, S, H, KV, hd, window, chunk = _check_args(q, k, v, q_pos, causal,
-                                                  window, softcap, chunk)
+    softcap, mask, softmax, ``P V`` at v's head dim; the result in q's
+    dtype."""
+    B, S, H, KV, hd, dv, window, chunk = _check_args(
+        q, k, v, q_pos, causal, window, softcap, chunk)
     G = H // KV
     qf = q.reshape(B, S, KV, G, hd).to(torch.float32)
     s = torch.einsum("bqkgh,bckh->bkgqc", qf, k.to(torch.float32)) * scale
@@ -120,7 +133,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p, v.to(torch.float32))
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return out.reshape(B, S, H, dv).to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,13 +141,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     chunk: Optional[int] = None) -> torch.Tensor:
-    """q [B, S, H, hd]; k, v [B, S, KV, hd], q's dtype (fp32 or bf16);
-    q_pos [B, S] integer positions -> [B, S, H, hd] in q's dtype.
+    """q [B, S, H, hd]; k [B, S, KV, hd]; v [B, S, KV, dv], q's dtype (fp32
+    or bf16); q_pos [B, S] integer positions -> [B, S, H, dv] in q's dtype.
 
     A CUDA tensor launches the kernel or raises; a CPU tensor takes
     :func:`flash_attention_plain`."""
-    B, S, H, KV, hd, window, chunk = _check_args(q, k, v, q_pos, causal,
-                                                  window, softcap, chunk)
+    B, S, H, KV, hd, dv, window, chunk = _check_args(
+        q, k, v, q_pos, causal, window, softcap, chunk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, scale=scale,
                                      causal=causal, window=window,
@@ -154,22 +167,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention inputs lie on different devices")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention takes contiguous q, k and v")
-    kernel = path(q.dtype, hd)
+    kernel = path(q.dtype, hd, dv)
     if kernel == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention's tensor-core kernel reads q, k "
                          "and v by TMA: they must be 16-byte aligned")
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, H, dv))
     if out.numel() == 0:
         return out
     pos = q_pos.to(torch.int32).contiguous()     # [B, S]: a few KB
     err = library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, S, H, KV, hd, float(scale), int(bool(causal)),
+        out.data_ptr(), B, S, H, KV, hd, dv, float(scale), int(bool(causal)),
         0 if window is None else window, 0 if chunk is None else chunk,
         0.0 if softcap is None else float(softcap), DTYPES[q.dtype],
         PATHS[kernel],
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention kernel launch")
-    launches.bump((B, S, H, KV, hd, str(q.dtype).replace("torch.", ""),
+    launches.bump((B, S, H, KV, hd, dv, str(q.dtype).replace("torch.", ""),
                    bool(causal), window, softcap, chunk))
     return out

@@ -1,6 +1,8 @@
 """Attention: GQA with causal / sliding-window / softcap masks, for
 prefill and for single-token decode on a contiguous cache or through the
-paged KV cache (:func:`gqa_apply_paged`).
+paged KV cache (:func:`gqa_apply_paged`); and deepseek-v2's Multi-head
+Latent Attention (:func:`mla_apply`), whose decode cache holds one
+compressed latent and one RoPE key per token instead of K and V per head.
 
 Prefill (Sq == Skv, no cache) runs the ``flash_attention`` kernel
 (``kernels/flash_attention.py``; its plain version on the CPU). Decode on
@@ -27,7 +29,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import (LARGE_WINDOW, NEG_INF,
                                                   flash_attention)
-from repro_torch.models.layers import apply_rope, linear, rope_angles, softcap
+from repro_torch.models.layers import (apply_rope, linear, rms_norm,
+                                       rope_angles, softcap)
 from repro_torch.models.params import ParamDef
 
 
@@ -185,3 +188,83 @@ def gqa_apply_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = paged.attend(q[:, 0], k[:, 0], v[:, 0], scale=_attn_scale(cfg),
                        window=window, softcap=cfg.attn_logit_softcap)
     return linear(out.reshape(B, S, H * hd).to(x.dtype), p["wo"])
+
+
+# ------------------------------------------------------------------ MLA layer
+def mla_defs(cfg: ModelConfig) -> dict:
+    m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {"wq": ParamDef((D, H * qd)),
+            "w_dkv": ParamDef((D, m.kv_lora_rank)),
+            "w_krope": ParamDef((D, m.qk_rope_head_dim)),
+            "kv_norm": ParamDef((m.kv_lora_rank,), init="ones"),
+            "w_uk": ParamDef((m.kv_lora_rank, H * m.qk_nope_head_dim)),
+            "w_uv": ParamDef((m.kv_lora_rank, H * m.v_head_dim)),
+            "wo": ParamDef((H * m.v_head_dim, D))}
+
+
+def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              positions: torch.Tensor, cache: Optional[dict],
+              decode_pos: Optional[torch.Tensor],
+              chunk: int = 1024) -> Tuple[torch.Tensor, dict]:
+    """Multi-head Latent Attention, x [B,S,D]. The cache holds the
+    compressed latents: ``c_kv`` [B, L, kv_lora_rank] and the shared RoPE
+    key ``k_rope`` [B, L, qk_rope_head_dim].
+
+    ``wq`` and ``wo`` go through ``linear`` (the matmul kernels); the
+    latent projections ``w_dkv``, ``w_krope``, ``w_uk`` and ``w_uv`` are
+    plain matmuls, as the reference computes them outside any kernel.
+
+    Prefill (``cache=None``): k and v are up-projected from the latents
+    and attention runs the ``flash_attention`` kernel at a query-key head
+    dim of qk_nope + qk_rope and a value head dim of v_head_dim; the new
+    cache comes out. Decode (``cache`` and ``decode_pos`` [B]): the rows
+    at ``decode_pos`` are written IN PLACE, then the absorbed form:
+    ``W_uk`` folded into q, :func:`online_attention` over the latents with
+    one KV head (the reference computes that step in XLA), ``W_uv``
+    applied after."""
+    m = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    nd, rd, vd, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    scale = (nd + rd) ** -0.5
+
+    q = linear(x, p["wq"]).reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)    # [B,S,r]
+    k_rope = (x @ p["w_krope"]).reshape(B, S, 1, rd)
+    ang = rope_angles(positions, rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, ang)
+    k_rope = apply_rope(k_rope, ang)
+
+    if cache is not None and decode_pos is not None:
+        rows = torch.arange(B, device=x.device)
+        cache["c_kv"][rows, decode_pos] = c_kv[:, 0].to(cache["c_kv"].dtype)
+        cache["k_rope"][rows, decode_pos] = k_rope[:, 0, 0].to(
+            cache["k_rope"].dtype)
+        # absorbed decode: q_nope W_uk^T puts the query in latent space
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope,
+                             p["w_uk"].reshape(r, H, nd))         # [B,S,H,r]
+        q_cat = torch.cat([q_lat, q_rope], dim=-1)            # [B,S,H,r+rd]
+        k_cat = torch.cat([cache["c_kv"][:, :, None, :].to(q_cat.dtype),
+                           cache["k_rope"][:, :, None, :].to(q_cat.dtype)],
+                          dim=-1)
+        out_lat = online_attention(
+            q_cat, k_cat, cache["c_kv"][:, :, None, :], positions,
+            decode_pos + 1, causal=True, window=None, scale=scale,
+            logit_cap=None, chunk=chunk)                      # [B,S,H,r] fp32
+        out = torch.einsum("bshr,rhv->bshv", out_lat,
+                           p["w_uv"].reshape(r, H, vd).to(torch.float32))
+        out = linear(out.reshape(B, S, H * vd).to(x.dtype), p["wo"])
+        return out, cache
+
+    # prefill: k and v from the latents, the RoPE key shared by every head
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, H, nd)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, H, vd)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    out = flash_attention(qf, k, v, positions, scale=scale,
+                          causal=not cfg.is_encoder)
+    out = linear(out.reshape(B, S, H * vd).to(x.dtype), p["wo"])
+    return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}

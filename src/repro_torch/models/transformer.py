@@ -10,16 +10,18 @@ is a Python bool per layer.
 
 A model is a stack of dense (attention + MLP) and moe (attention +
 mixture of experts, ``models/moe.py``) layers, or all rwkv6 (time-mix +
-channel-mix, ``models/ssm.py``). MLA, mamba2, zamba2's shared attention,
-M-RoPE and the vision and audio frontends raise ``NotImplementedError``.
+channel-mix, ``models/ssm.py``). A config with ``mla`` (deepseek-v2)
+attends with Multi-head Latent Attention (``attention.mla_apply``) in its
+dense and moe layers. mamba2, zamba2's shared attention, M-RoPE and the
+vision and audio frontends raise ``NotImplementedError``.
 A config with ``d_frontend`` whose family reads no frontend (llama4's
 vision stub) still carries the ``frontend`` parameter, as the JAX
 package's tree does; the forward never reads it.
 
 Modes: "prefill" runs full sequences; "decode" runs one token against a
-decode cache (updated in place: K/V rows for dense layers, the recurrent
-state for rwkv6 layers) or, for dense layers with a ``paged`` hook,
-through the paged KV cache.
+decode cache (updated in place: K/V rows for dense layers, the latent rows
+for MLA layers, the recurrent state for rwkv6 layers) or, for GQA layers
+with a ``paged`` hook, through the paged KV cache.
 """
 from __future__ import annotations
 
@@ -62,11 +64,9 @@ def build_plan(cfg: ModelConfig) -> List[Segment]:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds())
-    if not (kinds <= {"dense", "moe"} or kinds == {"rwkv6"}) \
-            or cfg.mla is not None:
+    if not (kinds <= {"dense", "moe"} or kinds == {"rwkv6"}):
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}"
-            f"{' with MLA' if cfg.mla else ''} are not ported yet "
+            f"{cfg.name}: layer kinds {sorted(kinds)} are not ported yet "
             f"(dense / moe stacks or all rwkv6 only)")
     if not cfg.embed_inputs or cfg.is_encoder or cfg.family == "vlm":
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
@@ -85,7 +85,8 @@ def layer_defs(cfg: ModelConfig, kind: str) -> dict:
     norm = "zeros" if cfg.post_norms else "ones"
     d: Dict[str, Any] = {"ln1": ParamDef((D,), init=norm),
                          "ln2": ParamDef((D,), init=norm),
-                         "attn": attn_mod.gqa_defs(cfg)}
+                         "attn": (attn_mod.mla_defs(cfg) if cfg.mla is not None
+                                  else attn_mod.gqa_defs(cfg))}
     if cfg.post_norms:
         d["post_ln1"] = ParamDef((D,), init="zeros")
         d["post_ln2"] = ParamDef((D,), init="zeros")
@@ -120,13 +121,17 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     paged-attention hook (``serving/paged_kv.PagedBatchView.bind``):
     attention K/V land in the page pool instead of a contiguous cache, and
     ``new_cache`` is None. In decode, ``cache`` is updated in place and
-    returned."""
+    returned. An MLA layer takes its own branch first, as in the JAX
+    package (the paged cache refuses MLA models)."""
     if kind == "rwkv6":
         return _apply_rwkv6(cfg, p, x, cache, mode)
     if kind not in ("dense", "moe"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     h = rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
-    if paged is not None and mode == "decode":
+    if cfg.mla is not None:
+        a_out, new_cache = attn_mod.mla_apply(cfg, p["attn"], h, positions,
+                                              cache, decode_pos)
+    elif paged is not None and mode == "decode":
         a_out = attn_mod.gqa_apply_paged(cfg, p["attn"], h, positions,
                                          is_local, paged)
         new_cache = None
@@ -172,15 +177,20 @@ def _apply_rwkv6(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
 def cache_struct(cfg: ModelConfig, kind: str, batch: int,
                  max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """One layer's decode cache, leaf name -> (shape, dtype): K/V rows
-    [B, max_len, KV, hd] for a dense layer; for rwkv6 the fp32 WKV state
-    [B, nh, hd, hd] and the token shifts [B, 1, D], which do not grow with
-    the sequence."""
+    [B, max_len, KV, hd] for a dense or moe layer, or with MLA the latent
+    rows ``c_kv`` [B, max_len, kv_lora_rank] and ``k_rope`` [B, max_len,
+    qk_rope_head_dim]; for rwkv6 the fp32 WKV state [B, nh, hd, hd] and the
+    token shifts [B, 1, D], which do not grow with the sequence."""
     dt = torch_dtype(cfg.dtype)
     if kind == "rwkv6":
         nh, hd = ssm_mod.rwkv6_dims(cfg)
         shift = ((batch, 1, cfg.d_model), dt)
         return {"S": ((batch, nh, hd, hd), torch.float32),
                 "shift1": shift, "shift2": shift}
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": ((batch, max_len, m.kv_lora_rank), dt),
+                "k_rope": ((batch, max_len, m.qk_rope_head_dim), dt)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": (shape, dt), "v": (shape, dt)}
 

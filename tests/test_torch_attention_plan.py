@@ -36,6 +36,19 @@ def test_flash_attention_path_by_dtype_and_head_dim(dtype, hd):
     assert fa.PATHS[fa.path(dtype, hd)] in (0, 1)
 
 
+@pytest.mark.parametrize("hd,dv", [(192, 128), (48, 32), (128, 192),
+                                   (192, 192), (128, 64), (64, 128)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_path_by_value_head_dim(dtype, hd, dv):
+    """With a value head dim of its own, bf16 takes the tensor cores at
+    deepseek-v2's MLA pair (192, 128) only; equal pairs keep the rule of
+    one head dim."""
+    want = "tc" if dtype == torch.bfloat16 and (hd, dv) == (192, 128) \
+        else "simt"
+    assert fa.path(dtype, hd, dv) == want
+    assert fa.path(dtype, 128, 128) == fa.path(dtype, 128)
+
+
 # ---------------------------------------------------------- paged_attention
 @pytest.mark.parametrize("hd,dtype,chunk", [
     (64, torch.bfloat16, 64), (128, torch.bfloat16, 64),

@@ -25,10 +25,14 @@ Tolerances, with their reasons:
     misaligned view against its aligned copy: bitwise; one-hot rows of x
     against a weight of distinct values: exact;
   * flash_attention: 1e-5 fp32 (online against dense softmax), 2e-2 bf16
-    (P and the output rounded to bf16); a row of a B-row call against the
-    1-row call on it, and two identical calls: bitwise; a block-local
+    (P and the output rounded to bf16), at one head dim and at a value
+    head dim of its own (MLA's 192 / 128); a row of a B-row call against
+    the 1-row call on it, and two identical calls: bitwise; a block-local
     chunk of S or more against no chunk: bitwise (the same tiles and the
     same arithmetic);
+  * mla_apply (reduced and full-width deepseek-v2 attention, bf16) on the
+    card against its CPU run: 2e-2 of the largest value (bf16 rounds at
+    other places in the two runs);
   * paged_attention: a sequence alone against the same sequence in
     batches of other lengths, and two identical calls: bitwise;
   * mmap swapped vs unswapped: bitwise (the same ops on the same bytes);
@@ -681,11 +685,12 @@ def test_swap_linear_cuda_tensor_never_runs_plain(dev, monkeypatch):
         sl.swap_linear(x, w.cpu())
 
 
-def _fa_inputs(B, S, H, KV, hd, dtype, seed, shuffled=False):
+def _fa_inputs(B, S, H, KV, hd, dtype, seed, shuffled=False, dv=None):
+    """q, k at head dim hd, v at dv (None: hd), and positions."""
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy((rng.standard_normal((B, S, n, hd)) * 0.5)
+    q, k, v = (torch.from_numpy((rng.standard_normal((B, S, n, d)) * 0.5)
                                 .astype(np.float32)).to(dtype).to("cuda")
-               for n in (H, KV, KV))
+               for n, d in ((H, hd), (KV, hd), (KV, dv or hd)))
     pos = (np.stack([rng.permutation(S) for _ in range(B)]) if shuffled
            else np.broadcast_to(np.arange(S), (B, S)))
     return q, k, v, torch.from_numpy(np.array(pos)).to("cuda")
@@ -863,7 +868,7 @@ def test_gemma_prefill_on_the_card(dev, tmp_path):
         sl.launches.reset()
         logits, _ = sm.forward(batch)
         assert fa.launches.count == cfg.n_layers
-        assert sorted(k[7] or 0 for k in fa.launches.by_shape) == [0, 24]
+        assert sorted(k[8] or 0 for k in fa.launches.by_shape) == [0, 24]
         assert sl.launches.count == 7 * cfg.n_layers
         assert torch.equal(logits, sm.forward_unswapped(batch))
     finally:
@@ -1084,3 +1089,148 @@ def test_vgg_swapped_on_the_card(dev, tmp_path, kind):
         sw.close()
     assert out.is_cuda and tuple(out.shape) == (4, 100)
     assert st["peak_resident_mb"] * 1e6 <= 24 << 20
+
+
+# (B, S, H, KV, shuffled positions): MLA's (hd 192, dv 128) on the tensor
+# cores at S around the 64-key and 128-row tiles and at phase 11's 4,096
+FA_MLA_CASES = [(2, 1, 16, 16, False), (2, 63, 16, 16, False),
+                (2, 64, 16, 16, False), (2, 65, 16, 16, False),
+                (2, 300, 16, 16, False), (1, 4096, 16, 16, False),
+                (2, 300, 16, 16, True), (2, 129, 8, 2, False)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,shuffled", FA_MLA_CASES)
+def test_flash_attention_mla_pair_on_the_tensor_cores(dev, B, S, H, KV,
+                                                      shuffled):
+    """bf16 q, k at 192 and v at 128 take the tensor cores: the launch
+    carries dv, the output is [B, S, H, 128] within 2e-2 of the plain
+    version, and a repeated call gives the same bits."""
+    assert fa.path(torch.bfloat16, 192, 128) == "tc"
+    q, k, v, pos = _fa_inputs(B, S, H, KV, 192, torch.bfloat16, 80 + S,
+                              shuffled, dv=128)
+    kw = dict(scale=192 ** -0.5)
+    fa.launches.reset()
+    got = fa.flash_attention(q, k, v, pos, **kw)
+    assert list(fa.launches.by_shape) == [
+        (B, S, H, KV, 192, 128, "bfloat16", True, None, None, None)]
+    want = fa.flash_attention_plain(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (B, S, H, 128)
+    assert bool(torch.isfinite(got).all()), S
+    assert _rel(got, want) <= TOL[torch.bfloat16], (B, S, H, KV)
+    assert torch.equal(got, fa.flash_attention(q, k, v, pos, **kw))
+
+
+# (B, S, H, KV, hd, dv, dtype): the CUDA cores at a value head dim of its
+# own: MLA's pair in fp32, the reduced config's (48, 32) in both dtypes,
+# GQA (KV < H), and dv above hd
+FA_DV_CASES = [(2, 129, 16, 16, 192, 128, torch.float32),
+               (2, 37, 4, 4, 48, 32, torch.float32),
+               (2, 37, 4, 4, 48, 32, torch.bfloat16),
+               (1, 200, 8, 2, 192, 128, torch.float32),
+               (2, 65, 4, 1, 32, 64, torch.float32),
+               (1, 100, 8, 2, 80, 256, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 7, None), (False, None, None),
+    (True, 64, 30.0)])
+@pytest.mark.parametrize("B,S,H,KV,hd,dv,dtype", FA_DV_CASES)
+def test_flash_attention_dv_on_the_cuda_cores(dev, B, S, H, KV, hd, dv,
+                                              dtype, causal, window,
+                                              softcap):
+    assert fa.path(dtype, hd, dv) == "simt"
+    q, k, v, pos = _fa_inputs(B, S, H, KV, hd, dtype, hd + dv, dv=dv)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    got = fa.flash_attention(q, k, v, pos, **kw)
+    want = fa.flash_attention_plain(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (B, S, H, dv)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL[dtype], (B, S, H, KV, hd, dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_dv_rows_do_not_depend_on_the_batch(dev, dtype):
+    """At (192, 128), on either kernel: row b of a 4-row call equals the
+    1-row call on that row bitwise."""
+    q, k, v, pos = _fa_inputs(4, 200, 16, 16, 192, dtype, 11, dv=128)
+    kw = dict(scale=192 ** -0.5, window=64)
+    full = fa.flash_attention(q, k, v, pos, **kw)
+    for b in range(4):
+        one = fa.flash_attention(q[b:b + 1].contiguous(),
+                                 k[b:b + 1].contiguous(),
+                                 v[b:b + 1].contiguous(), pos[b:b + 1], **kw)
+        assert torch.equal(full[b:b + 1], one), b
+
+
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_mla_apply_on_the_card_matches_cpu(dev, width):
+    """deepseek-v2's MLA in bf16 (full width: hd 192 / dv 128 on the
+    tensor cores, wq and wo through swap_linear), prefill of 40 tokens and
+    two absorbed decode steps on the card, against the same calls on the
+    CPU."""
+    from repro_torch.models import attention
+    from repro_torch.models.params import init_from_defs
+    cfg = get_arch("deepseek-v2-lite-16b")
+    if width == "reduced":
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    p_cpu = {k: v.to(torch.bfloat16) for k, v in init_from_defs(
+        attention.mla_defs(cfg), 0, device=torch.device("cpu")).items()}
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    B, S, L = 2, 40, 48
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((B, S + 2, cfg.d_model))
+                         .astype(np.float32)).to(torch.bfloat16)
+    outs = {}
+    for name, p, d in (("cpu", p_cpu, torch.device("cpu")),
+                       ("cuda", p_dev, dev)):
+        pos = torch.arange(S, device=d).expand(B, S)
+        fa.launches.reset()
+        y, c = attention.mla_apply(cfg, p, x[:, :S].to(d), pos, None, None)
+        if name == "cuda":
+            m = cfg.mla
+            hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+            assert [k[4:6] for k in fa.launches.by_shape] == [
+                (hd, m.v_head_dim)]
+        c = {k: torch.nn.functional.pad(v, (0, 0, 0, L - S))
+             for k, v in c.items()}
+        ys = [y]
+        for t in (S, S + 1):
+            dpos = torch.full((B,), t, dtype=torch.long, device=d)
+            yt, c = attention.mla_apply(cfg, p, x[:, t:t + 1].to(d),
+                                        dpos[:, None], c, dpos)
+            ys.append(yt)
+        outs[name] = [a.float().cpu() for a in ys] + [
+            c[k].float().cpu() for k in sorted(c)]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= TOL[torch.bfloat16]
+
+
+def test_deepseek_prefill_on_the_card(dev, tmp_path):
+    """Reduced deepseek-v2-lite (2 MLA + moe layers, hd 48 / dv 32)
+    swapped on mmap on the card: bitwise equal to the unswapped forward,
+    flash_attention once per layer at (48, 32), swap_linear 5 times a
+    layer (wq, wo and the shared expert's three)."""
+    cfg = dataclasses.replace(get_arch("deepseek-v2-lite-16b").reduced(),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+    sm = SwappedModel(model, params, str(tmp_path))
+    try:
+        sm.partition(5 * 1024 * 1024, DelayModel(), 2, 20)
+        fa.launches.reset()
+        sl.launches.reset()
+        logits, _ = sm.forward(batch)
+        assert fa.launches.count == cfg.n_layers
+        assert {k[4:6] for k in fa.launches.by_shape} == {(48, 32)}
+        assert sl.launches.count == 5 * cfg.n_layers
+        assert torch.equal(logits, sm.forward_unswapped(batch))
+    finally:
+        sm.close()
+    assert bool(torch.isfinite(logits).all())
