@@ -87,7 +87,7 @@ Phases, each printing its wall time:
    8,704-token prompt, bitwise equal to the unswapped forward, with
    ``flash_attention`` at chunk 8192 on layers 0-2 and none on layer 3
    and ``swap_linear`` seven times a layer; then two paged generations
-   (prompts of 40 and 100 tokens, 3 new each) through the batch engine
+   (prompts of 40 and 100 tokens, 2 new each) through the batch engine
    on the same store and budget, equal to each request served alone;
 10. the paper's conv workloads (``models/vision.py``'s sims at their own
    layer lists, batch 4, random weights from a seed) through
@@ -123,12 +123,32 @@ Phases, each printing its wall time:
    ``Model.decode_step``'s absorbed decode, and in bf16, where they must
    lie within 5e-2 of the fp32 engine's for each prompt whose last token
    is routed alike at every layer (each layer's flips printed; the
-   absorbed decode's bf16 gap printed).
+   absorbed decode's bf16 gap printed);
+12. zamba2-7b's hybrid stack at its published widths (Mamba2 d_state 64,
+   head_dim 64, expand 2, chunk 128; one shared attention block of 32
+   heads of 112 and d_ff 14,336; vocab 32,000, tied), depth cut 81 -> 18
+   (15 Mamba2 layers, the shared block at 5, 11 and 17), seed-0 fp32
+   weights drawn on the card: one 6.4 GB mmap store (under
+   ``build/phase12``, removed after) holding the shared block once, at
+   least 2.32x over its ledger budget: the plan budget 1.1x the smallest
+   at which the planner packs it at m = 2, the ledger's that plus the
+   pinned shared unit's bytes. A warm and a timed swapped prefill of one
+   4,096-token prompt, bitwise equal to the unswapped forward, with
+   ``flash_attention`` once a shared occurrence at hd 112 (the CUDA-core
+   kernel) and ``swap_linear`` at the shared block's 7 linears and each
+   Mamba2 ``wo``; the shared unit read from the store at most once a pass,
+   its later occurrences cache hits, only its bytes charged after the
+   pass; then ``decode_loop`` (2 prompts of 4 tokens, 2 new), each step's
+   logits bitwise ``Model.decode_step``'s on the card, and the state bytes
+   a sequence beside the shared block's K/V a token; then
+   ``ServingEngine`` on the same prompts in fp32, its first new token's
+   logits within 1e-4 of ``Model.decode_step`` fed the prompt token by
+   token, and in bf16 (its gap to the fp32 engine printed).
 
-Every full-precision linear of phases 3 to 11 runs ``swap_linear`` and
+Every full-precision linear of phases 3 to 12 runs ``swap_linear`` and
 every prefill's attention ``flash_attention``; the quantized stores' lazy
 linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
-Every shape phases 7 to 11 launch a kernel at is one of phase 2's rows,
+Every shape phases 7 to 12 launch a kernel at is one of phase 2's rows,
 held against the plain version there and timed; the script checks it.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
@@ -327,7 +347,9 @@ P8_WORKDIR = ROOT / "build" / "phase8"
 LLAMA_LAYERS = 4
 LLAMA_PROMPT, LLAMA_CHUNK = 8704, 8192
 LLAMA_SCALE = 128 ** -0.5
-LLAMA_PAGED_PROMPTS, LLAMA_PAGED_NEW = [40, 100], 3
+# 2 new tokens each: one batched decode step of 43.5 GB, which keeps the
+# smoke inside its time limit
+LLAMA_PAGED_PROMPTS, LLAMA_PAGED_NEW = [40, 100], 2
 LLAMA_MAX_PAGES = 16                   # 3 + 7 pages live at the last step
 P9_M = 2
 P9_GRID = 10 ** 8                      # budget search step, 0.1 GB
@@ -351,6 +373,25 @@ DS_MIN_RATIO = 2.32
 # result (PERF.md), and a routing flip moves it far more
 DS_BF16_TOL = 5e-2
 P11_WORKDIR = ROOT / "build" / "phase11"
+
+# phase 12: zamba2-7b at its published widths, depth cut 81 -> 18 (15
+# Mamba2 layers, the shared attention block at positions 5, 11 and 17):
+# one 4,096-token prompt (32 SSD chunks of 128) swapped under a plan
+# budget found as phase 9 finds its own and a ledger budget of that plus
+# the pinned shared unit's bytes (what ``MultiModelRuntime.block_budget``
+# reserves; a lone model's planner does not), the store at least 2.32x
+# over the ledger budget; then weight-streaming decode and the in-memory
+# engine on 2 x 4 tokens
+Z_LAYERS = 18
+Z_PROMPT = 4096
+Z_SCALE = 112 ** -0.5
+Z_BATCH, Z_DECODE_PROMPT, Z_DECODE_NEW = 2, 4, 2
+Z_MIN_RATIO = 2.32
+# the fp32 engine's first-token logits (chunked SSD, flash_attention over
+# the prompt) against the step-by-step decode: the reference's own chunked
+# vs naive tolerance (tests/test_ssm_reference.py)
+Z_ENGINE_TOL = 1e-4
+P12_WORKDIR = ROOT / "build" / "phase12"
 
 # phase 10: the paper's conv workloads (``repro_torch.models.vision``'s
 # sims at their own layer lists). The three fleets (model i's weights from
@@ -1216,7 +1257,8 @@ def fp_layer_linears(cfg):
     return [k + (b,) for k, b in out.items()]
 
 
-def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, conv_path):
+def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg,
+                      conv_path):
     """Phase 2 for B5: the kernel against its plain version over ragged
     shapes and qwen2.5-3b's linears at decode and prefill, then timed at
     the main paths' shapes (phase 10's from ``conv_path``). Returns the
@@ -1293,6 +1335,13 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, conv_path):
     timed += [(f"{dcfg.name}", M, "bfloat16", s)
               for M in (DS_PROMPT, DS_BATCH * DS_DECODE_PROMPT, DS_BATCH)
               for s in fp_layer_linears(dcfg)]
+    # phase 12: zamba2-7b's 4,096-token prefill, the engine's 2 x 4-token
+    # prefill and the decode steps at 2 sequences: the shared attention
+    # block's linears and each Mamba2 layer's wo (d_inner 7168 -> 3584)
+    z_wo = (zcfg.ssm.expand * zcfg.d_model, zcfg.d_model, "none", False)
+    timed += [(f"{zcfg.name}", M, "bfloat16", s)
+              for M in (Z_PROMPT, Z_BATCH * Z_DECODE_PROMPT, Z_BATCH)
+              for s in fp_layer_linears(zcfg) + [z_wo]]
     # phase 10: the conv workloads' fc layers and the fc stack, fp32
     timed += [(label, M, "float32", (K, N, "none", True))
               for label, (M, K, N) in conv_path["fp"]]
@@ -1408,16 +1457,25 @@ FA_TIMED += [(f"deepseek-v2-lite {what}", "bfloat16", B, S, 16, 16, 192, 128,
               DS_SCALE, None, None, None)
              for what, B, S in [("prefill", 1, DS_PROMPT),
                                 ("engine", DS_BATCH, DS_DECODE_PROMPT)]]
+# phase 12: zamba2-7b's shared attention block (32 / 32 heads of 112, the
+# CUDA-core kernel) over its 4,096-token prefill and the in-memory
+# engine's 2 x 4 prompts
+FA_TIMED += [(f"zamba2-7b {what}", "bfloat16", B, S, 32, 32, 112, 112,
+              Z_SCALE, None, None, None)
+             for what, B, S in [("prefill", 1, Z_PROMPT),
+                                ("engine", Z_BATCH, Z_DECODE_PROMPT)]]
 
 
 def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
-               window, softcap, chunk):
-    """(name, device ms) of one PyTorch call computing a timed row's
-    attention, on [B, heads, S, hd] copies made beforehand (not timed):
-    SDPA, or compiled flex_attention where the softcap needs a score_mod
-    or the chunk a block-local mask_mod. With a value head dim of its own
-    (MLA) the first of the two that takes it and agrees with the plain
-    version; (None, None) where neither does."""
+               window, softcap, chunk, flex_too=False):
+    """(name, device ms, {name: ms}) of PyTorch calls computing a timed
+    row's attention, on [B, heads, S, hd] copies made beforehand (not
+    timed): SDPA, or compiled flex_attention where the softcap needs a
+    score_mod or the chunk a block-local mask_mod. With a value head dim
+    of its own (MLA) the first of the two that takes it and agrees with
+    the plain version; (None, None) where neither does. ``flex_too`` also
+    times compiled flex_attention beside SDPA, in the dict, where it takes
+    the row and agrees (printed, not the row's library call)."""
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     G = H // KV
@@ -1457,26 +1515,34 @@ def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
     if q.shape[-1] == v.shape[-1]:
         calls = [("sdpa", sdpa_call) if softcap is None and chunk is None
                  else ("flex_attention", flex_call)]
+        if flex_too and calls[0][0] == "sdpa":
+            calls.append(("flex_attention", flex_call))
     else:
         calls = [("sdpa", sdpa_call), ("flex_attention", flex_call)]
+    found = []
     for name, make in calls:
+        extra = bool(found)         # flex_too's call: printed, never held
         try:
             lib = make()
             _, lrel = rel_err(torch, lib().transpose(1, 2), want)
         except (RuntimeError, ValueError, NotImplementedError) as e:
-            require(q.shape[-1] != v.shape[-1], f"flash_attention library "
-                    f"yardstick {name} {label} S={S}: {e}")
-            print(f"  flash_attention {label}: {name} does not take dv != "
-                  f"hd ({type(e).__name__}: {str(e)[:120]})", flush=True)
+            require(q.shape[-1] != v.shape[-1] or extra, f"flash_attention "
+                    f"library yardstick {name} {label} S={S}: {e}")
+            print(f"  flash_attention {label}: {name} does not take this "
+                  f"row ({type(e).__name__}: {str(e)[:120]})", flush=True)
             continue
-        if q.shape[-1] != v.shape[-1] and lrel > TOL[dname]:
+        if (q.shape[-1] != v.shape[-1] or extra) and lrel > TOL[dname]:
             print(f"  flash_attention {label}: {name} disagrees with the "
-                  f"plain version at dv != hd (rel {lrel:.3g})", flush=True)
+                  f"plain version (rel {lrel:.3g})", flush=True)
             continue
         require(lrel <= TOL[dname], f"flash_attention library yardstick "
                 f"{label} S={S}: {lrel:.3g}")
-        return name, time_ms(torch, lib)
-    return None, None
+        found.append((name, time_ms(torch, lib)))
+        if not flex_too:
+            break
+    if not found:
+        return None, None, {}
+    return found[0][0], found[0][1], dict(found[1:])
 
 
 def check_flash_attention(torch):
@@ -1493,8 +1559,9 @@ def check_flash_attention(torch):
              (True, None, 50.0, None), (False, None, None, None),
              (True, 64, 30.0, None), (True, None, None, 48),
              (True, 20, 50.0, 64)]
-    # (B, S, H, KV, hd, dv, scale, shuffled positions); the last two are
-    # deepseek-v2's MLA (q, k at 192, v at 128) and its reduced (48, 32)
+    # (B, S, H, KV, hd, dv, scale, shuffled positions); then deepseek-v2's
+    # MLA (q, k at 192, v at 128), its reduced (48, 32) and zamba2's shared
+    # block (32 / 32 heads of 112)
     shapes = [(1, 256, 4, 2, 64, 64, None, False),
               (BATCH, PROMPT, 16, 2, 128, 128, QWEN_SCALE, False),
               (1, 37, 16, 2, 128, 128, QWEN_SCALE, False),
@@ -1504,7 +1571,8 @@ def check_flash_attention(torch):
               (1, 100, 8, 1, 120, 120, None, False),
               (2, 129, 4, 4, 64, 64, None, True),
               (1, 300, 16, 16, 192, 128, DS_SCALE, False),
-              (2, 37, 4, 4, 48, 32, None, True)]
+              (2, 37, 4, 4, 48, 32, None, True),
+              (1, 300, 32, 32, 112, 112, Z_SCALE, False)]
     n_checked, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
     for i, (B, S, H, KV, hd, dv, scale, shuffled) in enumerate(shapes):
         for dname, dt in dts.items():
@@ -1564,7 +1632,8 @@ def check_flash_attention(torch):
              (300, 40, 8, 128, 128, "bfloat16", {"chunk": 128}),
              (300, 40, 8, 128, 128, "float32", {"chunk": 128}),
              (200, 16, 16, 192, 128, "bfloat16", {}),
-             (200, 16, 16, 192, 128, "float32", {})]):
+             (200, 16, 16, 192, 128, "float32", {}),
+             (200, 32, 32, 112, 112, "bfloat16", {})]):
         q, k, v, pos = fa_inputs(torch, 500 + i, 4, S, H, KV, hd, dts[dname],
                                  dv=dv)
         kw = dict(scale=hd ** -0.5, **(masked or {"window": 64,
@@ -1609,8 +1678,12 @@ def check_flash_attention(torch):
         k_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, pos, **kw))
         p_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, pos,
                                                                **kw))
-        lib_name, l_ms = fa_library(torch, q, k, v, want, label, dname, B, S,
-                                    H, KV, scale, window, softcap, chunk)
+        # a long CUDA-core bf16 prefill (zamba2's hd 112) is also timed
+        # beside compiled flex_attention (a compile of its own)
+        lib_name, l_ms, also = fa_library(
+            torch, q, k, v, want, label, dname, B, S, H, KV, scale, window,
+            softcap, chunk, flex_too=(dname == "bfloat16" and S >= 1024
+                                      and fa.path(dt, hd, dv) == "simt"))
         es = q.element_size()
         nbytes = ((B * S * H * hd + B * S * KV * hd + B * S * KV * dv
                    + B * S * H * dv) * es + B * S * 4)
@@ -1631,11 +1704,12 @@ def check_flash_attention(torch):
             "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": l_ms, "library_call": lib_name,
-            "path": fa.path(dt, hd, dv)})
+            "also": also, "path": fa.path(dt, hd, dv)})
         del q, k, v, got, want
     for r in rows:
         lib = ("none takes dv != hd" if r["library_ms"] is None else
-               f"{r['library_ms']:.4f} ms ({r['library_call']})")
+               f"{r['library_ms']:.4f} ms ({r['library_call']})"
+               + "".join(f", {n} {ms:.4f} ms" for n, ms in r["also"].items()))
         print(f"  flash_attention {r['shape']:78s} ({r['path']}) kernel "
               f"{r['ms']:.4f} ms{earlier(r)}  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  bound {r['bound_ms']:.4f} ms "
@@ -1808,21 +1882,30 @@ def run_slice(torch, cfg, model, params, main_launches):
 
 # ---------------------------------------------------------------- paged
 def resident_params(torch, sm, unit_params):
-    """The model's param tree (on the card) from per-unit params, e.g. the
-    quantized store's per-unit round trip: the in-memory reference of a
-    swapped quantized model. The head unit's own ``lm_head`` is kept (the
-    store quantizes the tied head per vocab column, not the embedding)."""
+    """The model's param tree (on the card) from per-unit params aligned
+    with ``sm.units``, e.g. the quantized store's per-unit round trip: the
+    in-memory reference of a swapped quantized model. Each scanned
+    segment's layers are stacked; a shared attention block's segments hold
+    ``{}`` and its params sit once under ``shared_attn``. The head unit's
+    own ``lm_head`` is kept (the store quantizes the tied head per vocab
+    column, not the embedding)."""
     from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
-    by_kind = {u.kind: p for u, p in zip(sm.units, unit_params)
-               if u.kind in ("embed", "head")}
-    layers = [p for u, p in zip(sm.units, unit_params)
-              if u.layer_id is not None]
-    flat = [tree_flatten(p) for p in layers]
-    stacked = tree_unflatten(flat[0][1], [torch.stack(ls) for ls in
-                                          zip(*(f[0] for f in flat))])
+    by_kind = {u.kind: p for u, p in zip(sm.units, unit_params)}
+    by_lid = {u.layer_id: p for u, p in zip(sm.units, unit_params)
+              if u.layer_id is not None}
+    segs = []
+    for seg in sm.model.plan:
+        if not seg.scanned:
+            segs.append({})
+            continue
+        flat = [tree_flatten(by_lid[lid]) for lid in seg.layer_ids]
+        segs.append(tree_unflatten(flat[0][1], [
+            torch.stack(ls) for ls in zip(*(f[0] for f in flat))]))
     tree = {"embed": by_kind["embed"]["embed"],
             "final_norm": by_kind["head"]["final_norm"],
-            "lm_head": by_kind["head"]["lm_head"], "segments": [stacked]}
+            "lm_head": by_kind["head"]["lm_head"], "segments": segs}
+    if "shared_attn" in by_kind:
+        tree["shared_attn"] = by_kind["shared_attn"]
     return tree_map(lambda a: a.to("cuda"), tree)
 
 
@@ -3049,7 +3132,7 @@ def run_mcu(torch, model, params, main_launches, device="cuda"):
     prof, plan = calibrate_model(model, params, fidelity=rtc.fidelity,
                                  method="output", name=name,
                                  prefetch_depth=rtc.prefetch_depth,
-                                 device=device)
+                                 device="cuda")
     counts["calibration"] = collect()
     secs["calibration"] = time.perf_counter() - t0
     units = split_units(model, params)
@@ -3120,7 +3203,7 @@ def run_mcu(torch, model, params, main_launches, device="cuda"):
     calibrate.calibrate_model = spy
     reset()
     try:
-        rt = MultiModelRuntime.from_config(cfg8, device=device)
+        rt = MultiModelRuntime.from_config(cfg8, device="cuda")
         sm = rt.add_model(name, model, params, str(P8_WORKDIR))
         rt.plan(batch=wl.requests, seq=wl.prompt_len)
     finally:
@@ -3308,7 +3391,7 @@ def run_mcu(torch, model, params, main_launches, device="cuda"):
         t0 = time.perf_counter()
         target = p8_mixed_target(prof, rtc.fidelity)
         mixed = calibrate.assign_precisions(prof, target)
-        rt = MultiModelRuntime.from_config(cfg8, device=device)
+        rt = MultiModelRuntime.from_config(cfg8, device="cuda")
         try:
             reset()
             sm = rt.add_model(name, model, params, str(P8_WORKDIR / "b"),
@@ -3380,17 +3463,21 @@ def p9_floor_budget(model, params, batch, seq) -> int:
             require(b < 10 ** 12, "phase 9: no feasible budget below 1 TB")
 
 
-def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag) -> int:
+def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag,
+                  ledger_budget=None) -> int:
     """Plan a built store for one ``seq``-token prompt under ``budget``
-    (the ledger enforces it) after checking ``floor`` against the store:
-    m = P9_M there, not a grid step below it (where the planner degrades
-    the pipeline or fails). The host copies of the units then go: the
-    store is the weights' only home, so the page cache can hold its
-    files. Returns the store's resident bytes."""
+    after checking ``floor`` against the store: m = P9_M there, not a grid
+    step below it (where the planner degrades the pipeline or fails). The
+    ledger enforces ``ledger_budget`` (None: ``budget``). The host copies
+    of the units then go: the store is the weights' only home, so the page
+    cache can hold its files. Returns the store's resident bytes (a shared
+    unit's once)."""
     from repro_torch.core.cost_model import DelayModel
     from repro_torch.tree import tree_map
-    resident = sum(sm.store.resident_nbytes(u.name) for u in sm.units)
-    sm.engine.ledger.budget = budget
+    names = list(dict.fromkeys(u.name for u in sm.units))
+    resident = sum(sm.store.resident_nbytes(n) for n in names)
+    ledger_budget = budget if ledger_budget is None else ledger_budget
+    sm.engine.ledger.budget = ledger_budget
     sm.partition(floor, DelayModel(), 1, seq)
     at_floor = sm.plan.m
     try:
@@ -3401,12 +3488,16 @@ def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag) -> int:
     sm.partition(budget, DelayModel(), 1, seq)
     print(f"[{tag}] store of {resident / 1e9:.3f} GB built in "
           f"{store_s:.1f} s; units (GB): " + ", ".join(
-              f"{u.name} {sm.store.resident_nbytes(u.name) / 1e9:.3f}"
-              for u in sm.units), flush=True)
+              f"{n} {sm.store.resident_nbytes(n) / 1e9:.3f}"
+              for n in names), flush=True)
+    ledger = ("" if ledger_budget == budget else
+              f"; ledger budget {ledger_budget / 1e9:.3f} GB (+ the pinned "
+              f"units' {(ledger_budget - budget) / 1e9:.3f} GB)")
     print(f"[{tag}] budget {budget / 1e9:.3f} GB = "
           f"{P9_BUDGET_OVER_FLOOR} x the smallest feasible "
-          f"{floor / 1e9:.1f} GB at m = {P9_M}; resident / budget "
-          f"{resident / budget:.3f}; blocks={sm.plan.n_blocks} "
+          f"{floor / 1e9:.1f} GB at m = {P9_M}{ledger}; resident / "
+          f"{'ledger ' if ledger else ''}budget "
+          f"{resident / ledger_budget:.3f}; blocks={sm.plan.n_blocks} "
           f"{sm.plan.points} m={sm.plan.m}", flush=True)
     require(sm.plan.m == P9_M, f"{tag}: planned m={sm.plan.m}")
     require(at_floor == P9_M and below != P9_M,
@@ -3882,6 +3973,313 @@ def run_deepseek(torch, main_launches):
     finally:
         sm.close()
         shutil.rmtree(P11_WORKDIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["by_shape"] = {
+        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
+               if n > before[name].get(k, 0)}
+        for name, keys in main_launches.items()}
+    return out
+
+
+# ---------------------------------------------------------------- zamba2
+def run_zamba2(torch, main_launches):
+    """Phase 12: zamba2-7b's hybrid stack at its published widths, 18
+    layers (15 Mamba2, the shared attention block at 5, 11 and 17),
+    swapped from one fp32 mmap store at least 2.32x over its ledger
+    budget: (a) a 4,096-token prefill bitwise equal to the unswapped
+    forward (B4 once a shared occurrence at hd 112, B5 at the shared
+    block's 7 linears and each Mamba2 ``wo``), the shared unit read from
+    the store at most once a pass and pinned, its later occurrences cache
+    hits, only its bytes charged after the pass; (b) ``decode_loop`` on
+    the same store, each step's logits bitwise those of
+    ``Model.decode_step`` on the card; (c) ``ServingEngine`` on the same
+    prompts: in fp32 its first new token's logits (chunked SSD and B4 over
+    the prompt) within 1e-4 of ``Model.decode_step`` fed the prompt token
+    by token; in bf16 its gap to the fp32 engine printed."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime import SwappedModel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.ssm import mamba2_dims
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    reset, collect = launch_counting(main_launches)
+    before = {name: dict(keys) for name, keys in main_launches.items()}
+    cfg = dataclasses.replace(get_arch("zamba2-7b"), n_layers=Z_LAYERS)
+    s = cfg.ssm
+    d_inner, nh, ds = mamba2_dims(cfg)
+    kinds = cfg.layer_kinds()
+    n_shared = kinds.count("shared_attn")
+    n_mamba = kinds.count("mamba2")
+    hd = cfg.resolved_head_dim
+    print(f"model: {cfg.name} d_model {cfg.d_model}, shared attention "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {hd}, d_ff "
+          f"{cfg.d_ff} at positions "
+          f"{[i for i, k in enumerate(kinds) if k == 'shared_attn']}; "
+          f"Mamba2 d_state {ds}, head_dim {s.head_dim} ({nh} heads, "
+          f"d_inner {d_inner}), d_conv {s.d_conv}, chunk {s.chunk}; vocab "
+          f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, {cfg.dtype}; "
+          f"reduced: n_layers 81->{cfg.n_layers}", flush=True)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = host_copy(torch, model.init(0, device="cuda"))
+    n_params = sum(p.numel() for p in _leaves(params))
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    init_s = time.perf_counter() - t0
+    P12_WORKDIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(P12_WORKDIR.parent).free
+    print(f"params: {n_params / 1e9:.3f} B, {n_bytes / 1e9:.2f} GB (fp32, "
+          f"host; the shared block once), init on the card and copied down "
+          f"in {init_s:.1f} s; {free / 1e9:.1f} GB free under build/",
+          flush=True)
+    require(free > 1.1 * n_bytes, f"phase 12: {free / 1e9:.1f} GB free, the "
+            f"store needs {n_bytes / 1e9:.1f} GB")
+    floor = p9_floor_budget(model, params, 1, Z_PROMPT)
+    budget = int(P9_BUDGET_OVER_FLOOR * floor)
+    rng = np.random.default_rng(12)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, Z_PROMPT)), dtype=torch.int32)}
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (Z_BATCH, Z_DECODE_PROMPT)).astype(np.int32)
+    tag = "phase12 zamba2-7b bf16 mmap"
+    out = {"budget": budget, "floor": floor, "params": n_params}
+    shutil.rmtree(P12_WORKDIR, ignore_errors=True)
+    t_store = time.perf_counter()
+    sm = SwappedModel(model, params, str(P12_WORKDIR), device="cuda",
+                      store_backend="mmap", prefetch_depth=P9_M)
+    try:
+        out["store_s"] = time.perf_counter() - t_store
+        pinned = sorted(sm.engine.pinned)
+        require(pinned == ["shared_attn"], f"{tag}: pinned units {pinned}")
+        shared = sm.store.resident_nbytes("shared_attn")
+        ledger_budget = budget + shared
+        resident = plan_at_floor(torch, sm, floor, budget, Z_PROMPT,
+                                 out["store_s"], tag,
+                                 ledger_budget=ledger_budget)
+        ratio = resident / ledger_budget
+        stored = len(sm.store.skeletons)
+        out.update(resident=resident, ratio=ratio, shared=shared,
+                   ledger_budget=ledger_budget)
+        require(stored == len(sm.units) - n_shared + 1,
+                f"{tag}: {stored} units stored for {len(sm.units)} "
+                f"({n_shared} shared occurrences)")
+        require(ratio >= Z_MIN_RATIO, f"{tag}: resident / ledger budget "
+                f"{ratio:.3f} < {Z_MIN_RATIO}")
+        del params
+
+        # ---- (a) the swapped prefill; every store read counted by unit
+        reads = {}
+        read_unit = sm.store.read_unit
+
+        def counted(name):
+            reads[name] = reads.get(name, 0) + 1
+            return read_unit(name)
+        sm.store.read_unit = counted
+        try:
+            t0 = time.perf_counter()
+            sm.forward(batch)                                      # warm
+            warm_s = time.perf_counter() - t0
+            warm_reads = dict(reads)
+            reads.clear()
+            sm.engine.stats.__init__()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            logits, st = sm.forward(batch)
+            counts = collect()
+        finally:
+            del sm.store.read_unit
+        max_alloc = torch.cuda.max_memory_allocated()
+        es = sm.engine.stats
+        want_key = (1, Z_PROMPT, cfg.n_heads, cfg.n_kv_heads, hd, hd,
+                    cfg.dtype, True, None, None, None)
+        launched = dict(fa.launches.by_shape)
+        require(counts["flash_attention"] == n_shared
+                and launched == {want_key: n_shared},
+                f"{tag}: flash_attention launches {launched}, expected "
+                f"{n_shared} at {want_key}")
+        require(counts["swap_linear"] == 7 * n_shared + n_mamba,
+                f"{tag}: swap_linear launched {counts['swap_linear']} times, "
+                f"expected {7 * n_shared + n_mamba} (the shared block's 7 "
+                f"x {n_shared}, Mamba2 wo x {n_mamba})")
+        require(counts["swap_linear_q"] == 0, f"{tag}: swap_linear_q "
+                f"launched {counts['swap_linear_q']} times")
+        require(warm_reads.get("shared_attn") == 1
+                and reads.get("shared_attn", 0) <= 1,
+                f"{tag}: the shared unit read {warm_reads.get('shared_attn')}"
+                f" times in the warm pass, {reads.get('shared_attn', 0)} in "
+                f"the timed one")
+        require(es.cache_hits >= n_shared - reads.get("shared_attn", 0)
+                and st["cache_hit_rate"] > 0,
+                f"{tag}: {es.cache_hits} cache hits, rate "
+                f"{st['cache_hit_rate']:.3f}")
+        require(es.peak_resident <= ledger_budget,
+                f"{tag}: peak ledger {es.peak_resident} over the ledger "
+                f"budget {ledger_budget}")
+        require(sm.engine.ledger.resident == shared,
+                f"{tag}: {sm.engine.ledger.resident} B charged after the "
+                f"pass, the shared unit holds {shared}")
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (1, 1, cfg.vocab_size),
+                f"{tag}: logits {tuple(logits.shape)}, finite "
+                f"{bool(torch.isfinite(logits).all())}")
+        t0 = time.perf_counter()
+        stored_params = {n: sm.store.read_unit(n).params
+                         for n in dict.fromkeys(u.name for u in sm.units)}
+        units = [stored_params[u.name] for u in sm.units]
+        want = sm.forward_unswapped(batch, resident=units)
+        unswapped_s = time.perf_counter() - t0
+        require(torch.equal(logits, want),
+                f"{tag}: swapped logits != unswapped logits")
+        print(f"[{tag}] swapped logits == unswapped logits bitwise (1 x "
+              f"{Z_PROMPT} tokens, {cfg.n_layers} layers at published "
+              f"widths,"
+              f" the unswapped model holding all {resident / 1e9:.1f} GB; "
+              f"{unswapped_s:.1f} s); flash_attention x {n_shared} at "
+              f"{want_key[:7]}; the shared unit read "
+              f"{warm_reads['shared_attn']} x in the warm pass and {reads.get('shared_attn', 0)}"
+              f" x in the timed one, {es.cache_hits} cache hits (rate "
+              f"{st['cache_hit_rate']:.3f}), {sm.engine.ledger.resident} B "
+              f"charged after the pass (the shared unit's {shared}); warm "
+              f"pass {warm_s:.1f} s; launches {counts}", flush=True)
+        out["prefill"] = report_prefill(tag, sm, st, ledger_budget,
+                                        resident, max_alloc)
+        out["prefill"].update(warm_s=warm_s, reads=reads,
+                              cache_hits=es.cache_hits)
+        dev_params = resident_params(torch, sm, units)
+        del units, stored_params
+
+        # ---- (b) weight-streaming decode, each step's logits recorded
+        steps = []
+        head = sm._head_logits
+
+        def recording(uparams, h):
+            r = head(uparams, h)
+            steps.append(r)
+            return r
+        sm._head_logits = recording
+        L = Z_DECODE_PROMPT + Z_DECODE_NEW
+        t0 = time.perf_counter()
+        reset()
+        try:
+            gen, dstats = sm.decode_loop(
+                torch.from_numpy(prompts), max_new_tokens=Z_DECODE_NEW,
+                max_len=L)
+        finally:
+            del sm._head_logits
+        dcounts = collect()
+        decode_s = time.perf_counter() - t0
+        passes = L - 1
+        require(tuple(gen.shape) == (Z_BATCH, Z_DECODE_NEW)
+                and len(steps) == passes,
+                f"{tag}: decode {tuple(gen.shape)}, {len(steps)} steps")
+        require(dcounts["flash_attention"] == 0
+                and dcounts["swap_linear"]
+                == (7 * n_shared + n_mamba) * passes,
+                f"{tag}: decode launches {dcounts}")
+        require(dstats["peak_resident_mb"] * 1e6 <= ledger_budget,
+                f"{tag}: decode peak ledger over the ledger budget")
+        fed = np.concatenate([prompts, gen[:, :-1].cpu().numpy()], axis=1)
+        cache = model.alloc_cache(Z_BATCH, L, device="cuda")
+        for t in range(passes):
+            step_logits, cache = model.decode_step(dev_params, cache, {
+                "token": torch.as_tensor(fed[:, t:t + 1]).to("cuda"),
+                "pos": torch.full((Z_BATCH,), t, dtype=torch.long,
+                                  device="cuda")})
+            require(torch.equal(step_logits, steps[t]),
+                    f"{tag}: decode step {t} logits != Model.decode_step's")
+        structs = model.cache_struct(1, 1)
+        mamba = next(c for c, seg in zip(structs, model.plan)
+                     if seg.kind == "mamba2")
+        attn = next(c for c, seg in zip(structs, model.plan)
+                    if seg.kind == "shared_attn")
+
+        def nbytes(shape, dt):
+            return int(np.prod(shape)) * torch.empty(
+                (), dtype=dt).element_size()
+        h_b = nbytes(mamba["h"][0][1:], mamba["h"][1])       # one layer
+        conv_b = nbytes(mamba["conv"][0][1:], mamba["conv"][1])
+        kv_b = sum(nbytes(*attn[k]) for k in ("k", "v"))      # a token
+        print(f"[phase12 decode] {Z_BATCH} prompts x {Z_DECODE_PROMPT} "
+              f"tokens, {Z_DECODE_NEW} new: {gen.tolist()}; {passes} "
+              f"swapped passes in {decode_s:.1f} s, each step's logits == "
+              f"Model.decode_step's bitwise; state a sequence: {h_b} B of h "
+              f"and {conv_b} B of conv per Mamba2 layer ({n_mamba} layers: "
+              f"{n_mamba * (h_b + conv_b)} B, whatever the length) against "
+              f"{kv_b} B of K/V a token per shared occurrence ({n_shared}: "
+              f"{n_shared * kv_b} B a token); launches {dcounts}", flush=True)
+        out["decode"] = {"tokens": gen.tolist(), "wall_s": decode_s,
+                         "h_bytes": h_b, "conv_bytes": conv_b,
+                         "kv_bytes_a_token": kv_b, "launches": dcounts}
+
+        # ---- (c) the in-memory engine: chunked SSD and flash_attention over
+        # the prompt, held in fp32 to the step-by-step decode of the prompt
+        def engine_first(mdl):
+            """The engine's first-token logits [B, 1, V] and its tokens."""
+            first = []
+            prefill = mdl.prefill
+
+            def recording_prefill(p, b):
+                r = prefill(p, b)
+                first.append(r[0])
+                return r
+            mdl.prefill = recording_prefill
+            reqs = [Request(i, list(map(int, p)),
+                            max_new_tokens=Z_DECODE_NEW)
+                    for i, p in enumerate(prompts)]
+            try:
+                ServingEngine(mdl, dev_params, max_len=L,
+                              device="cuda").generate(reqs)
+            finally:
+                del mdl.prefill
+            require(len(first) == 1, f"{tag}: {len(first)} engine prefills")
+            return first[0], [r.output for r in reqs]
+
+        t0 = time.perf_counter()
+        reset()
+        first16, etokens = engine_first(model)
+        ecounts = collect()
+        engine_s = time.perf_counter() - t0
+        require(ecounts["flash_attention"] == n_shared
+                and bool(torch.isfinite(first16).all())
+                and tuple(first16.shape) == (Z_BATCH, 1, cfg.vocab_size),
+                f"{tag}: engine launches {ecounts}, logits "
+                f"{tuple(first16.shape)}")
+        model32 = Model(dataclasses.replace(cfg, dtype="float32"))
+        first32, etokens32 = engine_first(model32)
+        cache = model32.alloc_cache(Z_BATCH, L, device="cuda")
+        for t in range(Z_DECODE_PROMPT):
+            stepped32, cache = model32.decode_step(dev_params, cache, {
+                "token": torch.as_tensor(prompts[:, t:t + 1]).to("cuda"),
+                "pos": torch.full((Z_BATCH,), t, dtype=torch.long,
+                                  device="cuda")})
+        ierr = rel_err(torch, first32, stepped32)
+        require(ierr[1] <= Z_ENGINE_TOL, f"{tag}: fp32 engine first-token "
+                f"logits vs the step-by-step decode's: rel {ierr[1]:.3g} > "
+                f"{Z_ENGINE_TOL}")
+        gap16 = rel_err(torch, first16, first32)[1]
+        print(f"[phase12 engine] bf16 ServingEngine tokens {etokens} "
+              f"(decode_loop's {gen.tolist()}); fp32 {etokens32}; "
+              f"first-token logits, chunked SSD and flash_attention over "
+              f"the prompt vs the step-by-step decode: fp32 rel "
+              f"{ierr[1]:.3g} <= {Z_ENGINE_TOL} (max abs {ierr[0]:.3g}); "
+              f"bf16 engine vs fp32 engine rel {gap16:.4g} (printed); "
+              f"bf16 engine {engine_s:.2f} s; launches {ecounts}",
+              flush=True)
+        out["engine"] = {"tokens": etokens, "tokens_fp32": etokens32,
+                         "fp32_rel_err": ierr[1], "bf16_rel_gap": gap16,
+                         "launches": ecounts}
+        del dev_params, cache
+        print(f"[phase12] wall s: init {init_s:.1f}, store "
+              f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
+              f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}, decode "
+              f"{decode_s:.1f}, engine {engine_s:.1f}", flush=True)
+    finally:
+        sm.close()
+        shutil.rmtree(P12_WORKDIR, ignore_errors=True)
     torch.cuda.empty_cache()
     out["by_shape"] = {
         name: {k: n - before[name].get(k, 0) for k, n in keys.items()
@@ -4414,6 +4812,9 @@ def main() -> int:
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / "compile_cache" / sub))
+    # each timed row recompiles flex_attention for its shape and mask: past
+    # dynamo's default limit of 8 a function runs uncompiled
+    torch._dynamo.config.recompile_limit = 64
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
@@ -4466,7 +4867,7 @@ def main() -> int:
         rows += check_swap_linear(torch, cfg, gcfg, get_arch("rwkv6-3b"),
                                   get_arch("llama4-scout-17b-a16e"),
                                   get_arch("deepseek-v2-lite-16b"),
-                                  conv_path)
+                                  get_arch("zamba2-7b"), conv_path)
         rows += check_flash_attention(torch)
 
     from repro_torch.models.transformer import Model
@@ -4559,10 +4960,19 @@ def main() -> int:
             for name, keys in p11["by_shape"].items()
             for k, n in sorted(keys.items(), key=str)), flush=True)
 
+    with phase("12 zamba2-7b's hybrid stack at full width, the shared "
+               "block pinned, 2.7x over budget"):
+        p12 = run_zamba2(torch, main_launches)
+        check_held(rows, p12["by_shape"], "phase 12")
+        print("phase 12 launches by held shape: " + "; ".join(
+            f"{name} {held_key(name, k)} x{n}"
+            for name, keys in p12["by_shape"].items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 11): " + ", ".join(
+    print("main-path launches (phases 3 to 12): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []
@@ -4574,6 +4984,7 @@ def main() -> int:
         r.pop("live_tokens", None)
         r.pop("path", None)
         r.pop("library_call", None)
+        r.pop("also", None)
         out.append(r)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(card, flush=True)

@@ -92,9 +92,9 @@ class PassState:
     activation, the position carrier and the index of the next block, so a
     preempted request re-executes nothing on resume. ``blocks`` and ``m``
     are snapshotted at pass start. ``caches`` (``collect_cache=True``)
-    holds each layer's prefill cache by layer id (K/V, or an rwkv6 layer's
-    final state), for a serving admit to seed the paged pool without a
-    second pass."""
+    holds each layer's prefill cache by layer id (K/V, or a recurrent
+    layer's final state), for a serving admit to seed the paged pool
+    without a second pass."""
     blocks: List[Tuple[int, int]]
     m: int = 2
     x: Any = None
@@ -113,7 +113,8 @@ class PassState:
 @dataclass
 class Unit:
     name: str
-    kind: str                 # embed | head | dense | moe | rwkv6
+    # embed | head | dense | moe | mamba2 | rwkv6 | shared_attn
+    kind: str
     layer_id: Optional[int]
     params: dict
 
@@ -122,13 +123,20 @@ def split_units(model: Model, params: dict) -> List[Unit]:
     """The paper's get_layers(Net): one-time layer-wise division. Layer
     params are views of the stacked segments. The embed unit holds every
     input-side leaf the params have (``embed``, llama4's unread
-    ``frontend`` stub), as the JAX package's does."""
+    ``frontend`` stub), as the JAX package's does. zamba2's shared block
+    gives one ``shared_attn`` unit per occurrence, all with one name and
+    one param tree (stored once, pinned by :class:`SwappedModel`), each
+    with its occurrence's layer id."""
     cfg = model.cfg
     units: List[Unit] = [Unit("embed", "embed", None,
                               {k: params[k] for k in
                                ("embed", "frontend", "mask_emb")
                                if k in params})]
     for si, seg in enumerate(model.plan):
+        if not seg.scanned:
+            units.append(Unit("shared_attn", "shared_attn", seg.layer_ids[0],
+                              params["shared_attn"]))
+            continue
         stacked = params["segments"][si]
         for j, lid in enumerate(seg.layer_ids):
             units.append(Unit(f"layer{lid:03d}_{seg.kind}", seg.kind, lid,
@@ -353,7 +361,16 @@ class SwappedModel:
     ``mode`` / ``gpu_dispatch`` select the engine's ablation arm;
     ``ledger`` / ``cache`` join a shared budget and block cache; ``name``
     prefixes every unit name (``"<name>/embed"``) so several models can
-    share one cache."""
+    share one cache.
+
+    A shared unit (zamba2's attention block) is stored once and pinned in
+    the block cache: its first read stays charged to the ledger after its
+    block, and its later occurrences are cache hits. As in the JAX
+    package, :meth:`partition` does not reserve those bytes: a lone model
+    whose ledger budget equals its plan budget can raise ``MemoryError``
+    once the pinned unit is charged beside a block. Give the ledger the
+    plan budget plus the pinned bytes, as
+    ``MultiModelRuntime.block_budget`` reserves them."""
 
     def __init__(self, model: Model, params: dict, workdir: str,
                  budget: Optional[int] = None, prefetch_depth: int = 2,
@@ -379,17 +396,20 @@ class SwappedModel:
         prefix = f"{name}/" if name else ""
         for u in self.units:
             u.name = prefix + u.name
+        pinned = tuple(sorted({u.name for u in self.units
+                               if u.kind == "shared_attn"}))
+        store_units = list({u.name: u.params for u in self.units}.items())
         opts = store_opts(self.store_backend, self.precision, gpu_dispatch)
         opts.update(store_options or {})
         if self.precision == "mixed" and opts.get("plan") is None:
             raise ValueError("precision='mixed' needs a plan: pass "
                              "store_options={'plan': {unit: bits}}")
-        self.store = build_store([(u.name, u.params) for u in self.units],
-                                 workdir, backend=self.store_backend,
+        self.store = build_store(store_units, workdir,
+                                 backend=self.store_backend,
                                  device=self.device, **opts)
         self.engine = SwapEngine(self.store, mode=mode, budget=budget,
-                                 gpu_dispatch=gpu_dispatch, ledger=ledger,
-                                 cache=cache)
+                                 gpu_dispatch=gpu_dispatch, pinned=pinned,
+                                 ledger=ledger, cache=cache)
         self.engine.smem_working_set = kernel_smem_working_set(
             self.precision, self.cfg.dtype)
         self.plan: Optional[BlockPlan] = None
@@ -465,7 +485,7 @@ class SwappedModel:
                     max_len: int = 128) -> Tuple[torch.Tensor, Dict]:
         """Greedy generation with WEIGHT-BLOCK STREAMING (paper §10): every
         decode step swaps the model's blocks through the memory window;
-        only the decode caches (K/V, or an rwkv6 layer's state) and m
+        only the decode caches (K/V, or a recurrent layer's state) and m
         weight blocks are resident at any time. The prompt is fed one token
         at a time, as in the JAX package.
 
@@ -582,7 +602,7 @@ class SwappedModel:
         completion ``state.logits`` holds the last-position logits and
         ``stats`` matches :meth:`forward`. With ``collect_cache`` a fresh
         pass keeps each layer's prefill cache in ``state.caches``: its K/V,
-        or an rwkv6 layer's final state.
+        or a recurrent (rwkv6, mamba2) layer's final state.
         """
         if self.plan is None:
             raise RuntimeError("call partition()/set_plan() first")

@@ -1,12 +1,26 @@
-"""RWKV6 ("Finch"): attention-free layers with data-dependent decay and
-token shift.
+"""State-space layers: Mamba2 (chunked SSD) and RWKV6 ("Finch").
 
-Two forms, as in the JAX package (``models/ssm.py``): the chunked time-mix
-for prefill, whose recurrence runs through ``kernels/wkv6`` (the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor), and the
-single-token step for decode, a few plain tensor ops. Both take and return
-the layer's state: the WKV state S [B, nh, hd, hd] in fp32 and the token
-shift [B, 1, D]. Mamba2 is not ported yet.
+Both ship two forms, as in the JAX package (``models/ssm.py``): a chunked
+form for prefill and a single-token step for decode, each taking and
+returning the layer's state.
+
+Mamba2 (zamba2's blocks): the state is h [B, nh, hd, ds] in fp32 and the
+causal conv's tail [B, d_conv - 1, d_inner + 2 ds] in the compute dtype.
+The JAX package computes the SSD in jnp with no Pallas kernel, so here it
+is plain tensor ops with the reference's arithmetic: chunks of
+``Q = min(cfg.ssm.chunk, S)`` (S must be a multiple of Q), the decay as a
+cumulative sum of ``log(max(a, 1e-37))``, fp32 for x, B, C, dt, the state
+and the decay, each chunk's y cast to the compute dtype, then ``D_skip``
+added in fp32 and the gated ``rms_norm``. The input projections (wz, wx,
+wB, wC, wdt) are ``torch.matmul``, as the reference computes them outside
+any kernel; ``wo`` goes through ``layers.linear`` (``swap_linear``, or
+``swap_linear_q`` on a quantized store's weight).
+
+RWKV6: attention-free layers with data-dependent decay and token shift.
+The chunked time-mix's recurrence runs through ``kernels/wkv6`` (the CUDA
+kernel on a CUDA tensor, its plain version on a CPU tensor); the step is
+a few plain tensor ops. The state is the WKV state S [B, nh, hd, hd] in
+fp32 and the token shift [B, 1, D].
 """
 from __future__ import annotations
 
@@ -18,9 +32,148 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.swap_linear_q import activation
 from repro_torch.kernels.wkv6 import CHUNK as RWKV_CHUNK  # noqa: F401
 from repro_torch.kernels.wkv6 import wkv6
-from repro_torch.models.layers import layer_norm, linear
+from repro_torch.models.layers import layer_norm, linear, rms_norm
 from repro_torch.models.params import ParamDef
 
+# ==========================================================================
+# Mamba2
+# ==========================================================================
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x [B, S, C], w [K, C]; state [B, K-1, C]
+    (the previous tail). Returns (y [B, S, C], new state [B, K-1, C])."""
+    B, S, C = x.shape
+    K = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)                # [B, S+K-1, C]
+    y = sum(xp[:, k:k + S] * w[k] for k in range(K))
+    return y, (xp[:, -(K - 1):] if K > 1 else
+               torch.zeros((B, 0, C), dtype=x.dtype, device=x.device))
+
+
+def mamba2_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    return d_inner, d_inner // s.head_dim, s.d_state   # (d_inner, nh, ds)
+
+
+def mamba2_defs(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    s = cfg.ssm
+    d_inner, nh, ds = mamba2_dims(cfg)
+    return {
+        "norm": ParamDef((D,), init="ones"),
+        "wz": ParamDef((D, d_inner)),
+        "wx": ParamDef((D, d_inner)),
+        "wB": ParamDef((D, ds)),
+        "wC": ParamDef((D, ds)),
+        "wdt": ParamDef((D, nh)),
+        # the reference draws it at scale 0.5: fan_in ** -0.5 at d_conv 4
+        "conv_w": ParamDef((s.d_conv, d_inner + 2 * ds)),
+        "A_log": ParamDef((nh,), init="zeros"),
+        "dt_bias": ParamDef((nh,), init="zeros"),
+        "D_skip": ParamDef((nh,), init="ones"),
+        "norm_y": ParamDef((d_inner,), init="ones"),
+        "wo": ParamDef((d_inner, D)),
+    }
+
+
+def _mamba2_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                   conv_state: Optional[torch.Tensor]):
+    """The projections and the causal conv. x [B, S, D]. Returns z, xs
+    [B, S, nh, hd], B and C [B, S, ds] (compute dtype), dt and the decay
+    a [B, S, nh] (fp32) and the conv's new state."""
+    d_inner, nh, ds = mamba2_dims(cfg)
+    B, S, D = x.shape
+    z = x @ p["wz"]
+    xbc = torch.cat([x @ p["wx"], x @ p["wB"], x @ p["wC"]], dim=-1)
+    xbc, new_conv = conv1d_causal(xbc, p["conv_w"], conv_state)
+    xbc = activation(xbc, "silu")
+    xs = xbc[..., :d_inner].reshape(B, S, nh, cfg.ssm.head_dim)
+    Bv = xbc[..., d_inner:d_inner + ds]
+    Cv = xbc[..., d_inner + ds:]
+    r = (x @ p["wdt"]).to(torch.float32) + p["dt_bias"]
+    dt = torch.logaddexp(r, torch.zeros_like(r))       # softplus
+    a = torch.exp(dt * (-torch.exp(p["A_log"].to(torch.float32))))
+    return z, xs, Bv, Cv, dt, a, new_conv
+
+
+def _mamba2_out(cfg: ModelConfig, p: dict, y: torch.Tensor,
+                z: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The gated norm and ``wo``. y [B, S, d_inner] fp32."""
+    y = rms_norm(y * activation(z.to(torch.float32), "silu"), p["norm_y"],
+                 cfg.norm_eps)
+    return linear(y.to(dt), p["wo"])
+
+
+def mamba2_chunked(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None,
+                   conv_state: Optional[torch.Tensor] = None):
+    """Chunked SSD. x [B, S, D] -> (y [B, S, D], (h [B, nh, hd, ds] fp32,
+    conv state)). S must be a multiple of ``min(cfg.ssm.chunk, S)``:
+    ValueError where the JAX package asserts."""
+    d_inner, nh, ds = mamba2_dims(cfg)
+    hd = cfg.ssm.head_dim
+    B, S, D = x.shape
+    Q = min(cfg.ssm.chunk, S)
+    if S % Q:
+        raise ValueError(f"mamba2 runs whole chunks of {Q} tokens: S={S} "
+                         f"is not a multiple")
+    z, xs, Bv, Cv, dt, a, new_conv = _mamba2_inputs(cfg, p, x, conv_state)
+    h = (torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32))
+    idx = torch.arange(Q, device=x.device)
+    causal = idx[:, None] >= idx[None, :]             # i <= t
+    ys = []
+    for c in range(S // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        xq = xs[:, sl].to(torch.float32)              # [B, Q, nh, hd]
+        Bq = Bv[:, sl].to(torch.float32)              # [B, Q, ds]
+        Cq = Cv[:, sl].to(torch.float32)
+        dtq, aq = dt[:, sl], a[:, sl]                 # [B, Q, nh]
+        l = torch.cumsum(torch.log(torch.clamp(aq, min=1e-37)), dim=1)
+        # intra-chunk: M[t, i, n] = (C_t . B_i) exp(l_t - l_i) dt_i, i <= t
+        cb = torch.einsum("btd,bid->bti", Cq, Bq)
+        ratio = torch.exp(l[:, :, None, :] - l[:, None, :, :])
+        M = cb[..., None] * ratio * dtq[:, None, :, :]
+        M = torch.where(causal[None, :, :, None], M, 0.0)
+        y_intra = torch.einsum("btin,binh->btnh", M, xq)
+        # inter-chunk: y_t += exp(l_t) C_t . h
+        y_inter = torch.einsum("btd,bnhd,btn->btnh", Cq, h, torch.exp(l))
+        # h' = exp(l_Q) h + sum_i exp(l_Q - l_i) dt_i x_i B_i^T
+        w_state = torch.exp(l[:, -1:, :] - l) * dtq   # [B, Q, nh] <= 1
+        h = (torch.exp(l[:, -1])[:, :, None, None] * h
+             + torch.einsum("btnh,btd,btn->bnhd", xq, Bq, w_state))
+        ys.append((y_intra + y_inter).to(x.dtype))
+    y = torch.cat(ys, dim=1)
+    y = (y.to(torch.float32) + xs.to(torch.float32) * p["D_skip"][:, None]
+         ).reshape(B, S, d_inner)
+    return _mamba2_out(cfg, p, y, z, x.dtype), (h, new_conv)
+
+
+def mamba2_step(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                h: torch.Tensor, conv_state: torch.Tensor):
+    """Single-token decode. x [B, 1, D], h [B, nh, hd, ds], conv_state
+    [B, K-1, C]. Returns (out, (h, conv state))."""
+    d_inner, nh, ds = mamba2_dims(cfg)
+    B = x.shape[0]
+    z, xs, Bv, Cv, dt, a, new_conv = _mamba2_inputs(cfg, p, x, conv_state)
+    xq = xs[:, 0].to(torch.float32)                   # [B, nh, hd]
+    Bq = Bv[:, 0].to(torch.float32)                   # [B, ds]
+    Cq = Cv[:, 0].to(torch.float32)
+    dtq, aq = dt[:, 0], a[:, 0]                       # [B, nh]
+    h = aq[:, :, None, None] * h + torch.einsum("bnh,bd,bn->bnhd", xq, Bq,
+                                                dtq)
+    y = torch.einsum("bnhd,bd->bnh", h, Cq) + xq * p["D_skip"][:, None]
+    return (_mamba2_out(cfg, p, y.reshape(B, 1, d_inner), z, x.dtype),
+            (h, new_conv))
+
+
+# ==========================================================================
+# RWKV6
+# ==========================================================================
 # per-step log-decay clamped to [W_LOG_MIN, W_LOG_MAX]; with chunk size
 # Q = RWKV_CHUNK, |cumulative| <= Q * |W_LOG_MIN| must stay < log(float32
 # max) ~ 88

@@ -1,4 +1,5 @@
-"""Config-driven decoder: the dense, moe and rwkv6 kinds.
+"""Config-driven decoder: the dense, moe, rwkv6 and hybrid (mamba2 +
+shared attention) kinds.
 
 The layer list (``cfg.layer_kinds()``) is grouped into *segments* of
 consecutive identical kinds; each segment's params are stacked [n, ...],
@@ -10,9 +11,14 @@ is a Python bool per layer.
 
 A model is a stack of dense (attention + MLP) and moe (attention +
 mixture of experts, ``models/moe.py``) layers, or all rwkv6 (time-mix +
-channel-mix, ``models/ssm.py``). A config with ``mla`` (deepseek-v2)
-attends with Multi-head Latent Attention (``attention.mla_apply``) in its
-dense and moe layers. mamba2, zamba2's shared attention, M-RoPE and the
+channel-mix, ``models/ssm.py``), or zamba2's hybrid: Mamba2 layers
+(``models/ssm.py``) with one shared attention block (a dense layer) at
+every ``hybrid_attn_every``-th position. The shared block is one param
+tree, ``params["shared_attn"]``, applied at each of its positions; its
+segments are not scanned (``Segment.scanned`` False) and hold ``{}`` in
+``params["segments"]``, the JAX package's tree. A config with ``mla``
+(deepseek-v2) attends with Multi-head Latent Attention
+(``attention.mla_apply``) in its dense and moe layers. M-RoPE and the
 vision and audio frontends raise ``NotImplementedError``.
 A config with ``d_frontend`` whose family reads no frontend (llama4's
 vision stub) still carries the ``frontend`` parameter, as the JAX
@@ -20,8 +26,12 @@ package's tree does; the forward never reads it.
 
 Modes: "prefill" runs full sequences; "decode" runs one token against a
 decode cache (updated in place: K/V rows for dense layers, the latent rows
-for MLA layers, the recurrent state for rwkv6 layers) or, for GQA layers
-with a ``paged`` hook, through the paged KV cache.
+for MLA layers, the recurrent state for rwkv6 and mamba2 layers) or, for
+GQA layers with a ``paged`` hook, through the paged KV cache. The decode
+cache is a list per segment of leaf dicts; a scanned segment's leaves
+carry its layers stacked in front [n, ...], a shared segment's (one
+occurrence of the shared block, with K/V of its own) carry none, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -44,9 +54,15 @@ from repro_torch.tree import tree_map
 
 @dataclass(frozen=True)
 class Segment:
-    kind: str
+    kind: str            # dense | moe | mamba2 | rwkv6 | shared_attn
     n: int
     layer_ids: Tuple[int, ...]
+
+    @property
+    def scanned(self) -> bool:
+        """False for a shared block's occurrence: its params are the one
+        top-level tree, not a stacked segment."""
+        return self.kind != "shared_attn"
 
 
 def build_plan(cfg: ModelConfig) -> List[Segment]:
@@ -64,10 +80,12 @@ def build_plan(cfg: ModelConfig) -> List[Segment]:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds())
-    if not (kinds <= {"dense", "moe"} or kinds == {"rwkv6"}):
+    if not (kinds <= {"dense", "moe"} or kinds == {"rwkv6"}
+            or kinds <= {"mamba2", "shared_attn"}):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)} are not ported yet "
-            f"(dense / moe stacks or all rwkv6 only)")
+            f"(dense / moe stacks, all rwkv6, or mamba2 with shared "
+            f"attention only)")
     if not cfg.embed_inputs or cfg.is_encoder or cfg.family == "vlm":
         raise NotImplementedError(f"{cfg.name}: modality frontends are not "
                                   f"ported yet")
@@ -76,7 +94,15 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------------------------------------------ defs
+def _layer_kind(kind: str) -> str:
+    """The kind a layer computes as: a shared block's occurrence is a dense
+    layer."""
+    return "dense" if kind == "shared_attn" else kind
+
+
 def layer_defs(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "mamba2":
+        return ssm_mod.mamba2_defs(cfg)
     if kind == "rwkv6":
         return ssm_mod.rwkv6_defs(cfg)
     if kind not in ("dense", "moe"):
@@ -109,7 +135,10 @@ def model_defs(cfg: ModelConfig) -> Tuple[dict, List[Segment]]:
         defs["frontend"] = ParamDef((cfg.d_frontend, D))
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((D, V), init="small")
-    defs["segments"] = [layer_defs(cfg, s.kind) for s in plan]
+    if any(not s.scanned for s in plan):
+        defs["shared_attn"] = layer_defs(cfg, "dense")
+    defs["segments"] = [layer_defs(cfg, s.kind) if s.scanned else {}
+                        for s in plan]
     return defs, plan
 
 
@@ -122,7 +151,11 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     attention K/V land in the page pool instead of a contiguous cache, and
     ``new_cache`` is None. In decode, ``cache`` is updated in place and
     returned. An MLA layer takes its own branch first, as in the JAX
-    package (the paged cache refuses MLA models)."""
+    package (the paged cache refuses MLA models). ``shared_attn`` runs as
+    ``dense``."""
+    kind = _layer_kind(kind)
+    if kind == "mamba2":
+        return _apply_mamba2(cfg, p, x, cache, mode)
     if kind == "rwkv6":
         return _apply_rwkv6(cfg, p, x, cache, mode)
     if kind not in ("dense", "moe"):
@@ -149,6 +182,26 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     if cfg.post_norms:
         f_out = rms_norm(f_out, p["post_ln2"], cfg.norm_eps, plus_one=True)
     return x + f_out, new_cache
+
+
+def _apply_mamba2(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
+                  mode: str):
+    """A mamba2 layer; its cache is {'h', 'conv'}: the SSM state and the
+    causal conv's tail. As in the JAX package, the layer's ``norm`` is
+    never read: the block adds the SSD of x itself to x."""
+    h0 = cs = None
+    if cache is not None:
+        h0, cs = cache["h"], cache["conv"]
+    if mode == "decode":
+        out, (h, conv) = ssm_mod.mamba2_step(cfg, p, x, h0, cs)
+    else:
+        out, (h, conv) = ssm_mod.mamba2_chunked(cfg, p, x, h0, cs)
+    new = {"h": h, "conv": conv}
+    if cache is not None and mode == "decode":
+        for name, t in new.items():
+            cache[name].copy_(t)
+        new = cache
+    return x + out, new
 
 
 def _apply_rwkv6(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
@@ -180,8 +233,16 @@ def cache_struct(cfg: ModelConfig, kind: str, batch: int,
     [B, max_len, KV, hd] for a dense or moe layer, or with MLA the latent
     rows ``c_kv`` [B, max_len, kv_lora_rank] and ``k_rope`` [B, max_len,
     qk_rope_head_dim]; for rwkv6 the fp32 WKV state [B, nh, hd, hd] and the
-    token shifts [B, 1, D], which do not grow with the sequence."""
+    token shifts [B, 1, D], for mamba2 the fp32 SSM state h [B, nh, hd, ds]
+    and the conv's tail [B, d_conv - 1, d_inner + 2 ds]: the state leaves
+    do not grow with the sequence. A shared block's occurrence has a dense
+    layer's K/V."""
     dt = torch_dtype(cfg.dtype)
+    kind = _layer_kind(kind)
+    if kind == "mamba2":
+        d_inner, nh, ds = ssm_mod.mamba2_dims(cfg)
+        return {"h": ((batch, nh, cfg.ssm.head_dim, ds), torch.float32),
+                "conv": ((batch, cfg.ssm.d_conv - 1, d_inner + 2 * ds), dt)}
     if kind == "rwkv6":
         nh, hd = ssm_mod.rwkv6_dims(cfg)
         shift = ((batch, 1, cfg.d_model), dt)
@@ -208,6 +269,11 @@ def layer_slice(stacked, j: int):
     return tree_map(lambda a: a[j], stacked)
 
 
+def _lead(seg: Segment) -> tuple:
+    """The layer axis a segment's cache leaves carry in front."""
+    return (seg.n,) if seg.scanned else ()
+
+
 # ------------------------------------------------------------------ model
 class Model:
     def __init__(self, cfg: ModelConfig):
@@ -226,7 +292,7 @@ class Model:
         params = init_from_defs(parts, seed, device=device)
         params["segments"] = [
             init_from_defs(sdefs, seed + 1000 + si, lead=(seg.n,),
-                           device=device)
+                           device=device) if seg.scanned else {}
             for si, (seg, sdefs) in enumerate(zip(self.plan, seg_defs))]
         return params
 
@@ -266,7 +332,8 @@ class Model:
     def forward(self, params: dict, batch: dict, mode: str = "prefill",
                 cache: Optional[list] = None):
         """Full-sequence forward. Returns (hidden, cache): the cache is a
-        list per segment of each layer's cache leaves stacked [n, ...]
+        list per segment of each layer's cache leaves stacked [n, ...], or
+        for a shared block's occurrence its leaves as they are
         (``cache_struct``)."""
         cfg = self.cfg
         params = self.cast(params)
@@ -274,6 +341,14 @@ class Model:
         decode_pos = batch.get("pos") if mode == "decode" else None
         new_cache = []
         for si, seg in enumerate(self.plan):
+            if not seg.scanned:
+                lid = seg.layer_ids[0]
+                x, c_new = apply_layer(cfg, seg.kind, params["shared_attn"],
+                                       x, positions, cfg.is_local_layer(lid),
+                                       None if cache is None else cache[si],
+                                       decode_pos, mode)
+                new_cache.append(c_new)
+                continue
             stacked = params["segments"][si]
             layers = []
             for j, lid in enumerate(seg.layer_ids):
@@ -295,18 +370,19 @@ class Model:
         return self._head(params, h[:, -1:]), cache
 
     def cache_struct(self, batch: int, max_len: int) -> list:
-        """Per segment, leaf name -> (shape [n, ...], dtype) of the decode
-        cache (``cache_struct`` with the layers stacked in front)."""
-        return [{name: ((seg.n,) + shape, dt) for name, (shape, dt) in
+        """Per segment, leaf name -> (shape, dtype) of the decode cache:
+        ``cache_struct`` with the layers stacked in front [n, ...], none
+        for a shared block's occurrence."""
+        return [{name: (_lead(seg) + shape, dt) for name, (shape, dt) in
                  cache_struct(self.cfg, seg.kind, batch, max_len).items()}
                 for seg in self.plan]
 
     def alloc_cache(self, batch: int, max_len: int, device="cuda") -> list:
-        """Zero decode cache: per segment the stacked leaves of
+        """Zero decode cache: per segment the leaves of
         :meth:`cache_struct`."""
         device = resolve_device(device)
         return [alloc_layer_cache(self.cfg, seg.kind, batch, max_len, device,
-                                  lead=(seg.n,)) for seg in self.plan]
+                                  lead=_lead(seg)) for seg in self.plan]
 
     def decode_step(self, params: dict, cache: list, batch: dict):
         """batch: {'token': [B,1], 'pos': [B]}. ``cache`` (from

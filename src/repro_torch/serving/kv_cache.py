@@ -10,10 +10,12 @@ swap-aware serving path stores K/V in pages instead
 (``serving/paged_kv.py``, ``serving/batch_engine.py``).
 
 Sequence-indexed leaves (K/V) are padded to ``max_len``; state leaves
-(an rwkv6 layer's WKV state and token shifts) are carried as they are. The
-batch axis of a leaf is found by comparing the cache structure at two
-batch sizes (``Model.cache_struct``), as in the JAX package, so no leaf
-layout is assumed here.
+(an rwkv6 layer's WKV state and token shifts, a mamba2 layer's SSM state
+and conv tail) are carried as they are. The batch axis of a leaf is found
+by comparing the cache structure at two batch sizes
+(``Model.cache_struct``), as in the JAX package, so no leaf layout is
+assumed here: a scanned segment's leaves carry their layer axis in front,
+a shared attention block's occurrence (zamba2) none.
 """
 from __future__ import annotations
 

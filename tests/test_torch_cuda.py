@@ -703,7 +703,7 @@ FA_CASES = [(1, 256, 4, 2, 64, None, False), (2, 37, 4, 2, 80, None, False),
             (4, 128, 16, 2, 128, None, False),
             (1, 300, 16, 8, 256, 224.0 ** -0.5, False),
             (1, 100, 8, 1, 120, None, False), (2, 129, 4, 4, 64, None, True),
-            (3, 17, 8, 8, 32, None, False)]
+            (3, 17, 8, 8, 32, None, False), (2, 130, 8, 8, 112, None, False)]
 
 
 @pytest.mark.parametrize("causal,window,softcap", [
@@ -772,7 +772,8 @@ def test_flash_attention_tensor_cores_at_ragged_s(dev, hd, causal, window,
 
 # (S, H, KV, hd, dtype): both kernels at the main paths' head dims
 FA_BITWISE = [(200, 16, 2, 128, torch.bfloat16), (130, 16, 8, 256, torch.bfloat16),
-              (200, 16, 2, 128, torch.float32), (37, 4, 2, 80, torch.bfloat16)]
+              (200, 16, 2, 128, torch.float32), (37, 4, 2, 80, torch.bfloat16),
+              (200, 32, 32, 112, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("S,H,KV,hd,dtype", FA_BITWISE)

@@ -339,7 +339,7 @@ def test_left_padding_enters_the_rnn_state(setup):
     assert (pad - solo).abs().max().item() > 1e-5 * solo.abs().max().item()
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-3b", "zamba2-7b"])
 def test_cache_pad_and_gather_match_jax(arch):
     ref_model = RefModel(dataclasses.replace(ref_get_arch(arch).reduced(),
                                              dtype="float32"))
