@@ -21,7 +21,8 @@ Phases, each printing its wall time:
    prefill of 4 requests x 128 tokens on the mmap store and on the
    quantized store (int8 lazy, int4 lazy, int8 eager), each under a budget
    below the store's resident bytes, checked against the unswapped
-   forward; then greedy decode of 2 requests x 4 tokens on int8 lazy;
+   forward; then greedy decode of 2 requests x 4 new tokens after
+   4-token prompts on int8 lazy;
 4. paged continuous-batching decode at the published widths: (A) the
    same qwen2.5-3b in float32 on mmap, 6 requests under a page pool small
    enough to preempt, every request's tokens held to a solo in-memory run;
@@ -62,8 +63,9 @@ Phases, each printing its wall time:
    pass in each ablation arm (``copy_in`` over rawio with the dispatch
    copy, ``dummy_asm``) equals the snet pass and peaks at 3x / 2x;
 8. the mcu profile through the port's entry points, on phase 3's
-   qwen2.5-3b: the config resolved through its layers (the CLI layer sets
-   only the budget and ``reduce``); ``calibrate_model`` by hand (13
+   qwen2.5-3b cut to its first 2 layers (its embedding and tied head
+   unchanged): the config resolved through its layers (the CLI layer sets
+   only the budget and ``reduce``); ``calibrate_model`` by hand (9
    swapped passes on mmap at 2 x 16, one round-tripped unit a pass); the
    budget 1.1x the smallest feasible on a 0.1 GB grid over the mixed
    store's resident units and below their sum; ``MultiModelRuntime
@@ -143,12 +145,39 @@ Phases, each printing its wall time:
    a sequence beside the shared block's K/V a token; then
    ``ServingEngine`` on the same prompts in fp32, its first new token's
    logits within 1e-4 of ``Model.decode_step`` fed the prompt token by
-   token, and in bf16 (its gap to the fp32 engine printed).
+   token, and in bf16 (its gap to the fp32 engine printed);
+13. qwen2-vl-72b's M-RoPE and vision-embedding frontend at its published
+   widths (64 / 8 heads of 128 with q / k / v bias, d_ff 29,568, vocab
+   152,064 untied, M-RoPE sections (16, 24, 24), 1,024 vision tokens at
+   d_frontend 1,280), depth cut 80 -> 4, seed-0 fp32 weights drawn on the
+   card: one 24 GB mmap store (under ``build/phase13``, removed after) at
+   least 2.32x over a budget 1.1x the smallest at which the planner packs
+   it at m = 2; a warm and a timed swapped prefill of one 2,048-token
+   prompt (1,024 seeded vision embeddings through the frontend, then 1,024
+   text tokens; positions [1, 2048, 3] built here: the temporal stream the
+   index, h and w the 32 x 32 patch grid over the vision tokens), bitwise
+   equal to the unswapped forward, with ``flash_attention`` once a layer
+   and ``swap_linear`` seven times a layer; the vision tokens' h and w
+   streams swapped must move the logits; then two text-only paged
+   generations (prompts of 40 and 100 tokens, 2 new each, [B, 1, 3]
+   positions a step) equal to each request served alone;
+14. hubert-xlarge's bidirectional audio encoder at its published widths
+   and full depth (48 layers of 16 / 16 heads of 80, a GELU MLP of 5,120,
+   vocab 504, d_frontend 512, no RoPE), seed-1 fp32 weights: one 3.8 GB
+   mmap store (under ``build/phase14``, removed after) under 1.1x the
+   smallest budget on a 0.01 GB grid at which the planner packs it at
+   m = 2 (the floor and the plan from one planner over the store's unit
+   table); a warm and a timed swapped forward of 2 x 1,500 seeded frame
+   features, bitwise equal to the unswapped forward, with
+   ``flash_attention`` once a layer without a causal mask (the CUDA-core
+   kernel at hd 80) and ``swap_linear`` six times a layer; finite
+   last-position logits. No decode, paged path or quant store: an encoder
+   that opts out of quantized units.
 
-Every full-precision linear of phases 3 to 12 runs ``swap_linear`` and
+Every full-precision linear of phases 3 to 14 runs ``swap_linear`` and
 every prefill's attention ``flash_attention``; the quantized stores' lazy
 linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
-Every shape phases 7 to 12 launch a kernel at is one of phase 2's rows,
+Every shape phases 7 to 14 launch a kernel at is one of phase 2's rows,
 held against the plain version there and timed; the script checks it.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
@@ -295,7 +324,7 @@ SLEEP_CYCLES_PER_S = 2.0e9         # >= the H100's SM clock: holds long enough
 
 N_LAYERS = 4
 BATCH, PROMPT = 4, 128
-DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 2, 8, 4
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 2, 4, 4
 BUDGET_FRACTION = 0.9              # of each store's resident bytes
 
 # phase 4: the paged workload. 23 pages of 16 tokens force one preemption
@@ -335,6 +364,9 @@ P7_WORKDIR = ROOT / "build" / "phase7"
 # the calibration batch: calibrate.CALIB_BATCH x CALIB_SEQ) on phase 3's
 # qwen2.5-3b; the budget from the calibrated plan as phase 7 finds its own
 P8_BATCH, P8_SEQ = 2, 16
+# 2 of phase 3's 4 layers: the calibration's passes (1 + 2 a unit) and
+# each pass's bytes shrink; the widths, so the kernel shapes, stay
+P8_LAYERS = 2
 P8_GRID = 10 ** 8                      # budget search step, 0.1 GB
 P8_BUDGET_OVER_FLOOR = 1.1
 P8_WORKDIR = ROOT / "build" / "phase8"
@@ -392,6 +424,28 @@ Z_MIN_RATIO = 2.32
 # vs naive tolerance (tests/test_ssm_reference.py)
 Z_ENGINE_TOL = 1e-4
 P12_WORKDIR = ROOT / "build" / "phase12"
+
+# phase 13: qwen2-vl-72b at its published widths, depth cut 80 -> 4: one
+# 2,048-token prompt (1,024 vision tokens on a 32 x 32 patch grid, then
+# 1,024 text tokens) swapped under a budget found as phase 9 finds its own,
+# the store at least 2.32x over it; then two text-only paged generations
+VL_LAYERS = 4
+VL_VISION, VL_TEXT, VL_GRID = 1024, 1024, 32
+VL_PROMPT = VL_VISION + VL_TEXT
+VL_SCALE = 128 ** -0.5
+VL_PAGED_PROMPTS, VL_PAGED_NEW = [40, 100], 2
+VL_MAX_PAGES = 16                      # 3 + 7 pages live at the last step
+VL_MIN_RATIO = 2.32
+P13_WORKDIR = ROOT / "build" / "phase13"
+
+# phase 14: hubert-xlarge at its published widths and full depth (48
+# layers): 2 x 1,500 frames, 30 s of audio at HuBERT's 20 ms frame rate,
+# swapped under 1.1x the smallest budget on a 0.01 GB grid at which the
+# planner packs it at m = 2
+HB_BATCH, HB_FRAMES = 2, 1500
+HB_SCALE = 80 ** -0.5
+P14_GRID = 10 ** 7                     # budget search step, 0.01 GB
+P14_WORKDIR = ROOT / "build" / "phase14"
 
 # phase 10: the paper's conv workloads (``repro_torch.models.vision``'s
 # sims at their own layer lists). The three fleets (model i's weights from
@@ -892,6 +946,11 @@ PAGED_TIMED = [
      [n + 1 for n in LLAMA_PAGED_PROMPTS], LLAMA_SCALE, None, None),
     ("llama4-scout bf16 B=1", "bfloat16", 1, 40, 8, 128,
      [LLAMA_PAGED_PROMPTS[-1] + 1], LLAMA_SCALE, None, None),
+    # phase 13: qwen2-vl-72b's 40- and 100-token prompts the same way
+    ("qwen2-vl bf16 B=2", "bfloat16", 2, 64, 8, 128,
+     [n + 1 for n in VL_PAGED_PROMPTS], VL_SCALE, None, None),
+    ("qwen2-vl bf16 B=1", "bfloat16", 1, 64, 8, 128,
+     [VL_PAGED_PROMPTS[-1] + 1], VL_SCALE, None, None),
 ]
 
 
@@ -1233,7 +1292,8 @@ def fp_layer_linears(cfg):
     """(K, N, act, bias) of a layer's full-precision linears (a moe
     layer's are its attention's and its shared expert's; an MLA layer's
     attention has wq and wo only, its latent projections being plain
-    matmuls), one entry per launch key (M, K, N, dtype, act): where two
+    matmuls; a GELU MLP's are ``wi`` and ``wo``, the GELU applied after
+    the kernel), one entry per launch key (M, K, N, dtype, act): where two
     share a key (qwen's wq and attention wo) the first wins."""
     D, F = cfg.d_model, cfg.d_ff
     if cfg.moe is not None:
@@ -1249,16 +1309,20 @@ def fp_layer_linears(cfg):
         attn = [(D, H * hd, "none", cfg.attn_bias),              # wq
                 (D, KV * hd, "none", cfg.attn_bias),             # wk, wv
                 (H * hd, D, "none", False)]                      # attn wo
+    if cfg.act in ("swiglu", "gelu_glu"):
+        mlp = [(D, F, gate, False),                              # wi0
+               (D, F, "none", False),                            # wi1
+               (F, D, "none", False)]                            # ffn wo
+    else:
+        mlp = [(D, F, "none", False), (F, D, "none", False)]     # wi, wo
     out = {}
-    for K, N, act, b in attn + [(D, F, gate, False),             # wi0
-                                (D, F, "none", False),           # wi1
-                                (F, D, "none", False)]:          # ffn wo
+    for K, N, act, b in attn + mlp:
         out.setdefault((K, N, act), b)
     return [k + (b,) for k, b in out.items()]
 
 
-def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg,
-                      conv_path):
+def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
+                      hcfg, conv_path):
     """Phase 2 for B5: the kernel against its plain version over ragged
     shapes and qwen2.5-3b's linears at decode and prefill, then timed at
     the main paths' shapes (phase 10's from ``conv_path``). Returns the
@@ -1342,6 +1406,14 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg,
     timed += [(f"{zcfg.name}", M, "bfloat16", s)
               for M in (Z_PROMPT, Z_BATCH * Z_DECODE_PROMPT, Z_BATCH)
               for s in fp_layer_linears(zcfg) + [z_wo]]
+    # phase 13: qwen2-vl-72b's 2,048-token prefill (q / k / v with bias),
+    # its paged admissions and its decode steps at 2 sequences (batched)
+    # and 1 (served alone); phase 14: hubert-xlarge's 2 x 1,500 frames
+    timed += [(f"{vcfg.name}", M, "bfloat16", s)
+              for M in (VL_PROMPT, *VL_PAGED_PROMPTS, 2, 1)
+              for s in fp_layer_linears(vcfg)]
+    timed += [(f"{hcfg.name}", HB_BATCH * HB_FRAMES, "bfloat16", s)
+              for s in fp_layer_linears(hcfg)]
     # phase 10: the conv workloads' fc layers and the fc stack, fp32
     timed += [(label, M, "float32", (K, N, "none", True))
               for label, (M, K, N) in conv_path["fp"]]
@@ -1423,9 +1495,10 @@ def attended_pairs(S, window, chunk=None) -> int:
     return sum(min(i + 1, w, i % c + 1) for i in range(S))
 
 
-# (label, dtype, B, S, H, KV, hd, dv, scale, window, softcap, chunk): the
-# main paths' prefills. qwen2.5-3b's swapped prefill (phase 3, bf16) and its
-# paged admissions (phase 4: run A fp32, run B bf16, one prompt each);
+# (label, dtype, B, S, H, KV, hd, dv, scale, window, softcap, chunk[,
+# causal]; causal unless a row says): the main paths' prefills.
+# qwen2.5-3b's swapped prefill (phase 3, bf16) and its paged admissions
+# (phase 4: run A fp32, run B bf16, one prompt each);
 # gemma2-9b's 4,200-token prefill (phases 4 C and 6) and its 24-token
 # admission (4 C)
 FA_TIMED = [("qwen2.5-3b prefill", "bfloat16", BATCH, PROMPT, 16, 2, 128,
@@ -1464,10 +1537,20 @@ FA_TIMED += [(f"zamba2-7b {what}", "bfloat16", B, S, 32, 32, 112, 112,
               Z_SCALE, None, None, None)
              for what, B, S in [("prefill", 1, Z_PROMPT),
                                 ("engine", Z_BATCH, Z_DECODE_PROMPT)]]
+# phase 13: qwen2-vl-72b (64 / 8 heads of 128) over its 2,048-token
+# prefill and its paged admissions; phase 14: hubert-xlarge's
+# bidirectional encoder (16 / 16 heads of 80, the CUDA-core kernel) over
+# 2 x 1,500 frames
+FA_TIMED += [(f"qwen2-vl {what}", "bfloat16", 1, S, 64, 8, 128, 128,
+              VL_SCALE, None, None, None)
+             for what, S in [("prefill", VL_PROMPT)]
+             + [("admission", n) for n in VL_PAGED_PROMPTS]]
+FA_TIMED += [("hubert-xlarge encoder", "bfloat16", HB_BATCH, HB_FRAMES, 16,
+              16, 80, 80, HB_SCALE, None, None, None, False)]
 
 
 def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
-               window, softcap, chunk, flex_too=False):
+               window, softcap, chunk, flex_too=False, causal=True):
     """(name, device ms, {name: ms}) of PyTorch calls computing a timed
     row's attention, on [B, heads, S, hd] copies made beforehand (not
     timed): SDPA, or compiled flex_attention where the softcap needs a
@@ -1489,7 +1572,7 @@ def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
             mask = (i[None, :] <= i[:, None]) & (
                 i[:, None] - i[None, :] < window)
         return lambda: sdpa(qt, kr, vr, attn_mask=mask,
-                            is_causal=mask is None, scale=scale)
+                            is_causal=causal and mask is None, scale=scale)
 
     def flex_call():
         from torch.nn.attention import flex_attention as flex_mod
@@ -1499,7 +1582,7 @@ def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
             return softcap * torch.tanh(s / softcap)
 
         def live(b, h, q_idx, kv_idx):
-            m = kv_idx <= q_idx
+            m = kv_idx <= q_idx if causal else kv_idx >= 0
             if window is not None:
                 m = m & (q_idx - kv_idx < window)
             if chunk is not None:
@@ -1560,8 +1643,8 @@ def check_flash_attention(torch):
              (True, 64, 30.0, None), (True, None, None, 48),
              (True, 20, 50.0, 64)]
     # (B, S, H, KV, hd, dv, scale, shuffled positions); then deepseek-v2's
-    # MLA (q, k at 192, v at 128), its reduced (48, 32) and zamba2's shared
-    # block (32 / 32 heads of 112)
+    # MLA (q, k at 192, v at 128), its reduced (48, 32), zamba2's shared
+    # block (32 / 32 heads of 112) and hubert's encoder (16 / 16 of 80)
     shapes = [(1, 256, 4, 2, 64, 64, None, False),
               (BATCH, PROMPT, 16, 2, 128, 128, QWEN_SCALE, False),
               (1, 37, 16, 2, 128, 128, QWEN_SCALE, False),
@@ -1572,7 +1655,8 @@ def check_flash_attention(torch):
               (2, 129, 4, 4, 64, 64, None, True),
               (1, 300, 16, 16, 192, 128, DS_SCALE, False),
               (2, 37, 4, 4, 48, 32, None, True),
-              (1, 300, 32, 32, 112, 112, Z_SCALE, False)]
+              (1, 300, 32, 32, 112, 112, Z_SCALE, False),
+              (HB_BATCH, HB_FRAMES, 16, 16, 80, 80, HB_SCALE, False)]
     n_checked, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
     for i, (B, S, H, KV, hd, dv, scale, shuffled) in enumerate(shapes):
         for dname, dt in dts.items():
@@ -1633,7 +1717,8 @@ def check_flash_attention(torch):
              (300, 40, 8, 128, 128, "float32", {"chunk": 128}),
              (200, 16, 16, 192, 128, "bfloat16", {}),
              (200, 16, 16, 192, 128, "float32", {}),
-             (200, 32, 32, 112, 112, "bfloat16", {})]):
+             (200, 32, 32, 112, 112, "bfloat16", {}),
+             (HB_FRAMES, 16, 16, 80, 80, "bfloat16", {"causal": False})]):
         q, k, v, pos = fa_inputs(torch, 500 + i, 4, S, H, KV, hd, dts[dname],
                                  dv=dv)
         kw = dict(scale=hd ** -0.5, **(masked or {"window": 64,
@@ -1664,11 +1749,12 @@ def check_flash_attention(torch):
     torch.cuda.synchronize()
 
     rows = []
-    for (label, dname, B, S, H, KV, hd, dv, scale, window, softcap,
-         chunk) in FA_TIMED:
+    for row in FA_TIMED:
+        (label, dname, B, S, H, KV, hd, dv, scale, window, softcap,
+         chunk), causal = row[:12], (row[12] if len(row) > 12 else True)
         dt = dts[dname]
         q, k, v, pos = fa_inputs(torch, 9, B, S, H, KV, hd, dt, dv=dv)
-        kw = dict(scale=scale, causal=True, window=window, softcap=softcap,
+        kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
                   chunk=chunk)
         got = fa.flash_attention(q, k, v, pos, **kw)
         want = fa.flash_attention_plain(q, k, v, pos, **kw)
@@ -1678,26 +1764,29 @@ def check_flash_attention(torch):
         k_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, pos, **kw))
         p_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, pos,
                                                                **kw))
-        # a long CUDA-core bf16 prefill (zamba2's hd 112) is also timed
-        # beside compiled flex_attention (a compile of its own)
+        # a long causal CUDA-core bf16 prefill (zamba2's hd 112) is also
+        # timed beside compiled flex_attention (a compile of its own)
         lib_name, l_ms, also = fa_library(
             torch, q, k, v, want, label, dname, B, S, H, KV, scale, window,
-            softcap, chunk, flex_too=(dname == "bfloat16" and S >= 1024
-                                      and fa.path(dt, hd, dv) == "simt"))
+            softcap, chunk, causal=causal,
+            flex_too=(causal and dname == "bfloat16" and S >= 1024
+                      and fa.path(dt, hd, dv) == "simt"))
         es = q.element_size()
         nbytes = ((B * S * H * hd + B * S * KV * hd + B * S * KV * dv
                    + B * S * H * dv) * es + B * S * 4)
-        ops = 2.0 * (hd + dv) * H * B * attended_pairs(S, window, chunk)
+        pairs = attended_pairs(S, window, chunk) if causal else S * S
+        ops = 2.0 * (hd + dv) * H * B * pairs
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[dname] * 1e3
         rows.append({
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:26",
-            "key": (B, S, H, KV, hd, dv, dname, True, window, softcap,
+            "key": (B, S, H, KV, hd, dv, dname, causal, window, softcap,
                     chunk),
             "shape": f"{label} B={B} S={S} {H}/{KV} heads hd={hd} {dname} "
                      f"window={window} softcap={softcap}"
+                     + ("" if causal else " non-causal")
                      + (f" chunk={chunk}" if chunk is not None else "")
                      + (f" dv={dv}" if dv != hd else ""),
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
@@ -1734,7 +1823,7 @@ def run_slice(torch, cfg, model, params, main_launches):
     from repro_torch.core.runtime import SwappedModel
     from repro_torch.kernels import dequant as dq
     from repro_torch.kernels import swap_linear_q as slq
-    from repro_torch.store.quantized_store import roundtrip
+    from repro_torch.tree import tree_map
 
     reset, collect = launch_counting(main_launches)
     rng = np.random.default_rng(0)
@@ -1779,8 +1868,8 @@ def run_slice(torch, cfg, model, params, main_launches):
                 else:
                     bits = 4 if kind.startswith("int4") else 8
                     if bits not in refs:
-                        refs[bits] = [roundtrip(u.params, bits)
-                                      for u in sm.units]
+                        refs[bits] = [tree_map(lambda a: a.cpu(), w)
+                                      for w in store_weights(sm)]
                     direct = sm.forward_unswapped(batch,
                                                   unit_params=refs[bits])
                     err = rel_err(torch, logits, direct)
@@ -1907,6 +1996,17 @@ def resident_params(torch, sm, unit_params):
     if "shared_attn" in by_kind:
         tree["shared_attn"] = by_kind["shared_attn"]
     return tree_map(lambda a: a.to("cuda"), tree)
+
+
+def store_weights(sm):
+    """Each of ``sm``'s units as its store holds it, a quantized leaf
+    widened on the card (``dequant_int8``): bitwise the host round trip of
+    the unit (``store.quantized_store.roundtrip``; ``tests/
+    test_torch_store.py`` holds the two equal) without quantizing the
+    weights on the host again."""
+    from repro_torch.kernels.qtensor import materialize_tree
+    return [materialize_tree(sm.store.read_unit(u.name).params)
+            for u in sm.units]
 
 
 def one_step_check(torch, sm, kv, ref_params, prompts, reset, collect):
@@ -2076,23 +2176,25 @@ def paged_model(torch, model, params, d, opts, cfg, max_pages, prompt_len):
     return sm, kv, budget
 
 
-def gemma_model(torch):
-    """gemma2-9b at its published widths, depth cut to GEMMA_LAYERS, with
-    fp32 host weights from seed 0: the source of phases 4 (C) and 6."""
+def gemma_model(torch, n_layers=GEMMA_LAYERS):
+    """gemma2-9b at its published widths, depth cut to ``n_layers``, with
+    fp32 weights from seed 0 drawn on the card and copied to the host: the
+    source of phases 4 (C) and 6 (2 layers) and of phase 7 (6)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import Model
-    gcfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=GEMMA_LAYERS)
+    gcfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=n_layers)
     print(f"model: {gcfg.name} d_model {gcfg.d_model}, {gcfg.n_heads} heads "
           f"/ {gcfg.n_kv_heads} KV heads, head_dim {gcfg.resolved_head_dim}, "
           f"d_ff {gcfg.d_ff}, vocab {gcfg.vocab_size}, window "
           f"{gcfg.sliding_window} on even layers, softcaps "
           f"{gcfg.attn_logit_softcap}/{gcfg.final_logit_softcap}, "
-          f"{gcfg.dtype}; reduced: n_layers 42->{GEMMA_LAYERS}", flush=True)
+          f"{gcfg.dtype}; reduced: n_layers 42->{n_layers}", flush=True)
     t0 = time.perf_counter()
     gmodel = Model(gcfg)
-    gparams = gmodel.init(0, device="cpu")
+    gparams = host_copy(torch, gmodel.init(0, device="cuda"))
     print(f"params: {sum(p.numel() for p in _leaves(gparams)) / 1e6:.1f} M "
-          f"(fp32, host), init {time.perf_counter() - t0:.1f} s", flush=True)
+          f"(fp32, host), init on the card and copied down in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return gmodel, gparams
 
 
@@ -2102,7 +2204,6 @@ def run_paged(torch, cfg, model, params, gmodel, gparams, main_launches):
     from repro_torch.models.transformer import Model
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.kernels import swap_linear_q as slq
-    from repro_torch.store.quantized_store import roundtrip
 
     reset, collect = launch_counting(main_launches)
     rng = np.random.default_rng(0)
@@ -2185,8 +2286,7 @@ def run_paged(torch, cfg, model, params, gmodel, gparams, main_launches):
             print(f"[B] trace equals A's; swap_linear_q at M "
                   f"{sorted(m for m in ms if m <= PAGED_MAX_BATCH)} in "
                   f"decode; launches {counts}", flush=True)
-            ref = resident_params(torch, sm, [roundtrip(u.params, 8)
-                                              for u in sm.units])
+            ref = resident_params(torch, sm, store_weights(sm))
             err, step_counts = one_step_check(torch, sm, kv, ref,
                                               prompts[:3], reset, collect)
             del ref
@@ -2214,8 +2314,7 @@ def run_paged(torch, cfg, model, params, gmodel, gparams, main_launches):
             dict(store_backend="quant", precision="int8"), gcfg,
             GEMMA_MAX_PAGES, max(GEMMA_PROMPTS))
         try:
-            ref = resident_params(torch, sm, [roundtrip(u.params, 8)
-                                              for u in sm.units])
+            ref = resident_params(torch, sm, store_weights(sm))
             err, step_counts = one_step_check(torch, sm, kv, ref, gprompts,
                                               reset, collect)
             del ref
@@ -2292,7 +2391,8 @@ def run_rwkv6(torch, main_launches):
           f"{base.tie_embeddings}, quant_eligible {base.quant_eligible}, "
           f"{base.dtype}; reduced: n_layers 32->{RWKV_LAYERS}", flush=True)
     t0 = time.perf_counter()
-    params = Model(base).init(0, device="cpu")   # host: the store's source
+    # drawn on the card, then the host holds the store's source
+    params = host_copy(torch, Model(base).init(0, device="cuda"))
     print(f"params: {sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M "
           f"(fp32, host), init {time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(2)
@@ -3452,15 +3552,21 @@ def p9_floor_budget(model, params, batch, seq) -> int:
     from repro_torch.core.partition import PartitionPlanner
     from repro_torch.core.runtime import split_units, unit_infos
     infos = unit_infos(model, split_units(model, params), batch, seq)
-    pp = PartitionPlanner(infos, DelayModel(), m=P9_M)
-    b = max(r.size for r in infos) // P9_GRID * P9_GRID
+    return grid_floor(PartitionPlanner(infos, DelayModel(), m=P9_M),
+                      P9_GRID)
+
+
+def grid_floor(pp, grid: int) -> int:
+    """The smallest budget on a ``grid`` at which planner ``pp`` packs its
+    unit table at m = P9_M without degrading the pipeline."""
+    b = int(max(pp.sizes)) // grid * grid
     while True:
         try:
             pp.best_partition(b, 0.05, allow_degrade=False)
             return b
         except ValueError:
-            b += P9_GRID
-            require(b < 10 ** 12, "phase 9: no feasible budget below 1 TB")
+            b += grid
+            require(b < 10 ** 12, "no feasible budget below 1 TB")
 
 
 def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag,
@@ -4288,6 +4394,353 @@ def run_zamba2(torch, main_launches):
     return out
 
 
+# ---------------------------------------------------------------- qwen2-vl
+def vl_positions(np, B, S, nv, grid):
+    """[B, S, 3] M-RoPE positions, built here as the caller's input (the
+    package builds none): the temporal stream is the token index, so the
+    mask, which reads that stream, is the index mask; h and w carry the
+    ``grid`` x ``grid`` patch grid (``i // grid``, ``i % grid``) over the
+    ``nv`` vision tokens and the index over the text."""
+    i = np.arange(S)
+    pos = np.stack([i, np.where(i < nv, i // grid, i),
+                    np.where(i < nv, i % grid, i)], axis=-1)
+    return np.broadcast_to(pos, (B, S, 3)).astype(np.int32).copy()
+
+
+def run_qwen2_vl(torch, main_launches):
+    """Phase 13: qwen2-vl-72b at its published widths, 4 layers, swapped
+    from one fp32 mmap store at least 2.32x over its budget: a 2,048-token
+    prefill (1,024 seeded vision embeddings through the frontend, then
+    1,024 text tokens, M-RoPE on the patch grid) bitwise equal to the
+    unswapped forward, B4 once a layer at 64 / 8 heads of 128 and B5 seven
+    times a layer (q / k / v with bias); moving only the vision tokens'
+    h / w streams moves the logits; then two text-only paged generations
+    (B3 with [B, 1, 3] positions) equal to each request served alone."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.runtime import SwappedModel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.paged_kv import PagedKVCache
+
+    reset, collect = launch_counting(main_launches)
+    before = {name: dict(keys) for name, keys in main_launches.items()}
+    cfg = dataclasses.replace(get_arch("qwen2-vl-72b"), n_layers=VL_LAYERS)
+    hd = cfg.resolved_head_dim
+    require(cfg.n_vision_tokens == VL_VISION and VL_GRID ** 2 == VL_VISION,
+            f"phase 13: {cfg.n_vision_tokens} vision tokens")
+    print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV heads of {hd}, q/k/v bias {cfg.attn_bias}, "
+          f"d_ff {cfg.d_ff} ({cfg.act}), vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}, M-RoPE sections {cfg.mrope_sections} "
+          f"theta {cfg.rope_theta:g}, {cfg.n_vision_tokens} vision tokens "
+          f"at d_frontend {cfg.d_frontend}, {cfg.dtype}; reduced: n_layers "
+          f"80->{VL_LAYERS}", flush=True)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = host_copy(torch, model.init(0, device="cuda"))
+    n_params = sum(p.numel() for p in _leaves(params))
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    init_s = time.perf_counter() - t0
+    P13_WORKDIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(P13_WORKDIR.parent).free
+    print(f"params: {n_params / 1e9:.3f} B, {n_bytes / 1e9:.2f} GB (fp32, "
+          f"host), init on the card and copied down in {init_s:.1f} s; "
+          f"{free / 1e9:.1f} GB free under build/", flush=True)
+    require(free > 1.1 * n_bytes, f"phase 13: {free / 1e9:.1f} GB free, the "
+            f"store needs {n_bytes / 1e9:.1f} GB")
+    floor = p9_floor_budget(model, params, 1, VL_PROMPT)
+    budget = int(P9_BUDGET_OVER_FLOOR * floor)
+    rng = np.random.default_rng(13)
+    positions = vl_positions(np, 1, VL_PROMPT, VL_VISION, VL_GRID)
+    batch = {"tokens": torch.as_tensor(
+                 rng.integers(0, cfg.vocab_size, (1, VL_PROMPT)),
+                 dtype=torch.int32),
+             "vision_embeds": torch.from_numpy(rng.standard_normal(
+                 (1, VL_VISION, cfg.d_frontend)).astype(np.float32)),
+             "positions": torch.from_numpy(positions)}
+    tag = "phase13 qwen2-vl-72b bf16 mmap"
+    out = {"budget": budget, "floor": floor, "params": n_params}
+    shutil.rmtree(P13_WORKDIR, ignore_errors=True)
+    t_store = time.perf_counter()
+    sm = SwappedModel(model, params, str(P13_WORKDIR), device="cuda",
+                      store_backend="mmap", prefetch_depth=P9_M)
+    try:
+        out["store_s"] = time.perf_counter() - t_store
+        resident = plan_at_floor(torch, sm, floor, budget, VL_PROMPT,
+                                 out["store_s"], tag)
+        ratio = resident / budget
+        out.update(resident=resident, ratio=ratio)
+        require(ratio >= VL_MIN_RATIO, f"{tag}: resident / budget "
+                f"{ratio:.3f} < {VL_MIN_RATIO}")
+        del params
+
+        t0 = time.perf_counter()
+        sm.forward(batch)                                          # warm
+        warm_s = time.perf_counter() - t0
+        sm.engine.stats.__init__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        logits, st = sm.forward(batch)
+        counts = collect()
+        max_alloc = torch.cuda.max_memory_allocated()
+        want_key = (1, VL_PROMPT, cfg.n_heads, cfg.n_kv_heads, hd, hd,
+                    cfg.dtype, True, None, None, None)
+        launched = dict(fa.launches.by_shape)
+        require(counts["flash_attention"] == VL_LAYERS
+                and launched == {want_key: VL_LAYERS},
+                f"{tag}: flash_attention launches {launched}, expected "
+                f"{VL_LAYERS} at {want_key}")
+        require(counts["swap_linear"] == 7 * VL_LAYERS,
+                f"{tag}: swap_linear launched {counts['swap_linear']} times, "
+                f"expected {7 * VL_LAYERS}")
+        require(counts["swap_linear_q"] == 0, f"{tag}: swap_linear_q "
+                f"launched {counts['swap_linear_q']} times")
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (1, 1, cfg.vocab_size),
+                f"{tag}: logits {tuple(logits.shape)}, finite "
+                f"{bool(torch.isfinite(logits).all())}")
+        require(sm.engine.stats.peak_resident <= budget,
+                f"{tag}: peak ledger {sm.engine.stats.peak_resident} over "
+                f"budget {budget}")
+        t0 = time.perf_counter()
+        units = [sm.store.read_unit(u.name).params for u in sm.units]
+        want = sm.forward_unswapped(batch, resident=units)
+        unswapped_s = time.perf_counter() - t0
+        require(torch.equal(logits, want),
+                f"{tag}: swapped logits != unswapped logits")
+        # the vision tokens' h and w streams swapped (the patch grid
+        # transposed), nothing else: only M-RoPE's h / w sections change
+        moved = positions.copy()
+        moved[0, :VL_VISION, 1:] = positions[0, :VL_VISION, :0:-1]
+        reset()
+        moved_logits = sm.forward_unswapped(
+            dict(batch, positions=torch.from_numpy(moved)), resident=units)
+        mcounts = collect()
+        del units
+        torch.cuda.empty_cache()
+        moved_rel = rel_err(torch, moved_logits, logits)[1]
+        require(mcounts["flash_attention"] == VL_LAYERS and moved_rel > 1e-3,
+                f"{tag}: the transposed grid moved the logits by rel "
+                f"{moved_rel:.3g}; launches {mcounts}")
+        print(f"[{tag}] swapped logits == unswapped logits bitwise (1 x "
+              f"{VL_PROMPT} tokens, {VL_VISION} of them vision embeddings "
+              f"through the frontend, {VL_LAYERS} layers at published "
+              f"widths, the unswapped model holding all "
+              f"{resident / 1e9:.1f} GB; {unswapped_s:.1f} s); "
+              f"flash_attention x {VL_LAYERS} at {want_key[:7]}; the vision "
+              f"tokens' h / w streams transposed move the logits by rel "
+              f"{moved_rel:.4g}; warm pass {warm_s:.1f} s; launches "
+              f"{counts}", flush=True)
+        out["prefill"] = report_prefill(tag, sm, st, budget, resident,
+                                        max_alloc)
+        out["prefill"].update(warm_s=warm_s, moved_rel=moved_rel)
+
+        # two text-only paged generations on the same store and budget,
+        # then each request alone
+        prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+                   for n in VL_PAGED_PROMPTS]
+        new = [VL_PAGED_NEW] * len(prompts)
+        kv = PagedKVCache(cfg, sm.engine.ledger, page_tokens=PAGE_TOKENS,
+                          max_pages=VL_MAX_PAGES, device="cuda")
+        t0 = time.perf_counter()
+        reqs, be, pcounts, windows, alloc0 = drive_paged(
+            torch, sm, kv, prompts, new, len(prompts), reset, collect)
+        out["paged"] = report_paged(torch, "phase13 paged", sm, kv, be,
+                                    budget, windows, alloc0)
+        check_paged_run("phase13 paged", kv, be, pcounts, VL_LAYERS, budget)
+        paged_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solo = []
+        for p, n in zip(prompts, new):
+            sreqs, sbe, scounts, _, _ = drive_paged(
+                torch, sm, kv, [p], [n], 1, reset, collect)
+            check_paged_run("phase13 alone", kv, sbe, scounts, VL_LAYERS,
+                            budget)
+            solo.append(sreqs[0].output)
+        solo_s = time.perf_counter() - t0
+        got = [r.output for r in reqs]
+        require(got == solo and all(len(t) == VL_PAGED_NEW for t in got),
+                f"{tag}: paged tokens {got} != served alone {solo}")
+        steps = sum(1 for t in be.trace if t.batch)
+        print(f"[phase13 paged] {len(prompts)} text requests (prompts "
+              f"{VL_PAGED_PROMPTS}, {VL_PAGED_NEW} new tokens each, M-RoPE "
+              f"positions [B, 1, 3] a step) == each served alone: {got}; "
+              f"{steps} decode steps, paged_attention x "
+              f"{pcounts['paged_attention']} ({VL_LAYERS} layers x {steps});"
+              f" batched {paged_s:.1f} s, alone {solo_s:.1f} s; launches "
+              f"{pcounts}", flush=True)
+        out["paged"].update(tokens=got, batched_s=paged_s, solo_s=solo_s)
+        print(f"[phase13] wall s: init {init_s:.1f}, store "
+              f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
+              f"{st['latency_s']:.1f}, unswapped and moved grid "
+              f"{unswapped_s:.1f}, paged {paged_s:.1f}, alone {solo_s:.1f}",
+              flush=True)
+    finally:
+        sm.close()
+        shutil.rmtree(P13_WORKDIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["by_shape"] = {
+        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
+               if n > before[name].get(k, 0)}
+        for name, keys in main_launches.items()}
+    return out
+
+
+# ---------------------------------------------------------------- hubert
+def run_hubert(torch, main_launches):
+    """Phase 14: hubert-xlarge's bidirectional audio encoder at its
+    published widths and full depth (48 layers), swapped from one fp32
+    mmap store under 1.1x the smallest budget on a 0.01 GB grid at which
+    the planner packs it at m = 2: a forward of 2 x 1,500 seeded frame
+    features (the conv extractor's output, which the stub stands for)
+    bitwise equal to the unswapped forward, B4 once a layer without a
+    causal mask at 16 / 16 heads of 80 (the CUDA-core kernel) and B5 six
+    times a layer. No decode, no paged path, no quant store: the model is
+    an encoder and opts out of quantized units."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.cost_model import DelayModel, resident_infos
+    from repro_torch.core.partition import PartitionPlanner
+    from repro_torch.core.runtime import SwappedModel, unit_infos
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import tree_map
+
+    reset, collect = launch_counting(main_launches)
+    before = {name: dict(keys) for name, keys in main_launches.items()}
+    cfg = get_arch("hubert-xlarge")
+    hd = cfg.resolved_head_dim
+    print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV heads of {hd}, d_ff {cfg.d_ff} "
+          f"({cfg.act}), vocab {cfg.vocab_size}, d_frontend "
+          f"{cfg.d_frontend}, rope {cfg.rope_type}, encoder "
+          f"{cfg.is_encoder}, quant_eligible {cfg.quant_eligible}, "
+          f"{cfg.dtype}; every layer ({cfg.n_layers})", flush=True)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = host_copy(torch, model.init(1, device="cuda"))
+    n_params = sum(p.numel() for p in _leaves(params))
+    init_s = time.perf_counter() - t0
+    print(f"params: {n_params / 1e9:.3f} B (fp32, host), init on the card "
+          f"and copied down in {init_s:.1f} s", flush=True)
+    rng = np.random.default_rng(14)
+    batch = {"features": torch.from_numpy(rng.standard_normal(
+        (HB_BATCH, HB_FRAMES, cfg.d_frontend)).astype(np.float32))}
+    tag = "phase14 hubert-xlarge bf16 mmap"
+    out = {"params": n_params}
+    shutil.rmtree(P14_WORKDIR, ignore_errors=True)
+    P14_WORKDIR.parent.mkdir(parents=True, exist_ok=True)
+    t_store = time.perf_counter()
+    sm = SwappedModel(model, params, str(P14_WORKDIR), device="cuda",
+                      store_backend="mmap", prefetch_depth=P9_M)
+    try:
+        out["store_s"] = time.perf_counter() - t_store
+        # the floor, the plan and the check a grid step below on ONE
+        # planner over the store's resident unit table (what ``partition``
+        # builds): its lookup tables are built once, not per budget, which
+        # at ~48 blocks of 50 units costs seconds a block count
+        t0 = time.perf_counter()
+        names = [u.name for u in sm.units]
+        pp = PartitionPlanner(resident_infos(
+            unit_infos(model, sm.units, HB_BATCH, HB_FRAMES),
+            sm.engine.store, names), DelayModel(), m=P9_M)
+        floor = grid_floor(pp, P14_GRID)
+        budget = int(P9_BUDGET_OVER_FLOOR * floor)
+        plan, _ = pp.best_partition(budget, 0.05)
+        require(plan.m == P9_M, f"{tag}: planned m={plan.m} at "
+                f"{budget / 1e9:.3f} GB")
+        sm.set_plan(plan.points)
+        sm.engine.ledger.budget = budget
+        for u in sm.units:          # the store is the weights' only home
+            u.params = tree_map(lambda a: torch.empty(
+                a.shape, dtype=a.dtype, device="meta"), u.params)
+        resident = sum(sm.store.resident_nbytes(n) for n in names)
+        ratio = resident / budget
+        out.update(resident=resident, ratio=ratio, budget=budget,
+                   floor=floor, plan_s=time.perf_counter() - t0)
+        print(f"[{tag}] store of {resident / 1e9:.3f} GB built in "
+              f"{out['store_s']:.1f} s ({len(names)} units: a layer "
+              f"{sm.store.resident_nbytes(names[1]) / 1e6:.2f} MB, embed "
+              f"{sm.store.resident_nbytes(names[0]) / 1e6:.2f} MB, head "
+              f"{sm.store.resident_nbytes(names[-1]) / 1e6:.2f} MB); budget "
+              f"{budget / 1e9:.3f} GB = {P9_BUDGET_OVER_FLOOR} x the "
+              f"smallest feasible {floor / 1e9:.2f} GB at m = {P9_M} on a "
+              f"{P14_GRID / 1e9:.2f} GB grid; resident / budget "
+              f"{ratio:.3f} (the paper's 2.32-5.81); blocks="
+              f"{sm.plan.n_blocks} m={sm.plan.m}; planned in "
+              f"{out['plan_s']:.1f} s", flush=True)
+        require(ratio > 5.81, f"{tag}: resident / budget {ratio:.3f}, not "
+                f"above the paper's 5.81")
+        del params
+
+        t0 = time.perf_counter()
+        sm.forward(batch)                                          # warm
+        warm_s = time.perf_counter() - t0
+        sm.engine.stats.__init__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        logits, st = sm.forward(batch)
+        counts = collect()
+        max_alloc = torch.cuda.max_memory_allocated()
+        want_key = (HB_BATCH, HB_FRAMES, cfg.n_heads, cfg.n_kv_heads, hd,
+                    hd, cfg.dtype, False, None, None, None)
+        launched = dict(fa.launches.by_shape)
+        require(counts["flash_attention"] == cfg.n_layers
+                and launched == {want_key: cfg.n_layers}
+                and fa.path(torch.bfloat16, hd) == "simt",
+                f"{tag}: flash_attention launches {launched}, expected "
+                f"{cfg.n_layers} at {want_key} on the CUDA cores")
+        require(counts["swap_linear"] == 6 * cfg.n_layers,
+                f"{tag}: swap_linear launched {counts['swap_linear']} times, "
+                f"expected {6 * cfg.n_layers}")
+        require(counts["swap_linear_q"] == 0, f"{tag}: swap_linear_q "
+                f"launched {counts['swap_linear_q']} times")
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (HB_BATCH, 1, cfg.vocab_size),
+                f"{tag}: logits {tuple(logits.shape)}, finite "
+                f"{bool(torch.isfinite(logits).all())}")
+        require(sm.engine.stats.peak_resident <= budget,
+                f"{tag}: peak ledger {sm.engine.stats.peak_resident} over "
+                f"budget {budget}")
+        t0 = time.perf_counter()
+        units = [sm.store.read_unit(u.name).params for u in sm.units]
+        want = sm.forward_unswapped(batch, resident=units)
+        del units
+        unswapped_s = time.perf_counter() - t0
+        require(torch.equal(logits, want),
+                f"{tag}: swapped logits != unswapped logits")
+        print(f"[{tag}] swapped logits == unswapped logits bitwise "
+              f"({HB_BATCH} x {HB_FRAMES} frames, {cfg.n_layers} layers at "
+              f"published widths, the unswapped model holding all "
+              f"{resident / 1e9:.2f} GB; {unswapped_s:.1f} s); "
+              f"flash_attention x {cfg.n_layers} non-causal at "
+              f"{want_key[:7]} (CUDA cores); warm pass {warm_s:.1f} s; "
+              f"launches {counts}", flush=True)
+        out["prefill"] = report_prefill(tag, sm, st, budget, resident,
+                                        max_alloc)
+        out["prefill"]["warm_s"] = warm_s
+        print(f"[phase14] wall s: init {init_s:.1f}, store "
+              f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
+              f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}",
+              flush=True)
+    finally:
+        sm.close()
+        shutil.rmtree(P14_WORKDIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["by_shape"] = {
+        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
+               if n > before[name].get(k, 0)}
+        for name, keys in main_launches.items()}
+    return out
+
+
 # ---------------------------------------------------------------- conv nets
 def p10_infos(layers, hw: int, batch: int):
     """The info rows of a conv net from its layer list alone (the rows of
@@ -4867,7 +5320,9 @@ def main() -> int:
         rows += check_swap_linear(torch, cfg, gcfg, get_arch("rwkv6-3b"),
                                   get_arch("llama4-scout-17b-a16e"),
                                   get_arch("deepseek-v2-lite-16b"),
-                                  get_arch("zamba2-7b"), conv_path)
+                                  get_arch("zamba2-7b"),
+                                  get_arch("qwen2-vl-72b"),
+                                  get_arch("hubert-xlarge"), conv_path)
         rows += check_flash_attention(torch)
 
     from repro_torch.models.transformer import Model
@@ -4902,16 +5357,8 @@ def main() -> int:
     del gmodel, gparams
 
     with phase("7 two tenants under one budget: the multi-DNN scenario"):
-        gcfg7 = dataclasses.replace(get_arch("gemma2-9b"),
-                                    n_layers=P7_GEMMA_LAYERS)
-        t0 = time.perf_counter()
-        gmodel7 = Model(gcfg7)
-        gparams7 = gmodel7.init(0, device="cpu")
-        print(f"model: {gcfg7.name} at its published widths, reduced: "
-              f"n_layers 42->{P7_GEMMA_LAYERS}; params "
-              f"{sum(p.numel() for p in _leaves(gparams7)) / 1e6:.1f} M "
-              f"(fp32, host), init {time.perf_counter() - t0:.1f} s; with "
-              f"{cfg.name} of phase 3", flush=True)
+        gmodel7, gparams7 = gemma_model(torch, P7_GEMMA_LAYERS)
+        print(f"with {cfg.name} of phase 3", flush=True)
         p7 = run_multi(torch, model, params, gmodel7, gparams7,
                        main_launches)
         check_held(rows, p7["by_shape"], "phase 7")
@@ -4922,9 +5369,13 @@ def main() -> int:
     del gmodel7, gparams7
 
     with phase("8 the mcu profile: calibration, mixed store, config, HTTP"):
-        print(f"model: {cfg.name} of phase 3 (n_layers 36->{N_LAYERS}, "
-              f"seed 0)", flush=True)
-        p8 = run_mcu(torch, model, params, main_launches)
+        from repro_torch.tree import tree_map
+        model8 = Model(dataclasses.replace(cfg, n_layers=P8_LAYERS))
+        params8 = dict(params, segments=[tree_map(
+            lambda a: a[:P8_LAYERS], params["segments"][0])])
+        print(f"model: {cfg.name} of phase 3, its first {P8_LAYERS} layers "
+              f"(n_layers 36->{P8_LAYERS}, seed 0)", flush=True)
+        p8 = run_mcu(torch, model8, params8, main_launches)
         p8_check_launches(p8["by_shape"])
         check_held(rows, p8["by_shape"], "phase 8")
         print("phase 8 launches by held shape: " + "; ".join(
@@ -4969,10 +5420,28 @@ def main() -> int:
             for name, keys in p12["by_shape"].items()
             for k, n in sorted(keys.items(), key=str)), flush=True)
 
+    with phase("13 qwen2-vl-72b's M-RoPE and vision frontend at full "
+               "width, 2.5x over budget"):
+        p13 = run_qwen2_vl(torch, main_launches)
+        check_held(rows, p13["by_shape"], "phase 13")
+        print("phase 13 launches by held shape: " + "; ".join(
+            f"{name} {held_key(name, k)} x{n}"
+            for name, keys in p13["by_shape"].items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+
+    with phase("14 hubert-xlarge's bidirectional encoder at full width "
+               "and depth"):
+        p14 = run_hubert(torch, main_launches)
+        check_held(rows, p14["by_shape"], "phase 14")
+        print("phase 14 launches by held shape: " + "; ".join(
+            f"{name} {held_key(name, k)} x{n}"
+            for name, keys in p14["by_shape"].items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 12): " + ", ".join(
+    print("main-path launches (phases 3 to 14): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

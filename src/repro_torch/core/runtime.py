@@ -509,6 +509,9 @@ class SwappedModel:
                 batch = {"token": tokens[:, t:t + 1],
                          "pos": torch.full((B,), pos0 + t, dtype=torch.long,
                                            device=dev)}
+                if cfg.rope_type == "mrope":
+                    batch["positions"] = torch.full(
+                        (B, 1, 3), pos0 + t, dtype=torch.long, device=dev)
                 x = positions = None
                 gen = swap_schedule(self.engine, self.plan.blocks(),
                                     unit_names, self.plan.m)
@@ -554,8 +557,8 @@ class SwappedModel:
         contiguous per-batch cache and batch membership may change freely
         between steps.
 
-        batch: ``{"token": [B, 1], "pos": [B]}``. Returns last-position
-        logits [B, 1, vocab].
+        batch: ``{"token": [B, 1], "pos": [B]}`` (+ ``"positions"``
+        [B, 1, 3] for M-RoPE). Returns last-position logits [B, 1, vocab].
         """
         if self.plan is None:
             raise RuntimeError("call partition()/set_plan() first")

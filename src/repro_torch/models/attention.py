@@ -1,6 +1,7 @@
-"""Attention: GQA with causal / sliding-window / softcap masks, for
-prefill and for single-token decode on a contiguous cache or through the
-paged KV cache (:func:`gqa_apply_paged`); and deepseek-v2's Multi-head
+"""Attention: GQA with RoPE or M-RoPE and causal / sliding-window /
+softcap masks (none for an encoder), for prefill and for single-token
+decode on a contiguous cache or through the paged KV cache
+(:func:`gqa_apply_paged`); and deepseek-v2's Multi-head
 Latent Attention (:func:`mla_apply`), whose decode cache holds one
 compressed latent and one RoPE key per token instead of K and V per head.
 
@@ -103,6 +104,18 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return cfg.resolved_head_dim ** -0.5
 
 
+def _rope(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+          positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE on q and k (none for ``rope_type="none"``); M-RoPE reads its
+    three position streams from ``positions`` [B, S, 3]."""
+    if cfg.rope_type == "none":
+        return q, k
+    sections = cfg.mrope_sections if cfg.rope_type == "mrope" else None
+    ang = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                      sections)
+    return apply_rope(q, ang), apply_rope(k, ang)
+
+
 def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
               positions: torch.Tensor, is_local: bool,
               cache: Optional[dict], decode_pos: Optional[torch.Tensor],
@@ -113,17 +126,17 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     index; attention runs :func:`online_attention` over the cache (no
     kernel: the reference computes that step in XLA). The decode cache is
     updated IN PLACE (one row per sequence) instead of copied, and
-    returned."""
+    returned. With M-RoPE (qwen2-vl) ``positions`` is [B, S, 3] and both
+    paths mask on its temporal stream ``positions[..., 0]`` against the
+    key's index, as the JAX package does: a caller whose temporal stream
+    is not the token index (Qwen2-VL's published rule gives an image one
+    temporal position) gets that package's mask, not the index mask."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
     k = linear(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
     v = linear(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
-    if cfg.rope_type != "none":
-        ang = rope_angles(positions, hd, cfg.rope_theta)
-        q, k = apply_rope(q, ang), apply_rope(k, ang)
+    q, k = _rope(cfg, q, k, positions)
 
     window = None
     if cfg.sliding_window is not None:
@@ -135,17 +148,19 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     if cfg.attn_chunk is not None and cfg.layer_pattern == "chunked":
         # llama4 iRoPE: 3/4 layers attend within attn_chunk-sized blocks
         block_local = cfg.attn_chunk if is_local else None
+    # M-RoPE masks on the temporal stream, as the JAX package does
+    q_pos = positions[..., 0] if cfg.rope_type == "mrope" else positions
     if cache is not None and decode_pos is not None:
         rows = torch.arange(B, device=x.device)
         cache["k"][rows, decode_pos] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, decode_pos] = v[:, 0].to(cache["v"].dtype)
-        out = online_attention(q, cache["k"], cache["v"], positions,
+        out = online_attention(q, cache["k"], cache["v"], q_pos,
                                decode_pos + 1, causal=not cfg.is_encoder,
                                window=window, scale=_attn_scale(cfg),
                                logit_cap=cfg.attn_logit_softcap, chunk=chunk,
                                block_local=block_local)
     else:
-        out = flash_attention(q, k, v, positions, scale=_attn_scale(cfg),
+        out = flash_attention(q, k, v, q_pos, scale=_attn_scale(cfg),
                               causal=not cfg.is_encoder, window=window,
                               softcap=cfg.attn_logit_softcap,
                               chunk=block_local)
@@ -165,8 +180,9 @@ def gqa_apply_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     ``paged`` is a layer-bound attend hook (``PagedBatchView.bind``). A
     global layer passes ``window=None``, not ``LARGE_WINDOW``, so the
-    kernel sees a real "no window". As in the JAX package, only the
-    window reaches the hook: a llama4 local layer's ``block_local`` mask
+    kernel sees a real "no window". The hook takes no positions, so M-RoPE
+    changes only q and k here. As in the JAX package, only the window
+    reaches the hook: a llama4 local layer's ``block_local`` mask
     is not applied here, so past ``attn_chunk`` tokens a paged step
     attends globally where prefill and the contiguous decode do not."""
     B, S, D = x.shape
@@ -176,11 +192,7 @@ def gqa_apply_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
     k = linear(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
     v = linear(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
-    if cfg.rope_type != "none":
-        ang = rope_angles(positions, hd, cfg.rope_theta)
-        q, k = apply_rope(q, ang), apply_rope(k, ang)
+    q, k = _rope(cfg, q, k, positions)
     window = None
     if cfg.sliding_window is not None and (cfg.layer_pattern == "swa"
                                            or is_local):

@@ -1,4 +1,4 @@
-"""Shared layer primitives: norms, RoPE, linear, MLPs.
+"""Shared layer primitives: norms, RoPE / M-RoPE, linear, MLPs.
 
 :func:`linear` is the precision routing point of the swap path: a weight
 that arrives as a :class:`~repro_torch.kernels.qtensor.QuantizedTensor`
@@ -14,7 +14,7 @@ packages up to accumulation order.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,15 +45,26 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 # ------------------------------------------------------------------ rotary
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> torch.Tensor:
-    """positions [B, S] -> angles [B, S, head_dim / 2]."""
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
+    """positions [B, S] (RoPE) or [B, S, 3] (M-RoPE) -> angles
+    [B, S, head_dim / 2]. With ``mrope_sections`` (Qwen2-VL) the frequency
+    slots split into (t, h, w) sections, each driven by its own position
+    stream: slot i reads stream ``repeat(arange(3), sections)[i]``."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
     inv_freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
                                       device=positions.device), exps)
-    return positions.to(torch.float32)[..., None] * inv_freq
+    if mrope_sections is None:
+        return positions.to(torch.float32)[..., None] * inv_freq
+    if sum(mrope_sections) != half:
+        raise ValueError(f"mrope_sections {tuple(mrope_sections)} do not "
+                         f"sum to head_dim / 2 = {half}")
+    section_id = torch.tensor([i for i, n in enumerate(mrope_sections)
+                               for _ in range(n)], device=positions.device)
+    return positions.to(torch.float32)[..., section_id] * inv_freq
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Config-driven decoder: the dense, moe, rwkv6 and hybrid (mamba2 +
-shared attention) kinds.
+"""Config-driven model: the dense, moe, rwkv6 and hybrid (mamba2 +
+shared attention) kinds, as decoders or (hubert) as a bidirectional
+encoder.
 
 The layer list (``cfg.layer_kinds()``) is grouped into *segments* of
 consecutive identical kinds; each segment's params are stacked [n, ...],
@@ -18,9 +19,20 @@ tree, ``params["shared_attn"]``, applied at each of its positions; its
 segments are not scanned (``Segment.scanned`` False) and hold ``{}`` in
 ``params["segments"]``, the JAX package's tree. A config with ``mla``
 (deepseek-v2) attends with Multi-head Latent Attention
-(``attention.mla_apply``) in its dense and moe layers. M-RoPE and the
-vision and audio frontends raise ``NotImplementedError``.
-A config with ``d_frontend`` whose family reads no frontend (llama4's
+(``attention.mla_apply``) in its dense and moe layers. A config with
+``rope_type="mrope"`` (qwen2-vl) rotates q and k by three position
+streams (``positions`` [B, S, 3]: temporal, height, width), broadcast
+from the token index when the batch brings none.
+
+The modality frontends are stubs, as in the JAX package: the batch
+brings the vision or audio encoder's output and the model projects it
+with one ``frontend`` matrix [d_frontend, D]. qwen2-vl's prefill replaces
+the first ``n_vision_tokens`` rows of the token embedding by
+``vision_embeds @ frontend``; hubert (``embed_inputs=False``, an
+encoder: bidirectional attention, no decode) has no token embedding and
+embeds ``features @ frontend``. Its ``mask_emb`` is read only by the
+reference's masked-prediction training, which the port does not run. A
+config with ``d_frontend`` whose family reads no frontend (llama4's
 vision stub) still carries the ``frontend`` parameter, as the JAX
 package's tree does; the forward never reads it.
 
@@ -86,11 +98,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: layer kinds {sorted(kinds)} are not ported yet "
             f"(dense / moe stacks, all rwkv6, or mamba2 with shared "
             f"attention only)")
-    if not cfg.embed_inputs or cfg.is_encoder or cfg.family == "vlm":
-        raise NotImplementedError(f"{cfg.name}: modality frontends are not "
-                                  f"ported yet")
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet")
 
 
 # ------------------------------------------------------------------ defs
@@ -129,11 +136,14 @@ def model_defs(cfg: ModelConfig) -> Tuple[dict, List[Segment]]:
     D, V = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {
         "final_norm": ParamDef((D,), init="zeros" if cfg.post_norms
-                               else "ones"),
-        "embed": ParamDef((V, D), init="small")}
+                               else "ones")}
+    if cfg.embed_inputs:
+        defs["embed"] = ParamDef((V, D), init="small")
     if cfg.d_frontend:
         defs["frontend"] = ParamDef((cfg.d_frontend, D))
-    if not cfg.tie_embeddings:
+    if cfg.is_encoder:
+        defs["mask_emb"] = ParamDef((D,), init="small")
+    if not cfg.tie_embeddings or not cfg.embed_inputs:
         defs["lm_head"] = ParamDef((D, V), init="small")
     if any(not s.scanned for s in plan):
         defs["shared_attn"] = layer_defs(cfg, "dense")
@@ -274,6 +284,14 @@ def _lead(seg: Segment) -> tuple:
     return (seg.n,) if seg.scanned else ()
 
 
+def _project(a: torch.Tensor, w: torch.Tensor,
+             dt: torch.dtype) -> torch.Tensor:
+    """``(a @ w).astype(dt)`` with JAX's promotion of mixed float
+    operands (bf16 with fp32 multiplies in fp32)."""
+    pt = torch.promote_types(a.dtype, w.dtype)
+    return torch.matmul(a.to(pt), w.to(pt)).to(dt)
+
+
 # ------------------------------------------------------------------ model
 class Model:
     def __init__(self, cfg: ModelConfig):
@@ -305,20 +323,34 @@ class Model:
     # ---------------- embedding / io
     def _embed(self, params: dict, batch: dict, mode: str
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (x [B,S,D], positions [B,S])."""
+        """Returns (x [B,S,D], positions [B,S], or [B,S,3] with M-RoPE).
+        The frontend projections are plain matmuls, as the JAX package
+        computes them outside any kernel, in the promoted dtype of their
+        operands (the JAX package's ``@``), then cast to the compute
+        dtype."""
         cfg = self.cfg
-        tokens = batch["token" if mode == "decode" else "tokens"]
-        x = params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+        dt = torch_dtype(cfg.dtype)
+        if cfg.embed_inputs:
+            tokens = batch["token" if mode == "decode" else "tokens"]
+            x = params["embed"][tokens.long()].to(dt)
+            if (cfg.family == "vlm" and mode != "decode"
+                    and "vision_embeds" in batch):
+                v = _project(batch["vision_embeds"], params["frontend"], dt)
+                x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
+        else:
+            x = _project(batch["features"], params["frontend"], dt)
         if cfg.final_logit_softcap is not None:   # gemma-style embed scaling
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
         if "positions" in batch:
-            positions = batch["positions"]
-        elif mode == "decode":
+            return x, batch["positions"]
+        if mode == "decode":
             positions = batch["pos"][:, None]
         else:
             B, S = x.shape[:2]
             positions = torch.arange(S, device=x.device).expand(B, S)
+        if cfg.rope_type == "mrope":
+            positions = positions[..., None].expand(*positions.shape, 3)
         return x, positions
 
     def _head(self, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -385,7 +417,8 @@ class Model:
                                   lead=_lead(seg)) for seg in self.plan]
 
     def decode_step(self, params: dict, cache: list, batch: dict):
-        """batch: {'token': [B,1], 'pos': [B]}. ``cache`` (from
-        :meth:`alloc_cache`) is updated in place and returned."""
+        """batch: {'token': [B,1], 'pos': [B]} (+ 'positions' [B,1,3] for
+        M-RoPE). ``cache`` (from :meth:`alloc_cache`) is updated in place
+        and returned."""
         h, cache = self.forward(params, batch, mode="decode", cache=cache)
         return self._head(params, h), cache

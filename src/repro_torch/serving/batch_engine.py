@@ -258,6 +258,9 @@ class BatchDecodeEngine:
                          dtype=torch.int32),
                      "pos": torch.from_numpy(
                          view.host_seq_lens.astype(np.int64) - 1)}
+            if self.sm.cfg.rope_type == "mrope":
+                batch["positions"] = batch["pos"][:, None, None].expand(
+                    len(rids), 1, 3)
             logits = self.sm.decode_step_paged(batch, view)
             toks = logits[:, -1].argmax(dim=-1).tolist()
             self.decode_s += time.perf_counter() - t0

@@ -39,13 +39,18 @@ class Request:
 
 
 def pad_prompts(cfg, reqs: Sequence[Request]) -> Dict[str, torch.Tensor]:
-    """Left-pad a request batch into a prefill input dict (host tensors)."""
+    """Left-pad a request batch into a prefill input dict (host tensors);
+    with M-RoPE the three position streams are the padded index."""
     B = len(reqs)
     L = max(len(r.prompt) for r in reqs)
     toks = np.zeros((B, L), np.int32)
     for i, r in enumerate(reqs):
         toks[i, L - len(r.prompt):] = r.prompt
-    return {"tokens": torch.from_numpy(toks)}
+    batch = {"tokens": torch.from_numpy(toks)}
+    if cfg.rope_type == "mrope":
+        pos = np.broadcast_to(np.arange(L)[None, :, None], (B, L, 3))
+        batch["positions"] = torch.from_numpy(pos.astype(np.int32))
+    return batch
 
 
 class ServingEngine:
@@ -103,6 +108,9 @@ class ServingEngine:
             db = {"token": tok[:, None],
                   "pos": torch.full((len(active),), L + step,
                                     dtype=torch.long, device=dev)}
+            if model.cfg.rope_type == "mrope":
+                db["positions"] = torch.full((len(active), 1, 3), L + step,
+                                             dtype=torch.long, device=dev)
             logits, cache = model.decode_step(self.params, cache, db)
             tok = logits[:, -1].argmax(dim=-1)
             toks = tok.tolist()

@@ -703,7 +703,8 @@ FA_CASES = [(1, 256, 4, 2, 64, None, False), (2, 37, 4, 2, 80, None, False),
             (4, 128, 16, 2, 128, None, False),
             (1, 300, 16, 8, 256, 224.0 ** -0.5, False),
             (1, 100, 8, 1, 120, None, False), (2, 129, 4, 4, 64, None, True),
-            (3, 17, 8, 8, 32, None, False), (2, 130, 8, 8, 112, None, False)]
+            (3, 17, 8, 8, 32, None, False), (2, 130, 8, 8, 112, None, False),
+            (2, 1500, 16, 16, 80, None, False)]
 
 
 @pytest.mark.parametrize("causal,window,softcap", [
@@ -770,20 +771,25 @@ def test_flash_attention_tensor_cores_at_ragged_s(dev, hd, causal, window,
         assert _rel(got, want) <= TOL[torch.bfloat16], (S, hd)
 
 
-# (S, H, KV, hd, dtype): both kernels at the main paths' head dims
-FA_BITWISE = [(200, 16, 2, 128, torch.bfloat16), (130, 16, 8, 256, torch.bfloat16),
-              (200, 16, 2, 128, torch.float32), (37, 4, 2, 80, torch.bfloat16),
-              (200, 32, 32, 112, torch.bfloat16)]
+# (S, H, KV, hd, dtype, causal): both kernels at the main paths' head
+# dims, hubert's bidirectional encoder (hd 80, no mask) among them
+FA_BITWISE = [(200, 16, 2, 128, torch.bfloat16, True),
+              (130, 16, 8, 256, torch.bfloat16, True),
+              (200, 16, 2, 128, torch.float32, True),
+              (37, 4, 2, 80, torch.bfloat16, True),
+              (200, 32, 32, 112, torch.bfloat16, True),
+              (1500, 16, 16, 80, torch.bfloat16, False)]
 
 
-@pytest.mark.parametrize("S,H,KV,hd,dtype", FA_BITWISE)
+@pytest.mark.parametrize("S,H,KV,hd,dtype,causal", FA_BITWISE)
 def test_flash_attention_rows_do_not_depend_on_the_batch(dev, S, H, KV, hd,
-                                                         dtype):
+                                                         dtype, causal):
     """Row b of a 4-row call equals the 1-row call on that row bitwise,
     and two identical calls give equal bits (no split over keys, no
     atomics)."""
     q, k, v, pos = _fa_inputs(4, S, H, KV, hd, dtype, 7)
-    kw = dict(scale=hd ** -0.5, window=64, softcap=50.0)
+    kw = dict(scale=hd ** -0.5, causal=causal,
+              window=64 if causal else None, softcap=50.0)
     full = fa.flash_attention(q, k, v, pos, **kw)
     assert torch.equal(full, fa.flash_attention(q, k, v, pos, **kw))
     for b in range(4):

@@ -21,6 +21,7 @@ from repro.configs import get_arch as ref_get_arch  # noqa: E402
 from repro.configs.base import ShapeConfig  # noqa: E402
 from repro.models.transformer import Model as RefModel  # noqa: E402
 from repro.models.transformer import alloc_cache as ref_alloc_cache  # noqa: E402
+from repro_torch import configs as port_configs  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
@@ -94,10 +95,24 @@ def test_decode_steps_match_reference(arch):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_unported_kinds_raise():
-    for arch in ("hubert-xlarge", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError):
-            Model(get_arch(arch).reduced())
+@pytest.mark.parametrize("arch", sorted(port_configs.ARCHS))
+def test_every_arch_builds_and_prefills_on_cpu(arch):
+    """Every config the port carries builds and runs one prefill on the
+    CPU: token ids, or frame features for a model without token inputs
+    (hubert); finite last-position logits."""
+    cfg = get_arch(arch).reduced()
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(0)
+    if cfg.embed_inputs:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32))}
+    else:
+        batch = {"features": torch.from_numpy(rng.standard_normal(
+            (2, 16, cfg.d_frontend)).astype(np.float32))}
+    logits, _ = model.prefill(params, batch)
+    assert tuple(logits.shape) == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("op", ["tree_map", "tree_flatten", "cast"])

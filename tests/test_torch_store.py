@@ -24,9 +24,11 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.runtime import split_units  # noqa: E402
 from repro_torch.errors import SwapCorruptionError  # noqa: E402
-from repro_torch.kernels.qtensor import QuantizedTensor, is_quantized  # noqa: E402
+from repro_torch.kernels.qtensor import (QuantizedTensor,  # noqa: E402
+                                          is_quantized, materialize_tree)
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.store import build_store  # noqa: E402
+from repro_torch.store.quantized_store import roundtrip  # noqa: E402
 from repro_torch.tree import tree_flatten_with_path, tree_leaves  # noqa: E402
 
 STORES = {"mmap": {}, "int8": {"bits": 8}, "int4": {"bits": 4}}
@@ -140,6 +142,24 @@ def test_lazy_quant_read_keeps_fused_weights_quantized(units, tmp_path, kind):
         assert pr.ledger_bytes == rr.ledger_bytes
         assert pr.quantized_bytes == rr.quantized_bytes
         assert pr.io_bytes == rr.io_bytes
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_lazy_quant_read_widened_equals_the_round_trip(units, tmp_path,
+                                                       kind):
+    """A lazy unit widened (``materialize_tree``: the dequant kernel's
+    plain version here) is bitwise the host round trip of the unit's
+    weights, the in-memory reference of the quantized paths: the smoke
+    builds that reference from the store's own units on the card."""
+    _, port_units = units
+    port = build_store(port_units, str(tmp_path), backend="quant",
+                       device="cpu", eager=False, **STORES[kind])
+    for name, params in port_units:
+        got = tree_leaves(materialize_tree(port.read_unit(name).params))
+        want = tree_leaves(roundtrip(params, STORES[kind]["bits"]))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("kind", ["mmap", "int8"])
