@@ -14,8 +14,11 @@ Phases, each printing its wall time:
    plain PyTorch versions on the card at every shape the paths launch,
    plus odd and ragged shapes, the bitwise checks (rows independent of
    the batch, repeated calls equal), and timed at the main paths' shapes
-   beside their plain version, a library call where one computes the
-   same function, and the card's bound;
+   beside their plain version (one call: it is no yardstick), a library
+   call where one computes the same function, and the card's bound;
+   then ``swap_linear`` and ``flash_attention`` under autograd (their
+   ``autograd.Function``s) against autograd through their plain versions
+   at phase 15's shapes, in fp32 and bf16;
 3. the swapped slice: qwen2.5-3b at its published widths with the depth
    cut from 36 to 4 layers and random weights from a seed; a swapped
    prefill of 4 requests x 128 tokens on the mmap store and on the
@@ -172,13 +175,30 @@ Phases, each printing its wall time:
    ``flash_attention`` once a layer without a causal mask (the CUDA-core
    kernel at hd 80) and ``swap_linear`` six times a layer; finite
    last-position logits. No decode, paged path or quant store: an encoder
-   that opts out of quantized units.
+   that opts out of quantized units;
+15. qwen2.5-3b trained at its published widths through
+   ``repro_torch.launch.train``'s loop: (a) in fp32 at depth 2, one batch
+   of 8 x 256 from ``SyntheticLM``, the loss and every gradient leaf
+   through ``swap_linear`` and ``flash_attention`` (their
+   ``autograd.Function``s) against autograd through their plain versions
+   on the card (the loss within 1e-5 relative, each leaf within 1e-4 of
+   its largest |g|); (b) in bf16 at phase 3's depth of 4, 20 steps at the
+   reference launcher's batch 8 and seq 256 and its schedule, every loss
+   finite and the last below the first; (c) per step and layer 15
+   ``swap_linear`` launches (forward, the checkpointed layer's recompute,
+   wi0's act="none" recompute) and 2 ``flash_attention``, and no other
+   kernel; (d) the checkpoint restored onto the card bitwise; (e) step ms,
+   tok/s and peak device memory.
 
-Every full-precision linear of phases 3 to 14 runs ``swap_linear`` and
-every prefill's attention ``flash_attention``; the quantized stores' lazy
-linears run ``swap_linear_q``; every paged decode step ``paged_attention``.
-Every shape phases 7 to 14 launch a kernel at is one of phase 2's rows,
+Every full-precision linear of phases 3 to 15 runs ``swap_linear`` and
+every prefill's (and phase 15's training step's) attention
+``flash_attention``; the quantized stores' lazy linears run
+``swap_linear_q``; every paged decode step ``paged_attention``.
+Every shape phases 7 to 15 launch a kernel at is one of phase 2's rows,
 held against the plain version there and timed; the script checks it.
+The one exception is phase 15 (a)'s fp32 gradient identity, which runs
+before the counted run: its fp32 shapes are held in phase 2 only through
+the Functions' gradient check (``check_train_grads``), not timed.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -321,6 +341,7 @@ EARLIER_MS = {
     ('wkv6', 'BH=80 S=16 hd=64 float32, zero initial state'): 0.0132,
 }
 SLEEP_CYCLES_PER_S = 2.0e9         # >= the H100's SM clock: holds long enough
+HOST_STAGE_BYTES = 1 << 28         # pinned buffer of host_copy
 
 N_LAYERS = 4
 BATCH, PROMPT = 4, 128
@@ -472,6 +493,20 @@ P10_STACK = (12, 1280, 64, 3)          # fc layers, width, batch, seed
 P10_STACK_BUDGET = 0.5                 # x the store's resident bytes
 P10_WORKDIR = ROOT / "build" / "phase10"
 
+# phase 15: qwen2.5-3b trained at its published widths through
+# ``launch/train.py``'s loop, phase 3's depth cut (36 -> 4), the reference
+# launcher's batch and sequence and its schedule for 20 steps; the fp32
+# identity through the kernels against the plain versions at depth 2. A
+# step launches, per layer, swap_linear 15 times (7 linears forward, 7 in
+# backward's recompute of the checkpointed layer, 1 act="none" recompute
+# of wi0 for its silu's derivative) and flash_attention twice (forward and
+# recompute); the fp32 lm head is a plain matmul, as in the reference
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 20
+TRAIN_ID_LAYERS = 2
+TRAIN_SL_PER_LAYER, TRAIN_FA_PER_LAYER = 15, 2
+TRAIN_GRAD_TOL = 1e-4                  # of each leaf's largest |g|
+P15_WORKDIR = ROOT / "build" / "phase15"
+
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
@@ -515,6 +550,28 @@ def time_ms(torch, fn, target_s: float = 0.1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_call(torch, fn):
+    """(result, device ms) of a plain version at a timed row: the call whose
+    result the kernel is held to, timed on the host behind a synchronize,
+    sizes a sleep that holds the stream while one more call is enqueued,
+    and CUDA events time that call on the device. The plain version is no
+    yardstick of speed (it repeats the kernel's arithmetic), so one timed
+    call serves where ``time_ms`` would run dozens."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(one * 1.2 + 2e-3, 0.5) * SLEEP_CYCLES_PER_S))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def gemm_ptxas(log: str) -> list:
@@ -793,12 +850,11 @@ def check_kernels(torch, cfg, conv_path):
         b = ((torch.randn((N,), generator=g, device=dev) * 0.1).to(dt)
              if has_bias else None)
         got = slq.swap_linear_q(x, q, s, b, bits=bits, act=act)
-        want = slq.swap_linear_q_plain(x, q, s, b, bits=bits, act=act)
+        want, p_ms = plain_call(torch, lambda: slq.swap_linear_q_plain(
+            x, q, s, b, bits=bits, act=act))
         err, rel = rel_err(torch, got, want)
         require(rel <= TOL[dname], f"timing case {(M, K, N)} rel {rel}")
         k_ms = time_ms(torch, lambda: slq.swap_linear_q(
-            x, q, s, b, bits=bits, act=act))
-        p_ms = time_ms(torch, lambda: slq.swap_linear_q_plain(
             x, q, s, b, bits=bits, act=act))
         # library yardstick: cuBLAS on the weight dequantized beforehand
         # (not timed), in x's dtype, + the epilogue
@@ -856,12 +912,11 @@ def check_kernels(torch, cfg, conv_path):
                           dtype=torch.int8)
         s = torch.rand((C,), generator=g, device=dev)
         got = dq.dequant_int8(q, s, torch.float32)
-        want = dq.dequant_int8_plain(q, s, torch.float32)
+        want, p_ms = plain_call(torch, lambda: dq.dequant_int8_plain(
+            q, s, torch.float32))
         err = (got - want).abs().max().item()
         require(err == 0.0, f"dequant timing case {(R, C)}")
         k_ms = time_ms(torch, lambda: dq.dequant_int8(q, s, torch.float32))
-        p_ms = time_ms(torch, lambda: dq.dequant_int8_plain(q, s,
-                                                            torch.float32))
         l_ms = time_ms(torch, lambda: torch.mul(q, s))
         t_bytes = (R * C + 4 * C + 4 * R * C) / HBM_BYTES_PER_S * 1e3
         t_ops = R * C / PEAK_OPS["float32"] * 1e3
@@ -1060,13 +1115,12 @@ def check_paged_attention(torch):
         q, kp, vp, pt, sl_t = paged_inputs(torch, 7, B, H, KV, hd, T, sl, dt)
         kw = dict(scale=scale, window=window, softcap=softcap)
         got = pa.paged_attention(q, kp, vp, pt, sl_t, **kw)
-        want = pa.paged_attention_plain(q, kp, vp, pt, sl_t, **kw)
+        want, p_ms = plain_call(torch, lambda: pa.paged_attention_plain(
+            q, kp, vp, pt, sl_t, **kw))
         err, rel = rel_err(torch, got, want)
         require(rel <= TOL[dname], f"timing case {label}: rel {rel:.3g}")
         k_ms = time_ms(torch, lambda: pa.paged_attention(q, kp, vp, pt,
                                                          sl_t, **kw))
-        p_ms = time_ms(torch, lambda: pa.paged_attention_plain(
-            q, kp, vp, pt, sl_t, **kw))
         # library yardstick on the K/V gathered to contiguous [B, KV, S, hd]
         # beforehand (not timed), the same mask: SDPA, or flex_attention
         # (compiled, its fused kernel) where the softcap needs a score_mod
@@ -1090,7 +1144,7 @@ def check_paged_attention(torch):
                 return sdpa(q4, kc, vc, attn_mask=mask, scale=scale)
         else:
             from torch.nn.attention import flex_attention as fa
-            flex = torch.compile(fa.flex_attention)
+            flex = torch.compile(fa.flex_attention, dynamic=False)
 
             def capped(s, b, h, q_idx, kv_idx):
                 return softcap * torch.tanh(s / softcap)
@@ -1218,11 +1272,10 @@ def check_wkv6(torch):
     for (BH, S, hd) in WKV_TIMED:
         args = wkv6_inputs(torch, 7, BH, S, hd, torch.float32, False)
         y, _ = kw.wkv6(*args)
-        y_p, _ = kw.wkv6_plain(*args)
+        (y_p, _), p_ms = plain_call(torch, lambda: kw.wkv6_plain(*args))
         err, rel = rel_err(torch, y, y_p)
         require(rel <= TOL["float32"], f"wkv6 timing case {(BH, S, hd)}")
         k_ms = time_ms(torch, lambda: kw.wkv6(*args))
-        p_ms = time_ms(torch, lambda: kw.wkv6_plain(*args))
         nbytes, ops = wkv6_cost(BH, S, hd, 4, False)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS["float32"] * 1e3
@@ -1414,6 +1467,10 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
               for s in fp_layer_linears(vcfg)]
     timed += [(f"{hcfg.name}", HB_BATCH * HB_FRAMES, "bfloat16", s)
               for s in fp_layer_linears(hcfg)]
+    # phase 15: qwen2.5-3b's training step at 8 x 256 tokens, forward,
+    # remat and wi0's act="none" recompute (wi1's key)
+    timed += [("qwen2.5-3b train", TRAIN_BATCH * TRAIN_SEQ, "bfloat16", s)
+              for s in fp_layer_linears(qcfg)]
     # phase 10: the conv workloads' fc layers and the fc stack, fp32
     timed += [(label, M, "float32", (K, N, "none", True))
               for label, (M, K, N) in conv_path["fp"]]
@@ -1426,12 +1483,12 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
         x, w, b = inputs(M, K, N, dt)
         b = b if has_bias else None
         got = sl.swap_linear(x, w, b, act=act)
-        want = sl.swap_linear_plain(x, w, b, act=act)
+        want, p_ms = plain_call(torch, lambda: sl.swap_linear_plain(
+            x, w, b, act=act))
         err, rel = rel_err(torch, got, want)
         require(rel <= TOL[dname], f"swap_linear timing case {(M, K, N)} "
                 f"rel {rel:.3g}")
         k_ms = time_ms(torch, lambda: sl.swap_linear(x, w, b, act=act))
-        p_ms = time_ms(torch, lambda: sl.swap_linear_plain(x, w, b, act=act))
         fn = {"silu": torch.nn.functional.silu,
               "gelu": lambda r: torch.nn.functional.gelu(
                   r, approximate="tanh")}.get(act)
@@ -1547,6 +1604,9 @@ FA_TIMED += [(f"qwen2-vl {what}", "bfloat16", 1, S, 64, 8, 128, 128,
              + [("admission", n) for n in VL_PAGED_PROMPTS]]
 FA_TIMED += [("hubert-xlarge encoder", "bfloat16", HB_BATCH, HB_FRAMES, 16,
               16, 80, 80, HB_SCALE, None, None, None, False)]
+# phase 15: qwen2.5-3b's training step, 8 x 256 tokens (forward and remat)
+FA_TIMED += [("qwen2.5-3b train", "bfloat16", TRAIN_BATCH, TRAIN_SEQ, 16, 2,
+              128, 128, QWEN_SCALE, None, None, None)]
 
 
 def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
@@ -1576,7 +1636,7 @@ def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
 
     def flex_call():
         from torch.nn.attention import flex_attention as flex_mod
-        flex = torch.compile(flex_mod.flex_attention)
+        flex = torch.compile(flex_mod.flex_attention, dynamic=False)
 
         def capped(s, b, h, q_idx, kv_idx):
             return softcap * torch.tanh(s / softcap)
@@ -1757,13 +1817,12 @@ def check_flash_attention(torch):
         kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
                   chunk=chunk)
         got = fa.flash_attention(q, k, v, pos, **kw)
-        want = fa.flash_attention_plain(q, k, v, pos, **kw)
+        want, p_ms = plain_call(torch, lambda: fa.flash_attention_plain(
+            q, k, v, pos, **kw))
         err, rel = rel_err(torch, got, want)
         require(rel <= TOL[dname], f"flash_attention timing case {label} "
                 f"S={S}: rel {rel:.3g}")
         k_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, pos, **kw))
-        p_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, pos,
-                                                               **kw))
         # a long causal CUDA-core bf16 prefill (zamba2's hd 112) is also
         # timed beside compiled flex_attention (a compile of its own)
         lib_name, l_ms, also = fa_library(
@@ -1805,6 +1864,79 @@ def check_flash_attention(torch):
               f"({r['bound_by']})", flush=True)
     torch.cuda.empty_cache()
     return rows
+
+
+# ------------------------------------------------------------- training
+def backward_grads(torch, fn, leaves, dy):
+    """(fn's output, the leaves' gradients) after ``fn().backward(dy)``."""
+    for t in leaves:
+        t.grad = None
+    out = fn()
+    out.backward(dy)
+    return out.detach(), [t.grad for t in leaves]
+
+
+def check_train_grads(torch, qcfg):
+    """Phase 2 for training: ``swap_linear`` and ``flash_attention`` under
+    autograd (``SwapLinearFn``, ``FlashAttentionFn``: the kernel forward,
+    the torch-op backward) against autograd through their plain versions
+    on the same inputs, at phase 15's shapes (qwen2.5-3b's linears at M
+    2,048, attention at 8 x 256 with 16 / 2 heads of 128), in fp32 and
+    bf16: the output and every input's gradient within 1e-5 / 2e-2 of
+    the largest value."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import swap_linear as sl
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2468)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    M = TRAIN_BATCH * TRAIN_SEQ
+    worst, n = {"float32": 0.0, "bfloat16": 0.0}, 0
+
+    def rnd(shape, scale, dt):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    def hold(dname, what, got, want):
+        nonlocal n
+        for a, b in zip(got, want):
+            _, rel = rel_err(torch, a, b)
+            require(a.dtype == b.dtype and rel <= TOL[dname],
+                    f"{what} {dname}: gradient rel err {rel:.3g} > "
+                    f"{TOL[dname]}")
+            worst[dname] = max(worst[dname], rel)
+            n += 1
+
+    for dname, dt in dts.items():
+        for K, N, act, has_bias in fp_layer_linears(qcfg):
+            x, w = rnd((M, K), 0.5, dt), rnd((K, N), K ** -0.5, dt)
+            b = rnd((N,), 0.1, dt) if has_bias else None
+            leaves = [t.requires_grad_(True) for t in (x, w, b)
+                      if t is not None]
+            dy = rnd((M, N), 1.0, dt)
+            y, got = backward_grads(
+                torch, lambda: sl.swap_linear(x, w, b, act=act), leaves, dy)
+            y0, want = backward_grads(
+                torch, lambda: sl.swap_linear_plain(x, w, b, act=act),
+                leaves, dy)
+            hold(dname, f"SwapLinearFn {(M, K, N, act)}", [y] + got,
+                 [y0] + want)
+        B, S, H, KV, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128
+        q, k, v = (rnd((B, S, h, hd), 1.0, dt).requires_grad_(True)
+                   for h in (H, KV, KV))
+        pos = torch.arange(S, device=dev).expand(B, S)
+        dy = rnd((B, S, H, hd), 1.0, dt)
+        out, got = backward_grads(torch, lambda: fa.flash_attention(
+            q, k, v, pos, scale=QWEN_SCALE), [q, k, v], dy)
+        out0, want = backward_grads(torch, lambda: fa.flash_attention_plain(
+            q, k, v, pos, scale=QWEN_SCALE), [q, k, v], dy)
+        hold(dname, f"FlashAttentionFn {(B, S, H, KV, hd)}", [out] + got,
+             [out0] + want)
+    torch.cuda.synchronize()
+    print(f"training: SwapLinearFn and FlashAttentionFn at phase 15's shapes "
+          f"match autograd through the plain versions in {n} outputs and "
+          f"gradients (worst rel err fp32 {worst['float32']:.3g} <= 1e-5, "
+          f"bf16 {worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- slice
@@ -3618,13 +3750,27 @@ def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag,
 
 def host_copy(torch, tree):
     """Each leaf of a device tree copied to the host, the device leaf
-    dropped as soon as its copy is made (the device never holds both)."""
+    dropped as soon as its copy is made (the device never holds both).
+    The bytes go through a pinned staging buffer of ``HOST_STAGE_BYTES``:
+    a copy down into pageable memory is staged by the driver in small
+    pieces, and the phases print what this one takes ("copied down in")."""
     from repro_torch.tree import tree_flatten, tree_unflatten
     leaves, treedef = tree_flatten(tree)
     del tree
+    stage = torch.empty(HOST_STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
     out = []
     while leaves:
-        out.append(leaves.pop(0).cpu())
+        leaf = leaves.pop(0).contiguous()
+        host = torch.empty(leaf.shape, dtype=leaf.dtype)
+        src = leaf.reshape(-1).view(torch.uint8)
+        dst = host.reshape(-1).view(torch.uint8)
+        for i in range(0, src.numel(), HOST_STAGE_BYTES):
+            n = min(HOST_STAGE_BYTES, src.numel() - i)
+            stage[:n].copy_(src[i:i + n])
+            dst[i:i + n].copy_(stage[:n])
+        out.append(host)
+        del leaf, src
+    del stage
     torch.cuda.empty_cache()
     return tree_unflatten(treedef, out)
 
@@ -5209,6 +5355,167 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
+class plain_kernels:
+    """Within the block the models' linears and prefill attention run the
+    plain versions of ``swap_linear`` and ``flash_attention`` on the card
+    (autograd differentiates them as it does any torch op): phase 15's
+    reference for the gradient through the kernels."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import swap_linear as sl
+        from repro_torch.models import attention, layers
+        self.saved = layers.swap_linear, attention.flash_attention
+        layers.swap_linear = sl.swap_linear_plain
+        attention.flash_attention = fa.flash_attention_plain
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention, layers
+        layers.swap_linear, attention.flash_attention = self.saved
+
+
+def loss_and_grads(torch, model, params, batch):
+    """(loss, every param leaf's gradient, zeros where the loss reads none)
+    of ``Model.loss`` on the card."""
+    leaves = _leaves(params)
+    for p in leaves:
+        p.grad = None
+    loss, _ = model.loss(params, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), [torch.zeros_like(p) if p.grad is None
+                                  else p.grad for p in leaves]
+
+
+def run_train(torch, card, main_launches):
+    """Phase 15: qwen2.5-3b trained at its published widths: (a) the fp32
+    gradient through the kernels == through the plain versions at depth 2;
+    (b) 20 bf16 steps of ``launch/train.py``'s loop at depth 4, a finite
+    and falling loss; (c) the launches a step implies; (d) the checkpoint
+    restored onto the card bitwise; (e) step ms, tok/s, peak memory."""
+    import math
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import swap_linear as sl
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import checkpoint
+    from repro_torch.tree import tree_map
+
+    reset, collect = launch_counting(main_launches)
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=N_LAYERS)
+    print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv bias "
+          f"{cfg.attn_bias}, tied {cfg.tie_embeddings}, {cfg.dtype}; "
+          f"reduced: n_layers 36->{N_LAYERS} (36->{TRAIN_ID_LAYERS} for the "
+          f"fp32 identity); batch {TRAIN_BATCH} x seq {TRAIN_SEQ}", flush=True)
+
+    # (a) fp32: the gradient through the kernels == through the plain ones
+    t0 = time.perf_counter()
+    cfg_a = dataclasses.replace(cfg, n_layers=TRAIN_ID_LAYERS,
+                                dtype="float32")
+    model_a = Model(cfg_a)
+    params_a = model_a.init(0, device="cuda")
+    for p in _leaves(params_a):
+        p.requires_grad_(True)
+    batch = {k: v.cuda() for k, v in SyntheticLM(
+        cfg_a, TRAIN_SEQ, TRAIN_BATCH).sample(0).items()}
+    n0 = (sl.launches.count, fa.launches.count)
+    loss, grads = loss_and_grads(torch, model_a, params_a, batch)
+    L = TRAIN_ID_LAYERS
+    n1 = (sl.launches.count, fa.launches.count)
+    require((n1[0] - n0[0], n1[1] - n0[1]) == (TRAIN_SL_PER_LAYER * L,
+                                               TRAIN_FA_PER_LAYER * L),
+            f"phase 15 (a): launches {n1[0] - n0[0]} / {n1[1] - n0[1]}")
+    with plain_kernels():
+        loss0, grads0 = loss_and_grads(torch, model_a, params_a, batch)
+    require((sl.launches.count, fa.launches.count) == n1,
+            "phase 15 (a): the plain run launched a kernel")
+    rel = abs(loss - loss0) / abs(loss0)
+    require(math.isfinite(loss) and rel <= 1e-5,
+            f"phase 15 (a): loss {loss} vs plain {loss0} (rel {rel:.3g})")
+    worst = 0.0
+    for g, g0 in zip(grads, grads0):
+        err = float((g - g0).abs().max())
+        scale = float(g0.abs().max())
+        require(err <= TRAIN_GRAD_TOL * scale,
+                f"phase 15 (a): a gradient leaf {tuple(g.shape)} off by "
+                f"{err:.3g} of {scale:.3g}")
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"[phase15 fp32] {TRAIN_ID_LAYERS} layers, "
+          f"{sum(p.numel() for p in _leaves(params_a)) / 1e6:.1f} M params: "
+          f"loss {loss:.6f} through the kernels vs {loss0:.6f} through the "
+          f"plain versions (rel {rel:.3g} <= 1e-5); {len(grads)} gradient "
+          f"leaves, worst {worst:.3g} of the leaf's largest |g| <= "
+          f"{TRAIN_GRAD_TOL}; {time.perf_counter() - t0:.1f} s", flush=True)
+    del model_a, params_a, grads, grads0, batch
+    torch.cuda.empty_cache()
+
+    # (b) 20 bf16 steps through the launcher's loop, counted
+    P15_WORKDIR.mkdir(parents=True, exist_ok=True)
+    ckpt = P15_WORKDIR / "ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                log_every=1, ckpt=str(ckpt), device="cuda")
+    wall = time.perf_counter() - t0
+    counts = collect()
+    by_shape = {"swap_linear": dict(sl.launches.by_shape),
+                "flash_attention": dict(fa.launches.by_shape)}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss, _ in out["logged"]]
+    require(len(losses) == TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses),
+            f"phase 15 (b): losses {losses}")
+    require(losses[-1] < losses[0], f"phase 15 (b): the loss did not fall: "
+            f"{losses[0]} -> {losses[-1]}")
+    stamps = [dt for _, _, dt in out["logged"]]
+    print(f"[phase15 bf16] losses {[round(x, 4) for x in losses]}",
+          flush=True)
+
+    # (c) the launches a step implies, and nothing else
+    want = {name: 0 for name in counts}
+    want["swap_linear"] = TRAIN_SL_PER_LAYER * N_LAYERS * TRAIN_STEPS
+    want["flash_attention"] = TRAIN_FA_PER_LAYER * N_LAYERS * TRAIN_STEPS
+    require(counts == want, f"phase 15 (c): launches {counts} != {want}")
+    print(f"[phase15] launches {counts} == per step and layer swap_linear "
+          f"{TRAIN_SL_PER_LAYER} (7 forward, 7 remat, 1 wi0 recompute) and "
+          f"flash_attention {TRAIN_FA_PER_LAYER} (forward, remat), "
+          f"{N_LAYERS} layers, {TRAIN_STEPS} steps", flush=True)
+
+    # (d) the checkpoint, restored onto the card into a zeroed tree
+    params = out["state"]["params"]
+    like = tree_map(torch.zeros_like, params)
+    back = checkpoint.restore(str(ckpt), like)
+    pairs = list(zip(_leaves(back), _leaves(params)))
+    require(all(a.device == b.device and torch.equal(a, b.detach())
+                for a, b in pairs),
+            "phase 15 (d): the restored checkpoint differs")
+    nbytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    print(f"[phase15] checkpoint of {len(pairs)} tensors, {nbytes / 1e9:.3f} "
+          f"GB: restored onto the card bitwise", flush=True)
+    del like, back, pairs, out, params
+    shutil.rmtree(P15_WORKDIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) steady step time (steps 1 on), tokens a second, peak device
+    # memory; every step is logged, so each ends in a wait for the card and
+    # the host's launches of the next step do not overlap its work
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_s = sorted(steps_s)[len(steps_s) // 2]
+    print(f"[phase15] {card}: step {step_s * 1e3:.1f} ms (median of steps "
+          f"1-{TRAIN_STEPS - 1}, synced every step; step 0 "
+          f"{stamps[0] * 1e3:.1f} ms), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:,.0f} tok/s; "
+          f"max_memory_allocated {peak / 1e9:.3f} GB; the loop and its "
+          f"checkpoint {wall:.1f} s", flush=True)
+    return by_shape
+
+
 def held_key(name: str, key: tuple) -> tuple:
     """A launch key as phase 2's rows key it: a paged_attention row
     stands for its shape at any page-table width."""
@@ -5324,6 +5631,7 @@ def main() -> int:
                                   get_arch("qwen2-vl-72b"),
                                   get_arch("hubert-xlarge"), conv_path)
         rows += check_flash_attention(torch)
+        check_train_grads(torch, cfg)
 
     from repro_torch.models.transformer import Model
     main_launches = {"swap_linear_q": {}, "dequant_int8": {},
@@ -5438,10 +5746,17 @@ def main() -> int:
             for name, keys in p14["by_shape"].items()
             for k, n in sorted(keys.items(), key=str)), flush=True)
 
+    with phase("15 qwen2.5-3b trained at full width"):
+        p15 = run_train(torch, card, main_launches)
+        check_held(rows, p15, "phase 15")
+        print("phase 15 launches by held shape: " + "; ".join(
+            f"{name} {k} x{n}" for name, keys in p15.items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 14): " + ", ".join(
+    print("main-path launches (phases 3 to 15): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

@@ -51,7 +51,7 @@ def main(argv=None) -> int:
     from repro_torch.calibrate import calibrate_model, calibration_batch
     from repro_torch.configs import get_arch
     from repro_torch.device import resolve_device
-    from repro_torch.launch.serve import scale_config
+    from repro_torch.launch.train import scale_config
     from repro_torch.models.transformer import Model
 
     device = resolve_device(args.device)

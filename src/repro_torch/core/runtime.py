@@ -465,9 +465,9 @@ class SwappedModel:
             # the ledger never sees (4.3 GB for gemma2-9b at S = 4,200)
             return self._head_logits(uparams, x[:, -1:]), positions
         p = cast_unit_params(uparams, torch_dtype(cfg.dtype))
-        x, new_cache = apply_layer(cfg, unit.kind, p, x, positions,
-                                   cfg.is_local_layer(unit.layer_id), None,
-                                   None, "prefill")
+        x, new_cache, _ = apply_layer(cfg, unit.kind, p, x, positions,
+                                      cfg.is_local_layer(unit.layer_id), None,
+                                      None, "prefill")
         if collect is not None:
             collect[unit.layer_id] = new_cache
         return x, positions
@@ -526,7 +526,7 @@ class SwappedModel:
                                 last_logits = self._head_logits(p, x)
                             else:
                                 pc = cast_unit_params(p, dt)
-                                x, caches[ui] = apply_layer(
+                                x, caches[ui], _ = apply_layer(
                                     cfg, unit.kind, pc, x, positions,
                                     cfg.is_local_layer(unit.layer_id),
                                     caches[ui], batch["pos"], "decode")
@@ -580,7 +580,7 @@ class SwappedModel:
                     elif unit.kind == "head":
                         logits = self._head_logits(p, x)
                     else:
-                        x, _ = apply_layer(
+                        x, _, _ = apply_layer(
                             cfg, unit.kind, cast_unit_params(p, dt), x,
                             positions, cfg.is_local_layer(unit.layer_id),
                             None, batch["pos"], "decode",

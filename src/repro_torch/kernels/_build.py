@@ -28,6 +28,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -163,6 +165,27 @@ class LaunchCounter:
         with self._lock:
             self.count = 0
             self.by_shape = {}
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd records this call: grad mode is on and one of
+    ``tensors`` (None skipped) requires grad. Only then does a wrapper with
+    an ``autograd.Function`` route through it, so inference runs exactly
+    as it did without one."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be recorded by
+    autograd: its CUDA output carries no ``grad_fn``, so a gradient would
+    vanish without a word. The CPU path needs no guard: it runs the plain
+    version, which autograd differentiates."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad under grad mode; run it under torch.no_grad() "
+            f"or on the CPU")
 
 
 def check(err: int, what: str) -> None:

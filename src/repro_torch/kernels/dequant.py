@@ -31,7 +31,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import LaunchCounter, check, library
+from repro_torch.kernels._build import (LaunchCounter, check, library,
+                                        refuse_grad)
 
 OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,25 +45,36 @@ def _channel_grid(arr: np.ndarray) -> np.ndarray:
     return x.reshape(-1, x.shape[-1]) if x.ndim >= 2 else x.reshape(1, -1)
 
 
+def _quantize(arr: np.ndarray, limit: int):
+    """Symmetric per-channel quantization to [-limit, limit] over the last
+    axis: scale = max|x| / limit (1.0 for a zero channel), values
+    round-half-to-even(x / scale) clipped, int8. The JAX package's numpy
+    arithmetic (``np.rint`` of an fp32 quotient) in torch ops, which run on
+    every host core: each step is exact or one IEEE fp32 rounding, so the
+    bytes are numpy's."""
+    x2 = _channel_grid(arr)
+    if not (x2.flags.writeable and x2.flags.c_contiguous):
+        x2 = np.array(x2, order="C")
+    x = torch.from_numpy(x2)
+    amax = x.abs().amax(dim=0)
+    scales = torch.where(amax > 0.0, amax / float(limit),
+                         torch.ones_like(amax))
+    q = torch.round(x / scales[None, :]).clamp_(-limit, limit)
+    return q.to(torch.int8).numpy(), scales.numpy()
+
+
 def quantize_int8(arr: np.ndarray):
     """Build-time host quantizer: symmetric per-channel int8. Channels are
     the LAST axis; the rest flattens to rows. Returns (values int8 [R, C],
     scales fp32 [C]). Zero channels get scale 1.0, so dequant is exact
     there."""
-    x2 = _channel_grid(arr)
-    amax = np.max(np.abs(x2), axis=0)
-    scales = np.where(amax > 0.0, amax / 127.0, 1.0).astype(np.float32)
-    q = np.clip(np.rint(x2 / scales[None, :]), -127, 127).astype(np.int8)
-    return q, scales
+    return _quantize(arr, 127)
 
 
 def quantize_int4(arr: np.ndarray):
     """Build-time host quantizer: symmetric per-channel int4, packed.
     Returns (carrier int8 [ceil(R/2), C], scales fp32 [C])."""
-    x2 = _channel_grid(arr)
-    amax = np.max(np.abs(x2), axis=0)
-    scales = np.where(amax > 0.0, amax / 7.0, 1.0).astype(np.float32)
-    q = np.clip(np.rint(x2 / scales[None, :]), -7, 7).astype(np.int8)
+    q, scales = _quantize(arr, 7)
     return pack_int4(q), scales
 
 
@@ -144,6 +156,7 @@ def dequant_int8(values: torch.Tensor, scales: torch.Tensor,
                                   rows=R)
     if values.device.type != "cuda":
         raise ValueError(f"dequant_int8: unsupported device {values.device}")
+    refuse_grad("dequant_int8", scales)
     if values.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"dequant_int8 takes int8 values and fp32 scales, "
                         f"got {values.dtype} and {scales.dtype}")

@@ -41,6 +41,17 @@ PyTorch version, ``flash_attention_ref`` with GQA, q_pos and dv: one dense
 fp32 softmax. It is what a CPU tensor runs, and what the kernels are held
 to on the card: about 1e-5 relative for fp32 (the online softmax sums in
 another order), about 2e-2 for bf16 (P and the output rounded to bf16).
+
+Training: where autograd records the call (grad mode on and q, k or v
+requiring grad) :func:`flash_attention` runs through
+:class:`FlashAttentionFn`, whose forward is the same launch. The TPU kernel
+has no ``custom_vjp``: the JAX package trains through XLA's autodiff of
+its ``online_attention``. The backward is therefore torch ops too,
+:func:`flash_attention_grad`: an explicit gradient over blocks of query
+rows, each recomputing its scores, softcap, mask and P against every key,
+so it holds O(S x block) scores and never the [S, S] matrix. It is its own
+function, not autograd through :func:`flash_attention_plain`, which stays
+off the training path.
 """
 from __future__ import annotations
 
@@ -48,7 +59,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import LaunchCounter, check, library
+from repro_torch.kernels._build import (LaunchCounter, check, library,
+                                        needs_grad)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LARGE_WINDOW = 1 << 30           # models/attention.py's "no window"
@@ -57,6 +69,7 @@ MAX_HEAD_DIM = 256
 # the tensor-core kernel's (hd, dv) pairs: equal ones, and MLA's 192 / 128
 TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 PATHS = {"tc": 0, "simt": 1}
+GRAD_BLOCK = 256                 # query rows a block of the backward
 
 launches = LaunchCounter()
 
@@ -106,6 +119,21 @@ def path(dtype: torch.dtype, hd: int, dv: Optional[int] = None) -> str:
             else "simt")
 
 
+def _mask(q_pos: torch.Tensor, S: int, window: Optional[int],
+          chunk: Optional[int]) -> torch.Tensor:
+    """The causal mask of queries at ``q_pos`` [B, n] over keys 0..S-1, with
+    the window and block-local chunk: [B, 1, 1, n, S] booleans."""
+    qp = q_pos.long()[:, None, None, :, None]
+    j = torch.arange(S, device=q_pos.device)[None, None, None, None, :]
+    mask = j <= qp
+    if window is not None:
+        mask = mask & ((qp - j) < window)
+    if chunk is not None:
+        mask = mask & (torch.div(qp, chunk, rounding_mode="floor")
+                       == torch.div(j, chunk, rounding_mode="floor"))
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_pos: torch.Tensor, *, scale: float,
                           causal: bool = True, window: Optional[int] = None,
@@ -122,18 +150,82 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     if causal:
-        qp = q_pos.long()[:, None, None, :, None]           # [B,1,1,S,1]
-        j = torch.arange(S, device=q.device)[None, None, None, None, :]
-        mask = j <= qp
-        if window is not None:
-            mask = mask & ((qp - j) < window)
-        if chunk is not None:
-            mask = mask & (torch.div(qp, chunk, rounding_mode="floor")
-                           == torch.div(j, chunk, rounding_mode="floor"))
-        s = s.masked_fill(~mask, NEG_INF)
+        s = s.masked_fill(~_mask(q_pos, S, window, chunk), NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p, v.to(torch.float32))
     return out.reshape(B, S, H, dv).to(q.dtype)
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_pos: torch.Tensor, out: torch.Tensor,
+                         dout: torch.Tensor, *, scale: float,
+                         causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         chunk: Optional[int] = None,
+                         block: int = GRAD_BLOCK):
+    """The gradient of :func:`flash_attention` at (q, k, v), given its
+    output ``out`` [B, S, H, dv] and the output's gradient ``dout``:
+    (dq, dk, dv) in the inputs' dtypes, computed in fp32. For each block of
+    ``block`` query rows: the scores against every key, the softcap, the
+    mask and P again; ``dV += P^T dO``, ``dP = dO V^T``,
+    ``dS = P * (dP - rowsum(dO * O))``, times the softcap's chain factor
+    ``1 - tanh^2(s / cap)``; ``dQ = dS K * scale``, ``dK += dS^T Q * scale``.
+    dK and dV sum over the G query heads of each KV head; v's head dim may
+    differ from q's (MLA)."""
+    B, S, H, KV, hd, dv, window, chunk = _check_args(
+        q, k, v, q_pos, causal, window, softcap, chunk)
+    G = H // KV
+    f32 = torch.float32
+    kf, vf = k.to(f32), v.to(f32)
+    dq = torch.empty((B, S, KV, G, hd), dtype=f32, device=q.device)
+    dk = torch.zeros((B, S, KV, hd), dtype=f32, device=q.device)
+    dvv = torch.zeros((B, S, KV, dv), dtype=f32, device=q.device)
+    for i0 in range(0, S, block):
+        i1 = min(S, i0 + block)
+        n = i1 - i0
+        qb = q[:, i0:i1].reshape(B, n, KV, G, hd).to(f32)
+        dob = dout[:, i0:i1].reshape(B, n, KV, G, dv).to(f32)
+        ob = out[:, i0:i1].reshape(B, n, KV, G, dv).to(f32)
+        s = torch.einsum("bqkgh,bckh->bkgqc", qb, kf) * scale
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        if causal:
+            s = s.masked_fill(~_mask(q_pos[:, i0:i1], S, window, chunk),
+                              NEG_INF)
+        p = torch.softmax(s, dim=-1)                     # [B,KV,G,n,S]
+        dvv += torch.einsum("bkgqc,bqkgh->bckh", p, dob)
+        dp = torch.einsum("bqkgh,bckh->bkgqc", dob, vf)
+        di = (dob * ob).sum(-1).permute(0, 2, 3, 1)      # [B,KV,G,n]
+        ds = p * (dp - di[..., None])
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        dq[:, i0:i1] = torch.einsum("bkgqc,bckh->bqkgh", ds, kf) * scale
+        dk += torch.einsum("bkgqc,bqkgh->bckh", ds, qb) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the forward is the kernel
+    (the plain version on the CPU), the backward
+    :func:`flash_attention_grad`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, scale, causal, window, softcap, chunk):
+        out = _flash_attention(q, k, v, q_pos, scale, causal, window,
+                               softcap, chunk)
+        ctx.save_for_backward(q, k, v, q_pos, out)
+        ctx.opts = dict(scale=scale, causal=causal, window=window,
+                        softcap=softcap, chunk=chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_grad(q, k, v, q_pos, out, dout,
+                                          **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -145,7 +237,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or bf16); q_pos [B, S] integer positions -> [B, S, H, dv] in q's dtype.
 
     A CUDA tensor launches the kernel or raises; a CPU tensor takes
-    :func:`flash_attention_plain`."""
+    :func:`flash_attention_plain`. Where autograd records the call, it
+    runs through :class:`FlashAttentionFn`."""
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, q_pos, scale, causal, window,
+                                      softcap, chunk)
+    return _flash_attention(q, k, v, q_pos, scale, causal, window, softcap,
+                            chunk)
+
+
+def _flash_attention(q, k, v, q_pos, scale, causal, window, softcap,
+                     chunk) -> torch.Tensor:
+    """The launch (the plain version for a CPU tensor), outside autograd."""
     B, S, H, KV, hd, dv, window, chunk = _check_args(
         q, k, v, q_pos, causal, window, softcap, chunk)
     if q.device.type == "cpu":

@@ -31,7 +31,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import LaunchCounter, check, library
+from repro_torch.kernels._build import (LaunchCounter, check, library,
+                                        refuse_grad)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
@@ -187,6 +188,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                      softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     if q.dtype not in DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"paged_attention takes q and pools of one dtype, "

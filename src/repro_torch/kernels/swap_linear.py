@@ -19,6 +19,17 @@ or misaligned shapes take masked plain loads into the same tiles.
 the kernel is held to on the card: about 1e-5 relative for fp32 (the sums
 run in another order), about 2e-2 for bf16 x (one bf16 rounding of the
 output).
+
+Training: where autograd records the call (grad mode on and x, w or b
+requiring grad) :func:`swap_linear` runs through :class:`SwapLinearFn`,
+whose forward is the same launch (the plain version on the CPU). The TPU
+kernel has no ``custom_vjp``: the JAX package's gradient of ``x @ w + b``
+is XLA's autodiff, two dot products. So the backward is not a kernel
+either: it recomputes the pre-activation ``z = x @ w + b`` with one more
+launch at ``act="none"`` where an activation was fused (the forward keeps
+no [M, N] intermediate), takes ``dz = dy * act'(z)`` in fp32, and runs
+``dx = dz @ w^T`` and ``dw = x^T @ dz`` as ``torch.matmul`` in x's dtype
+(the reference's dot products), ``db = dz.sum(0)``.
 """
 from __future__ import annotations
 
@@ -27,7 +38,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import gemm_plan
-from repro_torch.kernels._build import LaunchCounter, check, library
+from repro_torch.kernels._build import (LaunchCounter, check, library,
+                                        needs_grad)
 from repro_torch.kernels.swap_linear_q import (ACTS, X_DTYPES, activation,
                                                bias_arg, data_ptr,
                                                launch_plan)
@@ -82,13 +94,65 @@ def swap_linear_plain(x: torch.Tensor, w: torch.Tensor,
     return activation(r, act).to(x.dtype)
 
 
+def activation_grad(z: torch.Tensor, act: str) -> torch.Tensor:
+    """d act / dz at the fp32 pre-activation z, for the activations of
+    ``swap_linear_q.activation``: silu ``z * sigmoid(z)`` and tanh-gelu
+    ``0.5 z (1 + tanh(c (z + 0.044715 z^3)))``, c = sqrt(2 / pi)."""
+    if act == "silu":
+        s = torch.sigmoid(z)
+        return s * (1.0 + z * (1.0 - s))
+    if act == "gelu":
+        c = (2.0 / torch.pi) ** 0.5
+        t = torch.tanh(c * (z + 0.044715 * z * z * z))
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * c * (
+            1.0 + 3 * 0.044715 * z * z)
+    raise ValueError(f"no derivative for act {act!r}")
+
+
+class SwapLinearFn(torch.autograd.Function):
+    """:func:`swap_linear` under autograd: the forward is the kernel (the
+    plain version on the CPU), the backward the reference's XLA autodiff in
+    torch ops (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        ctx.save_for_backward(x, w, b)
+        ctx.act = act
+        return _swap_linear(x, w, b, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        dz = dy.to(torch.float32)
+        if ctx.act != "none":
+            z = _swap_linear(x, w, b, "none").to(torch.float32)
+            dz = dz * activation_grad(z, ctx.act)
+        dzx = dz.to(x.dtype)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dzx, w.t())
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.t(), dzx)
+        if b is not None and ctx.needs_input_grad[2]:
+            db = dz.sum(0).to(b.dtype)
+        return dx, dw, db, None
+
+
 def swap_linear(x: torch.Tensor, w: torch.Tensor,
                 b: Optional[torch.Tensor] = None, *,
                 act: str = "none") -> torch.Tensor:
     """x [M, K], w [K, N]; b [N] or None -> [M, N] in x's dtype.
 
     A CUDA tensor launches the kernel (x and w both fp32 or both bf16) or
-    raises; a CPU tensor takes :func:`swap_linear_plain`."""
+    raises; a CPU tensor takes :func:`swap_linear_plain`. Where autograd
+    records the call, it runs through :class:`SwapLinearFn`."""
+    if needs_grad(x, w, b):
+        return SwapLinearFn.apply(x, w, b, act)
+    return _swap_linear(x, w, b, act)
+
+
+def _swap_linear(x, w, b, act: str) -> torch.Tensor:
+    """The launch (the plain version for a CPU tensor), outside autograd."""
     M, K, N = _check_shapes(x, w, b, act)
     if x.device.type == "cpu":
         return swap_linear_plain(x, w, b, act=act)

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import gemm_plan
-from repro_torch.kernels._build import LaunchCounter, check, library
+from repro_torch.kernels._build import (LaunchCounter, check, library,
+                                        refuse_grad)
 from repro_torch.kernels.dequant import unpack_int4_tensor
 
 ACTS = {"none": 0, "silu": 1, "gelu": 2}
@@ -148,6 +149,7 @@ def swap_linear_q(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
         return swap_linear_q_plain(x, qw, scales, b, bits=bits, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"swap_linear_q: unsupported device {x.device}")
+    refuse_grad("swap_linear_q", x, scales, b)
     if x.dtype not in X_DTYPES:
         raise TypeError(f"swap_linear_q takes fp32 or bf16 x, got {x.dtype}")
     if qw.dtype != torch.int8 or scales.dtype != torch.float32:

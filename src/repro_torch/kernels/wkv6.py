@@ -34,7 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import LaunchCounter, check, library
+from repro_torch.kernels._build import (LaunchCounter, check, library,
+                                        refuse_grad)
 
 CHUNK = 16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,6 +167,7 @@ def _wkv6(r, k, v, w_log, u, state, groups: Optional[int]):
         return wkv6_plain(r, k, v, w_log, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
+    refuse_grad("wkv6", r, k, v, w_log, u, state)
     if r.dtype not in DTYPES or any(t.dtype != r.dtype
                                     for t in (k, v, w_log, u)):
         got = [str(t.dtype) for t in (r, k, v, w_log, u)]

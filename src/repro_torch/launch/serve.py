@@ -59,7 +59,6 @@ default raises. The flags are the JAX CLI's (``repro.launch.serve``) plus
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import tempfile
 
@@ -75,6 +74,7 @@ from repro_torch.core.multi_model import MultiModelRuntime
 from repro_torch.core.runtime import SwappedModel
 from repro_torch.core.serving_scheduler import ServingScheduler
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import scale_config  # noqa: F401  (re-exported)
 from repro_torch.models.transformer import Model
 from repro_torch.serving.batch_engine import BatchDecodeEngine
 from repro_torch.serving.control_plane import ControlPlane
@@ -82,20 +82,6 @@ from repro_torch.serving.engine import (MultiModelServingEngine, Request,
                                         ServingEngine, pad_prompts)
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.paged_kv import PagedKVCache
-
-
-def scale_config(cfg: ModelConfig, preset: str) -> ModelConfig:
-    """Reduce an arch to a runnable scale, keeping its family traits."""
-    if preset == "smoke":
-        return cfg.reduced()
-    if preset == "100m":
-        kw = dict(n_layers=min(cfg.n_layers, 8), d_model=768, n_heads=12,
-                  n_kv_heads=min(cfg.n_kv_heads, 4) or 1, head_dim=64,
-                  d_ff=2048, vocab_size=min(cfg.vocab_size, 32768))
-        if cfg.n_kv_heads == 1:
-            kw["n_kv_heads"] = 1
-        return dataclasses.replace(cfg, **kw)
-    return cfg
 
 
 def _percentile(xs, q: float) -> float:

@@ -30,13 +30,18 @@ with one ``frontend`` matrix [d_frontend, D]. qwen2-vl's prefill replaces
 the first ``n_vision_tokens`` rows of the token embedding by
 ``vision_embeds @ frontend``; hubert (``embed_inputs=False``, an
 encoder: bidirectional attention, no decode) has no token embedding and
-embeds ``features @ frontend``. Its ``mask_emb`` is read only by the
-reference's masked-prediction training, which the port does not run. A
+embeds ``features @ frontend``; in training its ``mask_emb`` replaces the
+frames the batch's ``mask`` marks, and the loss weighs only those (masked
+prediction, as in the JAX package). A
 config with ``d_frontend`` whose family reads no frontend (llama4's
 vision stub) still carries the ``frontend`` parameter, as the JAX
 package's tree does; the forward never reads it.
 
-Modes: "prefill" runs full sequences; "decode" runs one token against a
+Modes: "train" and "prefill" run full sequences; "train" builds no cache
+and checkpoints each layer (``torch.utils.checkpoint``, the counterpart of
+the JAX package's ``jax.checkpoint``), so backward recomputes a layer's
+activations from its input; :meth:`Model.loss` is its token-chunked
+cross-entropy. "decode" runs one token against a
 decode cache (updated in place: K/V rows for dense layers, the latent rows
 for MLA layers, the recurrent state for rwkv6 and mamba2 layers) or, for
 GQA layers with a ``paged`` hook, through the paged KV cache. The decode
@@ -51,6 +56,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.skeleton import torch_dtype
@@ -62,6 +68,8 @@ from repro_torch.models.layers import (layer_norm, mlp_apply, mlp_defs,
                                        rms_norm, softcap)
 from repro_torch.models.params import ParamDef, init_from_defs
 from repro_torch.tree import tree_map
+
+LOSS_CHUNK = 512   # token chunk of the logsumexp loss (never [T, V] at once)
 
 
 @dataclass(frozen=True)
@@ -156,7 +164,8 @@ def model_defs(cfg: ModelConfig) -> Tuple[dict, List[Segment]]:
 def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, is_local: bool, cache, decode_pos,
                 mode: str, paged=None):
-    """Returns (x, new_cache). ``paged`` (decode only) is a layer-bound
+    """Returns (x, new_cache, aux): ``aux`` is a moe layer's load-balance
+    loss, 0.0 for every other kind. ``paged`` (decode only) is a layer-bound
     paged-attention hook (``serving/paged_kv.PagedBatchView.bind``):
     attention K/V land in the page pool instead of a contiguous cache, and
     ``new_cache`` is None. In decode, ``cache`` is updated in place and
@@ -165,9 +174,9 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     ``dense``."""
     kind = _layer_kind(kind)
     if kind == "mamba2":
-        return _apply_mamba2(cfg, p, x, cache, mode)
+        return _apply_mamba2(cfg, p, x, cache, mode) + (0.0,)
     if kind == "rwkv6":
-        return _apply_rwkv6(cfg, p, x, cache, mode)
+        return _apply_rwkv6(cfg, p, x, cache, mode) + (0.0,)
     if kind not in ("dense", "moe"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     h = rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
@@ -185,13 +194,14 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         a_out = rms_norm(a_out, p["post_ln1"], cfg.norm_eps, plus_one=True)
     x = x + a_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norms)
-    if kind == "moe":       # the aux loss is a training term: dropped here
-        f_out, _ = moe_mod.moe_apply(cfg, p["ffn"], h)
+    aux = 0.0
+    if kind == "moe":
+        f_out, aux = moe_mod.moe_apply(cfg, p["ffn"], h)
     else:
         f_out = mlp_apply(cfg, p["ffn"], h)
     if cfg.post_norms:
         f_out = rms_norm(f_out, p["post_ln2"], cfg.norm_eps, plus_one=True)
-    return x + f_out, new_cache
+    return x + f_out, new_cache, aux
 
 
 def _apply_mamba2(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
@@ -292,6 +302,37 @@ def _project(a: torch.Tensor, w: torch.Tensor,
     return torch.matmul(a.to(pt), w.to(pt)).to(dt)
 
 
+def _run_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, is_local: bool, cache, decode_pos,
+               mode: str):
+    """:func:`apply_layer`; in "train" mode checkpointed (backward
+    recomputes the layer from its input) and without a cache."""
+    if mode != "train":
+        return apply_layer(cfg, kind, p, x, positions, is_local, cache,
+                           decode_pos, mode)
+    x, aux = checkpoint(_train_layer, cfg, kind, p, x, positions, is_local,
+                        use_reentrant=False)
+    return x, None, aux
+
+
+def _train_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, is_local: bool):
+    """What each checkpoint runs and recomputes: (x, aux)."""
+    x, _, aux = apply_layer(cfg, kind, p, x, positions, is_local, None, None,
+                            "train")
+    return x, aux
+
+
+def _chunk_nll(h: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor,
+               w_head: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Summed weighted negative log-likelihood of one chunk of positions:
+    h [B, c, D], targets and weights [B, c]."""
+    logits = softcap(h.to(torch.float32) @ w_head.to(torch.float32), cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.sum((lse - tgt) * weights)
+
+
 # ------------------------------------------------------------------ model
 class Model:
     def __init__(self, cfg: ModelConfig):
@@ -339,6 +380,9 @@ class Model:
                 x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
         else:
             x = _project(batch["features"], params["frontend"], dt)
+            if cfg.is_encoder and mode == "train" and "mask" in batch:
+                x = torch.where(batch["mask"][..., None],
+                                params["mask_emb"].to(x.dtype), x)
         if cfg.final_logit_softcap is not None:   # gemma-style embed scaling
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
@@ -363,42 +407,91 @@ class Model:
     # ---------------- steps
     def forward(self, params: dict, batch: dict, mode: str = "prefill",
                 cache: Optional[list] = None):
-        """Full-sequence forward. Returns (hidden, cache): the cache is a
-        list per segment of each layer's cache leaves stacked [n, ...], or
-        for a shared block's occurrence its leaves as they are
-        (``cache_struct``)."""
+        """Full-sequence forward. Returns (hidden, cache, aux): the cache is
+        a list per segment of each layer's cache leaves stacked [n, ...],
+        or for a shared block's occurrence its leaves as they are
+        (``cache_struct``); None in "train" mode, which checkpoints each
+        layer instead. ``aux`` sums the moe layers' load-balance losses
+        (0.0 without one)."""
         cfg = self.cfg
         params = self.cast(params)
         x, positions = self._embed(params, batch, mode)
         decode_pos = batch.get("pos") if mode == "decode" else None
-        new_cache = []
+        new_cache, aux = [], 0.0
         for si, seg in enumerate(self.plan):
             if not seg.scanned:
                 lid = seg.layer_ids[0]
-                x, c_new = apply_layer(cfg, seg.kind, params["shared_attn"],
-                                       x, positions, cfg.is_local_layer(lid),
-                                       None if cache is None else cache[si],
-                                       decode_pos, mode)
+                x, c_new, a = _run_layer(cfg, seg.kind, params["shared_attn"],
+                                         x, positions, cfg.is_local_layer(lid),
+                                         None if cache is None else cache[si],
+                                         decode_pos, mode)
                 new_cache.append(c_new)
+                aux = aux + a
                 continue
             stacked = params["segments"][si]
             layers = []
             for j, lid in enumerate(seg.layer_ids):
                 c = (None if cache is None else
                      {name: t[j] for name, t in cache[si].items()})
-                x, c_new = apply_layer(cfg, seg.kind, layer_slice(stacked, j),
-                                       x, positions, cfg.is_local_layer(lid),
-                                       c, decode_pos, mode)
+                x, c_new, a = _run_layer(cfg, seg.kind,
+                                         layer_slice(stacked, j), x,
+                                         positions, cfg.is_local_layer(lid),
+                                         c, decode_pos, mode)
                 layers.append(c_new)
-            new_cache.append(cache[si] if cache is not None else
-                             {name: torch.stack([c[name] for c in layers])
-                              for name in layers[0]})
+                aux = aux + a
+            if cache is not None:
+                new_cache.append(cache[si])
+            elif mode != "train":
+                new_cache.append({name: torch.stack([c[name] for c in layers])
+                                  for name in layers[0]})
         x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                      plus_one=cfg.post_norms)
-        return x, new_cache
+        return x, (None if mode == "train" else new_cache), aux
+
+    def loss(self, params: dict, batch: dict
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Token-chunked cross-entropy, the JAX package's ``Model.loss``:
+        the "train" forward, then per ``LOSS_CHUNK`` tokens of the sequence
+        the fp32 head (``lm_head``, or ``embed.T`` when tied, from the
+        uncast params), the final softcap, logsumexp minus the target's
+        logit. Where there is more than one chunk each is checkpointed, so
+        backward recomputes its [B, chunk, V] logits and the peak holds one
+        chunk's, never [T, V]; a single chunk is the whole of the logits
+        either way, and is not recomputed. An encoder weighs the positions its ``mask`` marks; the
+        sum is divided by max(sum(weights), 1) and the moe aux loss added.
+        Returns (loss, {"loss", "aux", "tokens"})."""
+        cfg = self.cfg
+        h, _, aux = self.forward(params, batch, mode="train")
+        B, S, _ = h.shape
+        targets = batch["targets"].long()
+        if cfg.is_encoder:
+            weights = batch["mask"].to(torch.float32)
+        else:
+            weights = torch.ones((B, S), dtype=torch.float32,
+                                 device=h.device)
+        w_head = params.get("lm_head")
+        if w_head is None:
+            w_head = params["embed"].T
+        chunk = min(LOSS_CHUNK, S)
+        if S % chunk != 0:
+            chunk = S
+        if chunk == S:
+            total = _chunk_nll(h, targets, weights, w_head,
+                               cfg.final_logit_softcap)
+        else:
+            total = 0.0
+            for c0 in range(0, S, chunk):
+                sl = slice(c0, c0 + chunk)
+                total = total + checkpoint(
+                    _chunk_nll, h[:, sl], targets[:, sl], weights[:, sl],
+                    w_head, cfg.final_logit_softcap, use_reentrant=False)
+        denom = torch.clamp(weights.sum(), min=1.0)
+        loss = total / denom + aux
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+        return loss, {"loss": loss, "aux": aux, "tokens": denom}
 
     def prefill(self, params: dict, batch: dict):
-        h, cache = self.forward(params, batch, mode="prefill")
+        h, cache, _ = self.forward(params, batch, mode="prefill")
         return self._head(params, h[:, -1:]), cache
 
     def cache_struct(self, batch: int, max_len: int) -> list:
@@ -420,5 +513,5 @@ class Model:
         """batch: {'token': [B,1], 'pos': [B]} (+ 'positions' [B,1,3] for
         M-RoPE). ``cache`` (from :meth:`alloc_cache`) is updated in place
         and returned."""
-        h, cache = self.forward(params, batch, mode="decode", cache=cache)
+        h, cache, _ = self.forward(params, batch, mode="decode", cache=cache)
         return self._head(params, h), cache

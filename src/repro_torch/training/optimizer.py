@@ -1,0 +1,92 @@
+"""AdamW with a warmup-cosine schedule, the JAX package's
+``training/optimizer.py``: fp32 moments, global-norm clipping, bias
+correction at ``t = step + 1`` and decoupled weight decay on leaves of two
+or more dimensions.
+
+The reference is functional and builds new trees each step. Here
+``params``, ``mu`` and ``nu`` are updated IN PLACE under
+``torch.no_grad()``: a copying update would hold a second set of moments
+and params at once (at qwen2.5-3b's 620 M parameters, 7.4 GB more).
+``torch.optim`` is not used: its AdamW decays every leaf and clips
+nothing.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def lr_at(step: int, cfg: OptConfig) -> float:
+    """Linear warmup to ``peak_lr`` over ``warmup_steps``, then a cosine down
+    to ``min_lr_ratio * peak_lr`` at ``total_steps``, in fp32 as the
+    reference computes it."""
+    f32 = np.float32
+    step = f32(step)
+    warm = step / f32(max(cfg.warmup_steps, 1))
+    prog = np.clip((step - f32(cfg.warmup_steps))
+                   / f32(max(cfg.total_steps - cfg.warmup_steps, 1)),
+                   f32(0.0), f32(1.0))
+    cos = f32(cfg.min_lr_ratio) + f32(1 - cfg.min_lr_ratio) * f32(0.5) * (
+        f32(1) + np.cos(f32(np.pi) * prog))
+    return float(f32(cfg.peak_lr) * (warm if step < cfg.warmup_steps
+                                     else cos))
+
+
+def adamw_init(params) -> Tuple[dict, dict]:
+    """fp32 zeros shaped as ``params``, on each leaf's device: (mu, nu)."""
+    def zeros(t):
+        return tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
+                                              device=a.device), t)
+    return zeros(params), zeros(params)
+
+
+def _global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
+                          for leaf in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def adamw_update(params, grads, mu, nu, step: int,
+                 cfg: OptConfig) -> Dict[str, object]:
+    """One AdamW step on ``params`` from ``grads``, in place: each leaf of
+    ``params``, ``mu`` and ``nu`` is overwritten (new params in the leaf's
+    own dtype). Returns the metrics {"grad_norm": fp32 scalar tensor,
+    "lr": float}."""
+    gnorm = _global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    lr = lr_at(step, cfg)
+    t = step + 1.0
+    c1 = 1.0 - cfg.b1 ** t
+    c2 = 1.0 - cfg.b2 ** t
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(mu), tree_leaves(nu)):
+        g = g.to(torch.float32) * scale
+        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+        u = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        pf = p.to(torch.float32)
+        if p.ndim >= 2:
+            u = u + cfg.weight_decay * pf
+        p.copy_(pf - lr * u)
+    return {"grad_norm": gnorm, "lr": lr}
+

@@ -1241,3 +1241,103 @@ def test_deepseek_prefill_on_the_card(dev, tmp_path):
     finally:
         sm.close()
     assert bool(torch.isfinite(logits).all())
+
+
+# ------------------------------------------------------------ training
+# qwen2.5-3b's linears and attention at the training shapes (batch 8 x
+# seq 256): the two Functions' gradients on the card against autograd
+# through the plain versions on the same inputs (1e-5 fp32, 2e-2 bf16:
+# the backward's products run in the working type and the recomputed
+# pre-activation is rounded to it)
+TRAIN_LINEARS = [(2048, 2048, "none", True), (2048, 256, "none", True),
+                 (2048, 2048, "none", False), (2048, 11008, "silu", False),
+                 (11008, 2048, "none", False)]
+
+
+def _train_grads(fn, inputs, dy):
+    for t in inputs:
+        t.grad = None
+    out = fn()
+    out.backward(dy)
+    torch.cuda.synchronize()
+    return out.detach(), [t.grad for t in inputs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N,act,bias", TRAIN_LINEARS)
+def test_swap_linear_fn_grads_on_the_card(dev, K, N, act, bias, dtype):
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    x = torch.randn((2048, K), generator=g, device=dev).to(dtype)
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(dtype)
+    b = (torch.randn((N,), generator=g, device=dev) * 0.1).to(dtype)
+    dy = torch.randn((2048, N), generator=g, device=dev).to(dtype)
+    inputs = [t.requires_grad_(True) for t in ((x, w, b) if bias else (x, w))]
+    b = b if bias else None
+    before = sl.launches.count
+    y, got = _train_grads(lambda: sl.swap_linear(x, w, b, act=act), inputs,
+                          dy)
+    assert sl.launches.count == before + (1 if act == "none" else 2)
+    y0, want = _train_grads(lambda: sl.swap_linear_plain(x, w, b, act=act),
+                            inputs, dy)
+    assert _rel(y, y0) <= TOL[dtype]
+    for a, a0 in zip(got, want):
+        assert a.dtype == dtype and _rel(a, a0) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 64, 30.0), (False, None, None)])
+def test_flash_attention_fn_grads_on_the_card(dev, dtype, causal, window,
+                                              softcap):
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, S, H, KV, hd = 8, 256, 16, 2, 128
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    dy = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    inputs = [t.requires_grad_(True) for t in (q, k, v)]
+    before = fa.launches.count
+    out, got = _train_grads(lambda: fa.flash_attention(q, k, v, pos, **kw),
+                            inputs, dy)
+    assert fa.launches.count == before + 1
+    out0, want = _train_grads(
+        lambda: fa.flash_attention_plain(q, k, v, pos, **kw), inputs, dy)
+    assert _rel(out, out0) <= TOL[dtype]
+    for a, a0 in zip(got, want):
+        assert a.dtype == dtype and _rel(a, a0) <= TOL[dtype]
+
+
+def test_kernels_without_a_backward_refuse_grad_on_the_card(dev):
+    """swap_linear_q, dequant_int8, paged_attention and wkv6 raise, naming
+    the kernel, where autograd would record them; under no_grad they run."""
+    q8, s = _weights(8, 64, 32)
+    q8, s = q8.to(dev), s.to(dev).requires_grad_(True)
+    x = torch.randn((4, 64), device=dev, requires_grad=True)
+    calls = {
+        "swap_linear_q": lambda: slq.swap_linear_q(x, q8, s),
+        "dequant_int8": lambda: dq.dequant_int8(q8, s),
+    }
+    qa, kp, vp, table, lens = _paged_inputs(0, 2, 4, 2, 64, 16, [5, 20],
+                                            torch.float32)
+    calls["paged_attention"] = lambda: pa.paged_attention(
+        qa.requires_grad_(True), kp, vp, table, lens)
+    r, k, v, w_log, u = (t.to(dev) for t in _wkv6_leaves())
+    calls["wkv6"] = lambda: kw.wkv6(r.requires_grad_(True), k, v, w_log, u)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel "
+                                               f"has no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def _wkv6_leaves():
+    g = torch.Generator().manual_seed(3)
+    r, k, v = (torch.randn((4, 16, 64), generator=g) * 0.5 for _ in range(3))
+    w_log = -torch.exp(torch.randn((4, 16, 64), generator=g) * 0.5)
+    u = torch.randn((4, 64), generator=g) * 0.5
+    return r, k, v, w_log, u

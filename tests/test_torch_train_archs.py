@@ -1,0 +1,82 @@
+"""``Model.loss`` and its gradient against the JAX package's
+``jax.value_and_grad(Model.loss)``, one arch of each family the port
+serves, ``reduced()`` in float32 on the CPU:
+
+- gemma2-9b: the attention and final softcaps, the window on its local
+  layer (S 96 passes the reduced 64-token window), post-norms, the
+  embedding scale;
+- llama4-scout: the moe layers' load-balance aux loss in the loss, the
+  block-local chunk (8 tokens reduced), capacity drops;
+- deepseek-v2-lite: MLA (B4 at a value head dim of its own) and moe;
+- zamba2-7b: Mamba2's chunked SSD under autograd and the shared block,
+  one param tree whose gradient sums over its occurrences (Mamba2's
+  ``norm``, which nothing reads, gets a zero gradient in both);
+- rwkv6-3b: wkv6's plain version under autograd (the CPU path);
+- qwen2-vl-72b: M-RoPE positions and vision embeddings in the batch;
+- hubert-xlarge: the bidirectional encoder, ``mask_emb`` on the masked
+  frames and the loss weighed by the mask.
+
+Tolerance: the loss within 1e-5 relative, each gradient leaf within 1e-4
+of that leaf's largest |g| (float32; the sums run in another order).
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_arch as ref_get_arch  # noqa: E402
+from repro.data.pipeline import SyntheticLM as RefSyntheticLM  # noqa: E402
+from repro.models.transformer import Model as RefModel  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.tree import tree_flatten_with_path, tree_leaves  # noqa: E402
+
+# arch: (batch, seq)
+ARCHS = {
+    "gemma2-9b": (2, 96),
+    "llama4-scout-17b-a16e": (2, 32),
+    "deepseek-v2-lite-16b": (2, 32),
+    "zamba2-7b": (2, 32),
+    "rwkv6-3b": (2, 32),
+    "qwen2-vl-72b": (2, 32),
+    "hubert-xlarge": (2, 32),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_loss_and_grads_match_reference(arch):
+    B, S = ARCHS[arch]
+    ref_cfg = dataclasses.replace(ref_get_arch(arch).reduced(),
+                                  dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    ref_model, model = RefModel(ref_cfg), Model(cfg)
+    ref_params = ref_model.init(jax.random.key(0))
+    params = params_from_jax(jax.tree.map(np.asarray, ref_params))
+    rb = RefSyntheticLM(ref_cfg, S, B, seed=1).sample(0)
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in rb.items()}
+
+    (want, ref_m), ref_grads = jax.jit(jax.value_and_grad(
+        ref_model.loss, has_aux=True))(ref_params, rb)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    loss, m = model.loss(params, tb)
+    loss.backward()
+
+    assert float(loss.detach()) == pytest.approx(float(want), rel=1e-5)
+    assert float(m["tokens"]) == float(ref_m["tokens"])
+    assert float(m["aux"].detach()) == pytest.approx(float(ref_m["aux"]), rel=1e-5,
+                                            abs=1e-12)
+    if cfg.moe is not None:
+        assert float(ref_m["aux"]) > 0
+    ref_flat = jax.tree_util.tree_flatten_with_path(ref_grads)[0]
+    flat = tree_flatten_with_path(params)[0]
+    assert len(flat) == len(ref_flat)
+    for (path, p), (_, rg) in zip(flat, ref_flat):
+        rg = np.asarray(rg, np.float64)
+        g = np.zeros_like(rg) if p.grad is None else p.grad.numpy()
+        err = float(np.abs(g - rg).max())
+        assert err <= 1e-4 * float(np.abs(rg).max()), (path, err)
