@@ -188,17 +188,33 @@ Phases, each printing its wall time:
    ``swap_linear`` launches (forward, the checkpointed layer's recompute,
    wi0's act="none" recompute) and 2 ``flash_attention``, and no other
    kernel; (d) the checkpoint restored onto the card bitwise; (e) step ms,
+   tok/s and peak device memory;
+16. rwkv6-3b trained at its published widths (40 WKV heads of 64, d_ff
+   8,960, vocab 65,536 untied) through the same loop: (a) in fp32 at
+   depth 2 the loss and every gradient leaf through ``wkv6`` (``WKV6Fn``)
+   and ``swap_linear`` against the plain versions, as phase 15 (a); (b)
+   in bf16 at phase 5's depth of 4, 20 steps, every loss finite and the
+   last below the first; (c) per step and layer 2 ``wkv6`` launches at BH
+   320 (forward, remat) and 2 ``swap_linear`` (the time-mix ``wo``); (d)
+   step ms, tok/s and peak device memory;
+17. one training run per family that one card holds at published widths:
+   gemma2-9b at 2 layers (one local, one global), deepseek-v2-lite-16b at
+   2, zamba2-7b at 12 (the shared block at 5 and 11, its gradient summed
+   over both), hubert-xlarge at 4 (8 x 256 masked frames): each the fp32
+   identity of phase 15 (a) at that depth, 3 bf16 steps of the loop, all
+   finite, the launches each step implies (``train_launches``), step ms,
    tok/s and peak device memory.
 
-Every full-precision linear of phases 3 to 15 runs ``swap_linear`` and
-every prefill's (and phase 15's training step's) attention
-``flash_attention``; the quantized stores' lazy linears run
-``swap_linear_q``; every paged decode step ``paged_attention``.
-Every shape phases 7 to 15 launch a kernel at is one of phase 2's rows,
-held against the plain version there and timed; the script checks it.
-The one exception is phase 15 (a)'s fp32 gradient identity, which runs
-before the counted run: its fp32 shapes are held in phase 2 only through
-the Functions' gradient check (``check_train_grads``), not timed.
+Every full-precision linear of phases 3 to 17 runs ``swap_linear`` and
+every prefill's (and every training step's) attention
+``flash_attention``; rwkv6's recurrence ``wkv6``; the quantized stores'
+lazy linears run ``swap_linear_q``; every paged decode step
+``paged_attention``. Every shape phases 7 to 17 launch a kernel at is one
+of phase 2's rows, held against the plain version there and timed; the
+script checks it. The one exception is the fp32 gradient identity of
+phases 15-17, which runs before each counted run: its fp32 shapes are
+held in phase 2 only through the Functions' gradient check
+(``check_train_grads``), not timed.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -503,9 +519,23 @@ P10_WORKDIR = ROOT / "build" / "phase10"
 # recompute); the fp32 lm head is a plain matmul, as in the reference
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 20
 TRAIN_ID_LAYERS = 2
-TRAIN_SL_PER_LAYER, TRAIN_FA_PER_LAYER = 15, 2
 TRAIN_GRAD_TOL = 1e-4                  # of each leaf's largest |g|
 P15_WORKDIR = ROOT / "build" / "phase15"
+
+# phase 16: rwkv6-3b trained the same way at phase 5's depth (32 -> 4): its
+# time-mix hands B6 the batch's 8 x 40 head rows of 256 steps in fp32
+RWKV_TRAIN_BH = TRAIN_BATCH * 40
+
+# phase 17: (arch, depth) of each family whose training state (fp32
+# params, gradients and two AdamW moments, 16 B a param) fits one card at
+# published widths with its activations: gemma2-9b one local and one
+# global layer, deepseek-v2-lite two MLA + MoE layers, zamba2-7b 10 Mamba2
+# layers and the shared block at 5 and 11, hubert-xlarge 4 encoder layers
+# (llama4-scout and qwen2-vl do not fit at one layer: their published-width
+# step waits for the sharded path)
+TRAIN_FAMILIES = [("gemma2-9b", 2), ("deepseek-v2-lite-16b", 2),
+                  ("zamba2-7b", 12), ("hubert-xlarge", 4)]
+TRAIN_FAMILY_STEPS = 3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1205,7 +1235,9 @@ WKV_CASES = [(80, 512, 64, "float32", False), (80, 16, 64, "float32", False),
              (80, 16, 64, "bfloat16", False), (3, 48, 32, "float32", False),
              (3, 48, 32, "bfloat16", False), (80, 512, 64, "float32", True),
              (3, 48, 32, "float32", True), (3, 48, 32, "bfloat16", True)]
-WKV_TIMED = [(80, 512, 64), (40, 512, 64), (80, 16, 64)]  # fp32: the path
+# fp32, the paths': phase 5's prefills and phase 16's training step
+WKV_TIMED = [(80, 512, 64), (40, 512, 64), (80, 16, 64),
+             (RWKV_TRAIN_BH, TRAIN_SEQ, 64)]
 # the bitwise checks: the path's shapes, bf16 with a carried state, the
 # reduced config's head_dim 32
 WKV_BITWISE = [(80, 512, 64, "float32", False), (80, 16, 64, "float32", False),
@@ -1471,6 +1503,14 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
     # remat and wi0's act="none" recompute (wi1's key)
     timed += [("qwen2.5-3b train", TRAIN_BATCH * TRAIN_SEQ, "bfloat16", s)
               for s in fp_layer_linears(qcfg)]
+    # phases 16-17: rwkv6-3b's time-mix wo and each family's linears (a
+    # Mamba2 layer's wo too) at the same 8 x 256 tokens, forward, remat and
+    # the gated MLP's act="none" recompute (its wi1's key)
+    timed += [("rwkv6-3b train wo", TRAIN_BATCH * TRAIN_SEQ, "bfloat16",
+               (rcfg.d_model, rcfg.d_model, "none", False))]
+    timed += [(f"{c.name} train", TRAIN_BATCH * TRAIN_SEQ, "bfloat16", s)
+              for c in (gcfg, dcfg, zcfg, hcfg)
+              for s in fp_layer_linears(c) + ([z_wo] if c is zcfg else [])]
     # phase 10: the conv workloads' fc layers and the fc stack, fp32
     timed += [(label, M, "float32", (K, N, "none", True))
               for label, (M, K, N) in conv_path["fp"]]
@@ -1607,6 +1647,22 @@ FA_TIMED += [("hubert-xlarge encoder", "bfloat16", HB_BATCH, HB_FRAMES, 16,
 # phase 15: qwen2.5-3b's training step, 8 x 256 tokens (forward and remat)
 FA_TIMED += [("qwen2.5-3b train", "bfloat16", TRAIN_BATCH, TRAIN_SEQ, 16, 2,
               128, 128, QWEN_SCALE, None, None, None)]
+# phase 17: each family's training step at 8 x 256 (forward and remat):
+# gemma2-9b's local and global layers (hd 256, softcap 50), deepseek's MLA
+# (192 / 128), zamba2's shared block (hd 112, the CUDA cores) and hubert's
+# encoder (hd 80, no causal mask, the CUDA cores)
+TRAIN_ATTN = [("gemma2-9b train", 16, 8, 256, 256, GEMMA_SCALE, window, 50.0,
+               True) for window in (4096, None)]
+TRAIN_ATTN += [("deepseek-v2-lite train", 16, 16, 192, 128, DS_SCALE, None,
+                None, True),
+               ("zamba2-7b train", 32, 32, 112, 112, Z_SCALE, None, None,
+                True),
+               ("hubert-xlarge train", 16, 16, 80, 80, HB_SCALE, None, None,
+                False)]
+FA_TIMED += [(label, "bfloat16", TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, dv, scale,
+              window, cap, None, causal)
+             for label, H, KV, hd, dv, scale, window, cap, causal
+             in TRAIN_ATTN]
 
 
 def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
@@ -1808,7 +1864,7 @@ def check_flash_attention(torch):
           f"== no chunk; tensor-core and CUDA-core kernels)", flush=True)
     torch.cuda.synchronize()
 
-    rows = []
+    rows, timed_library = [], {}
     for row in FA_TIMED:
         (label, dname, B, S, H, KV, hd, dv, scale, window, softcap,
          chunk), causal = row[:12], (row[12] if len(row) > 12 else True)
@@ -1824,12 +1880,22 @@ def check_flash_attention(torch):
                 f"S={S}: rel {rel:.3g}")
         k_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, pos, **kw))
         # a long causal CUDA-core bf16 prefill (zamba2's hd 112) is also
-        # timed beside compiled flex_attention (a compile of its own)
-        lib_name, l_ms, also = fa_library(
-            torch, q, k, v, want, label, dname, B, S, H, KV, scale, window,
-            softcap, chunk, causal=causal,
-            flex_too=(causal and dname == "bfloat16" and S >= 1024
-                      and fa.path(dt, hd, dv) == "simt"))
+        # timed beside compiled flex_attention (a compile of its own). A
+        # window or chunk of S or more masks nothing: the library call
+        # goes without it, and a row that differs from a timed one only
+        # there (the same seeded inputs, the same function) takes that
+        # row's library time rather than another compile
+        lib_window = None if window is None or window >= S else window
+        lib_chunk = None if chunk is None or chunk >= S else chunk
+        lib_key = (B, S, H, KV, hd, dv, dname, causal, lib_window, softcap,
+                   lib_chunk)
+        if lib_key not in timed_library:
+            timed_library[lib_key] = fa_library(
+                torch, q, k, v, want, label, dname, B, S, H, KV, scale,
+                lib_window, softcap, lib_chunk, causal=causal,
+                flex_too=(causal and dname == "bfloat16" and S >= 1024
+                          and fa.path(dt, hd, dv) == "simt"))
+        lib_name, l_ms, also = timed_library[lib_key]
         es = q.element_size()
         nbytes = ((B * S * H * hd + B * S * KV * hd + B * S * KV * dv
                    + B * S * H * dv) * es + B * S * 4)
@@ -1881,9 +1947,11 @@ def check_train_grads(torch, qcfg):
     autograd (``SwapLinearFn``, ``FlashAttentionFn``: the kernel forward,
     the torch-op backward) against autograd through their plain versions
     on the same inputs, at phase 15's shapes (qwen2.5-3b's linears at M
-    2,048, attention at 8 x 256 with 16 / 2 heads of 128), in fp32 and
-    bf16: the output and every input's gradient within 1e-5 / 2e-2 of
-    the largest value."""
+    2,048, attention at 8 x 256 with 16 / 2 heads of 128) and
+    ``flash_attention`` at each phase 17 family's (``TRAIN_ATTN``), in fp32
+    and bf16: the output and every input's gradient within 1e-5 / 2e-2 of
+    the largest value. Then ``wkv6`` under ``WKV6Fn`` at phase 16's rows
+    (``check_wkv6_grads``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import swap_linear as sl
     dev = torch.device("cuda")
@@ -1906,6 +1974,8 @@ def check_train_grads(torch, qcfg):
             worst[dname] = max(worst[dname], rel)
             n += 1
 
+    attn = [("qwen2.5-3b train", 16, 2, 128, 128, QWEN_SCALE, None, None,
+             True)] + TRAIN_ATTN
     for dname, dt in dts.items():
         for K, N, act, has_bias in fp_layer_linears(qcfg):
             x, w = rnd((M, K), 0.5, dt), rnd((K, N), K ** -0.5, dt)
@@ -1920,22 +1990,86 @@ def check_train_grads(torch, qcfg):
                 leaves, dy)
             hold(dname, f"SwapLinearFn {(M, K, N, act)}", [y] + got,
                  [y0] + want)
-        B, S, H, KV, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128
-        q, k, v = (rnd((B, S, h, hd), 1.0, dt).requires_grad_(True)
-                   for h in (H, KV, KV))
-        pos = torch.arange(S, device=dev).expand(B, S)
-        dy = rnd((B, S, H, hd), 1.0, dt)
-        out, got = backward_grads(torch, lambda: fa.flash_attention(
-            q, k, v, pos, scale=QWEN_SCALE), [q, k, v], dy)
-        out0, want = backward_grads(torch, lambda: fa.flash_attention_plain(
-            q, k, v, pos, scale=QWEN_SCALE), [q, k, v], dy)
-        hold(dname, f"FlashAttentionFn {(B, S, H, KV, hd)}", [out] + got,
-             [out0] + want)
+        for label, H, KV, hd, dv, scale, window, cap, causal in attn:
+            B, S = TRAIN_BATCH, TRAIN_SEQ
+            q, k, v = (rnd((B, S, h, d), 1.0, dt).requires_grad_(True)
+                       for h, d in ((H, hd), (KV, hd), (KV, dv)))
+            pos = torch.arange(S, device=dev).expand(B, S)
+            dy = rnd((B, S, H, dv), 1.0, dt)
+            kw = dict(scale=scale, causal=causal, window=window, softcap=cap)
+            out, got = backward_grads(torch, lambda: fa.flash_attention(
+                q, k, v, pos, **kw), [q, k, v], dy)
+            out0, want = backward_grads(
+                torch, lambda: fa.flash_attention_plain(q, k, v, pos, **kw),
+                [q, k, v], dy)
+            hold(dname, f"FlashAttentionFn {label} {(B, S, H, KV, hd, dv)}",
+                 [out] + got, [out0] + want)
+            del q, k, v, dy, out, got, out0, want
     torch.cuda.synchronize()
-    print(f"training: SwapLinearFn and FlashAttentionFn at phase 15's shapes "
+    print(f"training: SwapLinearFn at phase 15's shapes and "
+          f"FlashAttentionFn at phases 15 and 17's ({len(attn)} shapes) "
           f"match autograd through the plain versions in {n} outputs and "
           f"gradients (worst rel err fp32 {worst['float32']:.3g} <= 1e-5, "
           f"bf16 {worst['bfloat16']:.3g} <= 2e-2)", flush=True)
+    torch.cuda.empty_cache()
+    check_wkv6_grads(torch)
+
+
+def check_wkv6_grads(torch):
+    """``wkv6`` under autograd (``WKV6Fn``: the kernel forward,
+    ``wkv6_grad``'s torch-op backward) at phase 16's rows (BH 320, S 256,
+    hd 64, fp32, ``wkv6_inputs``: row 0 at the clamp) against autograd
+    through ``wkv6_plain`` in float64 on the same inputs: from a zero state
+    with the loss on y alone (the training path) and from a state that
+    requires grad with the loss reading the final state too. y, the final
+    state and every gradient within 1e-5 of the largest value. (Autograd
+    through the fp32 plain version is itself 1e-5 to 3e-5 off at the
+    clamp: it sums the decay's gradient as a difference of terms up to
+    e^5 larger.) Then the backward alone timed at the training rows."""
+    from repro_torch.kernels import wkv6 as kw
+    BH, S, hd = RWKV_TRAIN_BH, TRAIN_SEQ, 64
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1357)
+    worst, n = 0.0, 0
+    for state in (False, True):
+        args = wkv6_inputs(torch, 610 + state, BH, S, hd, torch.float32,
+                           state)
+        dy = torch.randn((BH, S, hd), generator=g, device="cuda")
+        ds = (torch.randn((BH, hd, hd), generator=g, device="cuda")
+              if state else torch.zeros((BH, hd, hd), device="cuda"))
+        outs = []
+        for fn, dt in ((kw.wkv6, torch.float32),
+                       (kw.wkv6_plain, torch.float64)):
+            leaves = [None if t is None else
+                      t.detach().to(dt).requires_grad_(True) for t in args]
+            y, s_fin = fn(*leaves)
+            (torch.sum(y * dy.to(dt))
+             + torch.sum(s_fin * ds.to(dt))).backward()
+            outs.append([y.detach(), s_fin.detach()]
+                        + [t.grad for t in leaves if t is not None])
+        got, want = outs
+        for a, b in zip(got, want):
+            _, rel = rel_err(torch, a, b.to(a.dtype))
+            require(bool(torch.isfinite(a).all()) and rel <= TOL["float32"],
+                    f"WKV6Fn {(BH, S, hd)} state {state}: rel err {rel:.3g}"
+                    f" > {TOL['float32']}")
+            worst = max(worst, rel)
+            n += 1
+        del args, outs, got, want
+    r, k, v, w, u, _ = wkv6_inputs(torch, 612, BH, S, hd, torch.float32,
+                                   False)
+    dy = torch.randn((BH, S, hd), generator=g, device="cuda")
+    zero = torch.zeros((BH, hd, hd), device="cuda")
+    f_ms = time_ms(torch, lambda: kw.wkv6(r, k, v, w, u))
+    b_ms = time_ms(torch, lambda: kw.wkv6_grad(r, k, v, w, u, None, dy,
+                                               zero))
+    torch.cuda.synchronize()
+    print(f"training: WKV6Fn at BH {BH} S {S} hd {hd} fp32 matches autograd"
+          f" through wkv6_plain in float64 in {n} outputs and gradients "
+          f"(worst rel err {worst:.3g} <= 1e-5); its backward (wkv6_grad, "
+          f"torch ops) {b_ms:.4f} ms against the kernel's forward "
+          f"{f_ms:.4f} ms", flush=True)
+    del r, k, v, w, u, dy, zero
     torch.cuda.empty_cache()
 
 
@@ -5356,22 +5490,26 @@ def _leaves(tree):
 
 
 class plain_kernels:
-    """Within the block the models' linears and prefill attention run the
-    plain versions of ``swap_linear`` and ``flash_attention`` on the card
-    (autograd differentiates them as it does any torch op): phase 15's
-    reference for the gradient through the kernels."""
+    """Within the block the models' linears, prefill attention and rwkv6
+    recurrence run the plain versions of ``swap_linear``,
+    ``flash_attention`` and ``wkv6`` on the card (autograd differentiates
+    them as it does any torch op): the reference for the gradient through
+    the kernels in phases 15-17. ``models/ssm.py`` imports ``wkv6`` by
+    name, so the name is swapped there."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import swap_linear as sl
-        from repro_torch.models import attention, layers
-        self.saved = layers.swap_linear, attention.flash_attention
+        from repro_torch.kernels import wkv6 as kw
+        from repro_torch.models import attention, layers, ssm
+        self.saved = layers.swap_linear, attention.flash_attention, ssm.wkv6
         layers.swap_linear = sl.swap_linear_plain
         attention.flash_attention = fa.flash_attention_plain
+        ssm.wkv6 = kw.wkv6_plain
 
     def __exit__(self, *exc):
-        from repro_torch.models import attention, layers
-        layers.swap_linear, attention.flash_attention = self.saved
+        from repro_torch.models import attention, layers, ssm
+        layers.swap_linear, attention.flash_attention, ssm.wkv6 = self.saved
 
 
 def loss_and_grads(torch, model, params, batch):
@@ -5387,105 +5525,171 @@ def loss_and_grads(torch, model, params, batch):
                                   else p.grad for p in leaves]
 
 
+def train_launches(cfg) -> dict:
+    """The kernel launches one training step of ``cfg`` implies, by name.
+    Each layer is checkpointed, so it runs its forward twice (the step's,
+    and backward's recompute), and ``SwapLinearFn`` launches a gated MLP's
+    gate once more at act "none" for its activation's derivative. The
+    linears through B5: an attention layer's wq, wk, wv, wo (MLA's wq, wo)
+    and its MLP's wi0, wi1, wo (a GELU MLP's wi, wo; a moe layer's shared
+    expert's); a Mamba2 or rwkv6 layer's wo. B4 once an attention layer,
+    B6 once an rwkv6 layer. The head, the routed experts and the other
+    projections are plain matmuls, as in the reference (the CPU tests count
+    the same on the reduced configs)."""
+    from repro_torch.models.transformer import build_plan
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    gated = cfg.act in ("swiglu", "gelu_glu")
+    for seg in build_plan(cfg):
+        if seg.kind in ("mamba2", "rwkv6"):
+            fwd, recompute = 1, 0
+            n["wkv6"] += 2 * seg.n * (seg.kind == "rwkv6")
+        else:
+            if seg.kind == "moe":
+                mlp = 3 if cfg.moe.n_shared else 0
+            else:
+                mlp = 3 if gated else 2
+            fwd = (2 if cfg.mla is not None else 4) + mlp
+            recompute = int(gated and mlp == 3)
+            n["flash_attention"] += 2 * seg.n
+        n["swap_linear"] += (2 * fwd + recompute) * seg.n
+    return n
+
+
+def describe(cfg, depth: int, id_depth: int) -> str:
+    """A model line: the published widths and the depth cuts."""
+    from repro_torch.models.ssm import rwkv6_dims
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        kind = "{} WKV heads of {}".format(*rwkv6_dims(cfg))
+    else:
+        kind = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, head_dim "
+                f"{cfg.resolved_head_dim}")
+    return (f"model: {cfg.name} d_model {cfg.d_model}, {kind}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied {cfg.tie_embeddings},"
+            f" {cfg.dtype}; reduced: n_layers {cfg.n_layers}->{depth} "
+            f"({cfg.n_layers}->{id_depth} for the fp32 identity); batch "
+            f"{TRAIN_BATCH} x seq {TRAIN_SEQ}")
+
+
+def train_identity(torch, cfg, tag: str) -> None:
+    """The fp32 loss and every gradient leaf of ``Model.loss`` on one
+    ``SyntheticLM`` batch of 8 x 256 through the kernels (their
+    ``autograd.Function``s, each launching as often as ``train_launches``
+    says) == through the plain versions (``plain_kernels``, which launch
+    nothing): the loss within 1e-5 relative, each leaf within
+    ``TRAIN_GRAD_TOL`` of its largest |g|. Runs before the counted run."""
+    import math
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import Model
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device="cuda")
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    batch = {k: v.cuda() for k, v in SyntheticLM(
+        cfg, TRAIN_SEQ, TRAIN_BATCH).sample(0).items()}
+    counters = kernel_counters()
+    n0 = {k: c.count for k, c in counters.items()}
+    loss, grads = loss_and_grads(torch, model, params, batch)
+    n1 = {k: c.count for k, c in counters.items()}
+    launched = {k: n1[k] - n0[k] for k in n0}
+    require(launched == train_launches(cfg), f"{tag} (a): launches "
+            f"{launched} != {train_launches(cfg)}")
+    with plain_kernels():
+        loss0, grads0 = loss_and_grads(torch, model, params, batch)
+    require({k: c.count for k, c in counters.items()} == n1,
+            f"{tag} (a): the plain run launched a kernel")
+    rel = abs(loss - loss0) / abs(loss0)
+    require(math.isfinite(loss) and rel <= 1e-5,
+            f"{tag} (a): loss {loss} vs plain {loss0} (rel {rel:.3g})")
+    worst = 0.0
+    for g, g0 in zip(grads, grads0):
+        err = float((g - g0).abs().max())
+        scale = float(g0.abs().max())
+        require(err <= TRAIN_GRAD_TOL * scale,
+                f"{tag} (a): a gradient leaf {tuple(g.shape)} off by "
+                f"{err:.3g} of {scale:.3g}")
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"[{tag} fp32] {cfg.n_layers} layers, "
+          f"{sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M params: "
+          f"loss {loss:.6f} through the kernels vs {loss0:.6f} through the "
+          f"plain versions (rel {rel:.3g} <= 1e-5); {len(grads)} gradient "
+          f"leaves, worst {worst:.3g} of the leaf's largest |g| <= "
+          f"{TRAIN_GRAD_TOL}; launches {launched}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del model, params, grads, grads0, batch
+    torch.cuda.empty_cache()
+
+
+def train_counted(torch, card, cfg, steps, main_launches, tag, ckpt=None):
+    """``steps`` steps of ``launch/train.py``'s loop on ``cfg`` at 8 x 256
+    with the launcher's schedule, counted: every loss finite, the launches
+    ``train_launches`` implies per step and no other; prints the step ms
+    (median of steps 1 on, each logged step ending in a wait for the card,
+    so the host's launches of the next step do not overlap its work),
+    tok/s and peak device memory. Returns (the loop's result, launches by
+    kernel and shape, the losses)."""
+    import math
+    from repro_torch.launch.train import train
+    reset, collect = launch_counting(main_launches)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    out = train(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                log_every=1, ckpt=ckpt, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = collect()
+    by_shape = {name: dict(c.by_shape)
+                for name, c in kernel_counters().items() if c.by_shape}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss, _ in out["logged"]]
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+            f"{tag}: losses {losses}")
+    per_step = train_launches(cfg)
+    want = {name: n * steps for name, n in per_step.items()}
+    require(counts == want, f"{tag}: launches {counts} != {want}")
+    stamps = [dt for _, _, dt in out["logged"]]
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_s = sorted(steps_s)[len(steps_s) // 2]
+    n = sum(p.numel() for p in _leaves(out["state"]["params"]))
+    print(f"[{tag} bf16] losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[{tag}] launches {counts} == per step "
+          f"{ {k: v for k, v in per_step.items() if v} } x {steps} steps",
+          flush=True)
+    print(f"[{tag}] {card}: {cfg.n_layers} layers, {n / 1e6:.1f} M params; "
+          f"step {step_s * 1e3:.1f} ms (median of steps 1-{steps - 1}, "
+          f"synced every step; step 0 {stamps[0] * 1e3:.1f} ms), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:,.0f} tok/s; "
+          f"max_memory_allocated {peak / 1e9:.3f} GB; the loop "
+          f"{wall:.1f} s", flush=True)
+    return out, by_shape, losses
+
+
 def run_train(torch, card, main_launches):
     """Phase 15: qwen2.5-3b trained at its published widths: (a) the fp32
     gradient through the kernels == through the plain versions at depth 2;
     (b) 20 bf16 steps of ``launch/train.py``'s loop at depth 4, a finite
     and falling loss; (c) the launches a step implies; (d) the checkpoint
     restored onto the card bitwise; (e) step ms, tok/s, peak memory."""
-    import math
     import shutil
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import swap_linear as sl
-    from repro_torch.launch.train import train
-    from repro_torch.models.transformer import Model
     from repro_torch.training import checkpoint
     from repro_torch.tree import tree_map
 
-    reset, collect = launch_counting(main_launches)
     cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=N_LAYERS)
-    print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads / "
-          f"{cfg.n_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv bias "
-          f"{cfg.attn_bias}, tied {cfg.tie_embeddings}, {cfg.dtype}; "
-          f"reduced: n_layers 36->{N_LAYERS} (36->{TRAIN_ID_LAYERS} for the "
-          f"fp32 identity); batch {TRAIN_BATCH} x seq {TRAIN_SEQ}", flush=True)
+    print(describe(get_arch("qwen2.5-3b"), N_LAYERS, TRAIN_ID_LAYERS)
+          + f"; qkv bias {cfg.attn_bias}", flush=True)
+    train_identity(torch, dataclasses.replace(cfg, n_layers=TRAIN_ID_LAYERS),
+                   "phase15")
 
-    # (a) fp32: the gradient through the kernels == through the plain ones
-    t0 = time.perf_counter()
-    cfg_a = dataclasses.replace(cfg, n_layers=TRAIN_ID_LAYERS,
-                                dtype="float32")
-    model_a = Model(cfg_a)
-    params_a = model_a.init(0, device="cuda")
-    for p in _leaves(params_a):
-        p.requires_grad_(True)
-    batch = {k: v.cuda() for k, v in SyntheticLM(
-        cfg_a, TRAIN_SEQ, TRAIN_BATCH).sample(0).items()}
-    n0 = (sl.launches.count, fa.launches.count)
-    loss, grads = loss_and_grads(torch, model_a, params_a, batch)
-    L = TRAIN_ID_LAYERS
-    n1 = (sl.launches.count, fa.launches.count)
-    require((n1[0] - n0[0], n1[1] - n0[1]) == (TRAIN_SL_PER_LAYER * L,
-                                               TRAIN_FA_PER_LAYER * L),
-            f"phase 15 (a): launches {n1[0] - n0[0]} / {n1[1] - n0[1]}")
-    with plain_kernels():
-        loss0, grads0 = loss_and_grads(torch, model_a, params_a, batch)
-    require((sl.launches.count, fa.launches.count) == n1,
-            "phase 15 (a): the plain run launched a kernel")
-    rel = abs(loss - loss0) / abs(loss0)
-    require(math.isfinite(loss) and rel <= 1e-5,
-            f"phase 15 (a): loss {loss} vs plain {loss0} (rel {rel:.3g})")
-    worst = 0.0
-    for g, g0 in zip(grads, grads0):
-        err = float((g - g0).abs().max())
-        scale = float(g0.abs().max())
-        require(err <= TRAIN_GRAD_TOL * scale,
-                f"phase 15 (a): a gradient leaf {tuple(g.shape)} off by "
-                f"{err:.3g} of {scale:.3g}")
-        worst = max(worst, err / max(scale, 1e-30))
-    print(f"[phase15 fp32] {TRAIN_ID_LAYERS} layers, "
-          f"{sum(p.numel() for p in _leaves(params_a)) / 1e6:.1f} M params: "
-          f"loss {loss:.6f} through the kernels vs {loss0:.6f} through the "
-          f"plain versions (rel {rel:.3g} <= 1e-5); {len(grads)} gradient "
-          f"leaves, worst {worst:.3g} of the leaf's largest |g| <= "
-          f"{TRAIN_GRAD_TOL}; {time.perf_counter() - t0:.1f} s", flush=True)
-    del model_a, params_a, grads, grads0, batch
-    torch.cuda.empty_cache()
-
-    # (b) 20 bf16 steps through the launcher's loop, counted
     P15_WORKDIR.mkdir(parents=True, exist_ok=True)
     ckpt = P15_WORKDIR / "ckpt"
-    torch.cuda.reset_peak_memory_stats()
-    reset()
-    t0 = time.perf_counter()
-    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                log_every=1, ckpt=str(ckpt), device="cuda")
-    wall = time.perf_counter() - t0
-    counts = collect()
-    by_shape = {"swap_linear": dict(sl.launches.by_shape),
-                "flash_attention": dict(fa.launches.by_shape)}
-    peak = torch.cuda.max_memory_allocated()
-    losses = [loss for _, loss, _ in out["logged"]]
-    require(len(losses) == TRAIN_STEPS
-            and all(math.isfinite(x) for x in losses),
-            f"phase 15 (b): losses {losses}")
+    out, by_shape, losses = train_counted(torch, card, cfg, TRAIN_STEPS,
+                                          main_launches, "phase15",
+                                          ckpt=str(ckpt))
     require(losses[-1] < losses[0], f"phase 15 (b): the loss did not fall: "
             f"{losses[0]} -> {losses[-1]}")
-    stamps = [dt for _, _, dt in out["logged"]]
-    print(f"[phase15 bf16] losses {[round(x, 4) for x in losses]}",
-          flush=True)
-
-    # (c) the launches a step implies, and nothing else
-    want = {name: 0 for name in counts}
-    want["swap_linear"] = TRAIN_SL_PER_LAYER * N_LAYERS * TRAIN_STEPS
-    want["flash_attention"] = TRAIN_FA_PER_LAYER * N_LAYERS * TRAIN_STEPS
-    require(counts == want, f"phase 15 (c): launches {counts} != {want}")
-    print(f"[phase15] launches {counts} == per step and layer swap_linear "
-          f"{TRAIN_SL_PER_LAYER} (7 forward, 7 remat, 1 wi0 recompute) and "
-          f"flash_attention {TRAIN_FA_PER_LAYER} (forward, remat), "
-          f"{N_LAYERS} layers, {TRAIN_STEPS} steps", flush=True)
 
     # (d) the checkpoint, restored onto the card into a zeroed tree
     params = out["state"]["params"]
@@ -5501,18 +5705,57 @@ def run_train(torch, card, main_launches):
     del like, back, pairs, out, params
     shutil.rmtree(P15_WORKDIR, ignore_errors=True)
     torch.cuda.empty_cache()
+    return by_shape
 
-    # (e) steady step time (steps 1 on), tokens a second, peak device
-    # memory; every step is logged, so each ends in a wait for the card and
-    # the host's launches of the next step do not overlap its work
-    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
-    step_s = sorted(steps_s)[len(steps_s) // 2]
-    print(f"[phase15] {card}: step {step_s * 1e3:.1f} ms (median of steps "
-          f"1-{TRAIN_STEPS - 1}, synced every step; step 0 "
-          f"{stamps[0] * 1e3:.1f} ms), "
-          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:,.0f} tok/s; "
-          f"max_memory_allocated {peak / 1e9:.3f} GB; the loop and its "
-          f"checkpoint {wall:.1f} s", flush=True)
+
+def run_train_rwkv6(torch, card, main_launches):
+    """Phase 16: rwkv6-3b trained at its published widths: (a) the fp32
+    gradient through ``wkv6`` (``WKV6Fn``) and ``swap_linear`` == through
+    the plain versions at depth 2; (b) 20 bf16 steps of the loop at phase
+    5's depth of 4, a finite and falling loss; (c) 2 ``wkv6`` and 2
+    ``swap_linear`` launches per step and layer; (d) step ms, tok/s,
+    peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.ssm import rwkv6_dims
+    base = get_arch("rwkv6-3b")
+    print(describe(base, RWKV_LAYERS, TRAIN_ID_LAYERS), flush=True)
+    cfg = dataclasses.replace(base, n_layers=RWKV_LAYERS)
+    train_identity(torch, dataclasses.replace(cfg, n_layers=TRAIN_ID_LAYERS),
+                   "phase16")
+    out, by_shape, losses = train_counted(torch, card, cfg, TRAIN_STEPS,
+                                          main_launches, "phase16")
+    require(losses[-1] < losses[0], f"phase 16 (b): the loss did not fall: "
+            f"{losses[0]} -> {losses[-1]}")
+    nh, hd = rwkv6_dims(cfg)
+    rows = (TRAIN_BATCH * nh, TRAIN_SEQ, hd, "float32", False)
+    require(set(by_shape.get("wkv6", {})) == {rows},
+            f"phase 16: wkv6 launched at {by_shape.get('wkv6')}, not {rows}")
+    del out
+    torch.cuda.empty_cache()
+    return by_shape
+
+
+def run_train_families(torch, card, main_launches):
+    """Phase 17: each family of ``TRAIN_FAMILIES`` at its published widths
+    and the depth there: the fp32 identity at that depth (phase 15 (a)),
+    then 3 bf16 steps of the loop, all finite, with the launches each step
+    implies, step ms, tok/s and peak memory."""
+    from repro_torch.configs import get_arch
+    by_shape = {}
+    for arch, depth in TRAIN_FAMILIES:
+        base = get_arch(arch)
+        print(describe(base, depth, depth), flush=True)
+        cfg = dataclasses.replace(base, n_layers=depth)
+        tag = f"phase17 {arch}"
+        train_identity(torch, cfg, tag)
+        out, shapes, _ = train_counted(torch, card, cfg, TRAIN_FAMILY_STEPS,
+                                       main_launches, tag)
+        for name, keys in shapes.items():
+            for key, k in keys.items():
+                by_shape.setdefault(name, {})[key] = (
+                    by_shape.get(name, {}).get(key, 0) + k)
+        del out
+        torch.cuda.empty_cache()
     return by_shape
 
 
@@ -5533,19 +5776,27 @@ def check_held(rows, by_shape, what: str) -> None:
             f"not hold against their plain versions: {missing}")
 
 
-def launch_counting(main_launches):
-    """(reset, collect) over the kernels' launch counters: reset sets every
-    count to 0 before a main-path run; collect reads the counts after it
-    and adds the per-shape launches to ``main_launches``."""
+KERNEL_NAMES = ("swap_linear_q", "dequant_int8", "paged_attention", "wkv6",
+                "swap_linear", "flash_attention")
+
+
+def kernel_counters() -> dict:
+    """The six kernels' launch counters, by name."""
     from repro_torch.kernels import dequant as dq
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import swap_linear as sl
     from repro_torch.kernels import swap_linear_q as slq
     from repro_torch.kernels import wkv6 as kw
-    counters = {"swap_linear_q": slq.launches, "dequant_int8": dq.launches,
-                "paged_attention": pa.launches, "wkv6": kw.launches,
-                "swap_linear": sl.launches, "flash_attention": fa.launches}
+    return dict(zip(KERNEL_NAMES, (slq.launches, dq.launches, pa.launches,
+                                   kw.launches, sl.launches, fa.launches)))
+
+
+def launch_counting(main_launches):
+    """(reset, collect) over the kernels' launch counters: reset sets every
+    count to 0 before a main-path run; collect reads the counts after it
+    and adds the per-shape launches to ``main_launches``."""
+    counters = kernel_counters()
 
     def reset():
         for c in counters.values():
@@ -5634,9 +5885,7 @@ def main() -> int:
         check_train_grads(torch, cfg)
 
     from repro_torch.models.transformer import Model
-    main_launches = {"swap_linear_q": {}, "dequant_int8": {},
-                     "paged_attention": {}, "wkv6": {}, "swap_linear": {},
-                     "flash_attention": {}}
+    main_launches = {name: {} for name in KERNEL_NAMES}
     with phase("3 the slice at full width"):
         print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads "
               f"/ {cfg.n_kv_heads} KV heads, head_dim "
@@ -5746,17 +5995,23 @@ def main() -> int:
             for name, keys in p14["by_shape"].items()
             for k, n in sorted(keys.items(), key=str)), flush=True)
 
-    with phase("15 qwen2.5-3b trained at full width"):
-        p15 = run_train(torch, card, main_launches)
-        check_held(rows, p15, "phase 15")
-        print("phase 15 launches by held shape: " + "; ".join(
-            f"{name} {k} x{n}" for name, keys in p15.items()
-            for k, n in sorted(keys.items(), key=str)), flush=True)
+    for num, title, run in (
+            ("15", "qwen2.5-3b trained at full width", run_train),
+            ("16", "rwkv6-3b trained at full width through WKV6Fn",
+             run_train_rwkv6),
+            ("17", "gemma2, deepseek, zamba2 and hubert trained at full "
+             "width", run_train_families)):
+        with phase(f"{num} {title}"):
+            shapes = run(torch, card, main_launches)
+            check_held(rows, shapes, f"phase {num}")
+            print(f"phase {num} launches by held shape: " + "; ".join(
+                f"{name} {k} x{n}" for name, keys in shapes.items()
+                for k, n in sorted(keys.items(), key=str)), flush=True)
 
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 15): " + ", ".join(
+    print("main-path launches (phases 3 to 17): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

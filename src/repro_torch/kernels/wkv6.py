@@ -26,6 +26,19 @@ BH.
 is what a CPU tensor runs, and what the kernel is held to on the card:
 about 1e-5 relative for fp32 inputs (the sums run in another order),
 about 2e-2 for bf16 (one bf16 rounding of the output).
+
+Training: where autograd records the call (grad mode on and an input
+requiring grad) :func:`wkv6` runs through :class:`WKV6Fn`, whose forward
+is the same launch. The TPU kernel has no ``custom_vjp``: the JAX package
+trains rwkv6 through XLA's autodiff of the jnp chunked time-mix, whose
+chunk body is this one. The backward is therefore torch ops too,
+:func:`wkv6_grad`: it recomputes the chunk-entry states with a scan of
+the chunk update, carries the state's gradient back over the chunks, and
+takes each chunk's gradients in the forward's factorization, with the
+products in the forward's order so that ``e^-l`` (up to e^80 at the
+clamp) only ever meets the factor that bounds it; the decay's gradient
+it sums term by term, where autograd's difference of sums cancels terms
+up to e^5 larger than the result.
 """
 from __future__ import annotations
 
@@ -35,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels._build import (LaunchCounter, check, library,
-                                        refuse_grad)
+                                        needs_grad)
 
 CHUNK = 16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -111,18 +124,20 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w_log: torch.Tensor, u: torch.Tensor,
                state: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: the chunk body over [BH, nc, Q, hd] in fp32,
-    chunk after chunk. Returns (y in r's dtype, final state fp32)."""
+    """Plain PyTorch version: the chunk body over [BH, nc, Q, hd] in fp32
+    (fp64 for fp64 inputs, the tests' exact reference), chunk after chunk.
+    Returns (y in r's dtype, final state in the working type)."""
     BH, S, hd = _check_shapes(r, k, v, w_log, u, state)
     Q = chunk_len(S)
     nc = S // Q
+    wt = torch.promote_types(r.dtype, torch.float32)
 
     def chunks(t):
-        return t.to(torch.float32).reshape(BH, nc, Q, hd)
+        return t.to(wt).reshape(BH, nc, Q, hd)
     rc, kc, vc, wc = map(chunks, (r, k, v, w_log))
-    uf = u.to(torch.float32)[:, None, :]
-    Scur = (torch.zeros((BH, hd, hd), dtype=torch.float32, device=r.device)
-            if state is None else state.to(torch.float32))
+    uf = u.to(wt)[:, None, :]
+    Scur = (torch.zeros((BH, hd, hd), dtype=wt, device=r.device)
+            if state is None else state.to(wt))
     strict = torch.ones((Q, Q), dtype=torch.bool, device=r.device).tril(-1)
     ys = []
     for c in range(nc):
@@ -141,6 +156,119 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(r.dtype), Scur
 
 
+def wkv6_grad(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w_log: torch.Tensor, u: torch.Tensor,
+              state: Optional[torch.Tensor], dy: torch.Tensor,
+              dstate_fin: torch.Tensor):
+    """The gradient of :func:`wkv6` at (r, k, v, w_log, u, state), given
+    the gradients of its outputs, ``dy`` [BH, S, hd] and ``dstate_fin``
+    [BH, hd, hd]: (dr, dk, dv, dw_log, du, dstate), each in its input's
+    dtype and computed in fp32; dstate is None when state is.
+
+    Per chunk, in the module docstring's notation (``r~ = r e^lprev``,
+    ``k~ = k e^-l``, ``k^ = k e^(l_Q - l)``, ``A = tril_-1(r~ k~^T)``,
+    ``b = sum r u k``), with S the chunk's entry state and dS' the
+    gradient of its exit state: ``dA = tril_-1(dy v^T)``,
+    ``dv = A^T dy + b dy + k^ dS'``, ``db = sum dy v``,
+    ``dr~ = dA k~ + dy S^T``, ``dk~ = dA^T r~``, ``dk^ = v dS'^T``,
+    ``dS = r~^T dy + e^l_Q dS'``; then ``dr = dr~ e^lprev + db u k``,
+    ``dk = dk~ e^-l + dk^ e^(l_Q - l) + db u r`` and ``du = sum db r k``
+    over every chunk. The products run in the forward's order, so e^-l
+    (up to e^80 at the clamp) meets only the factor that bounds it.
+
+    The decay's gradient is ``revcumsum(dl + dlprev) - dlprev`` with
+    ``dlprev = dr~ r~`` and ``dl = -dk~ k~ - dk^ k^`` (plus, at the
+    chunk's last step, ``sum_t dk^ k^ + sum_j dS' e^l_Q S``). Summed so,
+    it cancels terms up to e^5 larger than itself where the decays sit at
+    the clamp, so it is summed term by term instead: ``dw_m`` gathers A's
+    pairs (t, s) with s < m < t, ``dA_ts r_t k_s e^(lprev_t - l_s)``
+    (each factor e^.. <= 1), the state's ``(dy S^T) r~`` at t > m, the
+    tail's ``dk^ k^`` at t < m, and ``e^l_Q sum_j dS' S`` at every m; the
+    masked sums are matmuls with 0 / 1 matrices.
+
+    The entry states come from a scan of the forward's chunk update (BH x
+    S / Q x hd x hd fp32, the state's gradient likewise); every product
+    inside a chunk is one batched matmul over all chunks."""
+    BH, S, hd = _check_shapes(r, k, v, w_log, u, state)
+    Q = chunk_len(S)
+    nc = S // Q
+    f32 = torch.float32
+
+    def chunks(t):
+        return t.to(f32).reshape(BH, nc, Q, hd)
+    rc, kc, vc, wc, dyc = map(chunks, (r, k, v, w_log, dy))
+    uf = u.to(f32)[:, None, None, :]
+    l = torch.cumsum(wc, dim=2)
+    lprev = l - wc
+    e_lprev, e_negl = torch.exp(lprev), torch.exp(-l)
+    e_tail = torch.exp(l[:, :, -1:] - l)
+    decay = torch.exp(l[:, :, -1])[..., None]            # [BH, nc, hd, 1]
+    r_dec, k_inv, k_tail = rc * e_lprev, kc * e_negl, kc * e_tail
+
+    # the chunk-entry states, as the forward's scan builds them
+    kv = k_tail.transpose(-1, -2) @ vc                   # [BH, nc, hd, hd]
+    s_in = torch.empty_like(kv)
+    scur = (torch.zeros((BH, hd, hd), dtype=f32, device=r.device)
+            if state is None else state.to(f32))
+    for c in range(nc):
+        s_in[:, c] = scur
+        scur = decay[:, c] * scur + kv[:, c]
+    del kv
+    # the exit states' gradients dS', carried back from dstate_fin
+    ds_out = r_dec.transpose(-1, -2) @ dyc               # r~^T dy, then dS'
+    dcur = dstate_fin.to(f32)
+    for c in reversed(range(nc)):
+        entry = ds_out[:, c] + decay[:, c] * dcur
+        ds_out[:, c] = dcur
+        dcur = entry
+
+    strict = torch.ones((Q, Q), dtype=torch.bool, device=r.device).tril(-1)
+    A = torch.where(strict, r_dec @ k_inv.transpose(-1, -2), 0.0)
+    dA = torch.where(strict, dyc @ vc.transpose(-1, -2), 0.0)
+    bonus = torch.sum(rc * (uf * kc), dim=-1, keepdim=True)
+    dbonus = torch.sum(dyc * vc, dim=-1, keepdim=True)
+    dv = A.transpose(-1, -2) @ dyc + bonus * dyc + k_tail @ ds_out
+    del A
+    dy_s = dyc @ s_in.transpose(-1, -2)                  # dy S^T
+    dk_tail = vc @ ds_out.transpose(-1, -2)
+    dr = (dA @ k_inv + dy_s) * e_lprev + dbonus * uf * kc
+    dk = ((dA.transpose(-1, -2) @ r_dec) * e_negl + dk_tail * e_tail
+          + dbonus * uf * rc)
+    du = torch.sum(dbonus * rc * kc, dim=(1, 2))
+
+    before = strict.to(f32)                              # [m, t]: t < m
+    straddle = (before.T[:, :, None] * before[:, None, :]).reshape(Q, Q * Q)
+    pairs = torch.where(strict[:, :, None],
+                        lprev[:, :, :, None] - l[:, :, None], -torch.inf)
+    pairs.exp_().mul_(kc[:, :, None]).mul_(rc[:, :, :, None])
+    pairs.mul_(dA[..., None])                            # [.., t, s, hd]
+    dw = straddle @ pairs.reshape(BH, nc, Q * Q, hd)
+    del pairs
+    dw += (before.T @ (dy_s * r_dec) + before @ (dk_tail * k_tail)
+           + (decay[..., 0] * torch.sum(ds_out * s_in, dim=-1))[:, :, None])
+
+    def rows(t, like):
+        return t.reshape(BH, S, hd).to(like.dtype)
+    return (rows(dr, r), rows(dk, k), rows(dv, v), rows(dw, w_log),
+            du.to(u.dtype), None if state is None else dcur.to(state.dtype))
+
+
+class WKV6Fn(torch.autograd.Function):
+    """:func:`wkv6` under autograd: the forward is the kernel (the plain
+    version on the CPU), the backward :func:`wkv6_grad`. Both outputs are
+    differentiable; an unused final state brings a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, state):
+        y, s_fin = _wkv6(r, k, v, w_log, u, state, None)
+        ctx.save_for_backward(r, k, v, w_log, u, state)
+        return y, s_fin
+
+    @staticmethod
+    def backward(ctx, dy, dstate_fin):
+        return wkv6_grad(*ctx.saved_tensors, dy, dstate_fin)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w_log: torch.Tensor, u: torch.Tensor,
          state: Optional[torch.Tensor] = None
@@ -151,7 +279,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16.
 
     A CUDA tensor launches the kernel or raises; a CPU tensor takes
-    :func:`wkv6_plain`."""
+    :func:`wkv6_plain`. Where autograd records the call, it runs through
+    :class:`WKV6Fn`."""
+    if needs_grad(r, k, v, w_log, u, state):
+        return WKV6Fn.apply(r, k, v, w_log, u, state)
     return _wkv6(r, k, v, w_log, u, state, None)
 
 
@@ -167,7 +298,6 @@ def _wkv6(r, k, v, w_log, u, state, groups: Optional[int]):
         return wkv6_plain(r, k, v, w_log, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
-    refuse_grad("wkv6", r, k, v, w_log, u, state)
     if r.dtype not in DTYPES or any(t.dtype != r.dtype
                                     for t in (k, v, w_log, u)):
         got = [str(t.dtype) for t in (r, k, v, w_log, u)]

@@ -18,8 +18,10 @@ any kernel; ``wo`` goes through ``layers.linear`` (``swap_linear``, or
 
 RWKV6: attention-free layers with data-dependent decay and token shift.
 The chunked time-mix's recurrence runs through ``kernels/wkv6`` (the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor); the step is
-a few plain tensor ops. The state is the WKV state S [B, nh, hd, hd] in
+kernel on a CUDA tensor, its plain version on a CPU tensor; in training
+through ``WKV6Fn``, whose backward ``wkv6_grad`` is torch ops, as the
+reference trains through XLA's autodiff of its jnp chunk body); the step
+is a few plain tensor ops. The state is the WKV state S [B, nh, hd, hd] in
 fp32 and the token shift [B, 1, D].
 """
 from __future__ import annotations
@@ -136,7 +138,12 @@ def mamba2_chunked(cfg: ModelConfig, p: dict, x: torch.Tensor,
         l = torch.cumsum(torch.log(torch.clamp(aq, min=1e-37)), dim=1)
         # intra-chunk: M[t, i, n] = (C_t . B_i) exp(l_t - l_i) dt_i, i <= t
         cb = torch.einsum("btd,bid->bti", Cq, Bq)
-        ratio = torch.exp(l[:, :, None, :] - l[:, None, :, :])
+        # the exponent masked before exp: above the diagonal l_t - l_i > 0
+        # overflows to inf at strong decays, and backward's inf * 0 there
+        # would make every gradient NaN (the reference exps it unmasked)
+        ratio = torch.exp(torch.where(causal[None, :, :, None],
+                                      l[:, :, None, :] - l[:, None, :, :],
+                                      -torch.inf))
         M = cb[..., None] * ratio * dtq[:, None, :, :]
         M = torch.where(causal[None, :, :, None], M, 0.0)
         y_intra = torch.einsum("btin,binh->btnh", M, xq)

@@ -1,5 +1,6 @@
-"""The two kernels that train, ``swap_linear`` (B5) and
-``flash_attention`` (B4), under autograd on the CPU.
+"""Two of the three kernels that train, ``swap_linear`` (B5) and
+``flash_attention`` (B4), under autograd on the CPU (the third, ``wkv6``
+(B6), is ``tests/test_torch_wkv6_grad.py``'s).
 
 Where grad mode is on and an input requires grad, each wrapper runs its
 ``autograd.Function``: the forward is the kernel (its plain version on the
@@ -7,7 +8,7 @@ CPU), the backward an explicit gradient in torch ops. These tests hold
 that gradient to autograd through the plain version on the same inputs,
 within 1e-5 of the largest |g| (float32 on both sides; the sums run in
 another order), and check the routing: no Function without grad, so
-inference is as it was. The grad guards of the other four kernels raise
+inference is as it was. The grad guards of the other three kernels raise
 only for CUDA tensors; ``tests/test_torch_cuda.py`` holds them on the card.
 """
 import numpy as np
@@ -20,7 +21,6 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import swap_linear as sl  # noqa: E402
 from repro_torch.kernels.dequant import dequant_int8  # noqa: E402
 from repro_torch.kernels.swap_linear_q import swap_linear_q  # noqa: E402
-from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
 
 TOL = 1e-5
 
@@ -168,16 +168,16 @@ def test_flash_attention_runs_the_function_only_under_grad(monkeypatch):
 
 def test_refuse_grad_names_the_kernel():
     w = torch.ones(3, requires_grad=True)
-    _build.refuse_grad("wkv6", None, w.detach())
+    _build.refuse_grad("paged_attention", None, w.detach())
     with torch.no_grad():
-        _build.refuse_grad("wkv6", w)
-    with pytest.raises(RuntimeError, match="wkv6: the CUDA kernel has no "
-                                           "backward"):
-        _build.refuse_grad("wkv6", None, w)
+        _build.refuse_grad("paged_attention", w)
+    with pytest.raises(RuntimeError, match="paged_attention: the CUDA "
+                                           "kernel has no backward"):
+        _build.refuse_grad("paged_attention", None, w)
 
 
 def test_guarded_kernels_differentiate_their_plain_versions_on_the_cpu():
-    """On the CPU the four kernels without a Function run their plain
+    """On the CPU the kernels without a Function run their plain
     versions, which autograd differentiates: the guard is the card's."""
     rng = np.random.default_rng(6)
     x = _leaf(rng, (3, 8))
@@ -188,10 +188,3 @@ def test_guarded_kernels_differentiate_their_plain_versions_on_the_cpu():
     s2 = _leaf(rng, (5,), 0.01)
     dequant_int8(qw, s2).sum().backward()
     assert s2.grad is not None
-    r, kk, vv = (_leaf(rng, (2, 16, 8)) for _ in range(3))
-    w_log = torch.tensor(-np.exp(rng.normal(0, 0.5, (2, 16, 8))),
-                         dtype=torch.float32, requires_grad=True)
-    u = _leaf(rng, (2, 8))
-    y, _ = wkv6(r, kk, vv, w_log, u)
-    y.sum().backward()
-    assert all(t.grad is not None for t in (r, kk, vv, w_log, u))

@@ -67,6 +67,7 @@ from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serving.batch_engine import BatchDecodeEngine  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.paged_kv import PagedKVCache  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1311,8 +1312,8 @@ def test_flash_attention_fn_grads_on_the_card(dev, dtype, causal, window,
 
 
 def test_kernels_without_a_backward_refuse_grad_on_the_card(dev):
-    """swap_linear_q, dequant_int8, paged_attention and wkv6 raise, naming
-    the kernel, where autograd would record them; under no_grad they run."""
+    """swap_linear_q, dequant_int8 and paged_attention raise, naming the
+    kernel, where autograd would record them; under no_grad they run."""
     q8, s = _weights(8, 64, 32)
     q8, s = q8.to(dev), s.to(dev).requires_grad_(True)
     x = torch.randn((4, 64), device=dev, requires_grad=True)
@@ -1324,8 +1325,6 @@ def test_kernels_without_a_backward_refuse_grad_on_the_card(dev):
                                             torch.float32)
     calls["paged_attention"] = lambda: pa.paged_attention(
         qa.requires_grad_(True), kp, vp, table, lens)
-    r, k, v, w_log, u = (t.to(dev) for t in _wkv6_leaves())
-    calls["wkv6"] = lambda: kw.wkv6(r.requires_grad_(True), k, v, w_log, u)
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel "
                                                f"has no backward"):
@@ -1335,9 +1334,77 @@ def test_kernels_without_a_backward_refuse_grad_on_the_card(dev):
     torch.cuda.synchronize()
 
 
-def _wkv6_leaves():
-    g = torch.Generator().manual_seed(3)
-    r, k, v = (torch.randn((4, 16, 64), generator=g) * 0.5 for _ in range(3))
-    w_log = -torch.exp(torch.randn((4, 16, 64), generator=g) * 0.5)
-    u = torch.randn((4, 64), generator=g) * 0.5
-    return r, k, v, w_log, u
+# wkv6 under autograd (WKV6Fn: the kernel forward, wkv6_grad's torch-op
+# backward) at rwkv6-3b's training rows, fewer of them (BH 80 of 320, S
+# 256, hd 64): fp32 inputs against autograd through the plain version in
+# float64 (1e-5: the fp32 plain version's decay gradient cancels terms up
+# to e^5 larger than itself at the clamp, row 0 here), bf16 inputs
+# against autograd through the plain version on the same inputs (2e-2:
+# the gradients are rounded to bf16)
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_fn_grads_on_the_card(dev, dtype, state):
+    args = _wkv_inputs(80, 256, 64, dtype, seed=11, state=state)
+    g = torch.Generator(device=dev).manual_seed(12)
+    dy = torch.randn((80, 256, 64), generator=g, device=dev).to(dtype)
+    ds = torch.randn((80, 64, 64), generator=g, device=dev)
+    ref_dtype = torch.float64 if dtype == torch.float32 else None
+
+    def grads(fn, cast):
+        ins = [None if t is None else
+               (t if cast is None else t.to(cast)).detach().requires_grad_()
+               for t in args]
+        y, s_fin = fn(*ins)
+        (torch.sum(y.double() * dy.double())
+         + torch.sum(s_fin.double() * ds.double())).backward()
+        torch.cuda.synchronize()
+        return y.detach(), [t.grad for t in ins if t is not None]
+    before = kw.launches.count
+    y, got = grads(kw.wkv6, None)
+    assert kw.launches.count == before + 1          # the backward launches
+    y0, want = grads(kw.wkv6_plain, ref_dtype)      # nothing
+    assert _rel(y, y0) <= TOL[dtype]
+    assert len(got) == len(want) == (6 if state else 5)
+    for a, a0, t in zip(got, want, [t for t in args if t is not None]):
+        assert a.dtype == t.dtype and bool(torch.isfinite(a).all())
+        assert _rel(a, a0) <= TOL[dtype]
+
+
+def test_wkv6_under_grad_never_runs_plain_on_the_card(dev, monkeypatch):
+    """A CUDA tensor under grad goes through WKV6Fn to the kernel, forward
+    and backward, and never to the plain version."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(kw, "wkv6_plain", refuse)
+    r, k, v, w, u, s0 = _wkv_inputs(4, 64, 64, torch.float32, seed=13,
+                                    state=True)
+    for t in (r, k, v, w, u, s0):
+        t.requires_grad_(True)
+    before = kw.launches.count
+    y, s_fin = kw.wkv6(r, k, v, w, u, s0)
+    assert type(y.grad_fn).__name__ == "WKV6FnBackward"
+    (y.sum() + s_fin.sum()).backward()
+    torch.cuda.synchronize()
+    assert kw.launches.count == before + 1
+    assert all(t.grad is not None for t in (r, k, v, w, u, s0))
+
+
+# llama4-scout and qwen2-vl at reduced() widths: 3 bf16 steps of the
+# launcher's loop on the card, every loss finite (their published widths
+# do not fit one card's training state even at one layer)
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "qwen2-vl-72b"])
+def test_reduced_train_steps_on_the_card(dev, arch):
+    from repro_torch.launch.train import train
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="bfloat16")
+    before = (sl.launches.count, fa.launches.count)
+    out = train(cfg, steps=3, batch=8, seq=64, log_every=1, device="cuda")
+    losses = [loss for _, loss, _ in out["logged"]]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    # per step and layer (tests/test_torch_train_archs.py counts the same
+    # on the CPU): 7 linears, forward and remat, and the gate's recompute
+    # (llama4's shared expert, qwen2-vl's MLP); attention forward and remat
+    L = cfg.n_layers
+    assert sl.launches.count - before[0] == 15 * L * 3
+    assert fa.launches.count - before[1] == 2 * L * 3
+    assert all(p.device.type == "cuda"
+               for p in tree_leaves(out["state"]["params"]))

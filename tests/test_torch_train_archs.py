@@ -11,7 +11,8 @@ serves, ``reduced()`` in float32 on the CPU:
 - zamba2-7b: Mamba2's chunked SSD under autograd and the shared block,
   one param tree whose gradient sums over its occurrences (Mamba2's
   ``norm``, which nothing reads, gets a zero gradient in both);
-- rwkv6-3b: wkv6's plain version under autograd (the CPU path);
+- rwkv6-3b: wkv6 under ``WKV6Fn`` (its plain version forward on the CPU,
+  ``wkv6_grad`` backward);
 - qwen2-vl-72b: M-RoPE positions and vision embeddings in the batch;
 - hubert-xlarge: the bidirectional encoder, ``mask_emb`` on the masked
   frames and the loss weighed by the mask.
@@ -80,3 +81,98 @@ def test_loss_and_grads_match_reference(arch):
         g = np.zeros_like(rg) if p.grad is None else p.grad.numpy()
         err = float(np.abs(g - rg).max())
         assert err <= 1e-4 * float(np.abs(rg).max()), (path, err)
+
+
+# per layer kind: (swap_linear, flash_attention, wkv6) launches of one train
+# step. Each layer is checkpointed, so its forward runs twice; a gated MLP
+# (swiglu, GeGLU, a moe layer's shared expert) relaunches its gate once at
+# act "none" in SwapLinearFn's backward. dense: wq, wk, wv, wo + wi0, wi1,
+# wo (hubert's GELU MLP: wi, wo); MLA + moe: wq, wo + the shared expert's
+# three; Mamba2 and rwkv6: wo. The head, the routed experts and the other
+# projections are plain matmuls, as in the reference. chip_smoke.py's
+# ``train_launches`` holds the card's train steps to the same counts.
+LAUNCHES_PER_LAYER = {
+    "gemma2-9b": {"dense": (15, 2, 0)},
+    "llama4-scout-17b-a16e": {"moe": (15, 2, 0)},
+    "deepseek-v2-lite-16b": {"moe": (11, 2, 0)},
+    "zamba2-7b": {"mamba2": (2, 0, 0), "shared_attn": (15, 2, 0)},
+    "rwkv6-3b": {"rwkv6": (2, 0, 2)},
+    "qwen2-vl-72b": {"dense": (15, 2, 0)},
+    "hubert-xlarge": {"dense": (12, 2, 0)},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_launches_per_train_step(monkeypatch, arch):
+    """What one train step asks of the kernels, counted on the CPU where
+    the wrappers run their plain versions, per layer kind of the plan."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import swap_linear as sl
+    from repro_torch.kernels import wkv6 as kw
+    counts = [0, 0, 0]
+
+    def count(i, real):
+        def fn(*a):
+            counts[i] += 1
+            return real(*a)
+        return fn
+    monkeypatch.setattr(sl, "_swap_linear", count(0, sl._swap_linear))
+    monkeypatch.setattr(fa, "_flash_attention", count(1, fa._flash_attention))
+    monkeypatch.setattr(kw, "_wkv6", count(2, kw._wkv6))
+    B, S = ARCHS[arch]
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    rb = RefSyntheticLM(dataclasses.replace(ref_get_arch(arch).reduced(),
+                                            dtype="float32"), S, B,
+                        seed=1).sample(0)
+    loss, _ = model.loss(params, {k: torch.from_numpy(np.array(v))
+                                  for k, v in rb.items()})
+    loss.backward()
+    want = [0, 0, 0]
+    for seg in model.plan:
+        for i, n in enumerate(LAUNCHES_PER_LAYER[arch][seg.kind]):
+            want[i] += n * seg.n
+    assert counts == want
+
+
+def test_zamba2_gradient_stays_finite_at_strong_decays():
+    """zamba2 at 12 reduced layers: on batch 0 the SSD's decays are strong
+    enough that exp(l_t - l_i) above a chunk's diagonal overflows. The
+    port masks the exponent before the exp, so its gradient stays finite
+    (the reference exps it unmasked, and backward's inf * 0 turns its
+    gradient there NaN); its loss equals the reference's, and on batch 2,
+    where the reference's gradient is finite, every leaf matches it."""
+    arch, B, S = "zamba2-7b", 2, 32
+    ref_cfg = dataclasses.replace(ref_get_arch(arch).reduced(), n_layers=12,
+                                  dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=12,
+                              dtype="float32")
+    ref_model, model = RefModel(ref_cfg), Model(cfg)
+    ref_params = ref_model.init(jax.random.key(0))
+    params = params_from_jax(jax.tree.map(np.asarray, ref_params))
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    grad_fn = jax.jit(jax.value_and_grad(ref_model.loss, has_aux=True))
+    for step in (0, 2):
+        rb = RefSyntheticLM(ref_cfg, S, B, seed=0).sample(step)
+        (want, _), ref_grads = grad_fn(ref_params, rb)
+        for p in tree_leaves(params):
+            p.grad = None
+        loss, _ = model.loss(params, {k: torch.from_numpy(np.array(v))
+                                      for k, v in rb.items()})
+        loss.backward()
+        assert float(loss.detach()) == pytest.approx(float(want), rel=1e-5)
+        flat = tree_flatten_with_path(params)[0]
+        assert all(bool(torch.isfinite(p.grad).all()) for _, p in flat
+                   if p.grad is not None)
+        if step == 0:
+            continue
+        ref_flat = jax.tree_util.tree_flatten_with_path(ref_grads)[0]
+        for (path, p), (_, rg) in zip(flat, ref_flat):
+            rg = np.asarray(rg, np.float64)
+            g = np.zeros_like(rg) if p.grad is None else p.grad.numpy()
+            err = float(np.abs(g - rg).max())
+            assert err <= 1e-4 * float(np.abs(rg).max()), (path, err)
