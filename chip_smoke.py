@@ -203,7 +203,16 @@ Phases, each printing its wall time:
    over both), hubert-xlarge at 4 (8 x 256 masked frames): each the fp32
    identity of phase 15 (a) at that depth, 3 bf16 steps of the loop, all
    finite, the launches each step implies (``train_launches``), step ms,
-   tok/s and peak device memory.
+   tok/s and peak device memory;
+18. the dry run (``repro_torch.launch.dryrun``) on the card's host CPU:
+   qwen2.5-3b x decode_32k at full depth through the CLI in a subprocess,
+   meanwhile train_4k cut to 2 layers in this process on the single-pod
+   (16, 16) and the multi-pod (2, 16, 16) mesh; each one step traced on
+   DTensors of fake tensors over a fake process group of 256 / 512 ranks
+   (the plain PyTorch versions: no kernel launches, checked); every row
+   ``ok``, its argument bytes those the sharding specs give, and its
+   memory, counted and analytic FLOPs, collectives, trace seconds and
+   ``torch.__version__`` printed.
 
 Every full-precision linear of phases 3 to 17 runs ``swap_linear`` and
 every prefill's (and every training step's) attention
@@ -5776,6 +5785,136 @@ def check_held(rows, by_shape, what: str) -> None:
             f"not hold against their plain versions: {missing}")
 
 
+# phase 18: the dry run's rows (arch, shape, multi_pod, depth cut or None)
+DRYRUN_ROWS = [("qwen2.5-3b", "decode_32k", False, None),
+               ("qwen2.5-3b", "train_4k", False, 2),
+               ("qwen2.5-3b", "train_4k", True, 2)]
+
+
+def dryrun_argument_bytes(cfg, shape, multi_pod: bool) -> int:
+    """What a dry-run row's ``argument_size_in_bytes`` must be: every leaf
+    of the train state (fp32 params and moments by ``train_state_specs``;
+    the step is a host int) or of the serving params (``cfg.dtype``) and
+    decode cache, and of the batch (``input_pspecs``), at its bytes over
+    the extents of the mesh axes its spec names."""
+    import math
+    from repro_torch.core.skeleton import torch_dtype
+    from repro_torch.distributed.sharding import filter_spec, is_spec
+    from repro_torch.models.transformer import (Model, input_pspecs,
+                                                input_specs)
+    from repro_torch.training.train_loop import train_state_specs
+    from repro_torch.tree import tree_leaves
+    sizes = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+
+    def nbytes(shp, itemsize, spec):
+        ext = 1
+        for e in filter_spec(spec, sizes):
+            for ax in ((e,) if isinstance(e, str) else e or ()):
+                ext *= sizes[ax]
+        return math.prod(shp) * itemsize // ext
+
+    model = Model(cfg)
+    total = 0
+    if shape.mode == "train":
+        specs = train_state_specs(model)
+        leaves = tree_leaves(model.param_struct())
+        for part in ("params", "mu", "nu"):
+            total += sum(nbytes(t.shape, 4, sp) for t, sp in zip(
+                leaves, tree_leaves(specs[part], is_leaf=is_spec)))
+    else:
+        isz = torch_dtype(cfg.dtype).itemsize
+        total += sum(nbytes(t.shape, isz, sp) for t, sp in zip(
+            tree_leaves(model.param_struct()),
+            tree_leaves(model.param_specs(), is_leaf=is_spec)))
+        if shape.mode == "decode":
+            cache = model.cache_struct(shape.global_batch, shape.seq_len)
+            cspecs = model.cache_specs(shape, sizes)
+            for seg, sseg in zip(cache, cspecs):
+                total += sum(nbytes(shp, dt.itemsize, sseg[k])
+                             for k, (shp, dt) in seg.items())
+    ispecs = input_pspecs(cfg, shape, sizes)
+    total += sum(nbytes(shp, dt.itemsize, ispecs[k])
+                 for k, (shp, dt) in input_specs(cfg, shape).items())
+    return total
+
+
+def run_dryrun(torch) -> list:
+    """Phase 18: ``launch/dryrun`` on the card's host. qwen2.5-3b x
+    decode_32k at full depth through the CLI in a subprocess, meanwhile
+    train_4k cut to 2 layers in this process on 16 x 16 and 2 x 16 x 16:
+    each a step traced on DTensors of fake tensors over a fake 256- or
+    512-rank group (the plain PyTorch versions on the CPU: no kernel
+    launches, checked). Every row must be ``ok`` and its argument bytes
+    what the specs give (:func:`dryrun_argument_bytes`)."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import dryrun
+    reset, collect = launch_counting({name: {} for name in KERNEL_NAMES})
+    out_dir = ROOT / "build" / "phase18"
+    reset()
+    cli = [r for r in DRYRUN_ROWS if r[3] is None]
+    walls, rows = {}, {}
+    procs = []
+    try:
+        for arch, shape_name, multi_pod, _ in cli:    # as a user runs it
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            procs.append((time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape_name, "--out", str(out_dir)]
+                + (["--multi-pod"] if multi_pod else []),
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        for row in DRYRUN_ROWS:
+            arch, shape_name, multi_pod, depth = row
+            if depth is not None:
+                t0 = time.perf_counter()
+                rows[row] = dryrun.run_one(arch, shape_name, multi_pod,
+                                           n_layers=depth, verbose=False)
+                walls[row] = time.perf_counter() - t0
+        for row, (t0, proc) in zip(cli, procs):
+            arch, shape_name, multi_pod, _ = row
+            log, _ = proc.communicate(timeout=300)
+            walls[row] = time.perf_counter() - t0
+            require(proc.returncode == 0, f"dryrun CLI {arch} x {shape_name} "
+                    f"exited {proc.returncode}: {log[-3000:]}")
+            tag = "2x16x16" if multi_pod else "16x16"
+            rows[row] = json.loads(
+                (out_dir / f"{arch}__{shape_name}__{tag}.json").read_text())
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for row in DRYRUN_ROWS:
+        arch, shape_name, multi_pod, depth = row
+        r = rows[row]
+        require(r["status"] == "ok", f"dryrun {arch} x {shape_name} x "
+                f"{r['mesh']}: {r.get('error')}")
+        cfg = get_arch(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        want = dryrun_argument_bytes(cfg, get_shape(shape_name), multi_pod)
+        mem = r["memory_analysis"]
+        require(mem["argument_size_in_bytes"] == want,
+                f"dryrun {arch} x {shape_name} x {r['mesh']}: argument "
+                f"bytes {mem['argument_size_in_bytes']} != {want} from the "
+                f"specs")
+        print(f"[phase18] {arch} x {shape_name} x {r['mesh']} "
+              f"({r['n_layers']} layers{', CLI' if depth is None else ''}): "
+              f"ok, torch {r['torch']}, trace {r['trace_s']} s (wall "
+              f"{walls[row]:.1f} s); per device: argument "
+              f"{mem['argument_size_in_bytes']} B (== specs), output "
+              f"{mem['output_size_in_bytes']} B, temp "
+              f"{mem['temp_size_in_bytes']} B; flops counted "
+              f"{r['cost_analysis']['flops']:.6e} vs analytic "
+              f"{r['flops_analytic_per_dev']:.6e}; collectives "
+              + ", ".join(f"{k} {v['count']} x / {v['bytes']} B"
+                          for k, v in r["collectives"].items()), flush=True)
+    got = collect()
+    require(not any(got.values()), f"the dry run launched kernels: {got}")
+    return [rows[r] for r in DRYRUN_ROWS]
+
+
 KERNEL_NAMES = ("swap_linear_q", "dequant_int8", "paged_attention", "wkv6",
                 "swap_linear", "flash_attention")
 
@@ -6007,6 +6146,9 @@ def main() -> int:
             print(f"phase {num} launches by held shape: " + "; ".join(
                 f"{name} {k} x{n}" for name, keys in shapes.items()
                 for k, n in sorted(keys.items(), key=str)), flush=True)
+
+    with phase("18 the dry run: DTensor on a fake 256- / 512-rank group"):
+        run_dryrun(torch)
 
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,

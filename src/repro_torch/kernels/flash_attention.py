@@ -177,9 +177,12 @@ def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = H // KV
     f32 = torch.float32
     kf, vf = k.to(f32), v.to(f32)
-    dq = torch.empty((B, S, KV, G, hd), dtype=f32, device=q.device)
-    dk = torch.zeros((B, S, KV, hd), dtype=f32, device=q.device)
-    dvv = torch.zeros((B, S, KV, dv), dtype=f32, device=q.device)
+    # *_like: on a mesh the buffers are DTensors laid out as the inputs
+    cf = torch.contiguous_format
+    dq = torch.empty_like(q, dtype=f32, memory_format=cf).reshape(
+        B, S, KV, G, hd)
+    dk = torch.zeros_like(kf, memory_format=cf)
+    dvv = torch.zeros_like(vf, memory_format=cf)
     for i0 in range(0, S, block):
         i1 = min(S, i0 + block)
         n = i1 - i0

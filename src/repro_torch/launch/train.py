@@ -8,7 +8,9 @@
         --reduce 100m --steps 300 --batch 8 --seq 256
 
 The flags are the reference's plus ``--device`` (default ``cuda``; without
-CUDA it raises). :func:`train` is the loop that :func:`main` runs once it
+CUDA it raises). This loop trains on one device; the same train step on
+the production meshes (the state sharded by ``train_state_specs``) is
+traced, not run, by ``python -m repro_torch.launch.dryrun``. :func:`train` is the loop that :func:`main` runs once it
 has built the config; ``chip_smoke.py`` drives the same loop on its own
 depth-cut config. On the card every linear runs ``swap_linear`` and every
 attention ``flash_attention``, forward and backward (through their

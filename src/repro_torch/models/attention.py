@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import batch_layout, is_dtensor
 from repro_torch.kernels.flash_attention import (LARGE_WINDOW, NEG_INF,
                                                   flash_attention)
 from repro_torch.models.layers import (apply_rope, linear, rms_norm,
@@ -51,6 +52,11 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q = q.reshape(B, Sq, KV, G, hd).to(torch.float32)
     window = LARGE_WINDOW if window is None else window
     chunk = min(chunk, Skv)
+    if is_dtensor(k):
+        # DTensor slices a sequence-sharded cache only by gathering it
+        # whole; one chunk keeps the scores sharded as the cache is (the
+        # flash-decoding split: the max and sums reduce across shards)
+        chunk = Skv
     dev = q.device
 
     qp = q_pos[:, :, None, None, None]                       # [B,Sq,1,1,1]
@@ -86,15 +92,33 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, vd)
 
 
+def write_rows(buf: torch.Tensor, pos: torch.Tensor,
+               rows: torch.Tensor) -> None:
+    """``buf[b, pos[b]] = rows[b]`` in place (buf [B, L, ...], pos [B]).
+    For a DTensor ``buf`` (whose in-place ``index_put_`` cannot keep a
+    sequence-sharded cache's placement) the same rows are written by a
+    ``where`` over the sequence and a ``copy_``."""
+    rows = rows.to(buf.dtype)
+    if not is_dtensor(buf):
+        buf[torch.arange(buf.shape[0], device=buf.device), pos] = rows
+        return
+    hit = (torch.arange(buf.shape[1], device=buf.device)[None, :]
+           == pos[:, None])
+    hit = hit.reshape(hit.shape + (1,) * (buf.ndim - 2))
+    buf.copy_(torch.where(hit, rows[:, None], buf))
+
+
 # ------------------------------------------------------------------ GQA layer
 def gqa_defs(cfg: ModelConfig) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    d = {"wq": ParamDef((D, H * hd)), "wk": ParamDef((D, KV * hd)),
-         "wv": ParamDef((D, KV * hd)), "wo": ParamDef((H * hd, D))}
+    d = {"wq": ParamDef((D, H * hd), ("residual", "tp")),
+         "wk": ParamDef((D, KV * hd), ("residual", "tp")),
+         "wv": ParamDef((D, KV * hd), ("residual", "tp")),
+         "wo": ParamDef((H * hd, D), ("tp", "residual"))}
     if cfg.attn_bias:
-        d["bq"] = ParamDef((H * hd,), init="zeros")
-        d["bk"] = ParamDef((KV * hd,), init="zeros")
-        d["bv"] = ParamDef((KV * hd,), init="zeros")
+        d["bq"] = ParamDef((H * hd,), ("tp",), init="zeros")
+        d["bk"] = ParamDef((KV * hd,), ("tp",), init="zeros")
+        d["bv"] = ParamDef((KV * hd,), ("tp",), init="zeros")
     return d
 
 
@@ -133,9 +157,13 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     temporal position) gets that package's mask, not the index mask."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
-    k = linear(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
-    v = linear(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+    q, k, v = batch_layout(linear(x, p["wq"], p.get("bq")),
+                          linear(x, p["wk"], p.get("bk")),
+                          linear(x, p["wv"], p.get("bv")),
+                          decode=decode_pos is not None)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
     q, k = _rope(cfg, q, k, positions)
 
     window = None
@@ -151,9 +179,8 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # M-RoPE masks on the temporal stream, as the JAX package does
     q_pos = positions[..., 0] if cfg.rope_type == "mrope" else positions
     if cache is not None and decode_pos is not None:
-        rows = torch.arange(B, device=x.device)
-        cache["k"][rows, decode_pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, decode_pos] = v[:, 0].to(cache["v"].dtype)
+        write_rows(cache["k"], decode_pos, k[:, 0])
+        write_rows(cache["v"], decode_pos, v[:, 0])
         out = online_attention(q, cache["k"], cache["v"], q_pos,
                                decode_pos + 1, causal=not cfg.is_encoder,
                                window=window, scale=_attn_scale(cfg),
@@ -164,7 +191,11 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                               causal=not cfg.is_encoder, window=window,
                               softcap=cfg.attn_logit_softcap,
                               chunk=block_local)
-    out = linear(out.reshape(B, S, H * hd).to(x.dtype), p["wo"])
+    # held after the head merge, so backward brings the gradient to the
+    # head split in the inputs' layout
+    out, = batch_layout(out.reshape(B, S, H * hd),
+                        decode=decode_pos is not None)
+    out = linear(out.to(x.dtype), p["wo"])
     new_cache = cache if cache is not None else {"k": k, "v": v}
     return out, new_cache
 
@@ -206,13 +237,15 @@ def gqa_apply_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def mla_defs(cfg: ModelConfig) -> dict:
     m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
-    return {"wq": ParamDef((D, H * qd)),
-            "w_dkv": ParamDef((D, m.kv_lora_rank)),
-            "w_krope": ParamDef((D, m.qk_rope_head_dim)),
-            "kv_norm": ParamDef((m.kv_lora_rank,), init="ones"),
-            "w_uk": ParamDef((m.kv_lora_rank, H * m.qk_nope_head_dim)),
-            "w_uv": ParamDef((m.kv_lora_rank, H * m.v_head_dim)),
-            "wo": ParamDef((H * m.v_head_dim, D))}
+    return {"wq": ParamDef((D, H * qd), ("residual", "tp")),
+            "w_dkv": ParamDef((D, m.kv_lora_rank), ("residual", None)),
+            "w_krope": ParamDef((D, m.qk_rope_head_dim), ("residual", None)),
+            "kv_norm": ParamDef((m.kv_lora_rank,), (None,), init="ones"),
+            "w_uk": ParamDef((m.kv_lora_rank, H * m.qk_nope_head_dim),
+                             (None, "tp")),
+            "w_uv": ParamDef((m.kv_lora_rank, H * m.v_head_dim),
+                             (None, "tp")),
+            "wo": ParamDef((H * m.v_head_dim, D), ("tp", "residual"))}
 
 
 def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -251,10 +284,8 @@ def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k_rope = apply_rope(k_rope, ang)
 
     if cache is not None and decode_pos is not None:
-        rows = torch.arange(B, device=x.device)
-        cache["c_kv"][rows, decode_pos] = c_kv[:, 0].to(cache["c_kv"].dtype)
-        cache["k_rope"][rows, decode_pos] = k_rope[:, 0, 0].to(
-            cache["k_rope"].dtype)
+        write_rows(cache["c_kv"], decode_pos, c_kv[:, 0])
+        write_rows(cache["k_rope"], decode_pos, k_rope[:, 0, 0])
         # absorbed decode: q_nope W_uk^T puts the query in latent space
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope,
                              p["w_uk"].reshape(r, H, nd))         # [B,S,H,r]
@@ -262,6 +293,7 @@ def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
         k_cat = torch.cat([cache["c_kv"][:, :, None, :].to(q_cat.dtype),
                            cache["k_rope"][:, :, None, :].to(q_cat.dtype)],
                           dim=-1)
+        q_cat, = batch_layout(q_cat, decode=True)
         out_lat = online_attention(
             q_cat, k_cat, cache["c_kv"][:, :, None, :], positions,
             decode_pos + 1, causal=True, window=None, scale=scale,
@@ -276,7 +308,9 @@ def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     v = (c_kv @ p["w_uv"]).reshape(B, S, H, vd)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
+    qf, k, v = batch_layout(qf, k, v, decode=False)
     out = flash_attention(qf, k, v, positions, scale=scale,
                           causal=not cfg.is_encoder)
-    out = linear(out.reshape(B, S, H * vd).to(x.dtype), p["wo"])
+    out, = batch_layout(out.reshape(B, S, H * vd), decode=False)
+    out = linear(out.to(x.dtype), p["wo"])
     return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}

@@ -99,11 +99,11 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
 # ------------------------------------------------------------------ MLP
 def mlp_defs(cfg: ModelConfig, d_in: int, d_hidden: int) -> dict:
     if cfg.act in ("swiglu", "gelu_glu"):
-        return {"wi0": ParamDef((d_in, d_hidden)),
-                "wi1": ParamDef((d_in, d_hidden)),
-                "wo": ParamDef((d_hidden, d_in))}
-    return {"wi": ParamDef((d_in, d_hidden)),
-            "wo": ParamDef((d_hidden, d_in))}
+        return {"wi0": ParamDef((d_in, d_hidden), ("residual", "tp")),
+                "wi1": ParamDef((d_in, d_hidden), ("residual", "tp")),
+                "wo": ParamDef((d_hidden, d_in), ("tp", "residual"))}
+    return {"wi": ParamDef((d_in, d_hidden), ("residual", "tp")),
+            "wo": ParamDef((d_hidden, d_in), ("tp", "residual"))}
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

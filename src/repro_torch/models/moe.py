@@ -27,6 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (BATCH_AXES, MODEL_AXIS, P,
+                                              full_tensor, maybe_constrain,
+                                              on_mesh)
 from repro_torch.models.layers import linear
 from repro_torch.models.params import ParamDef
 
@@ -37,14 +40,19 @@ def moe_defs(cfg: ModelConfig) -> dict:
     ``fan_in`` is its first axis, E, as in the reference's init."""
     e = cfg.moe
     D = cfg.d_model
-    d = {"router": ParamDef((D, e.n_routed), init="small"),
-         "wi0": ParamDef((e.n_routed, D, e.d_expert)),
-         "wi1": ParamDef((e.n_routed, D, e.d_expert)),
-         "wo": ParamDef((e.n_routed, e.d_expert, D))}
+    d = {"router": ParamDef((D, e.n_routed), ("residual", None),
+                            init="small"),
+         "wi0": ParamDef((e.n_routed, D, e.d_expert),
+                         ("experts", None, "residual")),
+         "wi1": ParamDef((e.n_routed, D, e.d_expert),
+                         ("experts", None, "residual")),
+         "wo": ParamDef((e.n_routed, e.d_expert, D),
+                        ("experts", "residual", None))}
     if e.n_shared:
         ds = e.d_shared or e.d_expert * e.n_shared
-        d["shared"] = {"wi0": ParamDef((D, ds)), "wi1": ParamDef((D, ds)),
-                       "wo": ParamDef((ds, D))}
+        d["shared"] = {"wi0": ParamDef((D, ds), ("residual", "tp")),
+                       "wi1": ParamDef((D, ds), ("residual", "tp")),
+                       "wo": ParamDef((ds, D), ("tp", "residual"))}
     return d
 
 
@@ -80,9 +88,14 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
     B, S, D = x.shape
     T = B * S
     E, K = e.n_routed, e.top_k
+    # for a DTensor x the routing and the dispatch's sort and index ops run
+    # on every device's copy of the whole batch (DTensor shards none of
+    # them), unlike the reference's expert-parallel dispatch; the experts
+    # run expert-parallel (no-ops for a plain x)
+    x_in, x = x, full_tensor(x)
     xf = x.reshape(T, D)
     dev = x.device
-    top_w, top_e, aux = route(cfg, p["router"], xf)
+    top_w, top_e, aux = route(cfg, full_tensor(p["router"]), xf)
 
     C = capacity(cfg, T)
     flat_tok = torch.arange(T, device=dev).repeat_interleave(K)    # [T*K]
@@ -90,8 +103,9 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
     flat_w = top_w.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     s_tok, s_e, s_w = flat_tok[order], flat_e[order], flat_w[order]
-    counts = torch.bincount(flat_e, minlength=E)
-    starts = torch.cumsum(counts, 0) - counts
+    # each expert's first index in the sorted order (the reference's
+    # cumsum of bincount; this form has a static shape under FakeTensorMode)
+    starts = torch.searchsorted(s_e, torch.arange(E, device=dev))
     pos = torch.arange(T * K, device=dev) - starts[s_e]
     ok = pos < C
     slot = torch.where(ok, s_e * C + pos, torch.full_like(pos, E * C))
@@ -99,10 +113,12 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
     # row E * C takes the dropped assignments and is discarded
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
     buf[slot] = xf[s_tok]
-    h = buf[:E * C].reshape(E, C, D)
+    h = on_mesh(buf[:E * C].reshape(E, C, D), x_in,
+                P(MODEL_AXIS, None, None))
     gate = F.silu(torch.bmm(h, p["wi0"]))
     up = torch.bmm(h, p["wi1"])
     out = torch.bmm(gate * up, p["wo"])                            # [E, C, D]
+    out = full_tensor(maybe_constrain(out, P(MODEL_AXIS, None, None)))
 
     y_sorted = out.reshape(E * C, D)[torch.clamp(slot, max=E * C - 1)]
     contrib = (y_sorted * (s_w * ok)[:, None]).to(x.dtype)
@@ -113,8 +129,14 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
     for k in range(K):
         y = y + by_k[:, k]
 
+    # back on the mesh with the tokens batch-sharded; every tensor that
+    # leaves the whole-batch copy does so here, so no gradient comes back
+    # into it as a DTensor
+    tokens = P(BATCH_AXES, None)
+    y = on_mesh(y, x_in, tokens)
     if e.n_shared:
         sp = p["shared"]
-        y = y + linear(linear(xf, sp["wi0"], act="silu")
-                       * linear(xf, sp["wi1"]), sp["wo"])
-    return y.reshape(B, S, D), aux
+        xs = on_mesh(xf, x_in, tokens)
+        y = y + linear(linear(xs, sp["wi0"], act="silu")
+                       * linear(xs, sp["wi1"]), sp["wo"])
+    return y.reshape(B, S, D), on_mesh(aux, x_in, P())

@@ -1,6 +1,7 @@
 """Parameter definitions and their initialisation.
 
-A :class:`ParamDef` gives a parameter's shape and init rule; trees of them
+A :class:`ParamDef` gives a parameter's shape, its logical axes (for the
+sharding rules) and init rule; trees of them
 (nested dicts) are built once per model and turned into tensors by
 :func:`init_from_defs`. Shapes and scales are the JAX package's
 (``fan_in ** -0.5`` normal, 0.02 "small", zeros, ones), stored fp32; the
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,8 +22,16 @@ from repro_torch.tree import keystr, tree_flatten_with_path, tree_unflatten
 
 @dataclass(frozen=True)
 class ParamDef:
+    """``logical`` names each dim's logical axis ("residual", "tp",
+    "vocab", "experts" or None, the JAX package's); :meth:`spec` maps it to
+    mesh axes (``distributed/sharding.py``). It does not change the init."""
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...] = ()
     init: str = "normal"        # normal | zeros | ones | small
+
+    def spec(self):
+        from repro_torch.distributed.sharding import pspec
+        return pspec(self.shape, self.logical or (None,) * len(self.shape))
 
 
 def is_def(x) -> bool:

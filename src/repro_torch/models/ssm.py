@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import batch_layout
 from repro_torch.kernels.swap_linear_q import activation
 from repro_torch.kernels.wkv6 import CHUNK as RWKV_CHUNK  # noqa: F401
 from repro_torch.kernels.wkv6 import wkv6
@@ -66,19 +67,19 @@ def mamba2_defs(cfg: ModelConfig) -> dict:
     s = cfg.ssm
     d_inner, nh, ds = mamba2_dims(cfg)
     return {
-        "norm": ParamDef((D,), init="ones"),
-        "wz": ParamDef((D, d_inner)),
-        "wx": ParamDef((D, d_inner)),
-        "wB": ParamDef((D, ds)),
-        "wC": ParamDef((D, ds)),
-        "wdt": ParamDef((D, nh)),
+        "norm": ParamDef((D,), (None,), init="ones"),
+        "wz": ParamDef((D, d_inner), ("residual", "tp")),
+        "wx": ParamDef((D, d_inner), ("residual", "tp")),
+        "wB": ParamDef((D, ds), ("residual", None)),
+        "wC": ParamDef((D, ds), ("residual", None)),
+        "wdt": ParamDef((D, nh), ("residual", "tp")),
         # the reference draws it at scale 0.5: fan_in ** -0.5 at d_conv 4
-        "conv_w": ParamDef((s.d_conv, d_inner + 2 * ds)),
-        "A_log": ParamDef((nh,), init="zeros"),
-        "dt_bias": ParamDef((nh,), init="zeros"),
-        "D_skip": ParamDef((nh,), init="ones"),
-        "norm_y": ParamDef((d_inner,), init="ones"),
-        "wo": ParamDef((d_inner, D)),
+        "conv_w": ParamDef((s.d_conv, d_inner + 2 * ds), (None, None)),
+        "A_log": ParamDef((nh,), ("tp",), init="zeros"),
+        "dt_bias": ParamDef((nh,), ("tp",), init="zeros"),
+        "D_skip": ParamDef((nh,), ("tp",), init="ones"),
+        "norm_y": ParamDef((d_inner,), (None,), init="ones"),
+        "wo": ParamDef((d_inner, D), ("tp", "residual")),
     }
 
 
@@ -99,6 +100,7 @@ def _mamba2_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor,
     r = (x @ p["wdt"]).to(torch.float32) + p["dt_bias"]
     dt = torch.logaddexp(r, torch.zeros_like(r))       # softplus
     a = torch.exp(dt * (-torch.exp(p["A_log"].to(torch.float32))))
+    z, xs, Bv, Cv, dt, a = batch_layout(z, xs, Bv, Cv, dt, a, decode=S == 1)
     return z, xs, Bv, Cv, dt, a, new_conv
 
 
@@ -198,34 +200,34 @@ def rwkv6_defs(cfg: ModelConfig) -> dict:
     nh, hd = rwkv6_dims(cfg)
     lora = 64
     return {
-        "ln1_w": ParamDef((D,), init="ones"),
-        "ln1_b": ParamDef((D,), init="zeros"),
-        "ln2_w": ParamDef((D,), init="ones"),
-        "ln2_b": ParamDef((D,), init="zeros"),
+        "ln1_w": ParamDef((D,), (None,), init="ones"),
+        "ln1_b": ParamDef((D,), (None,), init="zeros"),
+        "ln2_w": ParamDef((D,), (None,), init="ones"),
+        "ln2_b": ParamDef((D,), (None,), init="zeros"),
         # time-mix token-shift interpolators
-        "mu_r": ParamDef((D,), init="small"),
-        "mu_k": ParamDef((D,), init="small"),
-        "mu_v": ParamDef((D,), init="small"),
-        "mu_g": ParamDef((D,), init="small"),
-        "mu_w": ParamDef((D,), init="small"),
+        "mu_r": ParamDef((D,), (None,), init="small"),
+        "mu_k": ParamDef((D,), (None,), init="small"),
+        "mu_v": ParamDef((D,), (None,), init="small"),
+        "mu_g": ParamDef((D,), (None,), init="small"),
+        "mu_w": ParamDef((D,), (None,), init="small"),
         # data-dependent decay lora
-        "w_base": ParamDef((D,), init="zeros"),
-        "w_lora_a": ParamDef((D, lora), init="small"),
-        "w_lora_b": ParamDef((lora, D), init="small"),
-        "wr": ParamDef((D, D)),
-        "wk": ParamDef((D, D)),
-        "wv": ParamDef((D, D)),
-        "wg": ParamDef((D, D)),
-        "u": ParamDef((nh, hd), init="small"),
-        "ln_x_w": ParamDef((D,), init="ones"),
-        "ln_x_b": ParamDef((D,), init="zeros"),
-        "wo": ParamDef((D, D)),
+        "w_base": ParamDef((D,), (None,), init="zeros"),
+        "w_lora_a": ParamDef((D, lora), ("residual", None), init="small"),
+        "w_lora_b": ParamDef((lora, D), (None, None), init="small"),
+        "wr": ParamDef((D, D), ("residual", "tp")),
+        "wk": ParamDef((D, D), ("residual", "tp")),
+        "wv": ParamDef((D, D), ("residual", "tp")),
+        "wg": ParamDef((D, D), ("residual", "tp")),
+        "u": ParamDef((nh, hd), (None, None), init="small"),
+        "ln_x_w": ParamDef((D,), (None,), init="ones"),
+        "ln_x_b": ParamDef((D,), (None,), init="zeros"),
+        "wo": ParamDef((D, D), ("tp", "residual")),
         # channel mix
-        "mu_ck": ParamDef((D,), init="small"),
-        "mu_cr": ParamDef((D,), init="small"),
-        "ck": ParamDef((D, F)),
-        "cv": ParamDef((F, D)),
-        "cr": ParamDef((D, D)),
+        "mu_ck": ParamDef((D,), (None,), init="small"),
+        "mu_cr": ParamDef((D,), (None,), init="small"),
+        "ck": ParamDef((D, F), ("residual", "tp")),
+        "cv": ParamDef((F, D), ("tp", "residual")),
+        "cr": ParamDef((D, D), ("residual", "tp")),
     }
 
 
@@ -246,12 +248,15 @@ def _rwkv_time_inputs(cfg: ModelConfig, p: dict, xn: torch.Tensor,
 
     def lerp(mu):
         return xn + (xp - xn) * mu
-    r = (lerp(p["mu_r"]) @ p["wr"]).reshape(B, S, nh, hd).to(torch.float32)
-    k = (lerp(p["mu_k"]) @ p["wk"]).reshape(B, S, nh, hd).to(torch.float32)
-    v = (lerp(p["mu_v"]) @ p["wv"]).reshape(B, S, nh, hd).to(torch.float32)
+    r, k, v, w_log = batch_layout(
+        lerp(p["mu_r"]) @ p["wr"], lerp(p["mu_k"]) @ p["wk"],
+        lerp(p["mu_v"]) @ p["wv"],
+        p["w_base"] + torch.tanh(lerp(p["mu_w"]) @ p["w_lora_a"])
+        @ p["w_lora_b"], decode=S == 1)
+    r = r.reshape(B, S, nh, hd).to(torch.float32)
+    k = k.reshape(B, S, nh, hd).to(torch.float32)
+    v = v.reshape(B, S, nh, hd).to(torch.float32)
     g = activation(lerp(p["mu_g"]) @ p["wg"], "silu")
-    w_log = (p["w_base"]
-             + torch.tanh(lerp(p["mu_w"]) @ p["w_lora_a"]) @ p["w_lora_b"])
     logw = torch.clamp(-torch.exp(w_log.to(torch.float32)), W_LOG_MIN,
                        W_LOG_MAX).reshape(B, S, nh, hd)
     return r, k, v, g, logw, xn[:, -1:]
@@ -281,6 +286,9 @@ def rwkv6_time_mix_chunked(cfg: ModelConfig, p: dict, xn: torch.Tensor,
     y, S_fin = wkv6(rows(r), rows(k), rows(v), rows(logw), u.contiguous(),
                     state)
     y = y.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, D)
+    # held after the head merge, so backward brings the gradient to the
+    # head split batch-sharded (a no-op without a mesh)
+    y, = batch_layout(y, decode=S == 1)
     return (_time_mix_out(p, y, g, xn.dtype),
             (S_fin.reshape(B, nh, hd, hd), shift_out))
 

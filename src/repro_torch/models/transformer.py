@@ -49,27 +49,49 @@ cache is a list per segment of leaf dicts; a scanned segment's leaves
 carry its layers stacked in front [n, ...], a shared segment's (one
 occurrence of the shared block, with K/V of its own) carry none, as in the
 JAX package.
+
+Sharded: :meth:`Model.param_specs`, :meth:`Model.cache_specs` and
+:func:`input_pspecs` place params, cache and batch on a device mesh by the
+JAX package's rules (``distributed/sharding.py``). With a mesh installed
+(``set_mesh``) and DTensor inputs, the forward holds the layouts DTensor
+cannot find alone (the residual stream batch-sharded, FSDP weights
+gathered at use, attention and SSM math on whole sequences); without a
+mesh those calls do nothing.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.skeleton import torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (BATCH_AXES, P, axis_sizes,
+                                              batch_axes, gather_fsdp,
+                                              get_mesh, is_dtensor,
+                                              maybe_constrain, pspec,
+                                              specs_from_defs,
+                                              stack_specs)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (layer_norm, mlp_apply, mlp_defs,
                                        rms_norm, softcap)
-from repro_torch.models.params import ParamDef, init_from_defs
+from repro_torch.models.params import ParamDef, init_from_defs, is_def
 from repro_torch.tree import tree_map
 
 LOSS_CHUNK = 512   # token chunk of the logsumexp loss (never [T, V] at once)
+# The residual stream's layout on a mesh: batch over (pod, data), nothing
+# else sharded. Each layer's input and each branch added to it are held to
+# it (a no-op without a mesh): left alone, DTensor reduce-scatters a
+# branch's partial sums over "model" onto the batch, which 512 devices do
+# not divide at train_4k's 256 sequences.
+RESIDUAL = P(BATCH_AXES, None, None)
 
 
 @dataclass(frozen=True)
@@ -124,13 +146,13 @@ def layer_defs(cfg: ModelConfig, kind: str) -> dict:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     D = cfg.d_model
     norm = "zeros" if cfg.post_norms else "ones"
-    d: Dict[str, Any] = {"ln1": ParamDef((D,), init=norm),
-                         "ln2": ParamDef((D,), init=norm),
+    d: Dict[str, Any] = {"ln1": ParamDef((D,), (None,), init=norm),
+                         "ln2": ParamDef((D,), (None,), init=norm),
                          "attn": (attn_mod.mla_defs(cfg) if cfg.mla is not None
                                   else attn_mod.gqa_defs(cfg))}
     if cfg.post_norms:
-        d["post_ln1"] = ParamDef((D,), init="zeros")
-        d["post_ln2"] = ParamDef((D,), init="zeros")
+        d["post_ln1"] = ParamDef((D,), (None,), init="zeros")
+        d["post_ln2"] = ParamDef((D,), (None,), init="zeros")
     if kind == "moe":
         d["ffn"] = moe_mod.moe_defs(cfg)
     else:
@@ -143,16 +165,18 @@ def model_defs(cfg: ModelConfig) -> Tuple[dict, List[Segment]]:
     plan = build_plan(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {
-        "final_norm": ParamDef((D,), init="zeros" if cfg.post_norms
-                               else "ones")}
+        "final_norm": ParamDef((D,), (None,),
+                               init="zeros" if cfg.post_norms else "ones")}
     if cfg.embed_inputs:
-        defs["embed"] = ParamDef((V, D), init="small")
+        defs["embed"] = ParamDef((V, D), ("vocab", "residual"),
+                                 init="small")
     if cfg.d_frontend:
-        defs["frontend"] = ParamDef((cfg.d_frontend, D))
+        defs["frontend"] = ParamDef((cfg.d_frontend, D), (None, "residual"))
     if cfg.is_encoder:
-        defs["mask_emb"] = ParamDef((D,), init="small")
+        defs["mask_emb"] = ParamDef((D,), (None,), init="small")
     if not cfg.tie_embeddings or not cfg.embed_inputs:
-        defs["lm_head"] = ParamDef((D, V), init="small")
+        defs["lm_head"] = ParamDef((D, V), ("residual", "vocab"),
+                                   init="small")
     if any(not s.scanned for s in plan):
         defs["shared_attn"] = layer_defs(cfg, "dense")
     defs["segments"] = [layer_defs(cfg, s.kind) if s.scanned else {}
@@ -173,6 +197,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     package (the paged cache refuses MLA models). ``shared_attn`` runs as
     ``dense``."""
     kind = _layer_kind(kind)
+    if get_mesh() is not None:      # FSDP: the layer's weights at use
+        p = tree_map(gather_fsdp, p)
     if kind == "mamba2":
         return _apply_mamba2(cfg, p, x, cache, mode) + (0.0,)
     if kind == "rwkv6":
@@ -192,7 +218,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                                               is_local, cache, decode_pos)
     if cfg.post_norms:
         a_out = rms_norm(a_out, p["post_ln1"], cfg.norm_eps, plus_one=True)
-    x = x + a_out
+    x = x + maybe_constrain(a_out, RESIDUAL)
     h = rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norms)
     aux = 0.0
     if kind == "moe":
@@ -201,7 +227,7 @@ def apply_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         f_out = mlp_apply(cfg, p["ffn"], h)
     if cfg.post_norms:
         f_out = rms_norm(f_out, p["post_ln2"], cfg.norm_eps, plus_one=True)
-    return x + f_out, new_cache, aux
+    return x + maybe_constrain(f_out, RESIDUAL), new_cache, aux
 
 
 def _apply_mamba2(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
@@ -221,7 +247,7 @@ def _apply_mamba2(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
         for name, t in new.items():
             cache[name].copy_(t)
         new = cache
-    return x + out, new
+    return x + maybe_constrain(out, RESIDUAL), new
 
 
 def _apply_rwkv6(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
@@ -236,7 +262,7 @@ def _apply_rwkv6(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
         out, (S, sh1n) = ssm_mod.rwkv6_time_mix_step(cfg, p, xn, S0, sh1)
     else:
         out, (S, sh1n) = ssm_mod.rwkv6_time_mix_chunked(cfg, p, xn, S0, sh1)
-    x = x + out
+    x = x + maybe_constrain(out, RESIDUAL)
     xn = layer_norm(x, p["ln2_w"], p["ln2_b"], cfg.norm_eps)
     out, sh2n = ssm_mod.rwkv6_channel_mix(cfg, p, xn, sh2)
     new = {"S": S, "shift1": sh1n, "shift2": sh2n}
@@ -244,7 +270,7 @@ def _apply_rwkv6(cfg: ModelConfig, p: dict, x: torch.Tensor, cache,
         for name, t in new.items():
             cache[name].copy_(t)
         new = cache
-    return x + out, new
+    return x + maybe_constrain(out, RESIDUAL), new
 
 
 def cache_struct(cfg: ModelConfig, kind: str, batch: int,
@@ -306,7 +332,10 @@ def _run_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                positions: torch.Tensor, is_local: bool, cache, decode_pos,
                mode: str):
     """:func:`apply_layer`; in "train" mode checkpointed (backward
-    recomputes the layer from its input) and without a cache."""
+    recomputes the layer from its input) and without a cache. On a mesh
+    the residual stream enters every layer batch-sharded, nothing else
+    sharded (a no-op without one)."""
+    x = maybe_constrain(x, RESIDUAL)
     if mode != "train":
         return apply_layer(cfg, kind, p, x, positions, is_local, cache,
                            decode_pos, mode)
@@ -328,8 +357,26 @@ def _chunk_nll(h: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor,
     """Summed weighted negative log-likelihood of one chunk of positions:
     h [B, c, D], targets and weights [B, c]."""
     logits = softcap(h.to(torch.float32) @ w_head.to(torch.float32), cap)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if not is_dtensor(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    else:
+        # on vocab-sharded logits DTensor gathers the whole [B, c, V] for
+        # logsumexp, and gather's masked partial fails to reduce; a max, a
+        # sum of exps and a where over the vocab give the same two values,
+        # each a partial over the vocab shards. Each is reduced to
+        # batch-sharded rows: left alone, DTensor reduce-scatters it over
+        # "model", and backward then gathers the [B, c, V] gradient to meet
+        # the vocab-sharded logits
+        rows = P(BATCH_AXES, None, None)
+        m = maybe_constrain(logits.detach().amax(-1, keepdim=True), rows)
+        se = maybe_constrain(torch.exp(logits - m).sum(-1, keepdim=True),
+                             rows)
+        lse = (m + torch.log(se))[..., 0]
+        hit = (torch.arange(logits.shape[-1], device=logits.device)
+               == targets[..., None])
+        tgt = maybe_constrain(torch.where(hit, logits, 0.0).sum(-1),
+                              P(BATCH_AXES, None))
     return torch.sum((lse - tgt) * weights)
 
 
@@ -355,6 +402,33 @@ class Model:
             for si, (seg, sdefs) in enumerate(zip(self.plan, seg_defs))]
         return params
 
+    def param_struct(self, dtype: Optional[str] = None) -> dict:
+        """The params' tree as meta tensors (no allocation), stacked
+        segments [n, ...] as :meth:`init` makes them; ``dtype`` overrides
+        the fp32 storage (e.g. "bfloat16" for serving weights)."""
+        dt = torch_dtype(dtype) if dtype else torch.float32
+
+        def mk(d: ParamDef, lead=()):
+            return torch.empty(lead + tuple(d.shape), dtype=dt, device="meta")
+        parts = dict(self.defs)
+        seg_defs = parts.pop("segments")
+        st = tree_map(mk, parts, is_leaf=is_def)
+        st["segments"] = [
+            tree_map(lambda d, _n=seg.n: mk(d, (_n,)), sdefs, is_leaf=is_def)
+            if seg.scanned else {} for seg, sdefs in zip(self.plan, seg_defs)]
+        return st
+
+    def param_specs(self) -> dict:
+        """PartitionSpecs matching :meth:`param_struct`: each def's
+        ``spec()``, a replicated layer axis in front of stacked segments."""
+        parts = dict(self.defs)
+        seg_defs = parts.pop("segments")
+        specs = specs_from_defs(parts)
+        specs["segments"] = [
+            stack_specs(specs_from_defs(d), 1) if s.scanned else {}
+            for s, d in zip(self.plan, seg_defs)]
+        return specs
+
     def cast(self, params: dict) -> dict:
         """Float params to the compute dtype (storage stays fp32)."""
         dt = torch_dtype(self.cfg.dtype)
@@ -373,16 +447,25 @@ class Model:
         dt = torch_dtype(cfg.dtype)
         if cfg.embed_inputs:
             tokens = batch["token" if mode == "decode" else "tokens"]
-            x = params["embed"][tokens.long()].to(dt)
+            # on a mesh, DTensor's vocab-parallel embedding (the backward
+            # of an index into the sharded table fails in torch 2.11); its
+            # masked partial sum is reduced here, onto the residual
+            # stream's layout, before anything else reads it
+            x = maybe_constrain(F.embedding(
+                tokens.long(), gather_fsdp(params["embed"])).to(dt),
+                RESIDUAL)
             if (cfg.family == "vlm" and mode != "decode"
                     and "vision_embeds" in batch):
-                v = _project(batch["vision_embeds"], params["frontend"], dt)
+                v = _project(batch["vision_embeds"],
+                             gather_fsdp(params["frontend"]), dt)
                 x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
         else:
-            x = _project(batch["features"], params["frontend"], dt)
+            x = _project(batch["features"], gather_fsdp(params["frontend"]),
+                         dt)
             if cfg.is_encoder and mode == "train" and "mask" in batch:
                 x = torch.where(batch["mask"][..., None],
                                 params["mask_emb"].to(x.dtype), x)
+        x = maybe_constrain(x, RESIDUAL)
         if cfg.final_logit_softcap is not None:   # gemma-style embed scaling
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
@@ -397,10 +480,20 @@ class Model:
             positions = positions[..., None].expand(*positions.shape, 3)
         return x, positions
 
-    def _head(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _head_weight(params: dict) -> torch.Tensor:
+        """``lm_head``, or ``embed.T`` when tied. On a mesh it is gathered
+        over "data" and stays vocab-sharded (FSDP gathers a weight at use):
+        left data-sharded, DTensor contracts over the sharded D and
+        all-reduces the whole [B, S, V] logits instead."""
         w = params.get("lm_head")
         if w is None:
             w = params["embed"].T
+        return maybe_constrain(gather_fsdp(w),
+                               pspec(w.shape, (None, "vocab")))
+
+    def _head(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        w = self._head_weight(params)
         logits = h.to(torch.float32) @ w.to(torch.float32)
         return softcap(logits, self.cfg.final_logit_softcap)
 
@@ -444,8 +537,8 @@ class Model:
             elif mode != "train":
                 new_cache.append({name: torch.stack([c[name] for c in layers])
                                   for name in layers[0]})
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps,
-                     plus_one=cfg.post_norms)
+        x = rms_norm(maybe_constrain(x, RESIDUAL), params["final_norm"],
+                     cfg.norm_eps, plus_one=cfg.post_norms)
         return x, (None if mode == "train" else new_cache), aux
 
     def loss(self, params: dict, batch: dict
@@ -469,9 +562,7 @@ class Model:
         else:
             weights = torch.ones((B, S), dtype=torch.float32,
                                  device=h.device)
-        w_head = params.get("lm_head")
-        if w_head is None:
-            w_head = params["embed"].T
+        w_head = self._head_weight(params)
         chunk = min(LOSS_CHUNK, S)
         if S % chunk != 0:
             chunk = S
@@ -509,9 +600,93 @@ class Model:
         return [alloc_layer_cache(self.cfg, seg.kind, batch, max_len, device,
                                   lead=_lead(seg)) for seg in self.plan]
 
+    def cache_specs(self, shape: ShapeConfig, mesh=None) -> list:
+        """PartitionSpecs matching :meth:`cache_struct` at the shape's batch
+        and sequence. Batch over (pod, data) where divisible; the cache
+        sequence dim is sharded over "model" (flash-decoding style), and
+        over every remaining axis when batch is 1 (long_500k) so no axis
+        idles. Axis sizes come from ``mesh`` (a DeviceMesh), else the
+        single pod's (16, 16)."""
+        cfg = self.cfg
+        B = shape.global_batch
+        sizes = axis_sizes(mesh) if mesh is not None else {"data": 16,
+                                                           "model": 16}
+        cand = tuple(a for a in ("pod", "data") if a in sizes)
+        bsz = math.prod(sizes[a] for a in cand) if cand else 1
+        if cand and B % bsz == 0 and B > 1:
+            batch_ax, seq_extra = cand, ()
+        elif B % sizes.get("data", 16) == 0 and B > 1:
+            batch_ax, seq_extra = "data", ()
+        else:
+            batch_ax = None
+            seq_extra = tuple(a for a in ("pod", "data") if a in sizes)
+        seq_ax = seq_extra + ("model",) if batch_ax is None else "model"
+        out = []
+        for seg in self.plan:
+            lead = (None,) if seg.scanned else ()
+            kind = _layer_kind(seg.kind)
+            if kind == "mamba2":
+                nh = ssm_mod.mamba2_dims(cfg)[1]
+                hax = "model" if nh % 16 == 0 else None
+                out.append({"h": P(*lead, batch_ax, hax, None, None),
+                            "conv": P(*lead, batch_ax, None, None)})
+            elif kind == "rwkv6":
+                nh = ssm_mod.rwkv6_dims(cfg)[0]
+                hax = "model" if nh % 16 == 0 else None
+                out.append({"S": P(*lead, batch_ax, hax, None, None),
+                            "shift1": P(*lead, batch_ax, None, None),
+                            "shift2": P(*lead, batch_ax, None, None)})
+            elif cfg.mla is not None:
+                out.append({"c_kv": P(*lead, batch_ax, seq_ax, None),
+                            "k_rope": P(*lead, batch_ax, seq_ax, None)})
+            else:
+                out.append({"k": P(*lead, batch_ax, seq_ax, None, None),
+                            "v": P(*lead, batch_ax, seq_ax, None, None)})
+        return out
+
     def decode_step(self, params: dict, cache: list, batch: dict):
         """batch: {'token': [B,1], 'pos': [B]} (+ 'positions' [B,1,3] for
         M-RoPE). ``cache`` (from :meth:`alloc_cache`) is updated in place
         and returned."""
         h, cache, _ = self.forward(params, batch, mode="decode", cache=cache)
         return self._head(params, h), cache
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Every model input of the shape's mode, name -> (shape, dtype), the
+    JAX package's ``input_specs`` (int32 ids and positions)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dt = torch_dtype(cfg.dtype)
+    if shape.mode == "decode":
+        d = {"token": ((B, 1), i32), "pos": ((B,), i32)}
+        if cfg.rope_type == "mrope":
+            d["positions"] = ((B, 1, 3), i32)
+        return d
+    d = {}
+    if cfg.embed_inputs:
+        d["tokens"] = ((B, S), i32)
+    else:
+        d["features"] = ((B, S, cfg.d_frontend), dt)
+    if shape.mode == "train":
+        d["targets"] = ((B, S), i32)
+        if cfg.is_encoder:
+            d["mask"] = ((B, S), torch.bool)
+    if cfg.family == "vlm":
+        d["vision_embeds"] = ((B, cfg.n_vision_tokens, cfg.d_frontend), dt)
+        d["positions"] = ((B, S, 3), i32)
+    return d
+
+
+def input_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
+    """PartitionSpecs matching :func:`input_specs`: batch over (pod, data)
+    where the batch divides their extent, else replicated."""
+    ba = batch_axes(mesh)
+    sizes = axis_sizes(mesh)
+    specs = {}
+    for k, (shp, _) in input_specs(cfg, shape).items():
+        trailing = (None,) * (len(shp) - 1)
+        b = ba if shp[0] % math.prod(sizes[a] for a in ba) == 0 else None
+        specs[k] = P(b, *trailing)
+    return specs

@@ -51,10 +51,11 @@ def lr_at(step: int, cfg: OptConfig) -> float:
 
 
 def adamw_init(params) -> Tuple[dict, dict]:
-    """fp32 zeros shaped as ``params``, on each leaf's device: (mu, nu)."""
+    """fp32 zeros shaped as ``params``, on each leaf's device (a DTensor
+    leaf's placements too): (mu, nu)."""
     def zeros(t):
-        return tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
-                                              device=a.device), t)
+        return tree_map(lambda a: torch.zeros_like(
+            a, dtype=torch.float32, memory_format=torch.contiguous_format), t)
     return zeros(params), zeros(params)
 
 

@@ -7,8 +7,10 @@ AdamW moments and the step count. A step runs :meth:`Model.loss`, then
 ``flash_attention``'s ``FlashAttentionFn``. Then ``adamw_update`` in
 place, and the grads are dropped.
 
-The reference's ``train_state_specs`` (the state's sharding specs on a
-device mesh) is not here: it waits for the port of ``distributed/``.
+:func:`train_state_specs` gives the state's sharding on a device mesh
+(``distributed/sharding.py``): with the state's leaves DTensors placed by
+it, the same step runs sharded (``launch/dryrun.py`` traces it on a fake
+256- or 512-rank group).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import P
 from repro_torch.models.transformer import Model
 from repro_torch.training.optimizer import OptConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
@@ -30,6 +33,14 @@ def TrainState(params) -> dict:
             p.requires_grad_(True)
     mu, nu = adamw_init(params)
     return {"params": params, "mu": mu, "nu": nu, "step": 0}
+
+
+def train_state_specs(model: Model) -> dict:
+    """PartitionSpecs of the state: params and both moments as
+    :meth:`Model.param_specs`, the step replicated (the port keeps it a
+    host int)."""
+    ps = model.param_specs()
+    return {"params": ps, "mu": ps, "nu": ps, "step": P()}
 
 
 def make_train_step(model: Model, opt: OptConfig) -> Callable:
