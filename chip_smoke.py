@@ -205,25 +205,45 @@ Phases, each printing its wall time:
    finite, the launches each step implies (``train_launches``), step ms,
    tok/s and peak device memory;
 18. the dry run (``repro_torch.launch.dryrun``) on the card's host CPU:
-   qwen2.5-3b x decode_32k at full depth through the CLI in a subprocess,
+   qwen2.5-3b x decode_32k at min depth through the CLI in a subprocess,
    meanwhile train_4k cut to 2 layers in this process on the single-pod
-   (16, 16) and the multi-pod (2, 16, 16) mesh; each one step traced on
+   (16, 16) and the multi-pod (2, 16, 16) mesh, and each perf variant at
+   min depth: ``--flash-decode`` on qwen's decode_32k, ``--windowed-kv``
+   on h2o-danube-3-4b's (its cache 1/8 of the full one's) and
+   ``--seq-parallel`` on qwen's train_4k; each one step traced on
    DTensors of fake tensors over a fake process group of 256 / 512 ranks
    (the plain PyTorch versions: no kernel launches, checked); every row
-   ``ok``, its argument bytes those the sharding specs give, and its
-   memory, counted and analytic FLOPs, collectives, trace seconds and
-   ``torch.__version__`` printed.
+   ``ok``, its argument bytes those the sharding specs give, the model's
+   switches reset after it, and its memory, counted and analytic FLOPs,
+   collectives, trace seconds and ``torch.__version__`` printed;
+19. the mesh path on the card: a one-rank NCCL group on loopback and the
+   (1, 1) ("data", "model") CUDA mesh. (a) deepseek-v2-lite-16b at its
+   published widths, depth 27 -> 2 as in phase 17, params and batch placed
+   by ``train_state_specs`` / ``input_pspecs``: the fp32 loss and every
+   gradient leaf of the mesh step equal to the unsharded step's (phase
+   17's tolerances), ``swap_linear`` and ``flash_attention`` launched as
+   ``train_launches`` says (each on local tensors through ``local_map``;
+   the MoE's expert-parallel dispatch over NCCL), then 3 bf16 steps of the
+   port's train step on the mesh, all finite, counted as the main path;
+   (b) h2o-danube-3-4b at its published widths (window 4,096), depth 24
+   -> 2, fp32: a 4,000-token prompt, then 200 decode steps on the
+   ring-buffer cache (``WINDOWED_KV_CACHE``) teacher-forced by the full
+   4,200-slot cache's tokens, every step's logits within 1e-4 of that
+   step's largest on the full cache (the worst printed); (c) one decode
+   step of the same model with ``SHARDED_DECODE_AXIS`` on the mesh equal
+   to the unsharded step within 1e-5.
 
-Every full-precision linear of phases 3 to 17 runs ``swap_linear`` and
+Every full-precision linear of phases 3 to 17 and 19 runs ``swap_linear`` and
 every prefill's (and every training step's) attention
 ``flash_attention``; rwkv6's recurrence ``wkv6``; the quantized stores'
 lazy linears run ``swap_linear_q``; every paged decode step
-``paged_attention``. Every shape phases 7 to 17 launch a kernel at is one
-of phase 2's rows, held against the plain version there and timed; the
-script checks it. The one exception is the fp32 gradient identity of
-phases 15-17, which runs before each counted run: its fp32 shapes are
-held in phase 2 only through the Functions' gradient check
-(``check_train_grads``), not timed.
+``paged_attention``. Every shape phases 7 to 17 and 19 launch a kernel at
+is one of phase 2's rows, held against the plain version there and timed;
+the script checks it. The exceptions are the fp32 gradient identities of
+phases 15-17 and 19 (a), which run before each counted run: their fp32
+shapes are held in phase 2 only through the Functions' gradient check
+(``check_train_grads``), not timed; and phase 19 (b) and (c), checks of
+the decode forms against the full-cache and unsharded decodes.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -5785,10 +5805,15 @@ def check_held(rows, by_shape, what: str) -> None:
             f"not hold against their plain versions: {missing}")
 
 
-# phase 18: the dry run's rows (arch, shape, multi_pod, depth cut or None)
-DRYRUN_ROWS = [("qwen2.5-3b", "decode_32k", False, None),
-               ("qwen2.5-3b", "train_4k", False, 2),
-               ("qwen2.5-3b", "train_4k", True, 2)]
+# phase 18: the dry run's rows (arch, shape, multi_pod, depth cut or None
+# for the CLI's --min-depth, perf variant or None): each variant at min
+# depth on its row
+DRYRUN_ROWS = [("qwen2.5-3b", "decode_32k", False, None, None),
+               ("qwen2.5-3b", "train_4k", False, 2, None),
+               ("qwen2.5-3b", "train_4k", True, 2, None),
+               ("qwen2.5-3b", "decode_32k", False, 1, "flash_decode"),
+               ("h2o-danube-3-4b", "decode_32k", False, 1, "windowed_kv"),
+               ("qwen2.5-3b", "train_4k", False, 1, "seq_parallel")]
 
 
 def dryrun_argument_bytes(cfg, shape, multi_pod: bool) -> int:
@@ -5841,14 +5866,21 @@ def dryrun_argument_bytes(cfg, shape, multi_pod: bool) -> int:
 
 def run_dryrun(torch) -> list:
     """Phase 18: ``launch/dryrun`` on the card's host. qwen2.5-3b x
-    decode_32k at full depth through the CLI in a subprocess, meanwhile
-    train_4k cut to 2 layers in this process on 16 x 16 and 2 x 16 x 16:
-    each a step traced on DTensors of fake tensors over a fake 256- or
-    512-rank group (the plain PyTorch versions on the CPU: no kernel
-    launches, checked). Every row must be ``ok`` and its argument bytes
-    what the specs give (:func:`dryrun_argument_bytes`)."""
+    decode_32k through the CLI (``--all --min-depth``: 1 layer) in a
+    subprocess, meanwhile
+    train_4k cut to 2 layers in this process on 16 x 16 and 2 x 16 x 16,
+    and each perf variant at min depth on its row: ``--flash-decode`` on
+    qwen's decode_32k, ``--windowed-kv`` on h2o-danube's (its cache 8x
+    under the full one's: 32,768 / 4,096) and ``--seq-parallel`` on qwen's
+    train_4k. Each a step traced on DTensors of fake tensors over a fake
+    256- or 512-rank group (the plain PyTorch versions on the CPU: no
+    kernel launches, checked). Every row must be ``ok``, its argument
+    bytes what the specs give (:func:`dryrun_argument_bytes`), and the
+    model's switches back at their defaults after it."""
     from repro_torch.configs import get_arch, get_shape
     from repro_torch.launch import dryrun
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tmod
     reset, collect = launch_counting({name: {} for name in KERNEL_NAMES})
     out_dir = ROOT / "build" / "phase18"
     reset()
@@ -5856,23 +5888,29 @@ def run_dryrun(torch) -> list:
     walls, rows = {}, {}
     procs = []
     try:
-        for arch, shape_name, multi_pod, _ in cli:    # as a user runs it
+        for arch, shape_name, multi_pod, _, _ in cli:  # as a user runs it
             env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
             procs.append((time.perf_counter(), subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape_name, "--out", str(out_dir)]
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                 "--min-depth", "--arch", arch, "--shape", shape_name,
+                 "--out", str(out_dir)]
                 + (["--multi-pod"] if multi_pod else []),
                 env=env, cwd=ROOT, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)))
         for row in DRYRUN_ROWS:
-            arch, shape_name, multi_pod, depth = row
+            arch, shape_name, multi_pod, depth, variant = row
             if depth is not None:
                 t0 = time.perf_counter()
-                rows[row] = dryrun.run_one(arch, shape_name, multi_pod,
-                                           n_layers=depth, verbose=False)
+                rows[row] = dryrun.run_one(
+                    arch, shape_name, multi_pod, n_layers=depth,
+                    verbose=False, **({variant: True} if variant else {}))
                 walls[row] = time.perf_counter() - t0
+                require((attn_mod.SHARDED_DECODE_AXIS,
+                         tmod.WINDOWED_KV_CACHE, tmod.SEQ_PARALLEL_RESIDUAL)
+                        == (None, False, False),
+                        f"dryrun {row}: a switch was left set")
         for row, (t0, proc) in zip(cli, procs):
-            arch, shape_name, multi_pod, _ = row
+            arch, shape_name, multi_pod, _, _ = row
             log, _ = proc.communicate(timeout=300)
             walls[row] = time.perf_counter() - t0
             require(proc.returncode == 0, f"dryrun CLI {arch} x {shape_name} "
@@ -5886,33 +5924,326 @@ def run_dryrun(torch) -> list:
                 proc.kill()
                 proc.wait()
     for row in DRYRUN_ROWS:
-        arch, shape_name, multi_pod, depth = row
+        arch, shape_name, multi_pod, depth, variant = row
         r = rows[row]
         require(r["status"] == "ok", f"dryrun {arch} x {shape_name} x "
-                f"{r['mesh']}: {r.get('error')}")
+                f"{r['mesh']} {variant or ''}: {r.get('error')}")
         cfg = get_arch(arch)
-        if depth is not None:
-            cfg = dataclasses.replace(cfg, n_layers=depth)
-        want = dryrun_argument_bytes(cfg, get_shape(shape_name), multi_pod)
+        cfg = dataclasses.replace(cfg, n_layers=depth or dryrun.min_depth(cfg))
+        shape = get_shape(shape_name)
+        tmod.WINDOWED_KV_CACHE = variant == "windowed_kv"
+        try:
+            want = dryrun_argument_bytes(cfg, shape, multi_pod)
+        finally:
+            tmod.WINDOWED_KV_CACHE = False
         mem = r["memory_analysis"]
         require(mem["argument_size_in_bytes"] == want,
                 f"dryrun {arch} x {shape_name} x {r['mesh']}: argument "
                 f"bytes {mem['argument_size_in_bytes']} != {want} from the "
                 f"specs")
+        extra = ""
+        if variant == "windowed_kv":
+            # the full cache's bytes: the windowed row's plus what the
+            # specs' arguments lose with the window
+            full = r["cache_size_in_bytes"] + (
+                dryrun_argument_bytes(cfg, shape, multi_pod) - want)
+            require(full == 8 * r["cache_size_in_bytes"],
+                    f"--windowed-kv: cache {r['cache_size_in_bytes']} B "
+                    f"against the full cache's {full} B, not 1 / 8")
+            extra = f" (the full cache {full} B: 8x)"
         print(f"[phase18] {arch} x {shape_name} x {r['mesh']} "
-              f"({r['n_layers']} layers{', CLI' if depth is None else ''}): "
+              f"({r['n_layers']} layers{', CLI' if depth is None else ''}"
+              f"{', --' + variant.replace('_', '-') if variant else ''}): "
               f"ok, torch {r['torch']}, trace {r['trace_s']} s (wall "
               f"{walls[row]:.1f} s); per device: argument "
-              f"{mem['argument_size_in_bytes']} B (== specs), output "
+              f"{mem['argument_size_in_bytes']} B (== specs; cache "
+              f"{r['cache_size_in_bytes']} B{extra}), output "
               f"{mem['output_size_in_bytes']} B, temp "
               f"{mem['temp_size_in_bytes']} B; flops counted "
               f"{r['cost_analysis']['flops']:.6e} vs analytic "
               f"{r['flops_analytic_per_dev']:.6e}; collectives "
               + ", ".join(f"{k} {v['count']} x / {v['bytes']} B"
-                          for k, v in r["collectives"].items()), flush=True)
+                          for k, v in r["collectives"].items())
+              + "; largest all-gather "
+              f"{r['collective_max_bytes']['all-gather']} B", flush=True)
     got = collect()
     require(not any(got.values()), f"the dry run launched kernels: {got}")
     return [rows[r] for r in DRYRUN_ROWS]
+
+
+# phase 19: the mesh path on one card over a one-rank NCCL group: a train
+# step of (arch, depth) on the (1, 1) mesh, then MESH_STEPS bf16 steps;
+# the ring-buffer decode of (arch, depth, prompt, decode steps) past its
+# window; one flash-decode step of the same model
+MESH_TRAIN = ("deepseek-v2-lite-16b", 2)
+MESH_STEPS = 3
+RING = ("h2o-danube-3-4b", 2, 4000, 200)
+RING_TOL = 1e-4                        # of each step's largest |logit|
+
+
+def nccl_mesh(torch):
+    """A one-rank NCCL group on loopback (a free port) and the (1, 1)
+    ("data", "model") CUDA mesh over it. A failed init raises."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    return make_smoke_mesh("cuda")
+
+
+def mesh_train(torch, card, mesh, main_launches):
+    """Phase 19 (a): ``MESH_TRAIN`` at published widths, its params and
+    batch placed by ``train_state_specs`` / ``input_pspecs``: the fp32
+    loss and every gradient leaf of the mesh step == the unsharded step's
+    (phase 17's tolerances), with B5 and B4 launched as
+    ``train_launches`` says (each call on local tensors through
+    ``local_map``; the MoE's expert-parallel dispatch over NCCL); then
+    ``MESH_STEPS`` bf16 steps of the port's train step on the mesh, all
+    finite, counted. Returns the launches by kernel and shape."""
+    import math
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import (distribute, full_tensor,
+                                                  set_mesh)
+    from repro_torch.launch.train import default_opt
+    from repro_torch.models.transformer import Model, input_pspecs
+    from repro_torch.training.train_loop import (TrainState, make_train_step,
+                                                 train_state_specs)
+    arch, depth = MESH_TRAIN
+    base = dataclasses.replace(get_arch(arch), n_layers=depth)
+    print(describe(get_arch(arch), depth, depth) + "; mesh (1, 1) "
+          "(\"data\", \"model\") over NCCL", flush=True)
+    shape = ShapeConfig("train", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        mode="train")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(base, dtype="float32")
+    model = Model(cfg)
+    specs = train_state_specs(model)["params"]
+    params = model.init(0, device="cuda")
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    batch = {k: v.cuda() for k, v in SyntheticLM(
+        cfg, TRAIN_SEQ, TRAIN_BATCH).sample(0).items()}
+    loss0, grads0 = loss_and_grads(torch, model, params, batch)
+    dparams = distribute(params, specs, mesh)
+    del params
+    counters = kernel_counters()
+    n0 = {k: c.count for k, c in counters.items()}
+    set_mesh(mesh)
+    try:
+        with implicit_replication():
+            # the loss alone: the metrics' graph would keep every leaf
+            # (its AccumulateGrad nodes) and its gradient past ``del``
+            loss = model.loss(dparams, distribute(
+                batch, input_pspecs(cfg, shape, mesh), mesh))[0]
+            loss.backward()
+    finally:
+        set_mesh(None)
+    torch.cuda.synchronize()
+    launched = {k: c.count - n0[k] for k, c in counters.items()}
+    require(launched == train_launches(cfg), f"phase 19 (a): launches "
+            f"{launched} != {train_launches(cfg)}")
+    loss = float(full_tensor(loss.detach()))
+    rel = abs(loss - loss0) / abs(loss0)
+    require(math.isfinite(loss) and rel <= 1e-5,
+            f"phase 19 (a): mesh loss {loss} vs {loss0} (rel {rel:.3g})")
+    worst = 0.0
+    for p, g0 in zip(_leaves(dparams), grads0):
+        g = torch.zeros_like(g0) if p.grad is None else full_tensor(p.grad)
+        err = float((g - g0).abs().max())
+        scale = float(g0.abs().max())
+        require(err <= TRAIN_GRAD_TOL * scale, f"phase 19 (a): a gradient "
+                f"leaf {tuple(g0.shape)} off by {err:.3g} of {scale:.3g}")
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"[phase19 fp32] {cfg.name} {depth} layers: mesh loss {loss:.6f} "
+          f"vs unsharded {loss0:.6f} (rel {rel:.3g} <= 1e-5); "
+          f"{len(grads0)} gradient leaves, worst {worst:.3g} of the leaf's "
+          f"largest |g| <= {TRAIN_GRAD_TOL}; launches {launched}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del dparams, grads0, batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Model(base)
+    state = TrainState(distribute(model.init(0, device="cuda"), specs, mesh))
+    step = make_train_step(model, default_opt(MESH_STEPS, 3e-4))
+    ds = SyntheticLM(base, TRAIN_SEQ, TRAIN_BATCH)
+    reset, collect = launch_counting(main_launches)
+    torch.cuda.reset_peak_memory_stats()
+    losses, stamps = [], []
+    reset()
+    set_mesh(mesh)
+    try:
+        with implicit_replication():
+            for i in range(MESH_STEPS):
+                b = distribute({k: v.cuda() for k, v in ds.sample(i).items()},
+                               input_pspecs(base, shape, mesh), mesh)
+                state, m = step(state, b)
+                losses.append(float(full_tensor(m["loss"])))
+                stamps.append(time.perf_counter())
+    finally:
+        set_mesh(None)
+    counts = collect()
+    by_shape = {name: dict(c.by_shape)
+                for name, c in kernel_counters().items() if c.by_shape}
+    require(all(math.isfinite(x) for x in losses),
+            f"phase 19 (a): bf16 mesh losses {losses}")
+    want = {k: n * MESH_STEPS for k, n in train_launches(base).items()}
+    require(counts == want, f"phase 19 (a): launches {counts} != {want}")
+    steps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    print(f"[phase19 bf16] {MESH_STEPS} mesh steps, losses "
+          f"{[round(x, 4) for x in losses]}; launches {counts}; steps 1-"
+          f"{MESH_STEPS - 1} {[round(x, 1) for x in steps_ms]} ms (synced "
+          f"by the loss's read); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return by_shape
+
+
+def ring_decode(torch):
+    """Phase 19 (b): ``RING``'s model at published widths in fp32: a
+    prompt prefilled into a ring-buffer cache (``WINDOWED_KV_CACHE``: the
+    window's 4,096 slots) and into a full cache of prompt + steps slots;
+    the decode steps teacher-forced by the full run's greedy tokens, past
+    the ring's wrap; every step's logits on the ring within ``RING_TOL``
+    of that step's largest on the full cache (its window's mask). Returns
+    (model, params, the prefill's cache, the prompt) for (c)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tmod
+    from repro_torch.models.transformer import Model
+    arch, depth, P, steps = RING
+    base = get_arch(arch)
+    cfg = dataclasses.replace(base, n_layers=depth, dtype="float32")
+    W = cfg.sliding_window
+    print(f"model: {base.name} d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, "
+          f"window {W} ({cfg.layer_pattern}), vocab {cfg.vocab_size}, fp32; "
+          f"reduced: n_layers {base.n_layers}->{depth}", flush=True)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(0, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, P),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    with torch.no_grad():
+        _, pre = model.prefill(params, {"tokens": prompt})
+        full = model.alloc_cache(1, P + steps, device="cuda")
+        tmod.WINDOWED_KV_CACHE = True
+        try:
+            ring = model.alloc_cache(1, P + steps, device="cuda")
+        finally:
+            tmod.WINDOWED_KV_CACHE = False
+        require(ring[0]["k"].shape[2] == W and P + steps > W,
+                f"phase 19 (b): the ring holds {ring[0]['k'].shape[2]} slots")
+        for cache in (full, ring):
+            for seg, p in zip(cache, pre):
+                for k in seg:
+                    seg[k][:, :, :P] = p[k]
+        tok, worst, at = prompt[:, -1:], 0.0, 0
+        for i in range(steps):
+            b = {"token": tok, "pos": torch.tensor([P + i], device="cuda")}
+            want, _ = model.decode_step(params, full, b)
+            got, _ = model.decode_step(params, ring, b)
+            err = float((got - want).abs().max() / want.abs().max())
+            if err > worst:
+                worst, at = err, P + i
+            tok = want.argmax(-1).reshape(1, 1)
+    torch.cuda.synchronize()
+    require(worst <= RING_TOL, f"phase 19 (b): ring logits off by {worst:.3g}"
+            f" of the largest at position {at}")
+    print(f"[phase19 ring] a {P}-token prompt, {steps} decode steps "
+          f"(positions {P}-{P + steps - 1}; the ring of {W} slots wraps at "
+          f"{W}) == the {P + steps}-slot cache: worst {worst:.3g} of the "
+          f"step's largest |logit| (at {at}) <= {RING_TOL}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model, params, pre, prompt
+
+
+def flash_decode_step(torch, mesh, model, params, pre, prompt):
+    """Phase 19 (c): one decode step with ``SHARDED_DECODE_AXIS`` on the
+    mesh (batch 1: ("pod", "data", "model"), as the dry run sets it), the
+    params, a full cache holding the prompt and the batch placed by their
+    specs, == the unsharded step: logits and the written cache within
+    1e-5 of their largest value, ``_flash_decode_sharded`` once a layer."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import (distribute, full_tensor,
+                                                  set_mesh)
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import input_pspecs
+    from repro_torch.tree import tree_map
+    cfg = model.cfg
+    P = prompt.shape[1]
+    L = P + RING[3]
+    shape = ShapeConfig("decode", seq_len=L, global_batch=1, mode="decode")
+    cache = model.alloc_cache(1, L, device="cuda")
+    for seg, p in zip(cache, pre):
+        for k in seg:
+            seg[k][:, :, :P] = p[k]
+    batch = {"token": prompt[:, -1:].to(torch.int32),
+             "pos": torch.full((1,), P, dtype=torch.int32, device="cuda")}
+    dcache = distribute(tree_map(torch.clone, cache),
+                        model.cache_specs(shape, mesh), mesh)
+    dparams = distribute(params, model.param_specs(), mesh)
+    dbatch = distribute(batch, input_pspecs(cfg, shape, mesh), mesh)
+    calls = [0]
+    fd = attn_mod._flash_decode_sharded
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return fd(*a, **k)
+    with torch.no_grad():
+        want, cache = model.decode_step(params, cache, batch)
+        attn_mod._flash_decode_sharded = counted
+        attn_mod.SHARDED_DECODE_AXIS = ("pod", "data", "model")
+        set_mesh(mesh)
+        try:
+            with implicit_replication():
+                got, dcache = model.decode_step(dparams, dcache, dbatch)
+            got = full_tensor(got)
+        finally:
+            set_mesh(None)
+            attn_mod.SHARDED_DECODE_AXIS = None
+            attn_mod._flash_decode_sharded = fd
+    err = float((got - want).abs().max() / want.abs().max())
+    cerr = max(float((full_tensor(g[k]) - w[k]).abs().max()
+                     / w[k].abs().max())
+               for g, w in zip(dcache, cache) for k in w)
+    require(calls[0] == cfg.n_layers and err <= 1e-5 and cerr <= 1e-5,
+            f"phase 19 (c): flash-decode x {calls[0]}, logits off by "
+            f"{err:.3g}, cache by {cerr:.3g}")
+    print(f"[phase19 flash-decode] one step at position {P} on the mesh, "
+          f"the {L}-slot cache's sequence over (\"data\", \"model\"): "
+          f"_flash_decode_sharded x {calls[0]}; logits within {err:.3g} and "
+          f"the written cache within {cerr:.3g} of the unsharded step's "
+          f"(<= 1e-5)", flush=True)
+
+
+def run_mesh(torch, card, main_launches):
+    """Phase 19: the mesh path on one card: (a) :func:`mesh_train`, (b)
+    :func:`ring_decode`, (c) :func:`flash_decode_step`, on a one-rank NCCL
+    group destroyed after. Returns (a)'s counted launches by shape."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    mesh = nccl_mesh(torch)
+    print(f"[phase19] NCCL group of 1 rank, mesh {tuple(mesh.shape)} "
+          f"{tuple(mesh.mesh_dim_names)} on {mesh.device_type}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        by_shape = mesh_train(torch, card, mesh, main_launches)
+        model, params, pre, prompt = ring_decode(torch)
+        flash_decode_step(torch, mesh, model, params, pre, prompt)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return by_shape
 
 
 KERNEL_NAMES = ("swap_linear_q", "dequant_int8", "paged_attention", "wkv6",
@@ -6150,10 +6481,17 @@ def main() -> int:
     with phase("18 the dry run: DTensor on a fake 256- / 512-rank group"):
         run_dryrun(torch)
 
+    with phase("19 the mesh path on one card: a one-rank NCCL group"):
+        shapes = run_mesh(torch, card, main_launches)
+        check_held(rows, shapes, "phase 19")
+        print("phase 19 launches by held shape: " + "; ".join(
+            f"{name} {k} x{n}" for name, keys in shapes.items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 17): " + ", ".join(
+    print("main-path launches (phases 3 to 17, 19): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []

@@ -25,6 +25,12 @@ The model calls :func:`maybe_constrain` where a sharding must be fixed (the
 reference's ``with_sharding_constraint``); it is a no-op unless a mesh is
 installed with :func:`set_mesh` and the tensor is a DTensor, so every
 unsharded caller runs exactly as before.
+
+The hand kernels launch on ``data_ptr()``, which a DTensor does not have:
+on a mesh each kernel call runs on the local shards through
+:func:`run_local` (``local_map``), the reference's ``shard_map``, its
+inputs' gradients placed by :func:`grad_placements`. A CPU mesh runs the
+plain versions there, as a CPU tensor does everywhere.
 """
 from __future__ import annotations
 
@@ -265,17 +271,67 @@ def full_tensor(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def on_mesh(t, like, spec: PartitionSpec):
-    """``t``, a plain tensor that every device holds whole, as a DTensor on
-    ``like``'s mesh with ``spec``'s placements (a local slice, no
-    collective) when ``like`` is a DTensor; ``t`` itself otherwise."""
+def as_dtensor(t, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor, which every device
+    holds whole, replicated (its local tensor, no collective); a DTensor
+    as it is."""
     from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(like, DTensor):
+    if isinstance(t, DTensor):
         return t
-    mesh = like.device_mesh
-    d = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                           run_check=False)
-    return d.redistribute(mesh, placements(spec, mesh, t.shape))
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def is_shard(p, dim: Optional[int] = None) -> bool:
+    """Whether placement ``p`` shards a tensor dim (``dim``, if given)."""
+    from torch.distributed.tensor import Shard
+    return isinstance(p, Shard) and (dim is None or p.dim == dim)
+
+
+def batch_placements(*ts, what: str) -> list:
+    """The placements DTensors ``ts`` share, each ``Shard(0)`` (the batch)
+    or ``Replicate()``: the layout :func:`batch_layout` holds the inputs
+    of attention and the SSM recurrences to. Any other layout raises
+    ``ValueError``: a kernel's inputs are never redistributed silently."""
+    pl = list(ts[0].placements)
+    for t in ts:
+        if (list(t.placements) != pl or t.device_mesh != ts[0].device_mesh
+                or not all(is_shard(p, 0) or p.is_replicate() for p in pl)):
+            raise ValueError(
+                f"{what}: the inputs must share placements that shard the "
+                f"batch (dim 0) and nothing else, got "
+                f"{[tuple(t.placements) for t in ts]}")
+    return pl
+
+
+def grad_placements(placements: Sequence[Sequence]) -> list:
+    """The gradient placements of a local function's inputs, from their
+    forward placements: an input replicated on a mesh axis where another
+    input is sharded met only that device's part of the other, so its
+    local gradient there is a partial sum (``Partial``); every other
+    gradient is placed as its input."""
+    from torch.distributed.tensor import Partial
+    sharded = [any(is_shard(pl[i]) for pl in placements)
+               for i in range(len(placements[0]))]
+    return [[Partial() if p.is_replicate() and sharded[i] else p
+             for i, p in enumerate(pl)] for pl in placements]
+
+
+def run_local(fn, tensors: Sequence, out_placements):
+    """``fn`` on each device's local shards of ``tensors`` (DTensors on one
+    mesh, taken in the placements they have) through ``local_map``; its
+    outputs come back as DTensors with ``out_placements`` (one list, or a
+    tuple of lists for several outputs). Plain tensors reach ``fn``, so a
+    kernel wrapper inside it launches on ``data_ptr()`` (its plain version
+    on the CPU), and autograd runs any ``autograd.Function`` it calls on
+    local tensors too. The inputs' gradients are placed by
+    :func:`grad_placements`."""
+    from torch.distributed.tensor.experimental import local_map
+    ins = [tuple(t.placements) for t in tensors]
+    grads = tuple(tuple(g) for g in grad_placements(ins))
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(ins), in_grad_placements=grads,
+                     device_mesh=tensors[0].device_mesh)(*tensors)
 
 
 def gather_fsdp(w):

@@ -6,6 +6,14 @@ on a ``fake`` process group of 256 ranks, mesh (16, 16) ("data",
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
         --shape decode_32k --out build/dryrun_torch
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --min-depth
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch h2o-danube-3-4b \\
+        --shape decode_32k --windowed-kv --tag _wkv
+
+The reference's three perf variants are flags that set the model's
+switches for a run and reset them when it ends: ``--flash-decode``
+(``attention.SHARDED_DECODE_AXIS``: ("pod", "data", "model") at batch 1,
+else ("model",)), ``--windowed-kv`` (``transformer.WINDOWED_KV_CACHE``)
+and ``--seq-parallel`` (``transformer.SEQ_PARALLEL_RESIDUAL``).
 
 State, batch and (for decode) cache are DTensors whose local shards are
 fake tensors (``FakeTensorMode``): nothing is allocated and no rank but
@@ -19,22 +27,28 @@ accumulators) are treated as replicated (DTensor's
 
 The tensors lie on the CPU, so every kernel wrapper takes its plain
 PyTorch version, as the reference traces XLA math on host devices: the dry
-run launches no kernel, and the wrappers have no branch for it.
+run launches no kernel, and the wrappers have no branch for it. As on a
+CUDA mesh, the wrappers get each device's local shards
+(``distributed.sharding.run_local``).
 
 Recorded, under the reference's keys where the meaning carries over:
 
 * ``collectives``: per kind (all-reduce, all-gather, reduce-scatter,
   all-to-all, collective-permute) the count and the bytes of the results
-  on one device, from the ``_c10d_functional`` collectives DTensor issues
-  (:class:`_LocalOps`);
-* ``cost_analysis.flops``: ``FlopCounterMode``'s count over the step
-  divided by the device count. The counter sits above DTensor's dispatch,
-  so it counts each op once at its global (DTensor) shape;
+  on one device, from the ``_c10d_functional`` collectives DTensor and
+  the model issue (:class:`_LocalOps`); ``collective_max_bytes``, per
+  kind, the largest single result;
+* ``cost_analysis.flops``: the FLOPs one device runs on its local
+  shards, each op counted by ``torch.utils.flop_counter``'s formulas
+  below DTensor's dispatch (:class:`_LocalOps`), as the reference's
+  per-device cost analysis counts them: work replicated over an axis is
+  counted on each device;
 * ``memory_analysis``: ``argument_size_in_bytes`` (the local shards of
   state, batch and cache), ``output_size_in_bytes`` (the local shards of
   what the step returns; ``alias_size_in_bytes`` of them are arguments
   updated in place) and ``temp_size_in_bytes``, the peak of live local
-  bytes allocated during the step (:class:`_LiveBytes`);
+  bytes allocated during the step (:class:`_LiveBytes`); for decode also
+  ``cache_size_in_bytes``, the cache's share of the arguments;
 * ``trace_s`` (the reference's ``lower_s``; there is no compile), and
   ``n_params``, ``mode``, ``n_devices``, ``flops_analytic_per_dev``,
   ``tokens``, ``n_layers`` and ``torch``.
@@ -50,6 +64,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 import time
 import weakref
 from typing import Dict, Optional
@@ -122,7 +137,7 @@ class _LiveBytes:
 
 
 class _GlobalOps(TorchDispatchMode):
-    """Above FlopCounterMode: sees each op once, with DTensor (global)
+    """Above DTensor's dispatch: sees each op once, with DTensor (global)
     arguments, and records the storages of its outputs' local shards."""
 
     def __init__(self, live: _LiveBytes):
@@ -137,26 +152,50 @@ class _GlobalOps(TorchDispatchMode):
         return out
 
 
+_SHARDING_PROP = "torch.distributed.tensor._sharding_prop"
+
+
+def _shape_propagation() -> bool:
+    """Whether the op being dispatched is DTensor's sharding propagation
+    running it on fake tensors of the global shapes to learn the output's
+    metadata (``torch.distributed.tensor._sharding_prop``): not the
+    device's work."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_globals.get("__name__") == _SHARDING_PROP:
+            return True
+        f = f.f_back
+    return False
+
+
 class _LocalOps(TorchDispatchMode):
     """Below DTensor's dispatch (it returns NotImplemented for DTensor
     arguments, as ``CommDebugMode`` does, so DTensor runs first and its
-    local ops and collectives come back here): counts each collective and
+    local ops and collectives come back here, as do the ops of a function
+    run on local shards): counts each op's FLOPs and each collective and
     the bytes of its local result, and records the result's storage."""
 
     def __init__(self, live: _LiveBytes, coll: dict):
         super().__init__()
         self.live, self.coll = live, coll
+        self.largest = dict.fromkeys(coll, 0)
+        self.flops = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None and not _shape_propagation():
+            self.flops += count(*args, **(kwargs or {}), out_val=out)
         kind = _collective_kind(func)
         if kind is not None:
             res = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+            n = sum(t.numel() * t.element_size() for t in res)
             self.coll[kind]["count"] += 1
-            self.coll[kind]["bytes"] += sum(t.numel() * t.element_size()
-                                            for t in res)
+            self.coll[kind]["bytes"] += n
+            self.largest[kind] = max(self.largest[kind], n)
             for t in res:
                 self.live.add(t)
         return out
@@ -210,6 +249,7 @@ def build_step(cfg: ModelConfig, shape, mesh):
     batch = _sharded({k: _meta(shp, dt) for k, (shp, dt)
                       in input_specs(cfg, shape).items()},
                      input_pspecs(cfg, shape, mesh), mesh)
+    cache_bytes = 0
     if shape.mode == "train":
         specs = train_state_specs(model)
         params = _sharded(model.param_struct(), specs["params"], mesh)
@@ -233,6 +273,7 @@ def build_step(cfg: ModelConfig, shape, mesh):
                                                  shape.seq_len)]
         cache = _sharded(cstruct, model.cache_specs(shape, mesh), mesh)
         fn, args = model.decode_step, (params, cache, batch)
+        cache_bytes = local_bytes(cache)
     n_params = sum(math.prod(t.shape)
                    for t in tree_leaves(model.param_struct()))
     n_dev = mesh.size()
@@ -241,21 +282,21 @@ def build_step(cfg: ModelConfig, shape, mesh):
                 analytic_flops_per_device(cfg, shape, n_dev),
             "tokens": shape.global_batch * (1 if shape.mode == "decode"
                                             else shape.seq_len),
-            "n_layers": cfg.n_layers}
+            "n_layers": cfg.n_layers, "cache_size_in_bytes": cache_bytes}
     return fn, args, meta
 
 
 def trace_step(fn, args, n_dev: int) -> dict:
     """Run ``fn(*args)`` under the counters; the measured part of a
-    result row."""
+    result row. The FLOPs are one device's (``flops``) and, over the
+    ``n_dev`` devices of the mesh, ``flops_total``: replicated work counts
+    on each device."""
     from torch.distributed.tensor.experimental import implicit_replication
-    from torch.utils.flop_counter import FlopCounterMode
     arg_leaves = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
     live = _LiveBytes(arg_leaves)
     coll = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
-    flops = FlopCounterMode(display=False)
-    with implicit_replication(), _LocalOps(live, coll), flops, \
-            _GlobalOps(live):
+    local = _LocalOps(live, coll)
+    with implicit_replication(), local, _GlobalOps(live):
         out = fn(*args)
     out_leaves = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
     arg_keys = {_local(t).untyped_storage()._cdata for t in arg_leaves}
@@ -267,25 +308,41 @@ def trace_step(fn, args, n_dev: int) -> dict:
                 "output_size_in_bytes": local_bytes(out_leaves),
                 "alias_size_in_bytes": alias,
                 "temp_size_in_bytes": live.peak},
-            "cost_analysis": {"flops": flops.get_total_flops() / n_dev},
-            "collectives": coll}
+            "cost_analysis": {"flops": local.flops,
+                              "flops_total": local.flops * n_dev},
+            "collectives": coll, "collective_max_bytes": local.largest}
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool,
             out_dir: Optional[str] = None, verbose: bool = True,
-            n_layers: Optional[int] = None, tag_suffix: str = "") -> Dict:
+            n_layers: Optional[int] = None, tag_suffix: str = "",
+            flash_decode: bool = False, windowed_kv: bool = False,
+            seq_parallel: bool = False) -> Dict:
     """Trace one (arch, shape) on the production mesh and return its row
-    (written to ``out_dir`` when given). ``n_layers`` cuts the depth."""
+    (written to ``out_dir`` when given). ``n_layers`` cuts the depth. The
+    perf variants set the model's switches for this run only (module
+    docstring); the row's ``variants`` names those set."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tmod
     mesh_tag = "2x16x16" if multi_pod else "16x16"
     cfg = get_arch(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     shape = get_shape(shape_name)
+    variants = [name for name, on in (("flash_decode", flash_decode),
+                                      ("windowed_kv", windowed_kv),
+                                      ("seq_parallel", seq_parallel)) if on]
     base = {"arch": arch, "shape": shape_name, "mesh": mesh_tag,
-            "torch": torch.__version__}
+            "torch": torch.__version__, "variants": variants}
     with fake_process_group(512 if multi_pod else 256):
         try:
+            if flash_decode:
+                attn_mod.SHARDED_DECODE_AXIS = (
+                    ("pod", "data", "model") if shape.global_batch == 1
+                    else ("model",))
+            tmod.WINDOWED_KV_CACHE = windowed_kv
+            tmod.SEQ_PARALLEL_RESIDUAL = seq_parallel
             mesh = make_production_mesh(multi_pod=multi_pod)
             set_mesh(mesh)
             t0 = time.time()
@@ -300,6 +357,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                       "error": f"{type(e).__name__}: {e}"[:2000]}
         finally:
             set_mesh(None)
+            attn_mod.SHARDED_DECODE_AXIS = None
+            tmod.WINDOWED_KV_CACHE = False
+            tmod.SEQ_PARALLEL_RESIDUAL = False
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         tag = f"{arch}__{shape_name}__{mesh_tag}{tag_suffix}.json"
@@ -333,7 +393,18 @@ def main() -> None:
     ap.add_argument("--out", default="build/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--tag", default="", help="suffix for the result file")
+    ap.add_argument("--flash-decode", action="store_true",
+                    help="perf variant: flash-decoding over the "
+                         "sequence-sharded KV cache")
+    ap.add_argument("--windowed-kv", action="store_true",
+                    help="perf variant: ring-buffer KV cache for SWA archs")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="perf variant: sequence-parallel residual stream "
+                         "(train memory)")
     args = ap.parse_args()
+    variants = dict(flash_decode=args.flash_decode,
+                    windowed_kv=args.windowed_kv,
+                    seq_parallel=args.seq_parallel)
 
     if args.all:
         combos = [(a, s) for a in ARCHS for s in SHAPES
@@ -358,7 +429,7 @@ def main() -> None:
                     continue
         depth = min_depth(ARCHS[a]) if args.min_depth else None
         r = run_one(a, s, args.multi_pod, args.out, n_layers=depth,
-                    tag_suffix=args.tag)
+                    tag_suffix=args.tag, **variants)
         if r["status"] == "ok":
             n_ok += 1
         else:

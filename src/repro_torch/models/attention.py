@@ -20,6 +20,17 @@ layers) and ``j < kv_valid_len``; masked scores are ``NEG_INF`` (finite,
 so a fully masked chunk cannot produce NaN) and ``l`` is clamped at
 1e-30. The prefill kernel keeps these semantics (``block_local`` is its
 ``chunk``).
+
+On a device mesh (DTensor q, k, v) the prefill kernel runs on each
+device's local batch shard (:func:`_prefill_attention`). Two decode forms
+of the JAX package's dry run are here too: with
+:data:`SHARDED_DECODE_AXIS` set and a mesh installed, a decode step on a
+sequence-sharded cache writes and attends to each device's cache rows
+locally and combines the partial softmax statistics across the shards
+(:func:`_flash_decode_sharded`); and a ``swa`` layer whose cache is no
+longer than its window treats the cache as a ring buffer
+(:func:`_windowed_decode`, the cache ``transformer.WINDOWED_KV_CACHE``
+allocates).
 """
 from __future__ import annotations
 
@@ -28,12 +39,24 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import batch_layout, is_dtensor
+from repro_torch.distributed.sharding import (as_dtensor, batch_layout,
+                                              batch_placements, get_mesh,
+                                              is_dtensor, is_shard,
+                                              run_local)
 from repro_torch.kernels.flash_attention import (LARGE_WINDOW, NEG_INF,
                                                   flash_attention)
 from repro_torch.models.layers import (apply_rope, linear, rms_norm,
                                        rope_angles, softcap)
 from repro_torch.models.params import ParamDef
+
+# Flash-decoding over the sequence-sharded KV cache (the JAX package's
+# switch of the same name): a mesh axis name or tuple of them; with a mesh
+# installed, a GQA decode step on a DTensor cache writes and attends to the
+# cache rows of each device locally and combines the partial (m, l, acc)
+# by max and sum over these axes (:func:`_flash_decode_sharded`) instead
+# of letting DTensor reduce the scores. Set by the dry run's
+# ``--flash-decode``; None keeps the plain decode.
+SHARDED_DECODE_AXIS = None
 
 
 def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,6 +131,136 @@ def write_rows(buf: torch.Tensor, pos: torch.Tensor,
     buf.copy_(torch.where(hit, rows[:, None], buf))
 
 
+def _prefill_attention(q, k, v, q_pos, **kw) -> torch.Tensor:
+    """``flash_attention``; on DTensors, on each device's local batch
+    shard. q, k and v must share a layout that shards the batch and
+    nothing else (``batch_layout`` holds them to it; any other raises);
+    q_pos, an index, is laid out as q (a plain one taken as replicated)."""
+    if not is_dtensor(q):
+        return flash_attention(q, k, v, q_pos, **kw)
+    pl = batch_placements(q, k, v, what="flash_attention")
+    mesh = q.device_mesh
+    q_pos = as_dtensor(q_pos, mesh)
+    if list(q_pos.placements) != pl:
+        q_pos = q_pos.redistribute(mesh, pl)
+
+    def local(q, k, v, q_pos):
+        return flash_attention(q, k, v, q_pos, **kw)
+    return run_local(local, [q, k, v, q_pos], pl)
+
+
+def _windowed_decode(q: torch.Tensor, cache: dict, k_new: torch.Tensor,
+                     v_new: torch.Tensor, pos: torch.Tensor, *,
+                     scale: float, logit_cap: Optional[float]
+                     ) -> torch.Tensor:
+    """Single-token decode against a ring-buffer cache of W slots, the JAX
+    package's ``_windowed_decode``: the new K / V go to slot ``pos % W``
+    (in place), and slot i holds the absolute position
+    ``i + floor((pos - i) / W) * W``, the newest one congruent to i (a
+    negative one is not yet written and is masked). q [B, 1, H, hd] ->
+    [B, 1, H, hd] fp32."""
+    B, _, H, hd = q.shape
+    W, KV = cache["k"].shape[1], cache["k"].shape[2]
+    G = H // KV
+    slot = torch.remainder(pos, W)
+    write_rows(cache["k"], slot, k_new[:, 0])
+    write_rows(cache["v"], slot, v_new[:, 0])
+    slots = torch.arange(W, device=q.device)
+    kv_pos = slots[None, :] + torch.div(pos[:, None] - slots[None, :], W,
+                                        rounding_mode="floor") * W
+    qf = q.reshape(B, KV, G, hd).to(torch.float32)
+    s = torch.einsum("bkgh,bskh->bkgs", qf,
+                     cache["k"].to(torch.float32)) * scale
+    s = softcap(s, logit_cap)
+    s = torch.where((kv_pos >= 0)[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p, cache["v"].to(torch.float32))
+    return out.reshape(B, 1, H, hd)
+
+
+def _flash_decode_sharded(q, cache_k, cache_v, k_new, v_new, decode_pos, *,
+                          axis, scale: float, window: int,
+                          logit_cap: Optional[float],
+                          block_local: Optional[int] = None
+                          ) -> torch.Tensor:
+    """Flash-decoding over a cache [B, S, KV, hd] whose sequence is sharded
+    over ``axis`` (the JAX package's ``_flash_decode_sharded``). On each
+    device, on its local rows (``run_local``):
+
+    1. k / v_new [B, 1, KV, hd] go into the local cache shard, in place,
+       only where ``decode_pos`` lands in it: no resharded write;
+    2. partial (m, l, acc) over the local rows, with the causal, window
+       and block-local masks at the rows' absolute positions;
+    3. the partials combined by an all-reduce max and sums over the
+       sequence axes: bytes a layer O(B H hd), not O(B S KV hd).
+
+    The cache's sequence must be sharded over exactly ``axis`` (the mesh's
+    axes of it), else ``ValueError``. q, k / v_new and the positions are
+    laid out as the cache's batch. Returns [B, 1, H, hd] in q's dtype,
+    replicated over the sequence axes."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache_k.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    axes = tuple(a for a in ((axis,) if isinstance(axis, str) else axis)
+                 if a in names)
+    cpl = list(cache_k.placements)
+    if (tuple(n for n, p in zip(names, cpl) if is_shard(p, 1)) != axes
+            or not all(is_shard(p, 0) or is_shard(p, 1) or p.is_replicate()
+                       for p in cpl) or list(cache_v.placements) != cpl):
+        raise ValueError(f"flash-decode over {axes}: the cache's placements "
+                         f"{tuple(cpl)} do not shard its sequence over them")
+    pl = [Shard(0) if is_shard(p, 0) else Replicate() for p in cpl]
+    args = []
+    for t in (q, k_new, v_new, decode_pos):
+        t = as_dtensor(t, mesh)
+        args.append(t if list(t.placements) == pl
+                    else t.redistribute(mesh, pl))
+    q, k_new, v_new, decode_pos = args
+    dims = [names.index(a) for a in axes]
+    B, _, H, hd = q.shape
+    KV = cache_k.shape[2]
+    G = H // KV
+
+    def local(qv, ck, cv, kn, vn, pos):
+        Bl, S_loc = qv.shape[0], ck.shape[1]
+        idx = 0
+        for d in dims:                  # row-major over the sequence axes
+            idx = idx * mesh.size(d) + mesh.get_local_rank(d)
+        rows = idx * S_loc + torch.arange(S_loc, device=qv.device)
+        hit = (rows[None, :] == pos[:, None])[:, :, None, None]
+        ck.copy_(torch.where(hit, kn.to(ck.dtype), ck))
+        cv.copy_(torch.where(hit, vn.to(cv.dtype), cv))
+        qf = qv.reshape(Bl, KV, G, hd).to(torch.float32)
+        s = torch.einsum("bkgh,bskh->bkgs", qf,
+                         ck.to(torch.float32)) * scale
+        s = softcap(s, logit_cap)
+        qp = pos[:, None, None, None]
+        kvp = rows[None, None, None, :]
+        mask = (kvp <= qp) & ((qp - kvp) < window)
+        if block_local is not None:
+            mask = mask & (torch.div(qp, block_local, rounding_mode="floor")
+                           == torch.div(kvp, block_local,
+                                        rounding_mode="floor"))
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bkgs,bskh->bkgh", p, cv.to(torch.float32))
+        m_g = m
+        for d in dims:
+            m_g = funcol.all_reduce(m_g, "max", (mesh, d))
+        corr = torch.exp(m - m_g)
+        l_g, acc_g = l * corr, acc * corr[..., None]
+        for d in dims:
+            l_g = funcol.all_reduce(l_g, "sum", (mesh, d))
+            acc_g = funcol.all_reduce(acc_g, "sum", (mesh, d))
+        out = acc_g / torch.clamp(l_g[..., None], min=1e-30)
+        return out.reshape(Bl, 1, H, hd).to(qv.dtype)
+    return run_local(local, [q, cache_k, cache_v, k_new, v_new, decode_pos],
+                     pl)
+
+
 # ------------------------------------------------------------------ GQA layer
 def gqa_defs(cfg: ModelConfig) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -148,7 +301,10 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     attention runs the ``flash_attention`` kernel. Decode:
     ``cache={'k','v'}`` of [B,Smax,KV,hd] and ``decode_pos`` [B], the write
     index; attention runs :func:`online_attention` over the cache (no
-    kernel: the reference computes that step in XLA). The decode cache is
+    kernel: the reference computes that step in XLA), or on an ``swa``
+    cache no longer than the window :func:`_windowed_decode`, or with
+    :data:`SHARDED_DECODE_AXIS` on a mesh :func:`_flash_decode_sharded`,
+    as the JAX package branches. The decode cache is
     updated IN PLACE (one row per sequence) instead of copied, and
     returned. With M-RoPE (qwen2-vl) ``positions`` is [B, S, 3] and both
     paths mask on its temporal stream ``positions[..., 0]`` against the
@@ -178,7 +334,23 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
         block_local = cfg.attn_chunk if is_local else None
     # M-RoPE masks on the temporal stream, as the JAX package does
     q_pos = positions[..., 0] if cfg.rope_type == "mrope" else positions
-    if cache is not None and decode_pos is not None:
+    decode = cache is not None and decode_pos is not None
+    if (decode and cfg.layer_pattern == "swa"
+            and cfg.sliding_window is not None
+            and cache["k"].shape[1] <= cfg.sliding_window):
+        # a cache no longer than the window is a ring buffer (the JAX
+        # package's branch, taken where it takes it)
+        out = _windowed_decode(q, cache, k, v, decode_pos,
+                               scale=_attn_scale(cfg),
+                               logit_cap=cfg.attn_logit_softcap)
+    elif (decode and SHARDED_DECODE_AXIS is not None
+          and get_mesh() is not None and is_dtensor(cache["k"])):
+        out = _flash_decode_sharded(
+            q, cache["k"], cache["v"], k, v, decode_pos,
+            axis=SHARDED_DECODE_AXIS, scale=_attn_scale(cfg),
+            window=LARGE_WINDOW if window is None else window,
+            logit_cap=cfg.attn_logit_softcap, block_local=block_local)
+    elif decode:
         write_rows(cache["k"], decode_pos, k[:, 0])
         write_rows(cache["v"], decode_pos, v[:, 0])
         out = online_attention(q, cache["k"], cache["v"], q_pos,
@@ -187,10 +359,10 @@ def gqa_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                logit_cap=cfg.attn_logit_softcap, chunk=chunk,
                                block_local=block_local)
     else:
-        out = flash_attention(q, k, v, q_pos, scale=_attn_scale(cfg),
-                              causal=not cfg.is_encoder, window=window,
-                              softcap=cfg.attn_logit_softcap,
-                              chunk=block_local)
+        out = _prefill_attention(q, k, v, q_pos, scale=_attn_scale(cfg),
+                                 causal=not cfg.is_encoder, window=window,
+                                 softcap=cfg.attn_logit_softcap,
+                                 chunk=block_local)
     # held after the head merge, so backward brings the gradient to the
     # head split in the inputs' layout
     out, = batch_layout(out.reshape(B, S, H * hd),
@@ -309,8 +481,8 @@ def mla_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     qf, k, v = batch_layout(qf, k, v, decode=False)
-    out = flash_attention(qf, k, v, positions, scale=scale,
-                          causal=not cfg.is_encoder)
+    out = _prefill_attention(qf, k, v, positions, scale=scale,
+                             causal=not cfg.is_encoder)
     out, = batch_layout(out.reshape(B, S, H * vd), decode=False)
     out = linear(out.to(x.dtype), p["wo"])
     return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}

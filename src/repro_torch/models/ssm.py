@@ -22,7 +22,8 @@ kernel on a CUDA tensor, its plain version on a CPU tensor; in training
 through ``WKV6Fn``, whose backward ``wkv6_grad`` is torch ops, as the
 reference trains through XLA's autodiff of its jnp chunk body); the step
 is a few plain tensor ops. The state is the WKV state S [B, nh, hd, hd] in
-fp32 and the token shift [B, 1, D].
+fp32 and the token shift [B, 1, D]. On a device mesh (DTensor inputs)
+``wkv6`` runs on each device's local batch shard.
 """
 from __future__ import annotations
 
@@ -31,7 +32,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import batch_layout
+from repro_torch.distributed.sharding import (as_dtensor, batch_layout,
+                                              batch_placements, is_dtensor,
+                                              run_local)
 from repro_torch.kernels.swap_linear_q import activation
 from repro_torch.kernels.wkv6 import CHUNK as RWKV_CHUNK  # noqa: F401
 from repro_torch.kernels.wkv6 import wkv6
@@ -278,19 +281,38 @@ def rwkv6_time_mix_chunked(cfg: ModelConfig, p: dict, xn: torch.Tensor,
     B, S, D = xn.shape
     r, k, v, g, logw, shift_out = _rwkv_time_inputs(cfg, p, xn, shift_prev)
 
-    def rows(t):                    # [B, S, nh, hd] -> [BH, S, hd]
-        return t.transpose(1, 2).reshape(B * nh, S, hd).contiguous()
-    u = p["u"].to(torch.float32).expand(B, nh, hd).reshape(B * nh, hd)
-    state = None if S0 is None else \
-        S0.to(torch.float32).reshape(B * nh, hd, hd).contiguous()
-    y, S_fin = wkv6(rows(r), rows(k), rows(v), rows(logw), u.contiguous(),
-                    state)
-    y = y.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, D)
+    def heads(r, k, v, logw, u, S0=None):
+        """``wkv6`` over [b, S, nh, hd] heads -> (y [b, S, D], the final
+        state [b, nh, hd, hd])."""
+        b = r.shape[0]
+
+        def rows(t):                # [b, S, nh, hd] -> [b nh, S, hd]
+            return t.transpose(1, 2).reshape(b * nh, S, hd).contiguous()
+        u = u.to(torch.float32).expand(b, nh, hd).reshape(b * nh, hd)
+        state = None if S0 is None else \
+            S0.to(torch.float32).reshape(b * nh, hd, hd).contiguous()
+        y, S_fin = wkv6(rows(r), rows(k), rows(v), rows(logw),
+                        u.contiguous(), state)
+        return (y.reshape(b, nh, S, hd).transpose(1, 2).reshape(b, S, D),
+                S_fin.reshape(b, nh, hd, hd))
+    if is_dtensor(r):
+        # on a mesh, on each device's local batch shard: ``batch_layout``
+        # holds the inputs to it (any other layout raises), u replicated
+        args = [r, k, v, logw] + ([] if S0 is None else
+                                  [as_dtensor(S0, r.device_mesh)])
+        pl = batch_placements(*args, what="wkv6")
+        u = as_dtensor(p["u"], r.device_mesh)
+        if not all(q.is_replicate() for q in u.placements):
+            raise ValueError(f"wkv6: u must be replicated, got "
+                             f"{tuple(u.placements)}")
+        args.insert(4, u)
+        y, S_fin = run_local(heads, args, (pl, pl))
+    else:
+        y, S_fin = heads(r, k, v, logw, p["u"], S0)
     # held after the head merge, so backward brings the gradient to the
     # head split batch-sharded (a no-op without a mesh)
     y, = batch_layout(y, decode=S == 1)
-    return (_time_mix_out(p, y, g, xn.dtype),
-            (S_fin.reshape(B, nh, hd, hd), shift_out))
+    return _time_mix_out(p, y, g, xn.dtype), (S_fin, shift_out)
 
 
 def rwkv6_time_mix_step(cfg: ModelConfig, p: dict, xn: torch.Tensor,

@@ -56,7 +56,10 @@ JAX package's rules (``distributed/sharding.py``). With a mesh installed
 (``set_mesh``) and DTensor inputs, the forward holds the layouts DTensor
 cannot find alone (the residual stream batch-sharded, FSDP weights
 gathered at use, attention and SSM math on whole sequences); without a
-mesh those calls do nothing.
+mesh those calls do nothing. On a mesh the kernels run on local shards,
+the MoE dispatches expert-parallel, and the dry run's switches
+(:data:`WINDOWED_KV_CACHE`, :data:`SEQ_PARALLEL_RESIDUAL`,
+``attention.SHARDED_DECODE_AXIS``) select the reference's perf variants.
 """
 from __future__ import annotations
 
@@ -92,6 +95,27 @@ LOSS_CHUNK = 512   # token chunk of the logsumexp loss (never [T, V] at once)
 # branch's partial sums over "model" onto the batch, which 512 devices do
 # not divide at train_4k's 256 sequences.
 RESIDUAL = P(BATCH_AXES, None, None)
+
+# Two switches of the JAX package's dry run (``launch/dryrun.py`` sets
+# them and resets them when a run ends). A ring-buffer KV cache for
+# uniformly sliding-window archs (h2o-danube): the decode cache holds only
+# the last ``sliding_window`` positions (slot = pos % window;
+# ``attention._windowed_decode``) instead of the whole sequence.
+WINDOWED_KV_CACHE = False
+# Sequence parallelism on the residual stream: outside decode each scanned
+# layer's input (the carry a train step checkpoints) is held split over
+# "model" along the sequence, cutting the saved residual by the TP width
+# for gathers inside the layer.
+SEQ_PARALLEL_RESIDUAL = False
+
+
+def _windowed_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """The decode cache's length: the window under ``WINDOWED_KV_CACHE``
+    for an ``swa`` arch (at most ``seq_len``), else ``seq_len``."""
+    if (WINDOWED_KV_CACHE and cfg.layer_pattern == "swa"
+            and cfg.sliding_window is not None):
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
 
 
 @dataclass(frozen=True)
@@ -330,12 +354,17 @@ def _project(a: torch.Tensor, w: torch.Tensor,
 
 def _run_layer(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                positions: torch.Tensor, is_local: bool, cache, decode_pos,
-               mode: str):
+               mode: str, scanned: bool = True):
     """:func:`apply_layer`; in "train" mode checkpointed (backward
     recomputes the layer from its input) and without a cache. On a mesh
     the residual stream enters every layer batch-sharded, nothing else
-    sharded (a no-op without one)."""
-    x = maybe_constrain(x, RESIDUAL)
+    sharded, or with ``SEQ_PARALLEL_RESIDUAL`` outside decode a scanned
+    layer's input also split over "model" along the sequence, as the JAX
+    package holds its scan's carry (a no-op without a mesh)."""
+    if SEQ_PARALLEL_RESIDUAL and mode != "decode" and scanned:
+        x = maybe_constrain(x, P(BATCH_AXES, "model", None))
+    else:
+        x = maybe_constrain(x, RESIDUAL)
     if mode != "train":
         return apply_layer(cfg, kind, p, x, positions, is_local, cache,
                            decode_pos, mode)
@@ -517,7 +546,7 @@ class Model:
                 x, c_new, a = _run_layer(cfg, seg.kind, params["shared_attn"],
                                          x, positions, cfg.is_local_layer(lid),
                                          None if cache is None else cache[si],
-                                         decode_pos, mode)
+                                         decode_pos, mode, scanned=False)
                 new_cache.append(c_new)
                 aux = aux + a
                 continue
@@ -588,7 +617,9 @@ class Model:
     def cache_struct(self, batch: int, max_len: int) -> list:
         """Per segment, leaf name -> (shape, dtype) of the decode cache:
         ``cache_struct`` with the layers stacked in front [n, ...], none
-        for a shared block's occurrence."""
+        for a shared block's occurrence; the window's length under
+        ``WINDOWED_KV_CACHE`` (:func:`_windowed_cache_len`)."""
+        max_len = _windowed_cache_len(self.cfg, max_len)
         return [{name: (_lead(seg) + shape, dt) for name, (shape, dt) in
                  cache_struct(self.cfg, seg.kind, batch, max_len).items()}
                 for seg in self.plan]
@@ -597,6 +628,7 @@ class Model:
         """Zero decode cache: per segment the leaves of
         :meth:`cache_struct`."""
         device = resolve_device(device)
+        max_len = _windowed_cache_len(self.cfg, max_len)
         return [alloc_layer_cache(self.cfg, seg.kind, batch, max_len, device,
                                   lead=_lead(seg)) for seg in self.plan]
 

@@ -44,7 +44,13 @@ Tolerances, with their reasons:
     bytes through other host paths);
   * the conv workloads: vgg_sim swapped on mmap against its in-memory
     forward bitwise (deterministic cuDNN), its quantized stores within
-    2e-2 of the round-tripped forward.
+    2e-2 of the round-tripped forward;
+  * a train step on a one-rank NCCL mesh against the unsharded step: the
+    loss 1e-5 relative, each gradient leaf 1e-4 of its largest |g| (the
+    local kernels sum as the unsharded ones; the mesh's reductions and
+    the gradient accumulation run in another order);
+  * the ring-buffer decode against the full cache: 1e-5 of each step's
+    largest logit (one softmax against chunks of the online one).
 """
 import dataclasses
 
@@ -1408,3 +1414,109 @@ def test_reduced_train_steps_on_the_card(dev, arch):
     assert fa.launches.count - before[1] == 2 * L * 3
     assert all(p.device.type == "cuda"
                for p in tree_leaves(out["state"]["params"]))
+
+
+# the mesh path on the card: a one-rank NCCL group, mesh (1, 1) ("data",
+# "model"); the kernels take each device's local shards through local_map
+def _nccl_mesh():
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    return make_smoke_mesh("cuda")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "rwkv6-3b"])
+def test_mesh_train_step_on_the_card(dev, monkeypatch, arch):
+    """deepseek-v2-lite (MLA, the EP dispatch) and rwkv6 ``reduced()`` in
+    fp32, params and batch placed by ``train_state_specs`` /
+    ``input_pspecs``: the loss within 1e-5 relative and each gradient leaf
+    within 1e-4 of its largest |g| of the unsharded step's (chip_smoke's
+    phase 19 tolerances); B5, B4 and B6 launched as often as unsharded,
+    their plain versions never called."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch_for
+    from repro_torch.distributed.sharding import (distribute, full_tensor,
+                                                  set_mesh)
+    from repro_torch.models.transformer import input_pspecs
+    from repro_torch.training.train_loop import train_state_specs
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    model = Model(cfg)
+    shape = ShapeConfig("t", seq_len=64, global_batch=4, mode="train")
+    batch = {k: v.to(dev) for k, v in
+             make_batch_for(cfg, shape, seed=0).items()}
+    params = model.init(0, device=dev)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    counters = (sl.launches, fa.launches, kw.launches)
+    before = [c.count for c in counters]
+    loss0, _ = model.loss(params, batch)
+    loss0.backward()
+    per_step = [c.count - b for c, b in zip(counters, before)]
+    assert per_step[0] > 0 and per_step[1] + per_step[2] > 0
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    monkeypatch.setattr(sl, "swap_linear_plain", refuse)
+    monkeypatch.setattr(fa, "flash_attention_plain", refuse)
+    monkeypatch.setattr(kw, "wkv6_plain", refuse)
+    mesh = _nccl_mesh()
+    try:
+        dparams = distribute(params, train_state_specs(model)["params"], mesh)
+        set_mesh(mesh)
+        before = [c.count for c in counters]
+        with implicit_replication():
+            loss, _ = model.loss(dparams, distribute(
+                batch, input_pspecs(cfg, shape, mesh), mesh))
+            loss.backward()
+        assert [c.count - b for c, b in zip(counters, before)] == per_step
+        loss = float(full_tensor(loss.detach()))
+        loss0 = float(loss0.detach())
+        assert abs(loss - loss0) <= 1e-5 * abs(loss0)
+        for p, p0 in zip(tree_leaves(dparams), tree_leaves(params)):
+            g = full_tensor(p.grad)
+            assert float((g - p0.grad).abs().max()) <= 1e-4 * float(
+                p0.grad.abs().max())
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+
+
+def test_ring_decode_on_the_card(dev):
+    """h2o-danube ``reduced()`` (window 64) in fp32: 50 decode steps past
+    the ring's wrap on the windowed cache == the full cache's (1e-5 of each
+    step's largest logit), teacher-forced by the full cache's tokens."""
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_arch("h2o-danube-3-4b").reduced(),
+                              dtype="float32")
+    model = Model(cfg)
+    params = model.init(0, device=dev)
+    P, L = 40, 100
+    prompt = torch.randint(0, cfg.vocab_size, (1, P),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        _, pre = model.prefill(params, {"tokens": prompt})
+        full = model.alloc_cache(1, L, device=dev)
+        try:
+            transformer.WINDOWED_KV_CACHE = True
+            ring = model.alloc_cache(1, L, device=dev)
+        finally:
+            transformer.WINDOWED_KV_CACHE = False
+        assert ring[0]["k"].shape[2] == cfg.sliding_window
+        for cache in (full, ring):
+            for seg, p in zip(cache, pre):
+                for k in seg:
+                    seg[k][:, :, :P] = p[k]
+        tok = prompt[:, -1:]
+        for i in range(50):
+            b = {"token": tok, "pos": torch.tensor([P + i], device=dev)}
+            want, _ = model.decode_step(params, full, b)
+            got, _ = model.decode_step(params, ring, b)
+            assert _rel(got, want) <= 1e-5, i
+            tok = want.argmax(-1).reshape(1, 1)
