@@ -139,11 +139,11 @@ Phases, each printing its wall time:
    at which the planner packs it at m = 2, the ledger's that plus the
    pinned shared unit's bytes. A warm and a timed swapped prefill of one
    4,096-token prompt, bitwise equal to the unswapped forward, with
-   ``flash_attention`` once a shared occurrence at hd 112 (the CUDA-core
-   kernel) and ``swap_linear`` at the shared block's 7 linears and each
-   Mamba2 ``wo``; the shared unit read from the store at most once a pass,
-   its later occurrences cache hits, only its bytes charged after the
-   pass; then ``decode_loop`` (2 prompts of 4 tokens, 2 new), each step's
+   ``flash_attention`` once a shared occurrence at hd 112 (the tensor
+   cores at the padded width 128) and ``swap_linear`` at the shared
+   block's 7 linears and each Mamba2 ``wo``; the shared unit read from
+   the store at most once a pass, its later occurrences cache hits, only
+   its bytes charged after the pass; then ``decode_loop`` (2 prompts of 4 tokens, 2 new), each step's
    logits bitwise ``Model.decode_step``'s on the card, and the state bytes
    a sequence beside the shared block's K/V a token; then
    ``ServingEngine`` on the same prompts in fp32, its first new token's
@@ -172,10 +172,10 @@ Phases, each printing its wall time:
    m = 2 (the floor and the plan from one planner over the store's unit
    table); a warm and a timed swapped forward of 2 x 1,500 seeded frame
    features, bitwise equal to the unswapped forward, with
-   ``flash_attention`` once a layer without a causal mask (the CUDA-core
-   kernel at hd 80) and ``swap_linear`` six times a layer; finite
-   last-position logits. No decode, paged path or quant store: an encoder
-   that opts out of quantized units;
+   ``flash_attention`` once a layer without a causal mask (the tensor
+   cores at hd 80, padded to 128) and ``swap_linear`` six times a layer;
+   finite last-position logits. No decode, paged path or quant store: an
+   encoder that opts out of quantized units;
 15. qwen2.5-3b trained at its published widths through
    ``repro_torch.launch.train``'s loop: (a) in fp32 at depth 2, one batch
    of 8 x 256 from ``SyntheticLM``, the loss and every gradient leaf
@@ -282,9 +282,12 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # max |err| / max |plain|
 # split-K), flash_attention as first ported (fp32 on the CUDA cores, 8
 # threads a row), paged_attention before flash-decoding (one block per
 # sequence and KV head), wkv6 as first ported (one block of 4 hd threads
-# per row, the chunks one after another on the CUDA cores). Printed beside
-# a timing row's human-readable line for comparison, marked as recorded;
-# never part of the kernels line, which holds only what this run measured.
+# per row, the chunks one after another on the CUDA cores), and
+# flash_attention at bf16 hd 80 and 112 on the CUDA cores before those
+# head dims took the tensor cores (PR 23 call 2, PR 24 call 4, PR 26 call
+# 2). Printed beside a timing row's human-readable line for comparison,
+# marked as recorded; never part of the kernels line, which holds only
+# what this run measured.
 EARLIER_MS = {
     ('swap_linear_q',
      'M=512 K=2048 N=2048 int8 x=bfloat16 act=none'): 0.3015,
@@ -382,6 +385,16 @@ EARLIER_MS = {
      'bfloat16 window=4096 softcap=50.0'): 0.0365,
     ('flash_attention', 'gemma2-9b prefill B=1 S=24 16/8 heads hd=256 '
      'bfloat16 window=None softcap=50.0'): 0.0363,
+    ('flash_attention', 'zamba2-7b prefill B=1 S=4096 32/32 heads hd=112 '
+     'bfloat16 window=None softcap=None'): 7.0358,
+    ('flash_attention', 'zamba2-7b engine B=2 S=4 32/32 heads hd=112 '
+     'bfloat16 window=None softcap=None'): 0.0091,
+    ('flash_attention', 'hubert-xlarge encoder B=2 S=1500 16/16 heads hd=80 '
+     'bfloat16 window=None softcap=None non-causal'): 1.8935,
+    ('flash_attention', 'zamba2-7b train B=8 S=256 32/32 heads hd=112 '
+     'bfloat16 window=None softcap=None'): 0.3517,
+    ('flash_attention', 'hubert-xlarge train B=8 S=256 16/16 heads hd=80 '
+     'bfloat16 window=None softcap=None non-causal'): 0.2423,
     ('wkv6', 'BH=80 S=512 hd=64 float32, zero initial state'): 0.3428,
     ('wkv6', 'BH=80 S=16 hd=64 float32, zero initial state'): 0.0132,
 }
@@ -664,7 +677,7 @@ def gemm_ptxas(log: str) -> list:
 
 
 ATTENTION_KERNELS = [
-    ("fa_tc", r"fa_tcILi(\d+)ELi(\d+)E", "hd {0} dv {1}"),
+    ("fa_tc", r"fa_tcILi(\d+)ELi(\d+)ELi(\d+)E", "HD {0} HDV {1} k16 x {2}"),
     ("fa_simt", r"fa_simtI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
      "{0} hd {1} dv {2}"),
     ("paged_attention_kernel",
@@ -1657,16 +1670,16 @@ FA_TIMED += [(f"deepseek-v2-lite {what}", "bfloat16", B, S, 16, 16, 192, 128,
              for what, B, S in [("prefill", 1, DS_PROMPT),
                                 ("engine", DS_BATCH, DS_DECODE_PROMPT)]]
 # phase 12: zamba2-7b's shared attention block (32 / 32 heads of 112, the
-# CUDA-core kernel) over its 4,096-token prefill and the in-memory
-# engine's 2 x 4 prompts
+# tensor cores at the padded width 128) over its 4,096-token prefill and
+# the in-memory engine's 2 x 4 prompts
 FA_TIMED += [(f"zamba2-7b {what}", "bfloat16", B, S, 32, 32, 112, 112,
               Z_SCALE, None, None, None)
              for what, B, S in [("prefill", 1, Z_PROMPT),
                                 ("engine", Z_BATCH, Z_DECODE_PROMPT)]]
 # phase 13: qwen2-vl-72b (64 / 8 heads of 128) over its 2,048-token
 # prefill and its paged admissions; phase 14: hubert-xlarge's
-# bidirectional encoder (16 / 16 heads of 80, the CUDA-core kernel) over
-# 2 x 1,500 frames
+# bidirectional encoder (16 / 16 heads of 80, the tensor cores at the
+# padded width 128) over 2 x 1,500 frames
 FA_TIMED += [(f"qwen2-vl {what}", "bfloat16", 1, S, 64, 8, 128, 128,
               VL_SCALE, None, None, None)
              for what, S in [("prefill", VL_PROMPT)]
@@ -1678,8 +1691,8 @@ FA_TIMED += [("qwen2.5-3b train", "bfloat16", TRAIN_BATCH, TRAIN_SEQ, 16, 2,
               128, 128, QWEN_SCALE, None, None, None)]
 # phase 17: each family's training step at 8 x 256 (forward and remat):
 # gemma2-9b's local and global layers (hd 256, softcap 50), deepseek's MLA
-# (192 / 128), zamba2's shared block (hd 112, the CUDA cores) and hubert's
-# encoder (hd 80, no causal mask, the CUDA cores)
+# (192 / 128), zamba2's shared block (hd 112) and hubert's encoder (hd 80,
+# no causal mask), the last two at the padded width 128
 TRAIN_ATTN = [("gemma2-9b train", 16, 8, 256, 256, GEMMA_SCALE, window, 50.0,
                True) for window in (4096, None)]
 TRAIN_ATTN += [("deepseek-v2-lite train", 16, 16, 192, 128, DS_SCALE, None,
@@ -1692,6 +1705,16 @@ FA_TIMED += [(label, "bfloat16", TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, dv, scale,
               window, cap, None, causal)
              for label, H, KV, hd, dv, scale, window, cap, causal
              in TRAIN_ATTN]
+
+
+# the pairs the tensor-core kernel takes at widths padded up to one of its
+# instantiations (fa.TC_HEAD_DIMS): hubert's 80, zamba2's 112 and
+# h2o-danube's 120 (to 128) and the reduced MLA's (48, 32) (to 64)
+FA_PADDED = ((80, 80), (112, 112), (120, 120), (48, 32))
+# the timed rows also held against compiled flex_attention beside SDPA:
+# zamba2's long causal prefill at hd 112, a head dim the tensor-core kernel
+# reaches only padded
+FA_FLEX_TOO = {"zamba2-7b prefill"}
 
 
 def fa_library(torch, q, k, v, want, label, dname, B, S, H, KV, scale,
@@ -1826,8 +1849,9 @@ def check_flash_attention(torch):
                 worst[dname] = max(worst[dname], rel)
                 n_checked += 1
     # the tensor-core kernel at S of one or two tokens, around its 64-key
-    # and 128-row tiles and at gemma2-9b's 4,200, at each (hd, dv) it takes
-    for hd, dv in fa.TC_HEAD_DIMS:
+    # and 128-row tiles and at gemma2-9b's 4,200, at each instantiation and
+    # at the pairs it takes padded (FA_PADDED)
+    for hd, dv in fa.TC_HEAD_DIMS + FA_PADDED:
         for i, S in enumerate((1, 2, 63, 64, 65, 127, 128, 129, 4200)):
             q, k, v, pos = fa_inputs(torch, 400 + i, 2 if S < 4200 else 1, S,
                                      4, 2, hd, torch.bfloat16, dv=dv)
@@ -1863,7 +1887,8 @@ def check_flash_attention(torch):
              (200, 16, 16, 192, 128, "bfloat16", {}),
              (200, 16, 16, 192, 128, "float32", {}),
              (200, 32, 32, 112, 112, "bfloat16", {}),
-             (HB_FRAMES, 16, 16, 80, 80, "bfloat16", {"causal": False})]):
+             (HB_FRAMES, 16, 16, 80, 80, "bfloat16", {"causal": False}),
+             (300, 32, 8, 120, 120, "bfloat16", {})]):
         q, k, v, pos = fa_inputs(torch, 500 + i, 4, S, H, KV, hd, dts[dname],
                                  dv=dv)
         kw = dict(scale=hd ** -0.5, **(masked or {"window": 64,
@@ -1908,8 +1933,8 @@ def check_flash_attention(torch):
         require(rel <= TOL[dname], f"flash_attention timing case {label} "
                 f"S={S}: rel {rel:.3g}")
         k_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, pos, **kw))
-        # a long causal CUDA-core bf16 prefill (zamba2's hd 112) is also
-        # timed beside compiled flex_attention (a compile of its own). A
+        # zamba2's long causal prefill (FA_FLEX_TOO) is also timed beside
+        # compiled flex_attention (a compile of its own). A
         # window or chunk of S or more masks nothing: the library call
         # goes without it, and a row that differs from a timed one only
         # there (the same seeded inputs, the same function) takes that
@@ -1922,8 +1947,7 @@ def check_flash_attention(torch):
             timed_library[lib_key] = fa_library(
                 torch, q, k, v, want, label, dname, B, S, H, KV, scale,
                 lib_window, softcap, lib_chunk, causal=causal,
-                flex_too=(causal and dname == "bfloat16" and S >= 1024
-                          and fa.path(dt, hd, dv) == "simt"))
+                flex_too=label in FA_FLEX_TOO)
         lib_name, l_ms, also = timed_library[lib_key]
         es = q.element_size()
         nbytes = ((B * S * H * hd + B * S * KV * hd + B * S * KV * dv
@@ -4513,9 +4537,10 @@ def run_zamba2(torch, main_launches):
                     cfg.dtype, True, None, None, None)
         launched = dict(fa.launches.by_shape)
         require(counts["flash_attention"] == n_shared
-                and launched == {want_key: n_shared},
+                and launched == {want_key: n_shared}
+                and fa.path(torch.bfloat16, hd) == "tc",
                 f"{tag}: flash_attention launches {launched}, expected "
-                f"{n_shared} at {want_key}")
+                f"{n_shared} at {want_key} on the tensor cores")
         require(counts["swap_linear"] == 7 * n_shared + n_mamba,
                 f"{tag}: swap_linear launched {counts['swap_linear']} times, "
                 f"expected {7 * n_shared + n_mamba} (the shared block's 7 "
@@ -5003,9 +5028,9 @@ def run_hubert(torch, main_launches):
         launched = dict(fa.launches.by_shape)
         require(counts["flash_attention"] == cfg.n_layers
                 and launched == {want_key: cfg.n_layers}
-                and fa.path(torch.bfloat16, hd) == "simt",
+                and fa.path(torch.bfloat16, hd) == "tc",
                 f"{tag}: flash_attention launches {launched}, expected "
-                f"{cfg.n_layers} at {want_key} on the CUDA cores")
+                f"{cfg.n_layers} at {want_key} on the tensor cores")
         require(counts["swap_linear"] == 6 * cfg.n_layers,
                 f"{tag}: swap_linear launched {counts['swap_linear']} times, "
                 f"expected {6 * cfg.n_layers}")
@@ -5030,7 +5055,7 @@ def run_hubert(torch, main_launches):
               f"published widths, the unswapped model holding all "
               f"{resident / 1e9:.2f} GB; {unswapped_s:.1f} s); "
               f"flash_attention x {cfg.n_layers} non-causal at "
-              f"{want_key[:7]} (CUDA cores); warm pass {warm_s:.1f} s; "
+              f"{want_key[:7]} (tensor cores); warm pass {warm_s:.1f} s; "
               f"launches {counts}", flush=True)
         out["prefill"] = report_prefill(tag, sm, st, budget, resident,
                                         max_alloc)

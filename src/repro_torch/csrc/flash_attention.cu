@@ -41,17 +41,27 @@
 // writing out once. Two kernels, chosen by the caller from (dtype, hd, dv)
 // (kernels/flash_attention.py::path), never as a reaction to a failure:
 //
-// * fa_tc, bf16 at (hd, dv) of (64, 64), (128, 128), (256, 256) or
-//   (192, 128) (every bf16 prefill of the main path): the tensor cores.
+// * fa_tc, bf16 at every (hd, dv) with hd and dv multiples of 8 (TMA's
+//   16-byte row stride), at most 256, whose widths rounded up to 64, the
+//   template's (HD, HDV), are (64, 64), (128, 128), (256, 256) or
+//   (192, 128): every bf16 prefill of the port's configs (hd 64, 80, 112,
+//   120, 128, 256; MLA's (192, 128)). The tensor cores.
 //   One block per (128 query rows, query head, batch row): two consumer
 //   warpgroups of 64 rows and a producer warpgroup whose one thread issues
 //   the TMA loads: Q once, then K and V tiles of 64 keys into a ring of
-//   stages (2 at hd 256, where Q and one stage take 64 KB each, 3 below:
+//   stages (2 at HD 256, where Q and one stage take 64 KB each, 3 below:
 //   at (192, 128) Q takes 48 KB and a stage 24 + 16 KB), each with its own
-//   mbarrier so the scores start when K lands. Q and K are hd / 64 boxes
-//   of 64 columns and V dv / 64, each read at its own width (no padding
-//   of V to hd). The tensor maps are 4-D (head dim, head, S,
-//   batch), so a box never reads the next batch row past S (TMA zero-fills
+//   mbarrier so the scores start when K lands. Q and K are HD / 64 boxes
+//   of 64 columns and V HDV / 64, each read at its own width (no padding
+//   of V to hd). The tensor maps are 4-D (head dim, head, S, batch) at
+//   the real hd and dv, so TMA zero-fills a box's columns at or past hd
+//   (dv): a padded Q or K column adds exactly 0 to a score and a padded V
+//   column gives an output column that is never stored; nothing is padded
+//   or copied in device memory, and the scale is the caller's. Q K^T runs
+//   KSTEPS = ceil(hd / 16) k16 steps (a template parameter: 5 at hd 80, 7
+//   at 112, 8 at 120), dropping those that would read only zero columns;
+//   P V runs at HDV; the store writes the dv real columns at row stride
+//   dv. A box never reads the next batch row past S (TMA zero-fills
 //   there) and keys j >= S are masked explicitly. S = Q K^T is wgmma
 //   m64n64k16 with both operands in shared memory (K is the K-major B);
 //   scale, softcap (tanh.approx.f32, within the bf16 tolerance), mask
@@ -69,7 +79,9 @@
 //   but tie the block's row count to G. Causal blocks run the longest
 //   query tiles first.
 // * fa_simt, fp32 (1e-5 parity with the plain version rules out TF32 and
-//   bf16 tensor cores) and bf16 at any other (hd, dv): the CUDA cores in
+//   bf16 tensor cores) and bf16 at any pair outside fa_tc's rule (an hd
+//   or dv that is no multiple of 8, or widths rounding up to another
+//   pair, such as (128, 192)): the CUDA cores in
 //   fp32, hd and dv each rounded up to a template width of 64, 128 or 256.
 //   One block of 256 threads per (32 (query, head) rows of one KV head's G
 //   heads, KV head, batch row), so each K / V tile is staged once for all
@@ -335,6 +347,7 @@ constexpr int TC_BKV = 64;            // keys a K / V tile
 constexpr int TC_THREADS = 384;       // two consumer warpgroups + producer
 constexpr int TC_BOX = 64 * 128;      // one 64-row, 128-byte-swizzled box
 
+// (HD, HDV): the widths, multiples of 64, that a bf16 (hd, dv) rounds up to
 template <int HD, int HDV> struct TcAttn {
   static constexpr int NB = HD / 64;                // Q / K 64-column boxes
   static constexpr int NBV = HDV / 64;              // V 64-column boxes
@@ -350,15 +363,18 @@ template <int HD, int HDV> struct TcAttn {
   static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
 };
 
-template <int HD, int HDV>
+// KSTEPS = ceil(hd / 16): the k16 steps of Q K^T that read a real column
+template <int HD, int HDV, int KSTEPS>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 fa_tc(const __grid_constant__ CUtensorMap tm_q,
       const __grid_constant__ CUtensorMap tm_k,
       const __grid_constant__ CUtensorMap tm_v,
       const int32_t* __restrict__ q_pos, __nv_bfloat16* __restrict__ out,
-      int S, int H, int KV, float scale, int causal, int window, int chunk,
-      float softcap) {
+      int S, int H, int KV, int dv, float scale, int causal, int window,
+      int chunk, float softcap) {
   using L = TcAttn<HD, HDV>;
+  static_assert(KSTEPS > HD / 16 - 4 && KSTEPS <= HD / 16,
+                "an hd that rounds up to HD");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem + L::Q_BYTES;
@@ -450,14 +466,15 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t ka = smem_u32(ring + s * L::STAGE_BYTES);
     const uint32_t va = ka + L::K_BYTES;
 
-    // S = Q K^T: K-major operands, k16 steps 32 bytes into a box's rows
+    // S = Q K^T: K-major operands, k16 steps 32 bytes into a box's rows;
+    // the steps past KSTEPS would add only TMA's zero columns
     float sc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) sc[e] = 0.0f;
     mbar_wait(&kfull[s], phase);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
       const uint32_t k16 = (kk & 3) * 32;
       wgmma_ss_m64n64k16(
           sc, sw128_desc(qa + (kk >> 2) * 2 * TC_BOX + k16, 16, 1024),
@@ -546,17 +563,20 @@ fa_tc(const __grid_constant__ CUtensorMap tm_q,
   }
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  // the dv real columns at row stride dv: 8-column group j holds a real
+  // column iff j < dv / 8 (dv is a multiple of 8, so a bf16x2 stays aligned)
+  const int ngroups = dv / 8;
 #pragma unroll
   for (int j = 0; j < HDV / 8; ++j) {
     const int c = 8 * j + col;
-    if (row_a < S) {
+    if (j < ngroups && row_a < S) {
       *reinterpret_cast<__nv_bfloat162*>(
-          out + (((size_t)b * S + row_a) * H + h) * HDV + c) =
+          out + (((size_t)b * S + row_a) * H + h) * dv + c) =
           __floats2bfloat162_rn(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
     }
-    if (row_b < S) {
+    if (j < ngroups && row_b < S) {
       *reinterpret_cast<__nv_bfloat162*>(
-          out + (((size_t)b * S + row_b) * H + h) * HDV + c) =
+          out + (((size_t)b * S + row_b) * H + h) * dv + c) =
           __floats2bfloat162_rn(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
     }
   }
@@ -843,9 +863,10 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ host
-// a 4-D bf16 tensor map over [B, S, heads, hd] (dims innermost first),
-// boxes of 64 columns x 1 head x box_rows rows x 1 batch row, 128-byte
-// swizzle
+// a 4-D bf16 tensor map over [B, S, heads, hd] (dims innermost first) at
+// the tensor's real hd (a multiple of 8: the row stride a multiple of 16
+// bytes), boxes of 64 columns x 1 head x box_rows rows x 1 batch row,
+// 128-byte swizzle; a box's elements past any extent read as zeros
 bool encode_4d(CUtensorMap* map, const void* base, int hd, int heads, int S,
                int B, int box_rows) {
   EncodeTiledFn enc = tensor_map_encoder();
@@ -863,10 +884,11 @@ bool encode_4d(CUtensorMap* map, const void* base, int hd, int heads, int S,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int HDV>
+template <int HD, int HDV, int KSTEPS>
 int launch_tc(const void* q, const void* k, const void* v, const void* qpos,
-              void* out, int B, int S, int H, int KV, float scale, int causal,
-              int window, int chunk, float softcap, cudaStream_t st) {
+              void* out, int B, int S, int H, int KV, int hd, int dv,
+              float scale, int causal, int window, int chunk, float softcap,
+              cudaStream_t st) {
   using L = TcAttn<HD, HDV>;
   const int qtiles = (S + TC_BQ - 1) / TC_BQ;
   if (qtiles > 65535 || !aligned16(q) || !aligned16(k) || !aligned16(v)) {
@@ -876,21 +898,50 @@ int launch_tc(const void* q, const void* k, const void* v, const void* qpos,
   memset(&tq, 0, sizeof(tq));
   memset(&tk, 0, sizeof(tk));
   memset(&tv, 0, sizeof(tv));
-  if (!encode_4d(&tq, q, HD, H, S, B, TC_BQ) ||
-      !encode_4d(&tk, k, HD, KV, S, B, TC_BKV) ||
-      !encode_4d(&tv, v, HDV, KV, S, B, TC_BKV)) {
+  if (!encode_4d(&tq, q, hd, H, S, B, TC_BQ) ||
+      !encode_4d(&tk, k, hd, KV, S, B, TC_BKV) ||
+      !encode_4d(&tv, v, dv, KV, S, B, TC_BKV)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      fa_tc<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_tc<HD, HDV, KSTEPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, qtiles, B);
-  fa_tc<HD, HDV><<<grid, TC_THREADS, L::SMEM_BYTES, st>>>(
+  fa_tc<HD, HDV, KSTEPS><<<grid, TC_THREADS, L::SMEM_BYTES, st>>>(
       tq, tk, tv, static_cast<const int32_t*>(qpos),
-      static_cast<__nv_bfloat16*>(out), S, H, KV, scale, causal, window,
+      static_cast<__nv_bfloat16*>(out), S, H, KV, dv, scale, causal, window,
       chunk, softcap);
   return (int)cudaGetLastError();
+}
+
+// fa_tc at the widths (HD, HDV) that hd and dv round up to, with Q K^T's
+// ceil(hd / 16) k16 steps: HD / 16 - 3 .. HD / 16 at the hd of a multiple
+// of 8 that round up to HD
+template <int HD, int HDV>
+int run_tc(const void* q, const void* k, const void* v, const void* qpos,
+           void* out, int B, int S, int H, int KV, int hd, int dv,
+           float scale, int causal, int window, int chunk, float softcap,
+           cudaStream_t st) {
+  switch ((hd + 15) / 16 - HD / 16) {
+    case 0:
+      return launch_tc<HD, HDV, HD / 16>(q, k, v, qpos, out, B, S, H, KV, hd,
+                                         dv, scale, causal, window, chunk,
+                                         softcap, st);
+    case -1:
+      return launch_tc<HD, HDV, HD / 16 - 1>(q, k, v, qpos, out, B, S, H, KV,
+                                             hd, dv, scale, causal, window,
+                                             chunk, softcap, st);
+    case -2:
+      return launch_tc<HD, HDV, HD / 16 - 2>(q, k, v, qpos, out, B, S, H, KV,
+                                             hd, dv, scale, causal, window,
+                                             chunk, softcap, st);
+    case -3:
+      return launch_tc<HD, HDV, HD / 16 - 3>(q, k, v, qpos, out, B, S, H, KV,
+                                             hd, dv, scale, causal, window,
+                                             chunk, softcap, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int HD, int HDV>
@@ -960,11 +1011,12 @@ int run_simt(const void* q, const void* k, const void* v, const void* qpos,
 // int32 [B, S]. causal: 0 or 1; window <= 0 means no window and chunk <=
 // 0 no block-local chunk (a non-causal call must pass neither), softcap
 // <= 0 no softcap; 1 <= hd, dv <= 256 (q and k at hd, v and out at dv).
-// path: 0 = the tensor cores (bf16, (hd, dv) of (64, 64), (128, 128),
-// (256, 256) or (192, 128), 16-byte aligned q, k, v), 1 = the CUDA cores
-// (either dtype, any hd and dv), as kernels/flash_attention.py chooses.
-// Returns the first CUDA error of the launch, or cudaErrorInvalidValue for
-// a call the kernel does not take.
+// path: 0 = the tensor cores (bf16, hd and dv multiples of 8 whose widths
+// rounded up to 64 are (64, 64), (128, 128), (256, 256) or (192, 128),
+// 16-byte aligned q, k, v), 1 = the CUDA cores (either dtype, any hd and
+// dv), as kernels/flash_attention.py::path chooses (its TC_HEAD_DIMS are
+// the pairs below). Returns the first CUDA error of the launch, or
+// cudaErrorInvalidValue for a call the kernel does not take.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, const void* q_pos,
                                      void* out, int B, int S, int H, int KV,
@@ -978,22 +1030,25 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == PATH_TC) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-    if (hd == 64 && dv == 64) {
-      return launch_tc<64, 64>(q, k, v, q_pos, out, B, S, H, KV, scale,
-                               causal, window, chunk, softcap, st);
+    if (dtype != 1 || hd % 8 != 0 || dv % 8 != 0) {
+      return (int)cudaErrorInvalidValue;
     }
-    if (hd == 128 && dv == 128) {
-      return launch_tc<128, 128>(q, k, v, q_pos, out, B, S, H, KV, scale,
-                                 causal, window, chunk, softcap, st);
+    const int w_hd = (hd + 63) / 64 * 64, w_dv = (dv + 63) / 64 * 64;
+    if (w_hd == 64 && w_dv == 64) {
+      return run_tc<64, 64>(q, k, v, q_pos, out, B, S, H, KV, hd, dv, scale,
+                            causal, window, chunk, softcap, st);
     }
-    if (hd == 256 && dv == 256) {
-      return launch_tc<256, 256>(q, k, v, q_pos, out, B, S, H, KV, scale,
-                                 causal, window, chunk, softcap, st);
+    if (w_hd == 128 && w_dv == 128) {
+      return run_tc<128, 128>(q, k, v, q_pos, out, B, S, H, KV, hd, dv,
+                              scale, causal, window, chunk, softcap, st);
     }
-    if (hd == 192 && dv == 128) {
-      return launch_tc<192, 128>(q, k, v, q_pos, out, B, S, H, KV, scale,
-                                 causal, window, chunk, softcap, st);
+    if (w_hd == 256 && w_dv == 256) {
+      return run_tc<256, 256>(q, k, v, q_pos, out, B, S, H, KV, hd, dv,
+                              scale, causal, window, chunk, softcap, st);
+    }
+    if (w_hd == 192 && w_dv == 128) {
+      return run_tc<192, 128>(q, k, v, q_pos, out, B, S, H, KV, hd, dv,
+                              scale, causal, window, chunk, softcap, st);
     }
     return (int)cudaErrorInvalidValue;
   }

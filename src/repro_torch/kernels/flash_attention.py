@@ -27,12 +27,19 @@ of the chunk holding its smallest position, so a local layer visits at
 most its own chunk's tiles (two chunks' for a block across a boundary).
 
 The CUDA kernels are in ``csrc/flash_attention.cu``; :func:`path` picks
-one from (dtype, hd, dv) on the host. bf16 at (hd, dv) of (64, 64),
-(128, 128), (256, 256) or (192, 128) (every bf16 prefill of the main
-path) takes the tensor cores: a block of 128 query rows of one head, TMA
-loads of Q and of a ring of 64-key K / V tiles, ``wgmma`` for ``Q K^T``
-and ``P V`` with P rounded to bf16 in registers. fp32, and bf16 at any
-other pair, take the CUDA cores in fp32: a block of 32 (query, head)
+one from (dtype, hd, dv) on the host, never as a reaction to a failure.
+bf16 takes the tensor cores wherever hd and dv are multiples of 8 (TMA's
+16-byte row stride), at most 256, and their widths rounded up to 64
+(:func:`tc_widths`) are one of :data:`TC_HEAD_DIMS`, the kernel's
+instantiations: every bf16 prefill of the port's configs (hd 64, 80,
+112, 120, 128, 256 and MLA's (192, 128)), and the reduced configs'
+pairs. A block of 128 query rows of one head, TMA loads of Q and of a
+ring of 64-key K / V tiles at the real hd and dv, zero-filled up to the
+padded widths (nothing padded or copied in device memory; the scale is
+the caller's), ``wgmma`` for ``Q K^T`` over ``ceil(hd / 16)`` k16 steps
+and ``P V`` at the padded dv, with P rounded to bf16 in registers; the
+dv real columns are stored. fp32, and bf16 at any other pair, take the
+CUDA cores in fp32: a block of 32 (query, head)
 rows of one KV head's G heads, so each K / V tile is staged once for all
 of them. Both visit only the KV tiles
 that hold a key some of the block's rows may attend to (the TPU kernel's
@@ -66,8 +73,11 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 LARGE_WINDOW = 1 << 30           # models/attention.py's "no window"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# the tensor-core kernel's (hd, dv) pairs: equal ones, and MLA's 192 / 128
+# the tensor-core kernel's instantiations (HD, HDV), the widths a bf16
+# (hd, dv) rounds up to: equal ones, and MLA's 192 / 128. The dispatch of
+# csrc/flash_attention.cu's repro_flash_attention takes the same pairs
 TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+TC_ALIGN = 8                     # hd, dv multiples of 8: 16-byte TMA rows
 PATHS = {"tc": 0, "simt": 1}
 GRAD_BLOCK = 256                 # query rows a block of the backward
 
@@ -110,12 +120,20 @@ def _check_args(q, k, v, q_pos, causal, window, softcap, chunk):
     return B, S, H, KV, hd, dv, window, chunk
 
 
+def tc_widths(hd: int, dv: int) -> tuple:
+    """(hd, dv) each rounded up to a multiple of 64: the tensor-core
+    kernel's template widths for the pair (its 64-column TMA boxes)."""
+    return (-(-hd // 64) * 64, -(-dv // 64) * 64)
+
+
 def path(dtype: torch.dtype, hd: int, dv: Optional[int] = None) -> str:
-    """The kernel a CUDA call runs: "tc" (tensor cores) for bf16 at a
-    (hd, dv) pair of :data:`TC_HEAD_DIMS` (``dv`` None: ``hd``), "simt"
-    (CUDA cores, fp32) otherwise."""
-    pair = (hd, hd if dv is None else dv)
-    return ("tc" if dtype == torch.bfloat16 and pair in TC_HEAD_DIMS
+    """The kernel a CUDA call runs (``dv`` None: ``hd``): "tc" (tensor
+    cores) for bf16 where hd and dv are multiples of :data:`TC_ALIGN` and
+    :func:`tc_widths` is one of :data:`TC_HEAD_DIMS` (so both are at most
+    256); "simt" (CUDA cores, fp32) otherwise."""
+    dv = hd if dv is None else dv
+    return ("tc" if dtype == torch.bfloat16 and hd % TC_ALIGN == 0
+            and dv % TC_ALIGN == 0 and tc_widths(hd, dv) in TC_HEAD_DIMS
             else "simt")
 
 

@@ -28,10 +28,11 @@ DTYPES = [torch.float32, torch.bfloat16]
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 120, 128, 200, 256])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_path_by_dtype_and_head_dim(dtype, hd):
-    """bf16 at head_dim 64 / 128 / 256 (qwen2.5-3b's 128, gemma2-9b's 256)
-    takes the tensor cores; fp32, and bf16 at any other head_dim, the CUDA
-    cores."""
-    want = "tc" if dtype == torch.bfloat16 and hd in (64, 128, 256) else "simt"
+    """bf16 takes the tensor cores at every one of these head dims: each
+    is a multiple of 8 and rounds up to an instantiation's width (16 and
+    32 to 64; hubert's 80 and h2o-danube's 120 to 128; 200 to 256);
+    fp32 takes the CUDA cores."""
+    want = "tc" if dtype == torch.bfloat16 else "simt"
     assert fa.path(dtype, hd) == want
     assert fa.PATHS[fa.path(dtype, hd)] in (0, 1)
 
@@ -40,11 +41,14 @@ def test_flash_attention_path_by_dtype_and_head_dim(dtype, hd):
                                    (192, 192), (128, 64), (64, 128)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_path_by_value_head_dim(dtype, hd, dv):
-    """With a value head dim of its own, bf16 takes the tensor cores at
-    deepseek-v2's MLA pair (192, 128) only; equal pairs keep the rule of
-    one head dim."""
-    want = "tc" if dtype == torch.bfloat16 and (hd, dv) == (192, 128) \
-        else "simt"
+    """With a value head dim of its own, bf16 takes the tensor cores where
+    the pair rounds up to an instantiation: deepseek-v2's MLA pair
+    (192, 128) and its reduced (48, 32) (to (64, 64)); (128, 192),
+    (192, 192), (128, 64) and (64, 128) have none and take the CUDA cores.
+    Equal pairs keep the rule of one head dim."""
+    want = ("tc" if dtype == torch.bfloat16 and (hd, dv) in ((192, 128),
+                                                              (48, 32))
+            else "simt")
     assert fa.path(dtype, hd, dv) == want
     assert fa.path(dtype, 128, 128) == fa.path(dtype, 128)
 

@@ -785,7 +785,8 @@ FA_BITWISE = [(200, 16, 2, 128, torch.bfloat16, True),
               (200, 16, 2, 128, torch.float32, True),
               (37, 4, 2, 80, torch.bfloat16, True),
               (200, 32, 32, 112, torch.bfloat16, True),
-              (1500, 16, 16, 80, torch.bfloat16, False)]
+              (1500, 16, 16, 80, torch.bfloat16, False),
+              (300, 32, 8, 120, torch.bfloat16, True)]
 
 
 @pytest.mark.parametrize("S,H,KV,hd,dtype,causal", FA_BITWISE)
@@ -1135,15 +1136,17 @@ def test_flash_attention_mla_pair_on_the_tensor_cores(dev, B, S, H, KV,
     assert torch.equal(got, fa.flash_attention(q, k, v, pos, **kw))
 
 
-# (B, S, H, KV, hd, dv, dtype): the CUDA cores at a value head dim of its
-# own: MLA's pair in fp32, the reduced config's (48, 32) in both dtypes,
-# GQA (KV < H), and dv above hd
+# (B, S, H, KV, hd, dv, dtype): a value head dim of its own: MLA's pair
+# in fp32, the reduced config's (48, 32) in both dtypes, GQA (KV < H), and
+# dv above hd. All take the CUDA cores but the bf16 (48, 32), whose widths
+# round up to the tensor-core kernel's (64, 64)
 FA_DV_CASES = [(2, 129, 16, 16, 192, 128, torch.float32),
                (2, 37, 4, 4, 48, 32, torch.float32),
                (2, 37, 4, 4, 48, 32, torch.bfloat16),
                (1, 200, 8, 2, 192, 128, torch.float32),
                (2, 65, 4, 1, 32, 64, torch.float32),
                (1, 100, 8, 2, 80, 256, torch.bfloat16)]
+FA_DV_TC = {(48, 32, torch.bfloat16)}
 
 
 @pytest.mark.parametrize("causal,window,softcap", [
@@ -1153,7 +1156,8 @@ FA_DV_CASES = [(2, 129, 16, 16, 192, 128, torch.float32),
 def test_flash_attention_dv_on_the_cuda_cores(dev, B, S, H, KV, hd, dv,
                                               dtype, causal, window,
                                               softcap):
-    assert fa.path(dtype, hd, dv) == "simt"
+    assert fa.path(dtype, hd, dv) == ("tc" if (hd, dv, dtype) in FA_DV_TC
+                                      else "simt")
     q, k, v, pos = _fa_inputs(B, S, H, KV, hd, dtype, hd + dv, dv=dv)
     kw = dict(scale=hd ** -0.5, causal=causal, window=window,
               softcap=softcap)
@@ -1163,6 +1167,81 @@ def test_flash_attention_dv_on_the_cuda_cores(dev, B, S, H, KV, hd, dv,
     assert tuple(got.shape) == (B, S, H, dv)
     assert bool(torch.isfinite(got).all())
     assert _rel(got, want) <= TOL[dtype], (B, S, H, KV, hd, dv)
+
+
+# (hd, dv): the tensor cores at widths padded up to an instantiation:
+# hubert's 80, zamba2's 112, h2o-danube's 120 (all to 128) and the reduced
+# MLA's (48, 32) (to 64)
+FA_PADDED = [(80, 80), (112, 112), (120, 120), (48, 32)]
+# (causal, window, softcap, chunk): every mask the kernel takes
+FA_PADDED_MASKS = [(True, None, None, None), (True, 7, None, None),
+                   (True, None, 50.0, None), (True, None, None, 48),
+                   (True, 20, 50.0, 64), (False, None, None, None)]
+
+
+@pytest.mark.parametrize("causal,window,softcap,chunk", FA_PADDED_MASKS)
+@pytest.mark.parametrize("hd,dv", FA_PADDED)
+def test_flash_attention_padded_widths_on_the_tensor_cores(
+        dev, hd, dv, causal, window, softcap, chunk):
+    """bf16 at a pair that rounds up to an instantiation takes the tensor
+    cores at S around the 64-key and 128-row tiles and at hubert's 1,500,
+    GQA 4 / 2 heads, with the caller's scale: within 2e-2 of the plain
+    version, the output [B, S, H, dv], and a repeated call equal."""
+    assert fa.path(torch.bfloat16, hd, dv) == "tc"
+    for i, S in enumerate((1, 2, 63, 64, 65, 127, 128, 129, 1500)):
+        q, k, v, pos = _fa_inputs(2 if S < 1500 else 1, S, 4, 2, hd,
+                                  torch.bfloat16, 90 + i, dv=dv)
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                  softcap=softcap, chunk=chunk)
+        got = fa.flash_attention(q, k, v, pos, **kw)
+        want = fa.flash_attention_plain(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        assert tuple(got.shape) == tuple(q.shape[:3]) + (dv,)
+        assert bool(torch.isfinite(got).all()), S
+        assert _rel(got, want) <= TOL[torch.bfloat16], (S, hd, dv)
+        assert torch.equal(got, fa.flash_attention(q, k, v, pos, **kw))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd,dv", FA_PADDED)
+def test_flash_attention_padded_rows_do_not_depend_on_the_batch(dev, hd, dv,
+                                                                causal):
+    """At a padded pair: row b of a 4-row call equals the 1-row call on
+    that row bitwise, and two identical calls give equal bits."""
+    q, k, v, pos = _fa_inputs(4, 150, 8, 2, hd, torch.bfloat16, 13, dv=dv)
+    kw = dict(scale=hd ** -0.5, causal=causal,
+              window=64 if causal else None, softcap=50.0)
+    full = fa.flash_attention(q, k, v, pos, **kw)
+    assert torch.equal(full, fa.flash_attention(q, k, v, pos, **kw))
+    for b in range(4):
+        one = fa.flash_attention(q[b:b + 1].contiguous(),
+                                 k[b:b + 1].contiguous(),
+                                 v[b:b + 1].contiguous(), pos[b:b + 1], **kw)
+        assert torch.equal(full[b:b + 1], one), (b, hd, dv)
+
+
+FA_RULE = fa.path      # the rule itself, kept from the test's monkeypatch
+
+
+def test_flash_attention_dispatch_takes_exactly_the_rule(dev, monkeypatch):
+    """The tensor-core launch succeeds at every bf16 (hd, dv) that
+    ``path`` sends to "tc" and is refused (a raised RuntimeError, never a
+    fallback) at every other pair: the .cu dispatch and the Python rule
+    accept the same pairs."""
+    monkeypatch.setattr(fa, "path", lambda dtype, hd, dv=None: "tc")
+    dims = sorted(set(range(8, 257, 8)) | {1, 12, 50, 100, 130, 250})
+    for hd in dims:
+        q, k, _, pos = _fa_inputs(1, 3, 2, 1, hd, torch.bfloat16, 0)
+        for dv in dims:
+            v = torch.ones((1, 3, 1, dv), dtype=torch.bfloat16, device=dev)
+            try:
+                fa.flash_attention(q, k, v, pos, scale=0.1)
+                took = True
+            except RuntimeError:
+                took = False
+            assert took == (FA_RULE(torch.bfloat16, hd, dv) == "tc"), (hd,
+                                                                      dv)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1305,6 +1384,42 @@ def test_flash_attention_fn_grads_on_the_card(dev, dtype, causal, window,
     pos = torch.arange(S, device=dev).expand(B, S)
     kw = dict(scale=hd ** -0.5, causal=causal, window=window,
               softcap=softcap)
+    inputs = [t.requires_grad_(True) for t in (q, k, v)]
+    before = fa.launches.count
+    out, got = _train_grads(lambda: fa.flash_attention(q, k, v, pos, **kw),
+                            inputs, dy)
+    assert fa.launches.count == before + 1
+    out0, want = _train_grads(
+        lambda: fa.flash_attention_plain(q, k, v, pos, **kw), inputs, dy)
+    assert _rel(out, out0) <= TOL[dtype]
+    for a, a0 in zip(got, want):
+        assert a.dtype == dtype and _rel(a, a0) <= TOL[dtype]
+
+
+# phase 17's training attention at padded head dims: zamba2's shared
+# block (32 / 32 heads of 112, causal) and hubert's encoder (16 / 16 heads
+# of 80, no causal mask), batch 8 x 256
+TRAIN_PADDED_ATTN = [(32, 32, 112, True), (16, 16, 80, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd,causal", TRAIN_PADDED_ATTN)
+def test_flash_attention_fn_grads_at_padded_head_dims_on_the_card(
+        dev, H, KV, hd, causal, dtype):
+    """``FlashAttentionFn`` at phase 17's zamba2 and hubert shapes (the
+    tensor cores in bf16) against autograd through the plain version:
+    the output and each input's gradient within the tolerance of the
+    qwen-shaped test."""
+    assert fa.path(dtype, hd) == ("tc" if dtype == torch.bfloat16
+                                  else "simt")
+    g = torch.Generator(device=dev).manual_seed(hd)
+    B, S = 8, 256
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    dy = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    kw = dict(scale=hd ** -0.5, causal=causal)
     inputs = [t.requires_grad_(True) for t in (q, k, v)]
     before = fa.launches.count
     out, got = _train_grads(lambda: fa.flash_attention(q, k, v, pos, **kw),

@@ -251,7 +251,8 @@ def test_flash_attention_plain_dv_matches_reference(shape, mask):
 
 def test_flash_attention_dv_arguments():
     """dv above 256 and a k whose head dim is not q's are refused; the
-    tensor cores take bf16 (192, 128) and no other unequal pair."""
+    tensor cores take bf16 (192, 128) and the reduced (48, 32) (padded to
+    (64, 64)), not (128, 192), whose widths have no instantiation."""
     q = torch.zeros(1, 4, 2, 48)
     pos = torch.arange(4)[None]
     with pytest.raises(ValueError, match="value head_dim"):
@@ -263,7 +264,8 @@ def test_flash_attention_dv_arguments():
         fa.flash_attention(q, q, torch.zeros(1, 4, 1, 32), pos, scale=1.0)
     assert fa.path(torch.bfloat16, 192, 128) == "tc"
     assert fa.path(torch.float32, 192, 128) == "simt"
-    assert fa.path(torch.bfloat16, 48, 32) == "simt"
+    assert fa.path(torch.bfloat16, 48, 32) == "tc"
+    assert fa.path(torch.float32, 48, 32) == "simt"
     assert fa.path(torch.bfloat16, 128, 192) == "simt"
 
 
