@@ -7,8 +7,9 @@ Phases, each printing its wall time:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the build
    of the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once, then one link) and the registers and spills
-   ``ptxas`` reported for the matmul, attention and wkv6 kernels;
+   source, all at once, then one link; each source's seconds printed) and
+   the registers and spills ``ptxas`` reported for the matmul, attention
+   and wkv6 kernels;
 2. kernels: ``swap_linear_q``, ``dequant_int8``, ``paged_attention``,
    ``wkv6``, ``swap_linear`` and ``flash_attention`` held against their
    plain PyTorch versions on the card at every shape the paths launch,
@@ -16,6 +17,8 @@ Phases, each printing its wall time:
    the batch, repeated calls equal), and timed at the main paths' shapes
    beside their plain version (one call: it is no yardstick), a library
    call where one computes the same function, and the card's bound;
+   ``swap_linear_q`` at every launch shape of phases 11-13's int8-lazy
+   arms in int8 and int4 too, each call's rows bitwise its 1-row calls;
    then ``swap_linear`` and ``flash_attention`` under autograd (their
    ``autograd.Function``s) against autograd through their plain versions
    at phase 15's shapes, in fp32 and bf16;
@@ -128,7 +131,12 @@ Phases, each printing its wall time:
    ``Model.decode_step``'s absorbed decode, and in bf16, where they must
    lie within 5e-2 of the fp32 engine's for each prompt whose last token
    is routed alike at every layer (each layer's flips printed; the
-   absorbed decode's bf16 gap printed);
+   absorbed decode's bf16 gap printed); last the int8-lazy arm
+   (``quant_arm``): the same params cut to 2 layers on the int8 lazy
+   store (``build/phase11/int8-lazy``), one first pass of the prompt with
+   ``swap_linear_q`` at wq, wo and the shared expert's three a layer and
+   the head (11), the routed stacks and the latent projections widened on
+   the host;
 12. zamba2-7b's hybrid stack at its published widths (Mamba2 d_state 64,
    head_dim 64, expand 2, chunk 128; one shared attention block of 32
    heads of 112 and d_ff 14,336; vocab 32,000, tied), depth cut 81 -> 18
@@ -148,7 +156,11 @@ Phases, each printing its wall time:
    a sequence beside the shared block's K/V a token; then
    ``ServingEngine`` on the same prompts in fp32, its first new token's
    logits within 1e-4 of ``Model.decode_step`` fed the prompt token by
-   token, and in bf16 (its gap to the fp32 engine printed);
+   token, and in bf16 (its gap to the fp32 engine printed); last the
+   int8-lazy arm: the same params cut to 6 layers (five Mamba2, the shared
+   block at 5, pinned as a lazy quantized unit, the ledger given its lazy
+   resident bytes), one first pass with ``swap_linear_q`` at each Mamba2
+   ``wo``, the shared block's 7 and the tied head (13);
 13. qwen2-vl-72b's M-RoPE and vision-embedding frontend at its published
    widths (64 / 8 heads of 128 with q / k / v bias, d_ff 29,568, vocab
    152,064 untied, M-RoPE sections (16, 24, 24), 1,024 vision tokens at
@@ -163,7 +175,20 @@ Phases, each printing its wall time:
    and ``swap_linear`` seven times a layer; the vision tokens' h and w
    streams swapped must move the logits; then two text-only paged
    generations (prompts of 40 and 100 tokens, 2 new each, [B, 1, 3]
-   positions a step) equal to each request served alone;
+   positions a step) equal to each request served alone; last the
+   int8-lazy arm: the same params cut to 1 layer, one first pass with
+   ``swap_linear_q`` at the biased q / k / v (K 8,192), wo, the MLP (N
+   29,568, its wo at K 29,568) and the head (N 152,064), 8 in all, the
+   embedding and the frontend widened on the host. Each arm of 11-13
+   plans 1.1x the smallest budget on a 0.01 GB grid at which the planner
+   packs its store at m = 2, below the store's resident bytes and in at
+   least 3 blocks; its logits must equal ``forward_unswapped`` over the
+   store's own lazy leaves bitwise and lie within 2e-2 of that forward
+   with each quantized linear through ``swap_linear_q``'s plain version
+   (the weights widened to fp32 whole; deepseek: where each layer routes
+   the last token alike, the flips printed); ``swap_linear`` and
+   ``dequant_int8`` launch 0 times, ``flash_attention`` once an
+   attention layer;
 14. hubert-xlarge's bidirectional audio encoder at its published widths
    and full depth (48 layers of 16 / 16 heads of 80, a GELU MLP of 5,120,
    vocab 504, d_frontend 512, no RoPE), seed-1 fp32 weights: one 3.8 GB
@@ -517,6 +542,22 @@ VL_MAX_PAGES = 16                      # 3 + 7 pages live at the last step
 VL_MIN_RATIO = 2.32
 P13_WORKDIR = ROOT / "build" / "phase13"
 
+# phases 11-13's int8-lazy arms (ROADMAP A10): each phase's own params cut
+# to their first layers (embedding, frontend and head unchanged: no weight
+# drawn twice), stored int8 lazy under the phase's build/phaseN, one
+# swapped first pass of the phase's prompt under 1.1x the smallest budget
+# on a 0.01 GB grid at which the planner packs the store at m = 2. The
+# depths: two MLA + MoE layers; five Mamba2 layers and the shared block
+# (at 5); one dense layer. Each arm's host work (the numpy quantizer at
+# build, the numpy widening of every leaf B1 cannot stream at each read)
+# sets its cost, not its kernels
+DS_Q_LAYERS, Z_Q_LAYERS, VL_Q_LAYERS = 2, 6, 1
+ARM_GRID = 10 ** 7                     # budget search step, 0.01 GB
+# the arm's logits (B1 over the int8 weights) against the same forward
+# with B1's plain version (the weights widened to fp32, an fp32 matmul):
+# phase 3's bound, bf16's tolerance
+ARM_TOL = 2e-2
+
 # phase 14: hubert-xlarge at its published widths and full depth (48
 # layers): 2 x 1,500 frames, 30 s of audio at HuBERT's 20 ms frame rate,
 # swapped under 1.1x the smallest budget on a 0.01 GB grid at which the
@@ -756,6 +797,20 @@ def slice_linear_shapes(cfg):
     return [k + (b,) for k, b in out.items()]
 
 
+def arm_linear_shapes(cfg, M):
+    """(M, K, N, act, x dtype, bias) of every B1 launch key of an
+    int8-lazy arm's swapped prefill of one M-token prompt: a layer's
+    linears (:func:`fp_layer_linears`; a Mamba2 layer's wo too) on the
+    model's dtype, and the head on the last position in fp32."""
+    out = [(M, K, N, act, cfg.dtype, b)
+           for K, N, act, b in fp_layer_linears(cfg)]
+    if "mamba2" in cfg.layer_kinds():
+        out.append((M, cfg.ssm.expand * cfg.d_model, cfg.d_model, "none",
+                    cfg.dtype, False))
+    return out + [(1, cfg.d_model, cfg.vocab_size, "none", "float32",
+                   False)]
+
+
 def check_row_independence(torch, g, which):
     """B1 (``which`` "q") or B5 ("fp") on the card: the rows of a 130-row
     call (K 2048 split 8 ways at N 256, the splits summed by a second
@@ -839,10 +894,11 @@ def check_row_independence(torch, g, which):
             f"one-hot rows the weight's rows")
 
 
-def check_kernels(torch, cfg, conv_path):
+def check_kernels(torch, cfg, conv_path, arms):
     """Phase 2: every kernel against its plain version on the card.
     Returns the timing rows of the main-path shapes (``conv_path``: phase
-    10's, :func:`p10_kernel_shapes`)."""
+    10's, :func:`p10_kernel_shapes`; ``arms``: the B1 launch keys of
+    phases 11-13's int8-lazy arms, :func:`arm_linear_shapes`)."""
     from repro_torch.kernels import dequant as dq
     from repro_torch.kernels import swap_linear_q as slq
 
@@ -972,6 +1028,33 @@ def check_kernels(torch, cfg, conv_path):
                 seen.add((M, K, N, bits, dname, act))
                 q_row(M, K, N, bits, dname, act, has_bias, q, s)
             del q, s
+    # phases 11-13's int8-lazy arms at their published widths: each launch
+    # key in int8 and int4, held and timed, and the rows of each call
+    # bitwise its 1-row calls (a head's 1-row call against a 4-row one)
+    n_rows = n_timed = 0
+    for (M, K, N, act, dname, has_bias) in arms:
+        for bits in (8, 4):
+            if (M, K, N, bits, dname, act) in seen:
+                continue
+            seen.add((M, K, N, bits, dname, act))
+            q, s = weights(K, N, bits)
+            q_row(M, K, N, bits, dname, act, has_bias, q, s)
+            n_timed += 1
+            Mr = max(M, 4)
+            x = torch.randn((Mr, K), generator=g, device=dev).to(dts[dname])
+            b = ((torch.randn((N,), generator=g, device=dev) * 0.1)
+                 .to(dts[dname]) if has_bias else None)
+            full = slq.swap_linear_q(x, q, s, b, bits=bits, act=act)
+            for i in sorted({0, 1, Mr // 2, Mr - 1}):
+                require(torch.equal(full[i:i + 1], slq.swap_linear_q(
+                    x[i:i + 1].contiguous(), q, s, b, bits=bits, act=act)),
+                    f"swap_linear_q int{bits} {(Mr, K, N)} {dname}: row {i}"
+                    f" differs from its 1-row call")
+                n_rows += 1
+            del q, s, x, b, full
+    print(f"swap_linear_q: {n_timed} rows at the int8-lazy arms' "
+          f"launch keys held and timed; {n_rows} rows bitwise their 1-row "
+          f"calls", flush=True)
     # phase 10: the conv workloads' fused fc layers (fp32 x, with a bias)
     for (M, K, N) in conv_path["q"]:
         for bits in (8, 4):
@@ -3889,10 +3972,11 @@ def grid_floor(pp, grid: int) -> int:
 
 
 def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag,
-                  ledger_budget=None) -> int:
+                  ledger_budget=None, grid=P9_GRID) -> int:
     """Plan a built store for one ``seq``-token prompt under ``budget``
-    after checking ``floor`` against the store: m = P9_M there, not a grid
-    step below it (where the planner degrades the pipeline or fails). The
+    after checking ``floor`` against the store: m = P9_M there, not a
+    ``grid`` step below it (where the planner degrades the pipeline or
+    fails). The
     ledger enforces ``ledger_budget`` (None: ``budget``). The host copies
     of the units then go: the store is the weights' only home, so the page
     cache can hold its files. Returns the store's resident bytes (a shared
@@ -3906,7 +3990,7 @@ def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag,
     sm.partition(floor, DelayModel(), 1, seq)
     at_floor = sm.plan.m
     try:
-        sm.partition(floor - P9_GRID, DelayModel(), 1, seq)
+        sm.partition(floor - grid, DelayModel(), 1, seq)
         below = sm.plan.m
     except ValueError:
         below = 0
@@ -3918,21 +4002,181 @@ def plan_at_floor(torch, sm, floor, budget, seq, store_s, tag,
     ledger = ("" if ledger_budget == budget else
               f"; ledger budget {ledger_budget / 1e9:.3f} GB (+ the pinned "
               f"units' {(ledger_budget - budget) / 1e9:.3f} GB)")
+    digits = 1 if grid >= 10 ** 8 else 2
     print(f"[{tag}] budget {budget / 1e9:.3f} GB = "
           f"{P9_BUDGET_OVER_FLOOR} x the smallest feasible "
-          f"{floor / 1e9:.1f} GB at m = {P9_M}{ledger}; resident / "
+          f"{floor / 1e9:.{digits}f} GB at m = {P9_M}{ledger}; resident / "
           f"{'ledger ' if ledger else ''}budget "
           f"{resident / ledger_budget:.3f}; blocks={sm.plan.n_blocks} "
           f"{sm.plan.points} m={sm.plan.m}", flush=True)
     require(sm.plan.m == P9_M, f"{tag}: planned m={sm.plan.m}")
     require(at_floor == P9_M and below != P9_M,
-            f"{tag}: {floor / 1e9:.1f} GB is not the smallest budget at "
-            f"m = {P9_M} on the store (m {at_floor} there, {below} a "
+            f"{tag}: {floor / 1e9:.{digits}f} GB is not the smallest budget "
+            f"at m = {P9_M} on the store (m {at_floor} there, {below} a "
             f"step below)")
     for u in sm.units:
         u.params = tree_map(lambda a: torch.empty(
             a.shape, dtype=a.dtype, device="meta"), u.params)
     return resident
+
+
+def cut_params(model, params, full_plan):
+    """``params`` of a deeper model of the same config (its segments laid
+    out by ``full_plan``) cut to ``model``'s layers: each scanned segment
+    keeps its first layers, copied where that drops some so the full
+    stacks can go; the embedding, frontend, head and shared block stay the
+    same tensors."""
+    from repro_torch.tree import tree_map
+    segs = []
+    for si, seg in enumerate(model.plan):
+        full = full_plan[si]
+        require(full.kind == seg.kind and full.scanned == seg.scanned
+                and full.layer_ids[:len(seg.layer_ids)] == seg.layer_ids,
+                f"{model.cfg.name}: segment {si} of the cut is not a prefix")
+        if not seg.scanned:
+            segs.append({})
+            continue
+        n = len(seg.layer_ids)
+        segs.append(tree_map(
+            lambda a: a if a.shape[0] == n else a[:n].clone(),
+            params["segments"][si]))
+    return dict(params, segments=segs)
+
+
+def quant_arm(torch, tag, model, cut, batch, seq, workdir, reset, collect,
+              expect):
+    """The int8-lazy arm of phases 11-13 (ROADMAP A10): ``model`` over the
+    phase's params cut to its layers (``cut``), stored int8 lazy under
+    ``workdir`` (removed after), planned under 1.1x the smallest budget on
+    an ARM_GRID grid at which the planner packs the store at m = P9_M,
+    below the store's resident bytes, in >= 3 blocks; a pinned shared unit
+    (zamba2's) adds its lazy resident bytes to the ledger's budget. One
+    swapped first pass of ``batch`` (no warm pass: phase 2 ran the kernels
+    at these shapes) with the launches ``expect`` requires ({kernel:
+    count}: B1's exactly); its spans, bytes and peaks printed. Then (1)
+    the logits bitwise those of ``forward_unswapped`` over the store's own
+    lazy leaves, each unit's ``read_unit`` tree, QuantizedTensors kept
+    (the same kernels on the same inputs); (2) within ARM_TOL of the same
+    forward with every quantized linear through ``swap_linear_q_plain``
+    (each weight widened to fp32 whole, the store's round trip bitwise,
+    then an fp32 matmul): B1 against the widened weights, held only where
+    each moe layer routes the last token alike in both (ROADMAP C's MoE
+    trap; the flips printed). Not the forward over the leaves widened to
+    bf16 copies through B5, phase 3's yardstick: the bf16 rounding of the
+    widened weights alone moves these stacks 1.2-2.0% from the arm's
+    logits (PERF.md, PR 30; ``tests/test_torch_quant_families.py`` holds
+    that gap to bf16's own distance from fp32). Returns the arm's row."""
+    import shutil
+
+    from repro_torch.core.cost_model import DelayModel, resident_infos
+    from repro_torch.core.partition import PartitionPlanner
+    from repro_torch.core.runtime import SwappedModel, unit_infos
+    from repro_torch.kernels import swap_linear_q as slq
+    from repro_torch.models import layers, moe
+
+    cfg = model.cfg
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    sm = SwappedModel(model, cut, str(workdir), device="cuda",
+                      store_backend="quant", precision="int8",
+                      prefetch_depth=P9_M)
+    quant_s = time.perf_counter() - t0
+    del cut
+    try:
+        names = [u.name for u in sm.units]
+        shared = sum(sm.store.resident_nbytes(n) for n in sm.engine.pinned)
+        infos = resident_infos(unit_infos(model, sm.units, 1, seq),
+                               sm.engine.store, names)
+        floor = grid_floor(PartitionPlanner(infos, DelayModel(), m=P9_M),
+                           ARM_GRID)
+        budget = int(P9_BUDGET_OVER_FLOOR * floor)
+        ledger_budget = budget + shared
+        resident = plan_at_floor(torch, sm, floor, budget, seq, quant_s, tag,
+                                 ledger_budget=ledger_budget, grid=ARM_GRID)
+        require(budget < resident and sm.plan.n_blocks >= 3,
+                f"{tag}: budget {budget} against resident {resident}, "
+                f"{sm.plan.n_blocks} blocks (>= 3 and below the store's "
+                f"resident bytes required)")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        logits, st = sm.forward(batch)
+        counts = collect()
+        max_alloc = torch.cuda.max_memory_allocated()
+        es = sm.engine.stats
+        require(all(counts[k] == n for k, n in expect.items()),
+                f"{tag}: launches {counts}, expected {expect}")
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (1, 1, cfg.vocab_size),
+                f"{tag}: logits {tuple(logits.shape)}, finite "
+                f"{bool(torch.isfinite(logits).all())}")
+        require(es.peak_resident <= ledger_budget,
+                f"{tag}: peak ledger {es.peak_resident} over the ledger "
+                f"budget {ledger_budget}")
+        require(sm.engine.ledger.resident == shared,
+                f"{tag}: {sm.engine.ledger.resident} B charged after the "
+                f"pass, the pinned units' lazy resident bytes {shared}")
+        row = report_prefill(f"{tag} first pass", sm, st, ledger_budget,
+                             resident, max_alloc)
+
+        def unswapped(resident_units, plain_b1=False):
+            """forward_unswapped over ``resident_units`` (with
+            ``plain_b1`` every quantized linear through swap_linear_q's
+            plain version on the card), and each moe layer's experts of
+            the last token, sorted."""
+            routes, route = [], moe.route
+            b1 = layers.swap_linear_q
+
+            def recording(c, router, xf):
+                r = route(c, router, xf)
+                routes.append(r[1].reshape(-1, r[1].shape[-1])[-1].sort()
+                              .values)
+                return r
+            moe.route = recording
+            if plain_b1:
+                layers.swap_linear_q = slq.swap_linear_q_plain
+            try:
+                out = sm.forward_unswapped(batch, resident=resident_units)
+            finally:
+                moe.route, layers.swap_linear_q = route, b1
+            return out, routes
+
+        t0 = time.perf_counter()
+        stored = {n: sm.store.read_unit(n).params
+                  for n in dict.fromkeys(names)}
+        lazy = [stored[n] for n in names]
+        want, routes_q = unswapped(lazy)
+        require(torch.equal(logits, want), f"{tag}: swapped logits != the "
+                f"unswapped forward over the store's lazy leaves")
+        ref, routes_p = unswapped(lazy, plain_b1=True)
+        del lazy, stored
+        check_s = time.perf_counter() - t0
+        flips = [int(not torch.equal(a, b))
+                 for a, b in zip(routes_q, routes_p)]
+        err = rel_err(torch, logits, ref)
+        held = not any(flips)
+        if held:
+            require(err[1] <= ARM_TOL, f"{tag}: logits vs the forward over "
+                    f"the widened weights rel {err[1]:.3g} > {ARM_TOL}")
+        print(f"[{tag}] swapped logits == the unswapped forward over the "
+              f"store's lazy leaves bitwise; vs the same forward with each "
+              f"quantized linear through B1's plain version (the weights "
+              f"widened to fp32 whole, an fp32 matmul) rel {err[1]:.4g} (max "
+              f"abs {err[0]:.3g}) "
+              + (f"<= {ARM_TOL}" if held else "not held")
+              + (f", last-token routing flips by layer {flips}"
+                 if routes_q else "")
+              + f"; quantize and write {quant_s:.1f} s, the identities "
+              f"{check_s:.1f} s; launches {counts}", flush=True)
+        row.update(quant_s=quant_s, check_s=check_s, budget=budget,
+                   floor=floor, resident=resident, blocks=sm.plan.n_blocks,
+                   rel_err=err[1], routing_flips=flips, launches=counts)
+    finally:
+        sm.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return row
 
 
 def host_copy(torch, tree):
@@ -4198,6 +4442,8 @@ def run_deepseek(torch, main_launches):
         out.update(resident=resident, ratio=ratio)
         require(ratio >= DS_MIN_RATIO, f"{tag}: resident / budget "
                 f"{ratio:.3f} < {DS_MIN_RATIO}")
+        qmodel = Model(dataclasses.replace(cfg, n_layers=DS_Q_LAYERS))
+        cut = cut_params(qmodel, params, model.plan)
         del params
 
         # ---- (a) the swapped prefill
@@ -4405,14 +4651,27 @@ def run_deepseek(torch, main_launches):
                          "routing_flips": flips, "bf16_rel_gap": gap16,
                          "launches": ecounts}
         del dev_params, cache
-        print(f"[phase11] wall s: init {init_s:.1f}, store "
-              f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
-              f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}, decode "
-              f"{decode_s:.1f}, engine {engine_s:.1f}", flush=True)
     finally:
         sm.close()
         shutil.rmtree(P11_WORKDIR, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # ---- (d) the int8-lazy arm: wq, wo and the shared expert's three
+    # through B1 a layer, and the head; the routed stacks, the router and
+    # the latent projections widened on the host
+    t0 = time.perf_counter()
+    out["int8_lazy"] = quant_arm(
+        torch, f"phase11 {cfg.name} bf16 int8-lazy, {DS_Q_LAYERS} layers",
+        qmodel, cut, batch, DS_PROMPT, P11_WORKDIR / "int8-lazy", reset,
+        collect, {"swap_linear_q": 5 * DS_Q_LAYERS + 1, "swap_linear": 0,
+                  "flash_attention": DS_Q_LAYERS, "dequant_int8": 0})
+    del cut
+    arm_s = time.perf_counter() - t0
+    print(f"[phase11] wall s: init {init_s:.1f}, store "
+          f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
+          f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}, decode "
+          f"{decode_s:.1f}, engine {engine_s:.1f}, int8-lazy arm "
+          f"{arm_s:.1f}", flush=True)
     out["by_shape"] = {
         name: {k: n - before[name].get(k, 0) for k, n in keys.items()
                if n > before[name].get(k, 0)}
@@ -4507,6 +4766,8 @@ def run_zamba2(torch, main_launches):
                 f"({n_shared} shared occurrences)")
         require(ratio >= Z_MIN_RATIO, f"{tag}: resident / ledger budget "
                 f"{ratio:.3f} < {Z_MIN_RATIO}")
+        qmodel = Model(dataclasses.replace(cfg, n_layers=Z_Q_LAYERS))
+        cut = cut_params(qmodel, params, model.plan)
         del params
 
         # ---- (a) the swapped prefill; every store read counted by unit
@@ -4713,14 +4974,32 @@ def run_zamba2(torch, main_launches):
                          "fp32_rel_err": ierr[1], "bf16_rel_gap": gap16,
                          "launches": ecounts}
         del dev_params, cache
-        print(f"[phase12] wall s: init {init_s:.1f}, store "
-              f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
-              f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}, decode "
-              f"{decode_s:.1f}, engine {engine_s:.1f}", flush=True)
     finally:
         sm.close()
         shutil.rmtree(P12_WORKDIR, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # ---- (d) the int8-lazy arm: each Mamba2 wo and the shared block's 7
+    # through B1, the block pinned as a lazy quantized unit, and the tied
+    # head (embed.T, quantized per vocab column); in_proj and the
+    # embedding widened on the host
+    qkinds = qmodel.cfg.layer_kinds()
+    t0 = time.perf_counter()
+    out["int8_lazy"] = quant_arm(
+        torch, f"phase12 {cfg.name} bf16 int8-lazy, {Z_Q_LAYERS} layers",
+        qmodel, cut, batch, Z_PROMPT, P12_WORKDIR / "int8-lazy", reset,
+        collect, {"swap_linear_q": qkinds.count("mamba2")
+                  + 7 * qkinds.count("shared_attn") + 1,
+                  "swap_linear": 0,
+                  "flash_attention": qkinds.count("shared_attn"),
+                  "dequant_int8": 0})
+    del cut
+    arm_s = time.perf_counter() - t0
+    print(f"[phase12] wall s: init {init_s:.1f}, store "
+          f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
+          f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}, decode "
+          f"{decode_s:.1f}, engine {engine_s:.1f}, int8-lazy arm "
+          f"{arm_s:.1f}", flush=True)
     out["by_shape"] = {
         name: {k: n - before[name].get(k, 0) for k, n in keys.items()
                if n > before[name].get(k, 0)}
@@ -4809,6 +5088,8 @@ def run_qwen2_vl(torch, main_launches):
         out.update(resident=resident, ratio=ratio)
         require(ratio >= VL_MIN_RATIO, f"{tag}: resident / budget "
                 f"{ratio:.3f} < {VL_MIN_RATIO}")
+        qmodel = Model(dataclasses.replace(cfg, n_layers=VL_Q_LAYERS))
+        cut = cut_params(qmodel, params, model.plan)
         del params
 
         t0 = time.perf_counter()
@@ -4908,15 +5189,27 @@ def run_qwen2_vl(torch, main_launches):
               f" batched {paged_s:.1f} s, alone {solo_s:.1f} s; launches "
               f"{pcounts}", flush=True)
         out["paged"].update(tokens=got, batched_s=paged_s, solo_s=solo_s)
-        print(f"[phase13] wall s: init {init_s:.1f}, store "
-              f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
-              f"{st['latency_s']:.1f}, unswapped and moved grid "
-              f"{unswapped_s:.1f}, paged {paged_s:.1f}, alone {solo_s:.1f}",
-              flush=True)
     finally:
         sm.close()
         shutil.rmtree(P13_WORKDIR, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # ---- the int8-lazy arm: the biased wq / wk / wv at K 8,192, wo, the
+    # MLP at N 29,568 and its wo at K 29,568, and the head at N 152,064
+    # through B1; the embedding and the frontend widened on the host
+    t0 = time.perf_counter()
+    out["int8_lazy"] = quant_arm(
+        torch, f"phase13 {cfg.name} bf16 int8-lazy, {VL_Q_LAYERS} layer",
+        qmodel, cut, batch, VL_PROMPT, P13_WORKDIR / "int8-lazy", reset,
+        collect, {"swap_linear_q": 7 * VL_Q_LAYERS + 1, "swap_linear": 0,
+                  "flash_attention": VL_Q_LAYERS, "dequant_int8": 0})
+    del cut
+    arm_s = time.perf_counter() - t0
+    print(f"[phase13] wall s: init {init_s:.1f}, store "
+          f"{out['store_s']:.1f}, warm pass {warm_s:.1f}, timed pass "
+          f"{st['latency_s']:.1f}, unswapped and moved grid "
+          f"{unswapped_s:.1f}, paged {paged_s:.1f}, alone {solo_s:.1f}, "
+          f"int8-lazy arm {arm_s:.1f}", flush=True)
     out["by_shape"] = {
         name: {k: n - before[name].get(k, 0) for k, n in keys.items()
                if n > before[name].get(k, 0)}
@@ -6351,6 +6644,10 @@ def main() -> int:
         print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
               f"{path.name}; ptxas: {regs[:2]} ... ({len(regs)} variants)",
               flush=True)
+        print("nvcc s by source (all started together): " + ", ".join(
+            f"{name} {sec:.1f}" for name, sec in sorted(
+                _build.build_seconds.items(), key=lambda kv: -kv[1])),
+            flush=True)
         for line in (gemm_ptxas(_build.build_log)
                      + kernel_ptxas(_build.build_log, ATTENTION_KERNELS)
                      + kernel_ptxas(_build.build_log, WKV6_KERNELS)):
@@ -6366,18 +6663,35 @@ def main() -> int:
     conv_path = p10_kernel_shapes(sd_sched)
     print(f"phase 10's self-driving fleet planned in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # phases 11-13's int8-lazy arms: their configs cut to the arms' depths
+    arms = [k for name, d, M in (
+        ("deepseek-v2-lite-16b", DS_Q_LAYERS, DS_PROMPT),
+        ("zamba2-7b", Z_Q_LAYERS, Z_PROMPT),
+        ("qwen2-vl-72b", VL_Q_LAYERS, VL_PROMPT))
+        for k in arm_linear_shapes(dataclasses.replace(
+            get_arch(name), n_layers=d), M)]
     with phase("2 kernels against their plain versions"):
-        rows = check_kernels(torch, cfg, conv_path)
-        rows += check_paged_attention(torch)
-        rows += check_wkv6(torch)
-        rows += check_swap_linear(torch, cfg, gcfg, get_arch("rwkv6-3b"),
-                                  get_arch("llama4-scout-17b-a16e"),
-                                  get_arch("deepseek-v2-lite-16b"),
-                                  get_arch("zamba2-7b"),
-                                  get_arch("qwen2-vl-72b"),
-                                  get_arch("hubert-xlarge"), conv_path)
-        rows += check_flash_attention(torch)
-        check_train_grads(torch, cfg)
+        secs = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            secs[name] = time.perf_counter() - t0
+            return out
+        rows = timed("swap_linear_q, dequant_int8", check_kernels, torch,
+                     cfg, conv_path, arms)
+        rows += timed("paged_attention", check_paged_attention, torch)
+        rows += timed("wkv6", check_wkv6, torch)
+        rows += timed("swap_linear", check_swap_linear, torch, cfg, gcfg,
+                      get_arch("rwkv6-3b"), get_arch("llama4-scout-17b-a16e"),
+                      get_arch("deepseek-v2-lite-16b"), get_arch("zamba2-7b"),
+                      get_arch("qwen2-vl-72b"), get_arch("hubert-xlarge"),
+                      conv_path)
+        rows += timed("flash_attention", check_flash_attention, torch)
+        timed("gradients", check_train_grads, torch, cfg)
+        print("[phase2] s: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in secs.items()),
+              flush=True)
 
     from repro_torch.models.transformer import Model
     main_launches = {name: {} for name in KERNEL_NAMES}

@@ -3,7 +3,7 @@
 // fences, named barriers, 16-byte cp.async, the 128-byte-swizzle wgmma
 // descriptor and layout, and the driver's tensor-map encoder fetched at run
 // time (cudaGetDriverEntryPoint(ByVersion)), so no kernel library links
-// libcuda. sm90_gemm.cuh (swap_linear, swap_linear_q), flash_attention.cu
+// libcuda. sm90_gemm.cuh (swap_linear, swap_linear_q), flash_attention.cuh
 // and paged_attention.cu include it.
 #pragma once
 

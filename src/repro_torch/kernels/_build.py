@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -38,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _lib = None
 build_log = ""      # nvcc/ptxas report of the build this process ran
+build_seconds: dict = {}   # source name -> seconds its nvcc ran, that build
 
 
 def nvcc_path() -> str:
@@ -65,7 +67,8 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless this exact build exists; returns the .so."""
+    """Compile the sources unless this exact build exists; returns the .so.
+    Records each source's compile seconds in :data:`build_seconds`."""
     global build_log
     if not sources():
         raise RuntimeError(
@@ -79,20 +82,26 @@ def build() -> Path:
     tmp = out.with_name(f"{tag}.tmp.so")
     nvcc = nvcc_path()
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    logs = [obj.with_suffix(".log") for obj in objs]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources(), objs)]
-    log, procs = [], []
+    procs, done = [], {}
     try:
-        for cmd in cmds:                # every source at once
-            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
-        for cmd, proc in zip(cmds, procs):
-            text = proc.communicate()[0]
-            log.append(text)
+        t0 = time.perf_counter()
+        for cmd, log in zip(cmds, logs):        # every source at once
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen(cmd, stdout=fh,
+                                              stderr=subprocess.STDOUT))
+        while len(done) < len(procs):
+            for i, proc in enumerate(procs):
+                if i not in done and proc.poll() is not None:
+                    done[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+        for cmd, proc, log in zip(cmds, procs, logs):
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed with code {proc.returncode}"
-                                   f":\n{' '.join(cmd)}\n{text}")
+                                   f":\n{' '.join(cmd)}\n{log.read_text()}")
+        text = [log.read_text() for log in logs]
         cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -104,10 +113,13 @@ def build() -> Path:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for obj in objs:
-            obj.unlink(missing_ok=True)
+        for f in objs + logs:
+            f.unlink(missing_ok=True)
     os.replace(tmp, out)
-    build_log = "".join(log)
+    build_log = "".join(text)
+    build_seconds.clear()
+    build_seconds.update((src.name, done[i])
+                         for i, src in enumerate(sources()))
     return out
 
 

@@ -51,15 +51,18 @@ def _quantize(arr: np.ndarray, limit: int):
     round-half-to-even(x / scale) clipped, int8. The JAX package's numpy
     arithmetic (``np.rint`` of an fp32 quotient) in torch ops, which run on
     every host core: each step is exact or one IEEE fp32 rounding, so the
-    bytes are numpy's."""
+    bytes are numpy's. max|x| is max(max x, -min x), exact, with no |x|
+    copy, and the quotient is rounded and clipped in place: one fp32
+    temporary the size of x."""
     x2 = _channel_grid(arr)
     if not (x2.flags.writeable and x2.flags.c_contiguous):
         x2 = np.array(x2, order="C")
     x = torch.from_numpy(x2)
-    amax = x.abs().amax(dim=0)
+    amax = torch.maximum(x.amax(dim=0), x.amin(dim=0).neg_())
     scales = torch.where(amax > 0.0, amax / float(limit),
                          torch.ones_like(amax))
-    q = torch.round(x / scales[None, :]).clamp_(-limit, limit)
+    q = torch.div(x, scales[None, :])
+    q.round_().clamp_(-limit, limit)
     return q.to(torch.int8).numpy(), scales.numpy()
 
 

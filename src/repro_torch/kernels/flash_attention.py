@@ -26,7 +26,9 @@ it refuses a window. The kernels start a block's KV scan at the first key
 of the chunk holding its smallest position, so a local layer visits at
 most its own chunk's tiles (two chunks' for a block across a boundary).
 
-The CUDA kernels are in ``csrc/flash_attention.cu``; :func:`path` picks
+The CUDA kernels are in ``csrc/flash_attention.cuh``, each instantiation
+compiled in a source of its own and dispatched by
+``csrc/flash_attention.cu``; :func:`path` picks
 one from (dtype, hd, dv) on the host, never as a reaction to a failure.
 bf16 takes the tensor cores wherever hd and dv are multiples of 8 (TMA's
 16-byte row stride), at most 256, and their widths rounded up to 64
@@ -75,7 +77,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 # the tensor-core kernel's instantiations (HD, HDV), the widths a bf16
 # (hd, dv) rounds up to: equal ones, and MLA's 192 / 128. The dispatch of
-# csrc/flash_attention.cu's repro_flash_attention takes the same pairs
+# csrc/flash_attention.cu's repro_flash_attention takes the same pairs,
+# each compiled in csrc/flash_attention_tc<HD>.cu
 TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 TC_ALIGN = 8                     # hd, dv multiples of 8: 16-byte TMA rows
 PATHS = {"tc": 0, "simt": 1}

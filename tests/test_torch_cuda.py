@@ -1635,3 +1635,125 @@ def test_ring_decode_on_the_card(dev):
             got, _ = model.decode_step(params, ring, b)
             assert _rel(got, want) <= 1e-5, i
             tok = want.argmax(-1).reshape(1, 1)
+
+
+# ------------------------------------------- the int8-lazy arms' linears
+# (K, N, act, bias, x dtype) of every swap_linear_q launch of chip_smoke.py
+# phases 11-13's int8-lazy arms at published widths; each head takes the
+# last position in fp32
+ARM_LINEARS = [
+    # deepseek-v2-lite: wq, attention wo, the shared expert's wi0 / wi1 /
+    # wo, the head
+    (2048, 3072, "none", False, torch.bfloat16),
+    (2048, 2048, "none", False, torch.bfloat16),
+    (2048, 2816, "silu", False, torch.bfloat16),
+    (2048, 2816, "none", False, torch.bfloat16),
+    (2816, 2048, "none", False, torch.bfloat16),
+    (2048, 102400, "none", False, torch.float32),
+    # zamba2-7b: the shared block's q / k / v / o, wi0, wi1, wo, each
+    # Mamba2 layer's wo, the tied head
+    (3584, 3584, "none", False, torch.bfloat16),
+    (3584, 14336, "silu", False, torch.bfloat16),
+    (3584, 14336, "none", False, torch.bfloat16),
+    (14336, 3584, "none", False, torch.bfloat16),
+    (7168, 3584, "none", False, torch.bfloat16),
+    (3584, 32000, "none", False, torch.float32),
+    # qwen2-vl-72b: wq (biased; wo at the same shape has none), wk / wv
+    # (biased), wi0, wi1, wo, the head
+    (8192, 8192, "none", True, torch.bfloat16),
+    (8192, 8192, "none", False, torch.bfloat16),
+    (8192, 1024, "none", True, torch.bfloat16),
+    (8192, 29568, "silu", False, torch.bfloat16),
+    (8192, 29568, "none", False, torch.bfloat16),
+    (29568, 8192, "none", False, torch.bfloat16),
+    (8192, 152064, "none", False, torch.float32),
+]
+
+
+def _card_weights(dev, bits, K, N, seed):
+    """A random int8 (or int4 carrier) weight and scales made on the card:
+    the numpy quantizer would take seconds a weight at these sizes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-127 if bits == 8 else -128, 128,
+                      (K if bits == 8 else -(-K // 2), N), generator=g,
+                      device=dev, dtype=torch.int8)
+    s = torch.rand((N,), generator=g, device=dev) * (2.0 / 127) / K ** 0.5
+    return q, s
+
+
+@pytest.mark.parametrize("K,N,act,bias,dtype", ARM_LINEARS,
+                         ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("bits", [8, 4])
+def test_swap_linear_q_at_the_int8_lazy_arms_shapes(dev, bits, K, N, act,
+                                                    bias, dtype):
+    """B1 at each launch shape of the int8-lazy arms, int8 and int4, at M 2
+    and 64 against the plain version, and the 64-row call's rows bitwise
+    their 1-row calls."""
+    q, s = _card_weights(dev, bits, K, N, seed=K + N + bits)
+    g = torch.Generator(device=dev).manual_seed(K * 3 + N)
+    b = ((torch.randn((N,), generator=g, device=dev) * 0.1).to(dtype)
+         if bias else None)
+    for M in (2, 64):
+        x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+        got = slq.swap_linear_q(x, q, s, b, bits=bits, act=act)
+        want = slq.swap_linear_q_plain(x, q, s, b, bits=bits, act=act)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and tuple(got.shape) == (M, N)
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= TOL[dtype], M
+    for i in (0, 1, 31, 63):
+        one = slq.swap_linear_q(x[i:i + 1].contiguous(), q, s, b, bits=bits,
+                                act=act)
+        assert torch.equal(got[i:i + 1], one), i
+
+
+def _lazy_units(sm):
+    stored = {n: sm.store.read_unit(n).params
+              for n in dict.fromkeys(u.name for u in sm.units)}
+    return [stored[u.name] for u in sm.units]
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "zamba2-7b",
+                                  "qwen2-vl-72b"])
+def test_int8_lazy_arm_on_the_card(dev, tmp_path, name):
+    """The int8-lazy arms' identity at ``reduced()`` widths in bf16: the
+    swapped pass is bitwise the unswapped forward over the store's own
+    lazy leaves, B1 carries every fusable weight (B5 none) and B4 every
+    attention layer."""
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="bfloat16")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(7)
+    B, S = 2, 32
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))}
+    if cfg.rope_type == "mrope":
+        nv = cfg.n_vision_tokens
+        side = int(nv ** 0.5)
+        i = np.arange(S)
+        pos = np.stack([i, np.where(i < nv, i // side, i),
+                        np.where(i < nv, i % side, i)], axis=-1)
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, nv, cfg.d_frontend)).astype(np.float32))
+        batch["positions"] = torch.from_numpy(np.broadcast_to(
+            pos, (B, S, 3)).astype(np.int32).copy())
+    kinds = cfg.layer_kinds()
+    per = {"dense": 7, "moe": 5, "mamba2": 1, "shared_attn": 7}
+    budget = 8 * 1024 * 1024
+    sm = SwappedModel(model, params, str(tmp_path), store_backend="quant",
+                      precision="int8")
+    try:
+        sm.partition(budget, DelayModel(), B, S)
+        for c in (slq.launches, sl.launches, fa.launches):
+            c.reset()
+        logits, _ = sm.forward(batch)
+        torch.cuda.synchronize()
+        assert slq.launches.count == sum(per[k] for k in kinds) + 1
+        assert sl.launches.count == 0
+        assert fa.launches.count == sum(k in ("moe", "dense", "shared_attn")
+                                        for k in kinds)
+        want = sm.forward_unswapped(batch, resident=_lazy_units(sm))
+    finally:
+        sm.close()
+    assert logits.is_cuda and bool(torch.isfinite(logits).all())
+    assert torch.equal(logits, want)

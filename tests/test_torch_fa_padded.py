@@ -1,7 +1,8 @@
 """flash_attention's tensor-core rule at padded head dims, on the CPU.
 
 bf16 takes the tensor-core kernel (``fa_tc`` in
-``src/repro_torch/csrc/flash_attention.cu``) at every (hd, dv) whose
+``src/repro_torch/csrc/flash_attention.cuh``, dispatched by
+``flash_attention.cu``) at every (hd, dv) whose
 entries are multiples of 8, at most 256, and round up to one of the
 kernel's instantiations (``kernels/flash_attention.py::TC_HEAD_DIMS``):
 TMA reads q, k and v at their real widths and zero-fills each 64-column
@@ -10,7 +11,8 @@ box past them. No card is needed to check what that design rests on:
   * the rule: every config the port carries maps its bf16 prefill pair to
     "tc", and the ``.cu`` dispatch (read as text, as
     ``tests/test_torch_gemm_schedule.py`` reads ``sm90_gemm.cuh``) takes
-    exactly the pairs ``path`` sends there, with a k-step count for each;
+    exactly the pairs ``path`` sends there, with a k-step count for each,
+    each pair's entry compiled in a source of its own;
   * the premise, through the plain version in float32: q, k and v
     zero-padded to the padded widths give the unpadded output in the dv
     real columns (within 1e-6 of the largest value: only the order of the
@@ -34,8 +36,9 @@ from repro.kernels.flash_attention import flash_attention as ref_flash  # noqa: 
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-          / "csrc" / "flash_attention.cu")
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+SOURCE = CSRC / "flash_attention.cu"        # the C entry and its dispatch
+HEADER = CSRC / "flash_attention.cuh"       # the kernels and run_tc
 # (hd, dv) padded on the tensor cores: hubert's 80, zamba2's 112,
 # h2o-danube's 120 (to 128), the reduced MLA's (48, 32) (to 64)
 PADDED = [(80, 80), (112, 112), (120, 120), (48, 32)]
@@ -58,15 +61,16 @@ def _prefill_pair(cfg):
 
 def _dispatch():
     """(the (HD, HDV) instantiations repro_flash_attention dispatches to,
-    run_tc's k-step offsets), read from the source."""
+    run_tc's k-step offsets, the entry's text), read from the sources."""
     text = SOURCE.read_text()
     entry = text[text.index('extern "C" int repro_flash_attention'):]
     pairs = []
     for m in re.finditer(r"if \(w_hd == (\d+) && w_dv == (\d+)\) \{\s*"
-                         r"return run_tc<(\d+), (\d+)>", entry):
+                         r"return repro_fa_tc_(\d+)_(\d+)\(", entry):
         a, b, c, d = map(int, m.groups())
         assert (a, b) == (c, d), m.group(0)
         pairs.append((a, b))
+    text = HEADER.read_text()
     body = text[text.index("int run_tc("):text.index("template <typename T, "
                                                      "int HD, int HDV>\nint "
                                                      "launch_simt")]
@@ -133,6 +137,33 @@ def test_dispatch_takes_exactly_the_rule():
     # 200..256) and 8 x 8 at (192, 128)
     assert n_tc == 4 * 64
 
+
+
+def test_each_instantiation_compiles_in_a_source_of_its_own():
+    """The build runs one nvcc per source, all at once: each tensor-core
+    instantiation the dispatch reaches, and the CUDA-core kernel in each
+    dtype, is defined by exactly one source apart from the dispatch, which
+    instantiates no kernel itself; the header declares every entry."""
+    pairs, _, _ = _dispatch()
+    header = HEADER.read_text()
+    defined = {}
+    for src in sorted(CSRC.glob("flash_attention*.cu")):
+        for m in re.finditer(r'extern "C" int (repro_fa_\w+)\(REPRO_FA_PARAMS\)'
+                             r" \{\s*return (run_tc<(\d+), (\d+)>|"
+                             r"run_simt<(float|__nv_bfloat16)>)\(",
+                             src.read_text()):
+            assert m.group(1) not in defined, m.group(1)
+            defined[m.group(1)] = (src.name, m.group(2))
+            assert f"int {m.group(1)}(REPRO_FA_PARAMS);" in header
+    assert "run_tc<" not in SOURCE.read_text()
+    assert "run_simt<" not in SOURCE.read_text()
+    for a, b in pairs:
+        name, call = defined[f"repro_fa_tc_{a}_{b}"]
+        assert call == f"run_tc<{a}, {b}>" and name != SOURCE.name
+    assert defined["repro_fa_simt_fp32"][1] == "run_simt<float>"
+    assert defined["repro_fa_simt_bf16"][1] == "run_simt<__nv_bfloat16>"
+    files = {name for name, _ in defined.values()}
+    assert len(files) == len(pairs) + 2
 
 def _inputs(B, S, H, KV, hd, dv, seed):
     rng = np.random.default_rng(seed)

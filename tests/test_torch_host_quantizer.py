@@ -33,3 +33,26 @@ def test_host_quantizers_bitwise_on_ties_and_zero_channels(shape):
         assert q.dtype == np.int8 and s.dtype == np.float32
         np.testing.assert_array_equal(q, np.asarray(rq))
         np.testing.assert_array_equal(s, np.asarray(rs))
+
+
+@pytest.mark.parametrize("shape", [(64, 33), (2, 16, 9)])
+def test_host_quantizers_bitwise_where_the_largest_magnitude_is_negative(
+        shape):
+    """max|x| taken as max(max x, -min x): channels whose largest
+    magnitude is negative, signed zeros only, and one where both signs
+    reach it, each against the reference's |x| maximum."""
+    rng = np.random.default_rng(12)
+    a = rng.standard_normal(shape).astype(np.float32)
+    grid = a.reshape(-1, shape[-1])
+    grid[:, 0] = -np.abs(grid[:, 0]) - 1.0              # all negative
+    grid[:, 1] = np.where(np.arange(grid.shape[0]) % 2, -0.0, 0.0)
+    grid[:, 2] = 0.25
+    grid[0, 2], grid[-1, 2] = -3.0, 3.0                 # both signs at max
+    grid[0, 3] = -9.0                                   # a negative outlier
+    a = grid.reshape(shape)
+    for ours, theirs in ((dq.quantize_int8, ref_dq.quantize_int8),
+                         (dq.quantize_int4, ref_dq.quantize_int4)):
+        q, s = ours(a)
+        rq, rs = theirs(a)
+        np.testing.assert_array_equal(q, np.asarray(rq))
+        np.testing.assert_array_equal(s, np.asarray(rs))
