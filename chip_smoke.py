@@ -18,7 +18,11 @@ Phases, each printing its wall time:
    beside their plain version (one call: it is no yardstick), a library
    call where one computes the same function, and the card's bound;
    ``swap_linear_q`` at every launch shape of phases 11-13's int8-lazy
-   arms in int8 and int4 too, each call's rows bitwise its 1-row calls;
+   arms in int8 and int4 too, and of phase 20's int4 granite-20b, each
+   call's rows bitwise its 1-row calls; ``paged_attention`` at
+   h2o-danube's hd 120 (32 / 8 heads) and granite-20b's 48 / 1 heads of
+   128, fp32 and bf16, ragged, with and without the window, and their
+   4,100-token rows alone == beside others;
    then ``swap_linear`` and ``flash_attention`` under autograd (their
    ``autograd.Function``s) against autograd through their plain versions
    at phase 15's shapes, in fp32 and bf16;
@@ -256,19 +260,40 @@ Phases, each printing its wall time:
    4,200-slot cache's tokens, every step's logits within 1e-4 of that
    step's largest on the full cache (the worst printed); (c) one decode
    step of the same model with ``SHARDED_DECODE_AXIS`` on the mesh equal
-   to the unsharded step within 1e-5.
+   to the unsharded step within 1e-5; then (b)'s model paged: the ring's
+   4,000-token prompt and two of 40 tokens (100, 4 and 4 new tokens)
+   through the batch engine on a swapped fp32 mmap store (0.9x its
+   resident bytes, 3 blocks) with pages of 16 tokens, the long request
+   decoding to 4,099 tokens, past its window; every request's tokens equal
+   it served alone in memory, and ``paged_attention`` launched once a
+   layer a decode step, at hd 120 (the kernel's row width 128), 32 / 8
+   heads, window 4096;
+20. granite-20b at its published widths (d_model 6144, 48 query heads of
+   128 on one KV head, a GELU MLP of 24,576, vocab 49,152), depth 52 -> 2,
+   seed-0 weights drawn on the card: its ``swap_precision``'s int4 lazy
+   store (under ``build/phase20``, removed after) under 1.1x the smallest
+   budget on a 0.01 GB grid at which the planner packs it at m = 2, below
+   its resident bytes in 3 blocks; one first pass of a 512-token prompt
+   with phases 11-13's identities (bitwise the forward over the store's
+   lazy leaves, within 2e-2 of it through B1's plain version, the device
+   bytes the ledger's), ``swap_linear_q`` 13 times; then on the same store
+   and budget three paged bf16 generations (512-token prompts, 2 new
+   tokens) equal to each served alone, ``paged_attention`` at 48 / 1 heads
+   (six head groups a KV head).
 
 Every full-precision linear of phases 3 to 17 and 19 runs ``swap_linear`` and
 every prefill's (and every training step's) attention
 ``flash_attention``; rwkv6's recurrence ``wkv6``; the quantized stores'
 lazy linears run ``swap_linear_q``; every paged decode step
-``paged_attention``. Every shape phases 7 to 17 and 19 launch a kernel at
+``paged_attention``. Every shape phases 7 to 20 launch a kernel at
 is one of phase 2's rows, held against the plain version there and timed;
 the script checks it. The exceptions are the fp32 gradient identities of
 phases 15-17 and 19 (a), which run before each counted run: their fp32
 shapes are held in phase 2 only through the Functions' gradient check
-(``check_train_grads``), not timed; and phase 19 (b) and (c), checks of
-the decode forms against the full-cache and unsharded decodes.
+(``check_train_grads``), not timed; phase 19 (b)'s ring and (c), checks of
+the decode forms against the full-cache and unsharded decodes; and the
+in-memory runs each paged request is held to. The phases' seconds are
+printed together before the total.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line: per
 kernel and main-path shape, the launches the paths made there, the error
@@ -558,6 +583,31 @@ ARM_GRID = 10 ** 7                     # budget search step, 0.01 GB
 # phase 3's bound, bf16's tolerance
 ARM_TOL = 2e-2
 
+# phase 19 (b): h2o-danube-3-4b's paged decode on the ring's model (32 /
+# 8 heads of 120, a 4,096-token window on every layer), in fp32: the
+# ring's 4,000-token prompt beside two short ones through the batch engine
+# on a swapped mmap store; the long one decodes 100 tokens, to 4,099, past
+# its window (B3 then skips the tokens before it), the short ones retire
+# together after 3 decode steps at batch 3
+DN_PAGED_PROMPTS, DN_PAGED_NEW = [4000, 40, 40], [100, 4, 4]
+DN_MAX_PAGES = 270                     # 257 + 3 + 3 pages live at most
+DN_SCALE = 120 ** -0.5
+# its decode's seq_lens at the first step (batch 3) and the last (alone)
+DN_FIRST_STEP = [n + 1 for n in DN_PAGED_PROMPTS]
+DN_LAST_STEP = [DN_PAGED_PROMPTS[0] + DN_PAGED_NEW[0] - 1]
+
+# phase 20: granite-20b at its published widths, depth cut 52 -> 2 (d_model
+# 6144, 48 query heads of 128 on one KV head, a GELU MLP of 24,576, vocab
+# 49,152): its swap_precision's int4 lazy store, one first pass of one
+# GR_PROMPT-token prompt with quant_arm's identities, then three paged bf16
+# generations on the same store and budget, equal to each served alone
+GR_LAYERS = 2
+GR_PROMPT = 512
+GR_PAGED_PROMPTS, GR_PAGED_NEW = [GR_PROMPT] * 3, 2
+GR_MAX_PAGES = 3 * 33 + 3              # 33 pages a sequence at 514 tokens
+GR_SCALE = 128 ** -0.5
+P20_WORKDIR = ROOT / "build" / "phase20"
+
 # phase 14: hubert-xlarge at its published widths and full depth (48
 # layers): 2 x 1,500 frames, 30 s of audio at HuBERT's 20 ms frame rate,
 # swapped under 1.1x the smallest budget on a 0.01 GB grid at which the
@@ -626,8 +676,12 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+PHASE_SECONDS = {}                 # phase number -> wall seconds
+
+
 def phase(name: str):
-    """Context manager printing a phase's wall time."""
+    """Context manager printing a phase's wall time (and keeping it in
+    PHASE_SECONDS under the phase's number)."""
     class _P:
         def __enter__(self):
             self.t0 = time.perf_counter()
@@ -635,8 +689,9 @@ def phase(name: str):
 
         def __exit__(self, *exc):
             if exc[0] is None:
-                print(f"== phase {name}: {time.perf_counter() - self.t0:.1f} s",
-                      flush=True)
+                sec = time.perf_counter() - self.t0
+                PHASE_SECONDS[name.split()[0]] = sec
+                print(f"== phase {name}: {sec:.1f} s", flush=True)
     return _P()
 
 
@@ -797,18 +852,19 @@ def slice_linear_shapes(cfg):
     return [k + (b,) for k, b in out.items()]
 
 
-def arm_linear_shapes(cfg, M):
+def arm_linear_shapes(cfg, M, head_rows=1):
     """(M, K, N, act, x dtype, bias) of every B1 launch key of an
     int8-lazy arm's swapped prefill of one M-token prompt: a layer's
     linears (:func:`fp_layer_linears`; a Mamba2 layer's wo too) on the
-    model's dtype, and the head on the last position in fp32."""
+    model's dtype, and the head on the last position in fp32 (on
+    ``head_rows`` rows: a decode step's batch)."""
     out = [(M, K, N, act, cfg.dtype, b)
            for K, N, act, b in fp_layer_linears(cfg)]
     if "mamba2" in cfg.layer_kinds():
         out.append((M, cfg.ssm.expand * cfg.d_model, cfg.d_model, "none",
                     cfg.dtype, False))
-    return out + [(1, cfg.d_model, cfg.vocab_size, "none", "float32",
-                   False)]
+    return out + [(head_rows, cfg.d_model, cfg.vocab_size, "none",
+                   "float32", False)]
 
 
 def check_row_independence(torch, g, which):
@@ -1028,12 +1084,13 @@ def check_kernels(torch, cfg, conv_path, arms):
                 seen.add((M, K, N, bits, dname, act))
                 q_row(M, K, N, bits, dname, act, has_bias, q, s)
             del q, s
-    # phases 11-13's int8-lazy arms at their published widths: each launch
-    # key in int8 and int4, held and timed, and the rows of each call
-    # bitwise its 1-row calls (a head's 1-row call against a 4-row one)
+    # phases 11-13's int8-lazy arms and phase 20's int4 store at their
+    # published widths: each launch key at its widths, held and timed, and
+    # the rows of each call bitwise its 1-row calls (a head's 1-row call
+    # against a 4-row one)
     n_rows = n_timed = 0
-    for (M, K, N, act, dname, has_bias) in arms:
-        for bits in (8, 4):
+    for (M, K, N, act, dname, has_bias, widths) in arms:
+        for bits in widths:
             if (M, K, N, bits, dname, act) in seen:
                 continue
             seen.add((M, K, N, bits, dname, act))
@@ -1052,9 +1109,9 @@ def check_kernels(torch, cfg, conv_path, arms):
                     f" differs from its 1-row call")
                 n_rows += 1
             del q, s, x, b, full
-    print(f"swap_linear_q: {n_timed} rows at the int8-lazy arms' "
-          f"launch keys held and timed; {n_rows} rows bitwise their 1-row "
-          f"calls", flush=True)
+    print(f"swap_linear_q: {n_timed} rows at the int8-lazy arms' and "
+          f"granite-20b's launch keys held and timed; {n_rows} rows bitwise "
+          f"their 1-row calls", flush=True)
     # phase 10: the conv workloads' fused fc layers (fp32 x, with a bias)
     for (M, K, N) in conv_path["q"]:
         for bits in (8, 4):
@@ -1161,6 +1218,33 @@ PAGED_TIMED = [
      [n + 1 for n in VL_PAGED_PROMPTS], VL_SCALE, None, None),
     ("qwen2-vl bf16 B=1", "bfloat16", 1, 64, 8, 128,
      [VL_PAGED_PROMPTS[-1] + 1], VL_SCALE, None, None),
+    # phase 19 (b): h2o-danube-3-4b (32 / 8 heads of 120, the kernel's row
+    # width 128) in fp32 at its first decode step (the 4,000-token prompt
+    # beside two of 40, window 4096) and its last (4,099 tokens alone, past
+    # the window); without the window and in bf16 too
+    ("h2o-danube fp32 B=3", "float32", 3, 32, 8, 120, DN_FIRST_STEP,
+     DN_SCALE, 4096, None),
+    ("h2o-danube fp32 B=1", "float32", 1, 32, 8, 120, DN_LAST_STEP,
+     DN_SCALE, 4096, None),
+    ("h2o-danube fp32 B=3", "float32", 3, 32, 8, 120, DN_FIRST_STEP,
+     DN_SCALE, None, None),
+    ("h2o-danube bf16 B=3", "bfloat16", 3, 32, 8, 120, DN_FIRST_STEP,
+     DN_SCALE, 4096, None),
+    ("h2o-danube bf16 B=1", "bfloat16", 1, 32, 8, 120, DN_LAST_STEP,
+     DN_SCALE, 4096, None),
+    ("h2o-danube bf16 B=3", "bfloat16", 3, 32, 8, 120, DN_FIRST_STEP,
+     DN_SCALE, None, None),
+    # phase 20: granite-20b (48 query heads of 128 on one KV head, six
+    # groups of 8) in bf16 at its decode step, 3 sequences batched and one
+    # alone; in fp32 too
+    ("granite-20b bf16 B=3", "bfloat16", 3, 48, 1, 128,
+     [n + 1 for n in GR_PAGED_PROMPTS], GR_SCALE, None, None),
+    ("granite-20b bf16 B=1", "bfloat16", 1, 48, 1, 128,
+     [GR_PAGED_PROMPTS[0] + 1], GR_SCALE, None, None),
+    ("granite-20b fp32 B=3", "float32", 3, 48, 1, 128,
+     [n + 1 for n in GR_PAGED_PROMPTS], GR_SCALE, None, None),
+    ("granite-20b fp32 B=1", "float32", 1, 48, 1, 128,
+     [GR_PAGED_PROMPTS[0] + 1], GR_SCALE, None, None),
 ]
 
 
@@ -1191,8 +1275,35 @@ def check_paged_bitwise(torch, pa, dts) -> int:
                         f"4,201-token row beside {others} differs from it "
                         f"alone")
                 n += 1
+    # h2o-danube's and granite-20b's geometries: a 4,100-token row (past
+    # the 4,096 window) alone == beside others
+    for H, KV, hd in ((32, 8, 120), (48, 1, 128)):
+        for dname in ("bfloat16", "float32"):
+            solo = paged_inputs(torch, 44, 1, H, KV, hd, PAGE_TOKENS, [4100],
+                                dts[dname])
+            np_long = -(-4100 // PAGE_TOKENS)
+            for window in (4096, None):
+                want = pa.paged_attention(*solo, window=window)
+                for others in ([40, 40], [4500, 1, 300]):
+                    sl = [4100] + others
+                    q, kp, vp, pt, lens = paged_inputs(
+                        torch, 45, len(sl), H, KV, hd, PAGE_TOKENS, sl,
+                        dts[dname], pad_cols=len(others))
+                    q[0] = solo[0][0]
+                    kp[pt[0, :np_long].long()] = solo[1][solo[3][0].long()]
+                    vp[pt[0, :np_long].long()] = solo[2][solo[3][0].long()]
+                    got = pa.paged_attention(q, kp, vp, pt, lens,
+                                             window=window)
+                    require(torch.equal(got[:1], want),
+                            f"paged_attention {dname} {H} / {KV} heads of "
+                            f"{hd}, window {window}: the 4,100-token row "
+                            f"beside {others} differs from it alone")
+                    n += 1
     for B, H, KV, hd, sl, kw2 in [
             (4, 16, 2, 128, [38, 65, 101, 130], dict(scale=QWEN_SCALE)),
+            (3, 32, 8, 120, DN_FIRST_STEP, dict(scale=DN_SCALE,
+                                                window=4096)),
+            (3, 48, 1, 128, [513, 513, 513], dict(scale=GR_SCALE)),
             (1, 16, 2, 128, [64], dict(scale=QWEN_SCALE)),
             (2, 16, 8, 256, [4201, 25], dict(scale=GEMMA_SCALE, window=4096,
                                              softcap=50.0))]:
@@ -1237,6 +1348,13 @@ def check_paged_attention(torch):
     for window in (4096, None):         # gemma2-9b, local and global
         cases.append(("bfloat16", 2, 16, 8, 256, 16, [4201, 25], GEMMA_SCALE,
                       window, 50.0, 0))
+    for dname in dts:                   # h2o-danube (hd 120), granite (G 48)
+        for window in (None, 7, 4096):
+            cases.append((dname, 3, 32, 8, 120, 16, [4100, 1, 300], DN_SCALE,
+                          window, None, 2))
+        for softcap in (None, 30.0):
+            cases.append((dname, 4, 48, 1, 128, 16, [1, 40, 129, 700],
+                          GR_SCALE, None, softcap, 1))
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for i, (dname, B, H, KV, hd, T, sl, scale, window, softcap,
             pad) in enumerate(cases):
@@ -1259,8 +1377,9 @@ def check_paged_attention(torch):
           f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
     n_bits = check_paged_bitwise(torch, pa, dts)
     print(f"paged_attention: {n_bits} bitwise checks pass (gemma2-9b's "
-          f"4,201-token row alone == beside 1 and 3 other sequences; two "
-          f"identical calls, one split and many)", flush=True)
+          f"4,201-token row and h2o-danube's and granite-20b's 4,100-token "
+          f"rows alone == beside 2 and 3 other sequences; two identical "
+          f"calls, one split and many)", flush=True)
 
     rows = []
     for (label, dname, B, H, KV, hd, sl, scale, window,
@@ -1327,13 +1446,18 @@ def check_paged_attention(torch):
         ops = 4.0 * H * hd * tokens
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[dname] * 1e3
+        # groups of up to pa.GROUP query heads a KV head: each re-reads
+        # the split's K/V rows (the bound counts them once, from HBM)
+        ng = pa.groups(H // KV)
+        reread = (f" (K/V rows read by {ng} head groups, {ng - 1} of them "
+                  f"mostly from L2)" if ng > 1 else "")
         rows.append({
             "name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:34",
             "key": (B, H, KV, hd, T, dname, window, softcap),
             "shape": f"{label} seq_lens={sl} window={window} "
-                     f"softcap={softcap}",
+                     f"softcap={softcap}{reread}",
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
             "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1532,7 +1656,7 @@ def fp_layer_linears(cfg):
 
 
 def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
-                      hcfg, conv_path):
+                      hcfg, ncfg, conv_path):
     """Phase 2 for B5: the kernel against its plain version over ragged
     shapes and qwen2.5-3b's linears at decode and prefill, then timed at
     the main paths' shapes (phase 10's from ``conv_path``). Returns the
@@ -1624,6 +1748,12 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
               for s in fp_layer_linears(vcfg)]
     timed += [(f"{hcfg.name}", HB_BATCH * HB_FRAMES, "bfloat16", s)
               for s in fp_layer_linears(hcfg)]
+    # phase 19 (b): h2o-danube-3-4b's paged run in fp32: its admissions
+    # (4,000 and 40 tokens) and its decode steps at 3 sequences and at 1
+    timed += [(f"{ncfg.name}", M, "float32", s)
+              for M in (*sorted(set(DN_PAGED_PROMPTS), reverse=True),
+                        len(DN_PAGED_PROMPTS), 1)
+              for s in fp_layer_linears(ncfg)]
     # phase 15: qwen2.5-3b's training step at 8 x 256 tokens, forward,
     # remat and wi0's act="none" recompute (wi1's key)
     timed += [("qwen2.5-3b train", TRAIN_BATCH * TRAIN_SEQ, "bfloat16", s)
@@ -1769,6 +1899,15 @@ FA_TIMED += [(f"qwen2-vl {what}", "bfloat16", 1, S, 64, 8, 128, 128,
              + [("admission", n) for n in VL_PAGED_PROMPTS]]
 FA_TIMED += [("hubert-xlarge encoder", "bfloat16", HB_BATCH, HB_FRAMES, 16,
               16, 80, 80, HB_SCALE, None, None, None, False)]
+# phase 19 (b): h2o-danube-3-4b's paged admissions in fp32 (32 / 8 heads of
+# 120, window 4096; the CUDA cores); phase 20: granite-20b's first pass and
+# paged admissions in bf16 (48 query heads of 128 on one KV head)
+FA_TIMED += [("h2o-danube admission", "float32", 1, S, 32, 8, 120, 120,
+              DN_SCALE, 4096, None, None) for S in sorted(set(
+                  DN_PAGED_PROMPTS))]
+FA_TIMED += [("granite-20b prefill", "bfloat16", 1, S, 48, 1, 128, 128,
+              GR_SCALE, None, None, None)
+             for S in sorted({GR_PROMPT, *GR_PAGED_PROMPTS})]
 # phase 15: qwen2.5-3b's training step, 8 x 256 tokens (forward and remat)
 FA_TIMED += [("qwen2.5-3b train", "bfloat16", TRAIN_BATCH, TRAIN_SEQ, 16, 2,
               128, 128, QWEN_SCALE, None, None, None)]
@@ -4044,16 +4183,20 @@ def cut_params(model, params, full_plan):
 
 
 def quant_arm(torch, tag, model, cut, batch, seq, workdir, reset, collect,
-              expect):
-    """The int8-lazy arm of phases 11-13 (ROADMAP A10): ``model`` over the
-    phase's params cut to its layers (``cut``), stored int8 lazy under
+              expect, precision="int8", then=None):
+    """The int8-lazy arm of phases 11-13 (ROADMAP A10), and phase 20's
+    int4 one (``precision``): ``model`` over the
+    phase's params cut to its layers (``cut``), stored lazy under
     ``workdir`` (removed after), planned under 1.1x the smallest budget on
     an ARM_GRID grid at which the planner packs the store at m = P9_M,
     below the store's resident bytes, in >= 3 blocks; a pinned shared unit
     (zamba2's) adds its lazy resident bytes to the ledger's budget. One
     swapped first pass of ``batch`` (no warm pass: phase 2 ran the kernels
     at these shapes) with the launches ``expect`` requires ({kernel:
-    count}: B1's exactly); its spans, bytes and peaks printed. Then (1)
+    count}: B1's exactly); its spans, bytes and peaks printed. Each unit's
+    read then puts on the card, summed over the store, within 1% above
+    the ledger's charges (no payload of a host-widened leaf; the pass's
+    device and ledger peaks printed beside). Then (1)
     the logits bitwise those of ``forward_unswapped`` over the store's own
     lazy leaves, each unit's ``read_unit`` tree, QuantizedTensors kept
     (the same kernels on the same inputs); (2) within ARM_TOL of the same
@@ -4065,12 +4208,15 @@ def quant_arm(torch, tag, model, cut, batch, seq, workdir, reset, collect,
     bf16 copies through B5, phase 3's yardstick: the bf16 rounding of the
     widened weights alone moves these stacks 1.2-2.0% from the arm's
     logits (PERF.md, PR 30; ``tests/test_torch_quant_families.py`` holds
-    that gap to bf16's own distance from fp32). Returns the arm's row."""
+    that gap to bf16's own distance from fp32). ``then(sm, budget)``, if
+    given, runs on the planned store before it is closed; its result is
+    the row's "then". Returns the arm's row."""
     import shutil
 
     from repro_torch.core.cost_model import DelayModel, resident_infos
     from repro_torch.core.partition import PartitionPlanner
     from repro_torch.core.runtime import SwappedModel, unit_infos
+    from repro_torch.core.swap_engine import device_bytes
     from repro_torch.kernels import swap_linear_q as slq
     from repro_torch.models import layers, moe
 
@@ -4078,7 +4224,7 @@ def quant_arm(torch, tag, model, cut, batch, seq, workdir, reset, collect,
     shutil.rmtree(workdir, ignore_errors=True)
     t0 = time.perf_counter()
     sm = SwappedModel(model, cut, str(workdir), device="cuda",
-                      store_backend="quant", precision="int8",
+                      store_backend="quant", precision=precision,
                       prefetch_depth=P9_M)
     quant_s = time.perf_counter() - t0
     del cut
@@ -4145,6 +4291,22 @@ def quant_arm(torch, tag, model, cut, batch, seq, workdir, reset, collect,
         t0 = time.perf_counter()
         stored = {n: sm.store.read_unit(n).params
                   for n in dict.fromkeys(names)}
+        # what each unit's read puts on the card against its ledger charge
+        # (C1): the sums over the store's units, each unit read alone
+        dev = {n: device_bytes([p]) for n, p in stored.items()}
+        charge = {n: sm.store.resident_nbytes(n) for n in stored}
+        worst = max(dev[n] / charge[n] for n in stored)
+        total_dev, total_charge = sum(dev.values()), sum(charge.values())
+        require(total_charge <= total_dev <= 1.01 * total_charge,
+                f"{tag}: the store's units hold {total_dev} B on the card "
+                f"against the ledger's {total_charge} B")
+        print(f"[{tag}] device bytes of each unit's read, summed "
+              f"{total_dev / 1e9:.4f} GB == the ledger's charges "
+              f"{total_charge / 1e9:.4f} GB x {total_dev / total_charge:.4f} "
+              f"<= 1.01 (worst unit x {worst:.4f}); the pass's peaks: device "
+              f"{es.peak_device_weights / 1e9:.3f} GB (swapped handles), "
+              f"ledger {es.peak_resident / 1e9:.3f} GB (the pinned units' "
+              f"{shared / 1e9:.3f} GB once charged)", flush=True)
         lazy = [stored[n] for n in names]
         want, routes_q = unswapped(lazy)
         require(torch.equal(logits, want), f"{tag}: swapped logits != the "
@@ -4172,6 +4334,8 @@ def quant_arm(torch, tag, model, cut, batch, seq, workdir, reset, collect,
         row.update(quant_s=quant_s, check_s=check_s, budget=budget,
                    floor=floor, resident=resident, blocks=sm.plan.n_blocks,
                    rel_err=err[1], routing_flips=flips, launches=counts)
+        if then is not None:
+            row["then"] = then(sm, ledger_budget)
     finally:
         sm.close()
         shutil.rmtree(workdir, ignore_errors=True)
@@ -6295,7 +6459,7 @@ def run_dryrun(torch) -> list:
 # window; one flash-decode step of the same model
 MESH_TRAIN = ("deepseek-v2-lite-16b", 2)
 MESH_STEPS = 3
-RING = ("h2o-danube-3-4b", 2, 4000, 200)
+RING = ("h2o-danube-3-4b", 2, DN_PAGED_PROMPTS[0], 200)
 RING_TOL = 1e-4                        # of each step's largest |logit|
 
 
@@ -6544,10 +6708,90 @@ def flash_decode_step(torch, mesh, model, params, pre, prompt):
           f"(<= 1e-5)", flush=True)
 
 
+def danube_paged(torch, model, params, prompt, main_launches):
+    """Phase 19 (b), paged: the ring's h2o-danube-3-4b (fp32, published
+    widths, 2 layers; ``params`` on the card) serving ``DN_PAGED_PROMPTS``
+    (the ring's own 4,000-token ``prompt`` and two of 40 tokens) through
+    the batch engine on a swapped mmap store planned at 0.9x its resident
+    bytes in >= 3 blocks, beside a pool of PAGE_TOKENS-token pages; the
+    long request decodes past its 4,096-token window. Every request's
+    tokens equal it served alone in memory (``ServingEngine``, as phase 4's
+    run A); B3 ran once a layer a decode step, every launch at hd 120 (the
+    kernel's row width 128), 32 / 8 heads and window 4096. Returns the
+    run's launches by kernel and shape."""
+    import numpy as np
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = model.cfg
+    reset, collect = launch_counting(main_launches)
+    before = {name: dict(keys) for name, keys in main_launches.items()}
+    rng = np.random.default_rng(19)
+    prompts = [prompt[0].tolist()] + [
+        list(map(int, rng.integers(0, cfg.vocab_size, n)))
+        for n in DN_PAGED_PROMPTS[1:]]
+    require([len(p) for p in prompts] == DN_PAGED_PROMPTS,
+            f"phase 19 (b): prompts of {[len(p) for p in prompts]} tokens")
+    longest = DN_PAGED_PROMPTS[0] + DN_PAGED_NEW[0] - 1
+    require(longest > cfg.sliding_window, f"phase 19 (b): the long request "
+            f"ends at {longest} tokens, inside its {cfg.sliding_window} "
+            f"window")
+    t0 = time.perf_counter()
+    solo = ServingEngine(model, params, max_len=longest + 2, device="cuda")
+    want = []
+    for p, n in zip(prompts, DN_PAGED_NEW):
+        r = Request(0, list(p), max_new_tokens=n)
+        solo.generate([r])
+        want.append(r.output)
+    del solo
+    torch.cuda.empty_cache()
+    solo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        sm, kv, budget = paged_model(torch, model, params, d,
+                                     dict(store_backend="mmap"), cfg,
+                                     DN_MAX_PAGES, max(DN_PAGED_PROMPTS))
+        try:
+            require(sm.plan.n_blocks >= 3,
+                    f"phase 19 (b): {sm.plan.n_blocks} blocks")
+            reqs, be, counts, windows, alloc0 = drive_paged(
+                torch, sm, kv, prompts, DN_PAGED_NEW, len(prompts), reset,
+                collect)
+            out = report_paged(torch, "phase19 paged", sm, kv, be, budget,
+                               windows, alloc0)
+        finally:
+            sm.close()
+    paged_s = time.perf_counter() - t0
+    check_paged_run("phase19 paged", kv, be, counts, cfg.n_layers, budget)
+    got = [r.output for r in reqs]
+    require(got == want, f"phase 19 (b): paged tokens {got} != served "
+            f"alone {want}")
+    keys = dict(pa.launches.by_shape)
+    at = {(k[0], k[1], k[2], k[3], k[6], k[7], k[8]) for k in keys}
+    require(all(k[1:] == (32, 8, 120, "float32", 4096, None) for k in at),
+            f"phase 19 (b): paged_attention launched at {sorted(at)}")
+    steps = sum(1 for t in be.trace if t.batch)
+    sizes = sorted({len(t.batch) for t in be.trace if t.batch})
+    print(f"[phase19 paged] {len(prompts)} requests (prompts "
+          f"{DN_PAGED_PROMPTS}, {DN_PAGED_NEW} new tokens; the long one "
+          f"to {longest} tokens, past its {cfg.sliding_window}-token "
+          f"window) == each served alone in memory; {steps} decode steps "
+          f"at batch {sizes}, paged_attention x {counts['paged_attention']}"
+          f" ({cfg.n_layers} layers x {steps}) at hd 120, 32 / 8 heads, "
+          f"window 4096; batched {paged_s:.1f} s, alone in memory "
+          f"{solo_s:.1f} s; launches {counts}", flush=True)
+    out.update(tokens=[len(t) for t in got], batched_s=paged_s,
+               solo_s=solo_s)
+    return {name: {k: n - before[name].get(k, 0) for k, n in keys.items()
+                   if n > before[name].get(k, 0)}
+            for name, keys in main_launches.items()}
+
+
 def run_mesh(torch, card, main_launches):
     """Phase 19: the mesh path on one card: (a) :func:`mesh_train`, (b)
     :func:`ring_decode`, (c) :func:`flash_decode_step`, on a one-rank NCCL
-    group destroyed after. Returns (a)'s counted launches by shape."""
+    group destroyed after; then (b)'s model paged, :func:`danube_paged`.
+    Returns (a)'s and the paged run's counted launches by shape."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     mesh = nccl_mesh(torch)
@@ -6560,8 +6804,119 @@ def run_mesh(torch, card, main_launches):
         flash_decode_step(torch, mesh, model, params, pre, prompt)
     finally:
         dist.destroy_process_group()
+    del pre
     torch.cuda.empty_cache()
-    return by_shape
+    paged = danube_paged(torch, model, params, prompt, main_launches)
+    del model, params
+    torch.cuda.empty_cache()
+    return {name: {**by_shape.get(name, {}), **paged.get(name, {})}
+            for name in set(by_shape) | set(paged)}
+
+
+# ---------------------------------------------------------------- granite
+def run_granite(torch, main_launches):
+    """Phase 20: granite-20b at its published widths, ``GR_LAYERS``
+    layers, seed-0 fp32 weights drawn on the card and copied to the host,
+    served in bf16 from its ``swap_precision``'s int4 lazy store
+    (:func:`quant_arm`: planned under 1.1x the smallest budget at m = 2,
+    below the store's resident bytes in >= 3 blocks; one first pass of a
+    ``GR_PROMPT``-token prompt, bitwise the forward over the store's lazy
+    leaves and within ARM_TOL of the forward through B1's plain version;
+    the device bytes the ledger's); then on the same store and budget three
+    paged generations, B3 at 48 query heads of 128 on one KV head, equal
+    to each request served alone."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.paged_kv import PagedKVCache
+
+    reset, collect = launch_counting(main_launches)
+    before = {name: dict(keys) for name, keys in main_launches.items()}
+    base = get_arch("granite-20b")
+    cfg = dataclasses.replace(base, n_layers=GR_LAYERS)
+    hd = cfg.resolved_head_dim
+    print(f"model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV head of {hd}, d_ff {cfg.d_ff} ({cfg.act}), "
+          f"vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}, swap "
+          f"precision {cfg.swap_precision}, {cfg.dtype}; reduced: n_layers "
+          f"{base.n_layers}->{GR_LAYERS}", flush=True)
+    require(cfg.swap_precision == "int4", f"phase 20: {cfg.name} swaps at "
+            f"{cfg.swap_precision}")
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = host_copy(torch, model.init(0, device="cuda"))
+    n_params = sum(p.numel() for p in _leaves(params))
+    init_s = time.perf_counter() - t0
+    print(f"params: {n_params / 1e9:.3f} B, {4 * n_params / 1e9:.2f} GB "
+          f"(fp32, host), init on the card and copied down in "
+          f"{init_s:.1f} s", flush=True)
+    rng = np.random.default_rng(20)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, GR_PROMPT)), dtype=torch.int32)}
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in GR_PAGED_PROMPTS]
+    new = [GR_PAGED_NEW] * len(prompts)
+    out = {"params": n_params, "init_s": init_s}
+
+    def paged(sm, budget):
+        """The three generations on the arm's store and ledger, batched,
+        then each alone."""
+        kv = PagedKVCache(cfg, sm.engine.ledger, page_tokens=PAGE_TOKENS,
+                          max_pages=GR_MAX_PAGES, device="cuda")
+        t0 = time.perf_counter()
+        reqs, be, pcounts, windows, alloc0 = drive_paged(
+            torch, sm, kv, prompts, new, len(prompts), reset, collect)
+        res = report_paged(torch, "phase20 paged", sm, kv, be, budget,
+                           windows, alloc0)
+        check_paged_run("phase20 paged", kv, be, pcounts, GR_LAYERS, budget)
+        at = {(k[1], k[2], k[3], k[6], k[7])
+              for k in pa.launches.by_shape}
+        require(at == {(48, 1, 128, "bfloat16", None)},
+                f"phase 20: paged_attention launched at {sorted(at)}")
+        require(pcounts["swap_linear_q"] > 0 and pcounts["swap_linear"] == 0,
+                f"phase 20: launches {pcounts}")
+        paged_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solo = []
+        for p, n in zip(prompts, new):
+            sreqs, sbe, scounts, _, _ = drive_paged(
+                torch, sm, kv, [p], [n], 1, reset, collect)
+            check_paged_run("phase20 alone", kv, sbe, scounts, GR_LAYERS,
+                            budget)
+            solo.append(sreqs[0].output)
+        solo_s = time.perf_counter() - t0
+        got = [r.output for r in reqs]
+        require(got == solo and all(len(t) == GR_PAGED_NEW for t in got),
+                f"phase 20: paged tokens {got} != served alone {solo}")
+        steps = sum(1 for t in be.trace if t.batch)
+        print(f"[phase20 paged] {len(prompts)} requests (prompts "
+              f"{GR_PAGED_PROMPTS}, {GR_PAGED_NEW} new tokens each) == "
+              f"each served alone: {got}; {steps} decode steps, "
+              f"paged_attention x {pcounts['paged_attention']} at 48 / 1 "
+              f"heads of 128 ({pa.groups(48)} head groups a KV head); "
+              f"batched {paged_s:.1f} s, alone {solo_s:.1f} s; launches "
+              f"{pcounts}", flush=True)
+        res.update(tokens=got, batched_s=paged_s, solo_s=solo_s)
+        return res
+
+    P20_WORKDIR.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out["int4_lazy"] = quant_arm(
+        torch, f"phase20 {cfg.name} bf16 int4-lazy, {GR_LAYERS} layers",
+        model, params, batch, GR_PROMPT, P20_WORKDIR / "int4-lazy", reset,
+        collect, {"swap_linear_q": 6 * GR_LAYERS + 1, "swap_linear": 0,
+                  "flash_attention": GR_LAYERS, "dequant_int8": 0},
+        precision="int4", then=paged)
+    arm_s = time.perf_counter() - t0
+    del params
+    print(f"[phase20] wall s: init {init_s:.1f}, int4-lazy arm and paged "
+          f"{arm_s:.1f}", flush=True)
+    out["by_shape"] = {
+        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
+               if n > before[name].get(k, 0)}
+        for name, keys in main_launches.items()}
+    return out
 
 
 KERNEL_NAMES = ("swap_linear_q", "dequant_int8", "paged_attention", "wkv6",
@@ -6663,13 +7018,20 @@ def main() -> int:
     conv_path = p10_kernel_shapes(sd_sched)
     print(f"phase 10's self-driving fleet planned in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # phases 11-13's int8-lazy arms: their configs cut to the arms' depths
-    arms = [k for name, d, M in (
+    # phases 11-13's int8-lazy arms: their configs cut to the arms' depths,
+    # held in int8 and int4; phase 20's int4 granite-20b, its first pass
+    # and its paged decode (admissions, steps at 3 sequences and at 1)
+    arms = [k + ((8, 4),) for name, d, M in (
         ("deepseek-v2-lite-16b", DS_Q_LAYERS, DS_PROMPT),
         ("zamba2-7b", Z_Q_LAYERS, Z_PROMPT),
         ("qwen2-vl-72b", VL_Q_LAYERS, VL_PROMPT))
         for k in arm_linear_shapes(dataclasses.replace(
             get_arch(name), n_layers=d), M)]
+    grcfg = dataclasses.replace(get_arch("granite-20b"), n_layers=GR_LAYERS)
+    arms += [k + ((4,),) for M in sorted({GR_PROMPT, *GR_PAGED_PROMPTS,
+                                          len(GR_PAGED_PROMPTS), 1})
+             for k in arm_linear_shapes(grcfg, M, head_rows=(
+                 M if M <= len(GR_PAGED_PROMPTS) else 1))]
     with phase("2 kernels against their plain versions"):
         secs = {}
 
@@ -6686,7 +7048,7 @@ def main() -> int:
                       get_arch("rwkv6-3b"), get_arch("llama4-scout-17b-a16e"),
                       get_arch("deepseek-v2-lite-16b"), get_arch("zamba2-7b"),
                       get_arch("qwen2-vl-72b"), get_arch("hubert-xlarge"),
-                      conv_path)
+                      get_arch("h2o-danube-3-4b"), conv_path)
         rows += timed("flash_attention", check_flash_attention, torch)
         timed("gradients", check_train_grads, torch, cfg)
         print("[phase2] s: " + ", ".join(f"{k} {v:.1f}"
@@ -6820,17 +7182,28 @@ def main() -> int:
     with phase("18 the dry run: DTensor on a fake 256- / 512-rank group"):
         run_dryrun(torch)
 
-    with phase("19 the mesh path on one card: a one-rank NCCL group"):
+    with phase("19 the mesh path on one card: a one-rank NCCL group; "
+               "h2o-danube-3-4b paged past its window"):
         shapes = run_mesh(torch, card, main_launches)
         check_held(rows, shapes, "phase 19")
         print("phase 19 launches by held shape: " + "; ".join(
-            f"{name} {k} x{n}" for name, keys in shapes.items()
+            f"{name} {held_key(name, k)} x{n}"
+            for name, keys in shapes.items()
+            for k, n in sorted(keys.items(), key=str)), flush=True)
+
+    with phase("20 granite-20b's MQA at full width on its int4 lazy store, "
+               "paged"):
+        p20 = run_granite(torch, main_launches)
+        check_held(rows, p20["by_shape"], "phase 20")
+        print("phase 20 launches by held shape: " + "; ".join(
+            f"{name} {held_key(name, k)} x{n}"
+            for name, keys in p20["by_shape"].items()
             for k, n in sorted(keys.items(), key=str)), flush=True)
 
     for name, per_shape in main_launches.items():
         require(sum(per_shape.values()) > 0,
                 f"{name} was never launched on the main path")
-    print("main-path launches (phases 3 to 17, 19): " + ", ".join(
+    print("main-path launches (phases 3 to 17, 19, 20): " + ", ".join(
         f"{name} {sum(per_shape.values())}"
         for name, per_shape in main_launches.items()), flush=True)
     out = []
@@ -6844,6 +7217,9 @@ def main() -> int:
         r.pop("library_call", None)
         r.pop("also", None)
         out.append(r)
+    print("phase s: " + ", ".join(f"{k} {v:.1f}"
+                                  for k, v in PHASE_SECONDS.items()),
+          flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)

@@ -21,7 +21,9 @@
 // softmax.
 //
 // What bounds it on an H100: bytes. Each live, in-window K/V row is read
-// once per KV head (2 * hd * itemsize bytes), against 4 * G * hd flops per
+// from HBM once per KV head (2 * hd * itemsize bytes; a KV head's further
+// groups of query heads read it again, mostly from L2), against 4 * G * hd
+// flops per
 // token: far below the card's ratio of flops to bytes. So the card must
 // have enough rows in flight, and a long sequence has to be spread over
 // many SMs (flash-decoding):
@@ -40,8 +42,11 @@
 //   no second pass. More: each block writes its split's (m, l, acc[G, hd])
 //   in fp32 to scratch, and a second kernel adds the splits of each
 //   sequence in split order (weights exp(m_s - max m)); no atomics.
-// * Inside a split, one block of 128 threads per (split, KV head,
-//   sequence) reads each K/V row once for all G query heads. The split's
+// * Inside a split, one block of 128 threads per (split, KV head, group
+//   of up to 8 of its query heads, sequence) reads each K/V row once for
+//   the group's heads. A KV head with G > 8 query heads (granite-20b's MQA:
+//   G 48) has ceil(G / 8) groups, each a block that reads the split's rows
+//   again (mostly from L2). The split's
 //   page ids are read into shared memory first, so no row load waits on
 //   the page table. Rows arrive by 16-byte cp.async into a ring of 3
 //   stages of CHUNK tokens (16-64; at most 16 KB of K per stage) and stay
@@ -53,7 +58,14 @@
 //   lanes add the parts, computing each score's tanh and exp once; then
 //   a thread takes a pair of output columns for its heads. Three barriers
 //   a chunk.
-// G is bucketed to a compile-time GB in {1, 2, 4, 8}.
+// * Head dims. The kernel is compiled at row widths HDP of 64, 128 and 256;
+//   any hd that is a multiple of 8 up to 256 runs at the smallest HDP >= hd.
+//   Rows keep their width hd in the pools and in q and out (h2o-danube's
+//   120: 240-byte bf16 rows, still 16-byte vectors); a row lands in an
+//   HDP-wide shared row whose columns past hd are zero-filled (cp.async of
+//   source size 0), q's too, so the dot products and the output run at HDP
+//   and only hd columns are written. The scale is the caller's (hd's).
+// The heads of a group are bucketed to a compile-time GB in {1, 2, 4, 8}.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -65,11 +77,12 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_G = 8;
+constexpr int MAX_G = 8;          // query heads a block (a group's)
 constexpr int STAGES = 3;
 constexpr int MAX_PAGES = 512;    // page ids a split reads, kept in shared
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 
+// HD is the shared row width HDP (an hd up to it runs zero-padded)
 template <typename DT, int HD> struct Paged {
   static constexpr int ES = (int)sizeof(DT);
   // tokens a stage (kernels/paged_attention.py::chunk_tokens)
@@ -155,8 +168,10 @@ struct PagedArgs {
   const int32_t* page_table;
   const int32_t* seq_lens;
   void* out;
-  float* part;          // [B, KV, SMAX, G, HD] acc, then [B, KV, SMAX, G, 2]
+  float* part;          // [B, KV, SMAX, G, hd] acc, then [B, KV, SMAX, G, 2]
   int H, KV, T, NP, L, smax;
+  int hd;               // the rows' width in q, the pools and out
+  int gsz, ngroups;     // query heads a group (<= MAX_G), groups a KV head
   float scale;
   int window;
   float softcap;
@@ -180,9 +195,13 @@ paged_attention_kernel(const PagedArgs a) {
   __shared__ int pg_s[MAX_PAGES];
 
   const int sp = blockIdx.x;
-  const int kv = blockIdx.y;
+  const int kv = blockIdx.y / a.ngroups;
+  const int grp = blockIdx.y % a.ngroups;
   const int b = blockIdx.z;
   const int G = a.H / a.KV;
+  const int g0 = grp * a.gsz;               // the group's first head in kv's
+  const int Gl = min(a.gsz, G - g0);        // the group's heads (<= GB)
+  const int hd = a.hd;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -200,9 +219,10 @@ paged_attention_kernel(const PagedArgs a) {
   for (int i = 0; i < (GB * HD + THREADS - 1) / THREADS; ++i) {
     const int e = tid + i * THREADS;
     if (e >= GB * HD) break;
-    const int g = e / HD, d = e % HD;    // rows past G stay zero
-    q_s[g][d] = g < G ? to_f<DT>(q[((int64_t)b * a.H + kv * G + g) * HD + d])
-                      : 0.f;
+    const int g = e / HD, d = e % HD;    // rows past Gl, columns past hd
+    q_s[g][d] = g < Gl && d < hd            // stay zero
+                    ? to_f<DT>(q[((int64_t)b * a.H + kv * G + g0 + g) * hd + d])
+                    : 0.f;
   }
   if (tid < GB) {
     m_s[tid] = NEG_INF;
@@ -219,7 +239,8 @@ paged_attention_kernel(const PagedArgs a) {
 
   const DT* kp = static_cast<const DT*>(a.k);
   const DT* vp = static_cast<const DT*>(a.v);
-  // cp.async of chunk c's K and V rows into stage c % STAGES (zeros past s1)
+  // cp.async of chunk c's K and V rows into stage c % STAGES (zeros past s1
+  // and past column hd)
   auto load = [&](int c) {
     DT* ks = ring + (c % STAGES) * 2 * P::TILE;
     DT* vs = ks + P::TILE;
@@ -228,12 +249,12 @@ paged_attention_kernel(const PagedArgs a) {
       const int e = tid + i * THREADS;
       const int r = e / P::ROW_V, c16 = (e % P::ROW_V) * P::VEC;
       const int tok = s0 + c * P::CHUNK + r;
-      const bool ok = tok < s1;
+      const bool ok = tok < s1 && c16 < hd;
       int64_t off = 0;
       if (ok) {
         const int pg = tok / a.T;
         const int64_t slot = (int64_t)pg_s[pg - p0] * a.T + (tok - pg * a.T);
-        off = (slot * a.KV + kv) * HD + c16;
+        off = (slot * a.KV + kv) * hd + c16;
       }
       cp_async16(ks + r * P::LD + c16, kp + off, ok);
       cp_async16(vs + r * P::LD + c16, vp + off, ok);
@@ -269,7 +290,7 @@ paged_attention_kernel(const PagedArgs a) {
     // element x % 4) so the fma chains run side by side
     {
       const int part = PARTS > 1 ? gh / GB : 0;
-      const int g0 = PARTS > 1 ? gh % GB : gh;
+      const int h0 = PARTS > 1 ? gh % GB : gh;
       float dot[GPT][4];
 #pragma unroll
       for (int k = 0; k < GPT; ++k)
@@ -282,7 +303,7 @@ paged_attention_kernel(const PagedArgs a) {
         widen16(ks + t * P::LD + vi * P::VEC, kf);
 #pragma unroll
         for (int k = 0; k < GPT; ++k) {
-          const int g = g0 + P::GSTEP * k;
+          const int g = h0 + P::GSTEP * k;
           if (g < GB) {
 #pragma unroll
             for (int x = 0; x < P::VEC; ++x) {
@@ -294,8 +315,8 @@ paged_attention_kernel(const PagedArgs a) {
       }
 #pragma unroll
       for (int k = 0; k < GPT; ++k) {
-        const int g = g0 + P::GSTEP * k;
-        if (g < G) {
+        const int g = h0 + P::GSTEP * k;
+        if (g < Gl) {
           s_s[part][g][t] = (dot[k][0] + dot[k][1]) + (dot[k][2] + dot[k][3]);
         }
       }
@@ -311,7 +332,7 @@ paged_attention_kernel(const PagedArgs a) {
       if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
       return tt < ch ? x : NEG_INF;
     };
-    for (int g = warp; g < G; g += WARPS) {
+    for (int g = warp; g < Gl; g += WARPS) {
       const float x0 = lane < P::CHUNK ? score(g, lane) : NEG_INF;
       const float x1 = lane + 32 < P::CHUNK ? score(g, lane + 32) : NEG_INF;
       const float m_old = m_s[g];
@@ -333,7 +354,7 @@ paged_attention_kernel(const PagedArgs a) {
 #pragma unroll
     for (int k = 0; k < GPV; ++k) {
       const int g = gq + P::GQ * k;
-      if (g < G) {
+      if (g < Gl) {
         const float corr = corr_s[g];
 #pragma unroll
         for (int p = 0; p < P::PPT; ++p) {
@@ -366,25 +387,27 @@ paged_attention_kernel(const PagedArgs a) {
 #pragma unroll
   for (int k = 0; k < GPV; ++k) {
     const int g = gq + P::GQ * k;
-    if (g >= G) continue;
+    if (g >= Gl) continue;
 #pragma unroll
     for (int p = 0; p < P::PPT; ++p) {
-      const int d = 2 * (dp + p * THREADS);
+      const int d = 2 * (dp + p * THREADS);   // d + 1 < hd too: hd is even
+      if (d >= hd) continue;
       if (nsplit <= 1) {
         const float inv = 1.0f / fmaxf(l_s[g], 1e-30f);
-        DT* o = static_cast<DT*>(a.out) + ((int64_t)b * a.H + kv * G + g) * HD;
+        DT* o = static_cast<DT*>(a.out) +
+                ((int64_t)b * a.H + kv * G + g0 + g) * hd;
         o[d] = from_f<DT>(acc[k][p][0] * inv);
         o[d + 1] = from_f<DT>(acc[k][p][1] * inv);
       } else {
-        float* pa = a.part + (unit * G + g) * HD + d;
+        float* pa = a.part + (unit * G + g0 + g) * hd + d;
         pa[0] = acc[k][p][0];
         pa[1] = acc[k][p][1];
       }
     }
   }
-  if (nsplit > 1 && tid < G) {
-    float* ml = a.part + (size_t)gridDim.z * a.KV * a.smax * G * HD +
-                (unit * G + tid) * 2;
+  if (nsplit > 1 && tid < Gl) {
+    float* ml = a.part + (size_t)gridDim.z * a.KV * a.smax * G * hd +
+                (unit * G + g0 + tid) * 2;
     ml[0] = m_s[tid];
     ml[1] = l_s[tid];
   }
@@ -393,7 +416,7 @@ paged_attention_kernel(const PagedArgs a) {
 // The splits of each sequence with more than one, added in split order:
 // out = sum_s acc_s w_s / max(sum_s l_s w_s, 1e-30), w_s = exp(m_s - max m).
 // One thread per output element; the loads of several splits in flight.
-template <typename DT, int HD>
+template <typename DT>
 __global__ void __launch_bounds__(THREADS)
 paged_combine(const PagedArgs a, int B) {
   const int kv = blockIdx.x;
@@ -403,10 +426,11 @@ paged_combine(const PagedArgs a, int B) {
   int lo, hi;
   const int nsplit = live_range(a.seq_lens[b], a.window, a.NP * a.T, a.L, lo,
                                 hi);
-  if (nsplit <= 1 || e >= G * HD) return;
-  const int g = e / HD, d = e % HD;
+  const int hd = a.hd;
+  if (nsplit <= 1 || e >= G * hd) return;
+  const int g = e / hd, d = e % hd;
   const size_t unit0 = ((size_t)b * a.KV + kv) * a.smax;
-  const float* ml = a.part + (size_t)B * a.KV * a.smax * G * HD;
+  const float* ml = a.part + (size_t)B * a.KV * a.smax * G * hd;
   float mx = NEG_INF;
 #pragma unroll 8
   for (int s = 0; s < nsplit; ++s) {
@@ -418,9 +442,9 @@ paged_combine(const PagedArgs a, int B) {
     const size_t u = (unit0 + s) * G + g;
     const float w = expf(__ldg(ml + u * 2) - mx);
     l = fmaf(__ldg(ml + u * 2 + 1), w, l);
-    acc = fmaf(__ldg(a.part + u * HD + d), w, acc);
+    acc = fmaf(__ldg(a.part + u * hd + d), w, acc);
   }
-  static_cast<DT*>(a.out)[((int64_t)b * a.H + kv * G + g) * HD + d] =
+  static_cast<DT*>(a.out)[((int64_t)b * a.H + kv * G + g) * hd + d] =
       from_f<DT>(acc / fmaxf(l, 1e-30f));
 }
 
@@ -432,12 +456,12 @@ int launch_g(const PagedArgs& a, int B, cudaStream_t st) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   paged_attention_kernel<DT, HD, GB>
-      <<<dim3(a.smax, a.KV, B), THREADS, P::SMEM_BYTES, st>>>(a);
+      <<<dim3(a.smax, a.KV * a.ngroups, B), THREADS, P::SMEM_BYTES, st>>>(a);
   if (a.smax > 1) {
     const int G = a.H / a.KV;
-    paged_combine<DT, HD>
-        <<<dim3(a.KV, B, (G * HD + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-            a, B);
+    paged_combine<DT>
+        <<<dim3(a.KV, B, (G * a.hd + THREADS - 1) / THREADS), THREADS, 0,
+           st>>>(a, B);
   }
   return (int)cudaGetLastError();
 }
@@ -455,24 +479,23 @@ int launch_hd(PagedArgs a, int B, cudaStream_t st) {
   }
   a.smax = (int)smax;
   const int G = a.H / a.KV;
-  if (G <= 1) return launch_g<DT, HD, 1>(a, B, st);
-  if (G <= 2) return launch_g<DT, HD, 2>(a, B, st);
-  if (G <= 4) return launch_g<DT, HD, 4>(a, B, st);
+  a.gsz = G < MAX_G ? G : MAX_G;
+  a.ngroups = (G + a.gsz - 1) / a.gsz;
+  if ((long long)a.KV * a.ngroups > 65535) return (int)cudaErrorInvalidValue;
+  if (a.gsz <= 1) return launch_g<DT, HD, 1>(a, B, st);
+  if (a.gsz <= 2) return launch_g<DT, HD, 2>(a, B, st);
+  if (a.gsz <= 4) return launch_g<DT, HD, 4>(a, B, st);
   return launch_g<DT, HD, 8>(a, B, st);
 }
 
+// hd at the smallest compiled row width that holds it
+// (kernels/paged_attention.py::padded_head_dim)
 template <typename DT>
 int launch(const PagedArgs& a, int B, int hd, cudaStream_t st) {
-  switch (hd) {
-    case 64:
-      return launch_hd<DT, 64>(a, B, st);
-    case 128:
-      return launch_hd<DT, 128>(a, B, st);
-    case 256:
-      return launch_hd<DT, 256>(a, B, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (hd <= 0 || hd % 8 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
+  if (hd <= 64) return launch_hd<DT, 64>(a, B, st);
+  if (hd <= 128) return launch_hd<DT, 128>(a, B, st);
+  return launch_hd<DT, 256>(a, B, st);
 }
 
 // live_range of n sequences, for the tests: out[3 i ..] = lo, hi, splits
@@ -503,7 +526,8 @@ extern "C" int repro_paged_split_plan(const void* seq_lens, int n,
   return (int)cudaGetLastError();
 }
 
-// q, k_pages, v_pages and out in one dtype (0 = fp32, 1 = bf16); page_table
+// q [B, H, hd], k_pages and v_pages [P, T, KV, hd] and out in one dtype
+// (0 = fp32, 1 = bf16), hd a multiple of 8 up to 256, any H / KV; page_table
 // [B, NP] and seq_lens [B] int32; all contiguous, the pools 16-byte
 // aligned. window <= 0 means no window, softcap <= 0 no softcap. split_len
 // is L (kernels/paged_attention.py::split_len, a multiple of T and of the
@@ -520,14 +544,26 @@ extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      float scale, int window, float softcap,
                                      int dtype, void* stream) {
   if (B <= 0 || B > 65535 || KV <= 0 || KV > 65535 || H % KV != 0 ||
-      H / KV > MAX_G || T <= 0 || NP <= 0 || dtype < 0 || dtype > 1) {
+      T <= 0 || NP <= 0 || dtype < 0 || dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const PagedArgs a = {q, k_pages, v_pages,
-                       static_cast<const int32_t*>(page_table),
-                       static_cast<const int32_t*>(seq_lens), out,
-                       static_cast<float*>(scratch), H, KV, T, NP, split_len,
-                       0, scale, window, softcap};
+  PagedArgs a = {};
+  a.q = q;
+  a.k = k_pages;
+  a.v = v_pages;
+  a.page_table = static_cast<const int32_t*>(page_table);
+  a.seq_lens = static_cast<const int32_t*>(seq_lens);
+  a.out = out;
+  a.part = static_cast<float*>(scratch);
+  a.H = H;
+  a.KV = KV;
+  a.T = T;
+  a.NP = NP;
+  a.L = split_len;
+  a.hd = hd;
+  a.scale = scale;
+  a.window = window;
+  a.softcap = softcap;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch<__nv_bfloat16>(a, B, hd, st);
   return launch<float>(a, B, hd, st);

@@ -10,13 +10,18 @@ pages; those columns are never read.
 
 The CUDA kernel is ``csrc/paged_attention.cu`` (flash-decoding): a
 sequence's live, in-window tokens are cut into splits of
-:func:`split_len` tokens, one block per (split, KV head, sequence) reads
-its split's K/V rows once for all G query heads through a ring of
-``cp.async`` stages, and a second kernel adds the splits of each sequence
-in split order. A sequence with one split is written by its block
-directly. The host plans from shapes alone (:func:`split_len`,
-:func:`max_splits`, :func:`scratch_floats`) and never reads ``seq_lens``
-back; :func:`split_bounds` is the split rule the kernel applies.
+:func:`split_len` tokens, one block per (split, KV head, group of up to
+:data:`GROUP` query heads, sequence) reads its split's K/V rows once for
+the group's heads through a ring of ``cp.async`` stages, and a second
+kernel adds the splits of each sequence in split order. A sequence with
+one split is written by its block directly. Any head dim that is a
+multiple of 8 up to 256 runs, at the kernel's row width
+:func:`padded_head_dim` with the columns past hd zero-filled in shared
+memory (h2o-danube's 120 at 128), and any number of query heads a KV
+head (granite-20b's MQA: 48, in 6 groups of 8). The host plans from
+shapes alone (:func:`split_len`, :func:`max_splits`,
+:func:`scratch_floats`) and never reads ``seq_lens`` back;
+:func:`split_bounds` is the split rule the kernel applies.
 :func:`paged_attention_plain` is the plain PyTorch version, gather-then-
 attend as the JAX package's oracle (``kernels/ref.py:paged_attention_ref``):
 it materializes each sequence's pages contiguously and runs one masked
@@ -35,31 +40,51 @@ from repro_torch.kernels._build import (LaunchCounter, check, library,
                                         refuse_grad)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8            # query heads per KV head (MAX_G in the kernel)
+ROW_WIDTHS = (64, 128, 256)  # the kernel's compiled row widths
+GROUP = 8                # query heads a block (MAX_G in the kernel)
 # About the tokens a split takes, by head_dim (see split_len): measured on
 # an H100 with tools/torch_attention_sweep.py (PERF.md), a split of 64
 # tokens at qwen2.5-3b's head_dim 128 and of 128 at gemma2-9b's 256 gave
 # the shortest decode step; longer splits leave SMs idle, shorter ones
 # make the second pass dominate. No model decodes at head_dim 64: its
-# entry is head_dim 128's, not measured.
-SPLIT_TOKENS = {64: 64, 128: 64, 256: 128}
+# entry is head_dim 128's, not measured; h2o-danube's 120 runs at the row
+# width 128 and takes its entry, not measured either. Any other head dim
+# takes its row width's.
+SPLIT_TOKENS = {64: 64, 120: 64, 128: 64, 256: 128}
 STAGE_BYTES = 16384      # K bytes a stage of the kernel's ring holds
+
+
+def padded_head_dim(hd: int) -> int:
+    """The kernel's row width for head dim ``hd`` (a multiple of 8 up to
+    256): the smallest of :data:`ROW_WIDTHS` that holds it."""
+    if hd <= 0 or hd % 8 or hd > ROW_WIDTHS[-1]:
+        raise ValueError(f"paged_attention takes a head_dim that is a "
+                         f"multiple of 8 up to {ROW_WIDTHS[-1]}, got {hd}")
+    return next(w for w in ROW_WIDTHS if hd <= w)
+
+
+def groups(G: int) -> int:
+    """Blocks a KV head's G query heads take: groups of up to
+    :data:`GROUP`, each re-reading the split's K/V rows."""
+    return -(-G // GROUP)
 
 
 def chunk_tokens(hd: int, dtype: torch.dtype) -> int:
     """Tokens a stage of the kernel's ring holds (``Paged::CHUNK``): 64,
-    or fewer where 64 rows of K would pass 16 KB."""
-    return min(64, STAGE_BYTES // (hd * (torch.finfo(dtype).bits // 8)))
+    or fewer where 64 rows of K at the padded row width would pass 16 KB."""
+    return min(64, STAGE_BYTES // (padded_head_dim(hd)
+                                   * (torch.finfo(dtype).bits // 8)))
 
 
 def split_len(hd: int, dtype: torch.dtype, T: int) -> int:
     """L, the tokens a split covers: a multiple of the page size T and of
-    the chunk, as near ``SPLIT_TOKENS[hd]`` as such a multiple gets (at
-    least one). A constant of (hd, dtype, T): gemma2-9b's 4,201-token
-    context (hd 256, bf16, T 16) makes 33 splits of 128."""
+    the chunk, as near ``SPLIT_TOKENS[hd]`` (its row width's where hd has
+    no entry) as such a multiple gets (at least one). A constant of (hd,
+    dtype, T): gemma2-9b's 4,201-token context (hd 256, bf16, T 16) makes
+    33 splits of 128."""
     base = math.lcm(T, chunk_tokens(hd, dtype))
-    return base * max(1, round(SPLIT_TOKENS[hd] / base))
+    want = SPLIT_TOKENS.get(hd, SPLIT_TOKENS[padded_head_dim(hd)])
+    return base * max(1, round(want / base))
 
 
 def max_splits(NP: int, T: int, L: int) -> int:
@@ -198,12 +223,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError(f"paged_attention takes int32 page_table and "
                         f"seq_lens, got {page_table.dtype} and "
                         f"{seq_lens.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"paged_attention takes head_dim in {HEAD_DIMS}, "
-                         f"got {hd}")
-    if H // KV > MAX_GROUP:
-        raise ValueError(f"paged_attention takes at most {MAX_GROUP} query "
-                         f"heads per KV head, got {H // KV}")
+    padded_head_dim(hd)                  # raises for a width it lacks
     tensors = (q, k_pages, v_pages, page_table, seq_lens)
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_attention inputs lie on different devices")

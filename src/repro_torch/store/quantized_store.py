@@ -20,8 +20,12 @@ aligned). What happens next is the ``eager`` knob:
     come back as :class:`QuantizedTensor` views and stream through the
     fused dequant-matmul; quantized leaves the fused kernel cannot stream
     (embeddings, ...) are dequantized HERE in numpy on the loader
-    ("unpack") and copied up on their own, and the blob is not copied at
-    all when no leaf needs it.
+    ("unpack", in pieces on a pool of threads: :func:`widen`), cast to
+    their dtype on the host and copied up on their own. The blob that goes
+    up holds only the segments device leaves read (raw leaves, fusable
+    payloads and their scales), packed on the host at the same alignment,
+    so the device holds what the ledger charges (``resident_lazy``) and no
+    payload of a host-widened leaf; none goes up when no leaf reads it.
 
 Accounting (as in the JAX package): ``io_bytes`` is the quantized payload
 size; ``ledger_bytes`` is the stored size with ``eager=True`` and the
@@ -41,7 +45,10 @@ bit-width without building the store.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -129,9 +136,8 @@ def roundtrip_leaf(leaf, bits: int, min_quant_size: int = MIN_QUANT_SIZE):
         return leaf
     quantize = quantize_int8 if bits == 8 else quantize_int4
     q, s = quantize(_float_array(leaf))
-    vals = unpack_int4(q, int(np.prod(shape[:-1]))) if bits == 4 else q
-    fp = np.multiply(vals, s[None, :], dtype=np.float32)
-    return torch.from_numpy(fp.reshape(shape)).to(torch_dtype(name))
+    return widen(q, s, int(np.prod(shape[:-1])), bits,
+                 torch_dtype(name)).reshape(shape)
 
 
 def roundtrip(params, bits: int, min_quant_size: int = MIN_QUANT_SIZE):
@@ -159,6 +165,86 @@ class QLeaf:
     cols: int = 0
     fusable: bool = False
     bits: int = 0
+
+
+_WIDEN_PIECE = 1 << 22      # elements a thread widens at a time
+_widen_pool = None
+
+
+def widen(qv: np.ndarray, sv: np.ndarray, rows: int, bits: int,
+          dtype: torch.dtype) -> torch.Tensor:
+    """The host widening of a quantized leaf: [rows, C] values (``qv``
+    int8, or the int4 carrier of ``rows`` logical rows) times the fp32
+    per-column scales ``sv`` in fp32, ``np.multiply(vals, sv, dtype=
+    float32)``, then cast to ``dtype`` -> a host tensor. Done in pieces of
+    rows on a pool of threads (numpy and the cast release the GIL):
+    elementwise, so bitwise the whole-array result, and no fp32 copy of a
+    leaf that is not fp32 is ever whole."""
+    global _widen_pool
+    C = sv.shape[0]
+    out = torch.empty((rows, C), dtype=dtype)
+    flat = out.numpy() if dtype == torch.float32 else None
+    step = max(1, _WIDEN_PIECE // C)               # carrier rows a piece
+    scales = sv[None, :]
+
+    def piece(c0: int) -> None:
+        c1 = min(c0 + step, qv.shape[0])
+        if bits == 4:
+            r0, r1 = 2 * c0, min(2 * c1, rows)
+            vals = unpack_int4(qv[c0:c1], r1 - r0)
+        else:
+            r0, r1, vals = c0, c1, qv[c0:c1]
+        if flat is not None:
+            np.multiply(vals, scales, out=flat[r0:r1], dtype=np.float32)
+        else:
+            out[r0:r1].copy_(torch.from_numpy(
+                np.multiply(vals, scales, dtype=np.float32)))
+
+    starts = range(0, qv.shape[0], step)
+    if len(starts) == 1:
+        piece(0)
+        return out
+    if _widen_pool is None:
+        _widen_pool = ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            thread_name_prefix="quant-widen")
+    list(_widen_pool.map(piece, starts))
+    return out
+
+
+def _device_segments(buf: np.ndarray, leaves: List[QLeaf],
+                     host_fp: Dict[int, torch.Tensor]):
+    """The segments of ``buf`` that device leaves read (every leaf not in
+    ``host_fp``: raw leaves, and quantized ones with their scales), packed
+    into one buffer at ALIGN, and the leaves with their offsets remapped
+    into it. The payload of a host-widened leaf is left out."""
+    if not host_fp:
+        return buf, leaves
+    segs: List[Tuple[int, int]] = []
+    out: List[QLeaf] = []
+    size = 0
+
+    def seg(off: int, n: int) -> int:
+        nonlocal size
+        at = size
+        segs.append((off, n))
+        size += _align(n)
+        return at
+
+    for i, ql in enumerate(leaves):
+        if i in host_fp:
+            out.append(ql)
+            continue
+        off = seg(ql.offset, ql.nbytes)
+        soff = (seg(ql.scale_offset, 4 * ql.cols) if ql.scale_offset >= 0
+                else -1)
+        out.append(dataclasses.replace(ql, offset=off, scale_offset=soff))
+    packed = np.zeros(size, np.uint8)
+    at = 0
+    for off, n in segs:
+        packed[at:at + n] = buf[off:off + n]
+        at += _align(n)
+    return packed, out
 
 
 @dataclass
@@ -259,27 +345,28 @@ class QuantizedStore(BlockStore):
         t1 = time.perf_counter()
         # unpack: in lazy mode the quantized leaves the fused kernel cannot
         # stream dequantize here in numpy, on the otherwise idle loader
-        host_fp: Dict[int, np.ndarray] = {}
+        host_fp: Dict[int, torch.Tensor] = {}
         for i, ql in enumerate(meta.leaves):
             if lazy and ql.scale_offset >= 0 and not ql.fusable:
                 qv = buf[ql.offset:ql.offset + ql.nbytes].view(np.int8) \
                     .reshape(-1, ql.cols)
                 sv = buf[ql.scale_offset:ql.scale_offset + 4 * ql.cols] \
                     .view(np.float32)
-                vals = unpack_int4(qv, ql.rows) if ql.bits == 4 else qv
-                host_fp[i] = np.multiply(vals, sv[None, :], dtype=np.float32)
+                host_fp[i] = widen(qv, sv, ql.rows, ql.bits,
+                                   torch_dtype(ql.dtype))
         t2 = time.perf_counter()
         # dispatch: the blob goes up ONCE (if any leaf reads it) and the
-        # leaves are views by offset; host-dequantized leaves go up alone
-        need_blob = len(host_fp) < len(meta.leaves)
+        # leaves are views by offset; host-dequantized leaves go up alone,
+        # already in their dtype (a host cast rounds as the device's does)
+        buf, meta_leaves = _device_segments(buf, meta.leaves, host_fp)
+        need_blob = len(host_fp) < len(meta_leaves)
         blob = to_device(torch.from_numpy(buf), dev) if need_blob else None
         leaves = []
         qbytes = 0
-        for i, ql in enumerate(meta.leaves):
+        for i, ql in enumerate(meta_leaves):
             dt = torch_dtype(ql.dtype)
             if i in host_fp:
-                leaves.append(to_device(torch.from_numpy(host_fp[i]), dev)
-                              .to(dt).reshape(ql.shape))
+                leaves.append(to_device(host_fp[i], dev).reshape(ql.shape))
                 continue
             if ql.scale_offset < 0:                       # raw leaf
                 v = blob[ql.offset:ql.offset + ql.nbytes].view(dt) \

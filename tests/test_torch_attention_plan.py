@@ -57,16 +57,18 @@ def test_flash_attention_path_by_value_head_dim(dtype, hd, dv):
 @pytest.mark.parametrize("hd,dtype,chunk", [
     (64, torch.bfloat16, 64), (128, torch.bfloat16, 64),
     (256, torch.bfloat16, 32), (64, torch.float32, 64),
-    (128, torch.float32, 32), (256, torch.float32, 16)])
+    (128, torch.float32, 32), (256, torch.float32, 16),
+    (120, torch.bfloat16, 64), (120, torch.float32, 32)])
 def test_chunk_tokens(hd, dtype, chunk):
-    """A ring stage holds at most 64 tokens and at most 16 KB of K rows."""
+    """A ring stage holds at most 64 tokens and at most 16 KB of K rows
+    at the kernel's row width (h2o-danube's 120 at 128)."""
     assert pa.chunk_tokens(hd, dtype) == chunk
     es = torch.empty((), dtype=dtype).element_size()
-    assert chunk * hd * es <= pa.STAGE_BYTES
+    assert chunk * pa.padded_head_dim(hd) * es <= pa.STAGE_BYTES
 
 
 @pytest.mark.parametrize("T", [1, 4, 8, 16, 48, 64, 100, 256, 1000])
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 120, 128, 256])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_split_len_is_a_multiple_of_page_and_chunk(dtype, hd, T):
     L = pa.split_len(hd, dtype, T)
@@ -115,7 +117,7 @@ seq_and_window = st.tuples(st.integers(1, 5000),
 
 @settings(max_examples=200, deadline=None)
 @given(sw=seq_and_window, T=st.sampled_from([4, 16, 48]),
-       hd=st.sampled_from([64, 128, 256]), bf16=st.booleans())
+       hd=st.sampled_from([64, 120, 128, 256]), bf16=st.booleans())
 def test_splits_cover_the_live_range_once(sw, T, hd, bf16):
     """The splits tile [lo, hi) (the live, in-window tokens) exactly once,
     in order, each at most L tokens and all but the last exactly L; one
@@ -155,7 +157,8 @@ def test_split_boundaries_do_not_depend_on_the_batch(seqs, window,
 
 @settings(max_examples=100, deadline=None)
 @given(B=st.integers(1, 8), KV=st.sampled_from([1, 2, 8]),
-       G=st.sampled_from([1, 2, 8]), hd=st.sampled_from([64, 128, 256]),
+       G=st.sampled_from([1, 2, 4, 8, 48]),
+       hd=st.sampled_from([64, 120, 128, 256]),
        NP=st.integers(1, 400), T=st.sampled_from([4, 16, 48]))
 def test_scratch_size_comes_from_the_page_table_width(B, KV, G, hd, NP, T):
     """Scratch holds (acc[hd], m, l) for every (sequence, KV head, split
@@ -214,8 +217,21 @@ def test_split_arithmetic_matches_plain(window, softcap):
     """Splits of L = 64 tokens (pages of 16) over contexts of 1 to 700
     tokens, added in split order, equal the plain gather-then-attend
     softmax within 1e-5."""
+    _split_arithmetic(8, 2, 32, window, softcap)
+
+
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 120), (48, 1, 128)])
+@pytest.mark.parametrize("window,softcap", [(None, None), (100, None),
+                                            (300, 50.0)])
+def test_split_arithmetic_at_danube_and_granite(window, softcap, H, KV, hd):
+    """The same at h2o-danube's geometry (32 / 8 heads of 120) and
+    granite-20b's (48 query heads of 128 on one KV head)."""
+    _split_arithmetic(H, KV, hd, window, softcap)
+
+
+def _split_arithmetic(H, KV, hd, window, softcap):
     rng = np.random.default_rng(3)
-    B, H, KV, hd, T = 4, 8, 2, 32, 16
+    B, T = 4, 16
     seq_lens = [1, 63, 300, 700]
     n = [-(-s // T) for s in seq_lens]
     P = sum(n) + 1

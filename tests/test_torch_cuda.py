@@ -205,12 +205,71 @@ def test_paged_attention_raises_instead_of_falling_back(dev):
         pa.paged_attention(q, kp, vp, pt.long(), sl)
     with pytest.raises(TypeError):
         pa.paged_attention(q.bfloat16(), kp, vp, pt, sl)
-    with pytest.raises(ValueError):                      # head_dim 32
-        pa.paged_attention(q[..., :32].contiguous(), kp[..., :32]
-                           .contiguous(), vp[..., :32].contiguous(), pt, sl)
-    q16 = torch.randn((2, 32, 64), device=dev)           # 16 heads per KV
+    with pytest.raises(ValueError):                      # head_dim 36
+        pa.paged_attention(q[..., :36].contiguous(), kp[..., :36]
+                           .contiguous(), vp[..., :36].contiguous(), pt, sl)
+    wide = [torch.zeros(t.shape[:-1] + (264,), device=dev)
+            for t in (q, kp, vp)]                        # head_dim 264
     with pytest.raises(ValueError):
-        pa.paged_attention(q16, kp, vp, pt, sl)
+        pa.paged_attention(*wide, pt, sl)
+
+
+# (B, H, KV, hd, T, seq_lens, pad_cols): h2o-danube-3-4b's decode geometry
+# (hd 120 at the row width 128, G 4) and granite-20b's (MQA: 48 query heads
+# on one KV head, six groups of 8), ragged, past one split and past the
+# 4,096-token window
+GEOMETRY_CASES = [
+    (3, 32, 8, 120, 16, [4100, 1, 300], 2),
+    (4, 48, 1, 128, 16, [1, 40, 129, 700], 1),
+    (2, 48, 1, 128, 4, [3, 70], 0),
+]
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (4096, None),
+                                            (7, None), (None, 30.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_at_danube_and_granite_geometry(dev, dtype, window,
+                                                        softcap):
+    """hd 120 and G 48 launch the kernel and match the plain version."""
+    for i, (B, H, KV, hd, T, sl, pad) in enumerate(GEOMETRY_CASES):
+        args = _paged_inputs(30 + i, B, H, KV, hd, T, sl, dtype, pad)
+        before = pa.launches.count
+        got = pa.paged_attention(*args, window=window, softcap=softcap)
+        assert pa.launches.count == before + 1
+        want = pa.paged_attention_plain(*args, window=window,
+                                        softcap=softcap)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= TOL[dtype], (B, H, KV, hd, T, sl)
+
+
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 120), (48, 1, 128)])
+def test_paged_attention_geometry_row_alone_equals_batched(dev, H, KV, hd):
+    """A 4,100-token row (65 splits, 64 in the window) at h2o-danube's
+    and granite-20b's geometry gives the same bits alone as beside other
+    sequences, and two identical calls agree."""
+    for window in (4096, None):
+        for dtype in (torch.bfloat16, torch.float32):
+            solo = None
+            for others in ([], [25], [4500, 1, 300]):
+                sl = [4100] + others
+                q, kp, vp, pt, lens = _paged_inputs(
+                    41, len(sl), H, KV, hd, 16, sl, dtype,
+                    pad_cols=len(others))
+                ref = _paged_inputs(41, 1, H, KV, hd, 16, [4100], dtype)
+                q[0] = ref[0][0]
+                n = -(-4100 // 16)
+                kp[pt[0, :n].long()] = ref[1][ref[3][0, :n].long()]
+                vp[pt[0, :n].long()] = ref[2][ref[3][0, :n].long()]
+                got = pa.paged_attention(q, kp, vp, pt, lens,
+                                         window=window)
+                again = pa.paged_attention(q, kp, vp, pt, lens,
+                                           window=window)
+                assert torch.equal(got, again), (window, dtype, others)
+                if solo is None:
+                    solo = got[0]
+                assert torch.equal(got[0], solo), (window, dtype, others)
 
 
 def test_paged_attention_long_sequence_does_not_depend_on_the_batch(dev):
