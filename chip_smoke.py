@@ -17,15 +17,18 @@ Phases, each printing its wall time:
    the batch, repeated calls equal), and timed at the main paths' shapes
    beside their plain version (one call: it is no yardstick), a library
    call where one computes the same function, and the card's bound;
-   ``swap_linear_q`` at every launch shape of phases 11-13's int8-lazy
-   arms in int8 and int4 too, and of phase 20's int4 granite-20b, each
-   call's rows bitwise its 1-row calls; ``paged_attention`` at
+   ``swap_linear_q`` at every launch shape of phases 9 and 11-13's
+   int8-lazy arms in int8 and int4 too (llama4's head at N 202,048, whose
+   last 64 columns a tile masks, held there alone as well), and of phase
+   20's int4 granite-20b, each call's rows bitwise its 1-row calls;
+   ``paged_attention`` at
    h2o-danube's hd 120 (32 / 8 heads) and granite-20b's 48 / 1 heads of
    128, fp32 and bf16, ragged, with and without the window, and their
    4,100-token rows alone == beside others;
    then ``swap_linear`` and ``flash_attention`` under autograd (their
    ``autograd.Function``s) against autograd through their plain versions
-   at phase 15's shapes, in fp32 and bf16;
+   at phase 15's shapes and ``flash_attention`` at phase 17's (h2o-danube's
+   1 x 4,352 under its window too), in fp32 and bf16;
 3. the swapped slice: qwen2.5-3b at its published widths with the depth
    cut from 36 to 4 layers and random weights from a seed; a swapped
    prefill of 4 requests x 128 tokens on the mmap store and on the
@@ -100,7 +103,15 @@ Phases, each printing its wall time:
    ``flash_attention`` at chunk 8192 on layers 0-2 and none on layer 3
    and ``swap_linear`` seven times a layer; then two paged generations
    (prompts of 40 and 100 tokens, 2 new each) through the batch engine
-   on the same store and budget, equal to each request served alone;
+   on the same store and budget, equal to each request served alone; last
+   the int8-lazy arm (the host's available memory printed first): the
+   same params cut to layers 0 and 1 (both block-local), one first pass
+   of the 8,704-token prompt with ``swap_linear_q`` at each layer's wq,
+   wk, wv, wo and the shared expert's three and at the head (N 202,048),
+   15 in all, and ``flash_attention`` once a layer at chunk 8192, the
+   routed stacks, the router and the embedding widened on the host; its
+   checks those of 11-13's arms below, no comparison with the fp logits
+   (quantized llama4 strays from fp in both packages);
 10. the paper's conv workloads (``models/vision.py``'s sims at their own
    layer lists, batch 4, random weights from a seed) through
    ``SwappedSequential``: the self-driving fleet (yolo, fcn, vgg, resnet)
@@ -229,10 +240,14 @@ Phases, each printing its wall time:
 17. one training run per family that one card holds at published widths:
    gemma2-9b at 2 layers (one local, one global), deepseek-v2-lite-16b at
    2, zamba2-7b at 12 (the shared block at 5 and 11, its gradient summed
-   over both), hubert-xlarge at 4 (8 x 256 masked frames): each the fp32
-   identity of phase 15 (a) at that depth, 3 bf16 steps of the loop, all
-   finite, the launches each step implies (``train_launches``), step ms,
-   tok/s and peak device memory;
+   over both), hubert-xlarge at 4 (8 x 256 masked frames), h2o-danube-3-4b
+   at 2 (32 / 8 heads of 120, a 4,096 window) and granite-20b at 2 (48 / 1
+   heads of 128, a GELU MLP): each the fp32 identity of phase 15 (a) at
+   that depth (danube's on one sequence of 4,352 tokens, so that the
+   window cuts the first keys of each layer's last 256 queries; granite's
+   ``flash_attention`` on the CUDA cores at G 48), 3 bf16 steps of the
+   loop, all finite, the launches each step implies (``train_launches``),
+   step ms, tok/s and peak device memory;
 18. the dry run (``repro_torch.launch.dryrun``) on the card's host CPU:
    qwen2.5-3b x decode_32k at min depth through the CLI in a subprocess,
    meanwhile train_4k cut to 2 layers in this process on the single-pod
@@ -290,8 +305,9 @@ is one of phase 2's rows, held against the plain version there and timed;
 the script checks it. The exceptions are the fp32 gradient identities of
 phases 15-17 and 19 (a), which run before each counted run: their fp32
 shapes are held in phase 2 only through the Functions' gradient check
-(``check_train_grads``), not timed; phase 19 (b)'s ring and (c), checks of
-the decode forms against the full-cache and unsharded decodes; and the
+(``check_train_grads``), not timed (h2o-danube's and granite-20b's
+``flash_attention`` timed too); phase 19 (b)'s ring and (c), checks of the
+decode forms against the full-cache and unsharded decodes; and the
 in-memory runs each paged request is held to. The phases' seconds are
 printed together before the total.
 
@@ -567,16 +583,20 @@ VL_MAX_PAGES = 16                      # 3 + 7 pages live at the last step
 VL_MIN_RATIO = 2.32
 P13_WORKDIR = ROOT / "build" / "phase13"
 
-# phases 11-13's int8-lazy arms (ROADMAP A10): each phase's own params cut
-# to their first layers (embedding, frontend and head unchanged: no weight
-# drawn twice), stored int8 lazy under the phase's build/phaseN, one
-# swapped first pass of the phase's prompt under 1.1x the smallest budget
-# on a 0.01 GB grid at which the planner packs the store at m = 2. The
-# depths: two MLA + MoE layers; five Mamba2 layers and the shared block
-# (at 5); one dense layer. Each arm's host work (the numpy quantizer at
-# build, the numpy widening of every leaf B1 cannot stream at each read)
-# sets its cost, not its kernels
-DS_Q_LAYERS, Z_Q_LAYERS, VL_Q_LAYERS = 2, 6, 1
+# phases 9 and 11-13's int8-lazy arms (ROADMAP A10): each phase's own
+# params cut to their first layers (embedding, frontend and head
+# unchanged: no weight drawn twice), stored int8 lazy under the phase's
+# build/phaseN, one swapped first pass of the phase's prompt under 1.1x
+# the smallest budget on a 0.01 GB grid at which the planner packs the
+# store at m = 2. The depths: llama4's layers 0 and 1 (block-local: their
+# chunk cuts the 8,704-token prompt; at one layer the widened embedding
+# and layer, 4.17 + 8.24 GB, set an m = 2 floor whose 1.1x lies above the
+# 13.44 GB store); two MLA + MoE layers; five Mamba2 layers and the shared
+# block (at 5); one dense layer. Each arm's host work (the quantizer at
+# build, the widening of every leaf B1 cannot stream at each read:
+# llama4's routed stacks and embedding, 5.05 G values) sets its cost, not
+# its kernels
+LLAMA_Q_LAYERS, DS_Q_LAYERS, Z_Q_LAYERS, VL_Q_LAYERS = 2, 2, 6, 1
 ARM_GRID = 10 ** 7                     # budget search step, 0.01 GB
 # the arm's logits (B1 over the int8 weights) against the same forward
 # with B1's plain version (the weights widened to fp32, an fp32 matmul):
@@ -663,12 +683,22 @@ RWKV_TRAIN_BH = TRAIN_BATCH * 40
 # params, gradients and two AdamW moments, 16 B a param) fits one card at
 # published widths with its activations: gemma2-9b one local and one
 # global layer, deepseek-v2-lite two MLA + MoE layers, zamba2-7b 10 Mamba2
-# layers and the shared block at 5 and 11, hubert-xlarge 4 encoder layers
-# (llama4-scout and qwen2-vl do not fit at one layer: their published-width
-# step waits for the sharded path)
+# layers and the shared block at 5 and 11, hubert-xlarge 4 encoder layers,
+# h2o-danube-3-4b two layers under its 4,096 window (0.56 G params),
+# granite-20b two layers of 48 query heads on one KV head and a GELU MLP
+# of 24,576 (1.36 G params, its untied head 0.30 G of them) (llama4-scout
+# and qwen2-vl do not fit at one layer: their published-width step waits
+# for the sharded path)
 TRAIN_FAMILIES = [("gemma2-9b", 2), ("deepseek-v2-lite-16b", 2),
-                  ("zamba2-7b", 12), ("hubert-xlarge", 4)]
+                  ("zamba2-7b", 12), ("hubert-xlarge", 4),
+                  ("h2o-danube-3-4b", 2), ("granite-20b", 2)]
 TRAIN_FAMILY_STEPS = 3
+# the fp32 identity's (batch, seq) where it is not 8 x 256: danube's one
+# sequence of 4,352 tokens, 256 past its 4,096 window, so that the window
+# cuts the first keys of the last 256 queries of each layer (at 8 x 256 it
+# masks nothing)
+DN_TRAIN_ID = (1, 4096 + 256)
+TRAIN_ID_SHAPE = {"h2o-danube-3-4b": DN_TRAIN_ID}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1038,6 +1068,11 @@ def check_kernels(torch, cfg, conv_path, arms):
             x, q, s, b, bits=bits, act=act))
         err, rel = rel_err(torch, got, want)
         require(rel <= TOL[dname], f"timing case {(M, K, N)} rel {rel}")
+        tail = N % 128            # a last column tile the kernel masks
+        if tail:
+            _, trel = rel_err(torch, got[:, -tail:], want[:, -tail:])
+            require(trel <= TOL[dname], f"timing case {(M, K, N)}: the last"
+                    f" {tail} columns rel {trel:.3g}")
         k_ms = time_ms(torch, lambda: slq.swap_linear_q(
             x, q, s, b, bits=bits, act=act))
         # library yardstick: cuBLAS on the weight dequantized beforehand
@@ -1656,7 +1691,7 @@ def fp_layer_linears(cfg):
 
 
 def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
-                      hcfg, ncfg, conv_path):
+                      hcfg, ncfg, grcfg, conv_path):
     """Phase 2 for B5: the kernel against its plain version over ragged
     shapes and qwen2.5-3b's linears at decode and prefill, then timed at
     the main paths' shapes (phase 10's from ``conv_path``). Returns the
@@ -1759,12 +1794,13 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
     timed += [("qwen2.5-3b train", TRAIN_BATCH * TRAIN_SEQ, "bfloat16", s)
               for s in fp_layer_linears(qcfg)]
     # phases 16-17: rwkv6-3b's time-mix wo and each family's linears (a
-    # Mamba2 layer's wo too) at the same 8 x 256 tokens, forward, remat and
-    # the gated MLP's act="none" recompute (its wi1's key)
+    # Mamba2 layer's wo too; granite-20b's GELU MLP wi and wo, its GELU
+    # after the kernel) at the same 8 x 256 tokens, forward, remat and the
+    # gated MLP's act="none" recompute (its wi1's key)
     timed += [("rwkv6-3b train wo", TRAIN_BATCH * TRAIN_SEQ, "bfloat16",
                (rcfg.d_model, rcfg.d_model, "none", False))]
     timed += [(f"{c.name} train", TRAIN_BATCH * TRAIN_SEQ, "bfloat16", s)
-              for c in (gcfg, dcfg, zcfg, hcfg)
+              for c in (gcfg, dcfg, zcfg, hcfg, ncfg, grcfg)
               for s in fp_layer_linears(c) + ([z_wo] if c is zcfg else [])]
     # phase 10: the conv workloads' fc layers and the fc stack, fp32
     timed += [(label, M, "float32", (K, N, "none", True))
@@ -1914,7 +1950,9 @@ FA_TIMED += [("qwen2.5-3b train", "bfloat16", TRAIN_BATCH, TRAIN_SEQ, 16, 2,
 # phase 17: each family's training step at 8 x 256 (forward and remat):
 # gemma2-9b's local and global layers (hd 256, softcap 50), deepseek's MLA
 # (192 / 128), zamba2's shared block (hd 112) and hubert's encoder (hd 80,
-# no causal mask), the last two at the padded width 128
+# no causal mask), the last two at the padded width 128; h2o-danube's 32 /
+# 8 heads of 120 (padded to 128; its window 4096 masks nothing at 256
+# tokens) and granite-20b's 48 / 1 heads of 128
 TRAIN_ATTN = [("gemma2-9b train", 16, 8, 256, 256, GEMMA_SCALE, window, 50.0,
                True) for window in (4096, None)]
 TRAIN_ATTN += [("deepseek-v2-lite train", 16, 16, 192, 128, DS_SCALE, None,
@@ -1922,11 +1960,25 @@ TRAIN_ATTN += [("deepseek-v2-lite train", 16, 16, 192, 128, DS_SCALE, None,
                ("zamba2-7b train", 32, 32, 112, 112, Z_SCALE, None, None,
                 True),
                ("hubert-xlarge train", 16, 16, 80, 80, HB_SCALE, None, None,
-                False)]
+                False),
+               ("h2o-danube train", 32, 8, 120, 120, DN_SCALE, 4096, None,
+                True),
+               ("granite-20b train", 48, 1, 128, 128, GR_SCALE, None, None,
+                True)]
 FA_TIMED += [(label, "bfloat16", TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, dv, scale,
               window, cap, None, causal)
              for label, H, KV, hd, dv, scale, window, cap, causal
              in TRAIN_ATTN]
+# phase 17's fp32 identities on the CUDA cores where no other fp32 row
+# holds their shape: h2o-danube's 1 x 4,352 tokens under its 4,096 window
+# (the window cuts the last 256 queries' first keys) and granite-20b's 8 x
+# 256 at G 48: (label, B, S, H, KV, hd, scale, window)
+TRAIN_ID_ATTN = [("h2o-danube train identity", *DN_TRAIN_ID, 32, 8, 120,
+                  DN_SCALE, 4096),
+                 ("granite-20b train identity", TRAIN_BATCH, TRAIN_SEQ, 48, 1,
+                  128, GR_SCALE, None)]
+FA_TIMED += [(label, "float32", B, S, H, KV, hd, hd, scale, window, None,
+              None) for label, B, S, H, KV, hd, scale, window in TRAIN_ID_ATTN]
 
 
 # the pairs the tensor-core kernel takes at widths padded up to one of its
@@ -2223,7 +2275,8 @@ def check_train_grads(torch, qcfg):
     the torch-op backward) against autograd through their plain versions
     on the same inputs, at phase 15's shapes (qwen2.5-3b's linears at M
     2,048, attention at 8 x 256 with 16 / 2 heads of 128) and
-    ``flash_attention`` at each phase 17 family's (``TRAIN_ATTN``), in fp32
+    ``flash_attention`` at each phase 17 family's (``TRAIN_ATTN``, and
+    h2o-danube's 1 x 4,352 under its window, ``TRAIN_ID_ATTN``), in fp32
     and bf16: the output and every input's gradient within 1e-5 / 2e-2 of
     the largest value. Then ``wkv6`` under ``WKV6Fn`` at phase 16's rows
     (``check_wkv6_grads``)."""
@@ -2249,8 +2302,12 @@ def check_train_grads(torch, qcfg):
             worst[dname] = max(worst[dname], rel)
             n += 1
 
-    attn = [("qwen2.5-3b train", 16, 2, 128, 128, QWEN_SCALE, None, None,
-             True)] + TRAIN_ATTN
+    attn = [(label, TRAIN_BATCH, TRAIN_SEQ, *shape) for label, *shape in
+            [("qwen2.5-3b train", 16, 2, 128, 128, QWEN_SCALE, None, None,
+              True)] + TRAIN_ATTN]
+    attn += [(label, B, S, H, KV, hd, hd, scale, window, None, True)
+             for label, B, S, H, KV, hd, scale, window in TRAIN_ID_ATTN
+             if (B, S) != (TRAIN_BATCH, TRAIN_SEQ)]
     for dname, dt in dts.items():
         for K, N, act, has_bias in fp_layer_linears(qcfg):
             x, w = rnd((M, K), 0.5, dt), rnd((K, N), K ** -0.5, dt)
@@ -2265,8 +2322,7 @@ def check_train_grads(torch, qcfg):
                 leaves, dy)
             hold(dname, f"SwapLinearFn {(M, K, N, act)}", [y] + got,
                  [y0] + want)
-        for label, H, KV, hd, dv, scale, window, cap, causal in attn:
-            B, S = TRAIN_BATCH, TRAIN_SEQ
+        for label, B, S, H, KV, hd, dv, scale, window, cap, causal in attn:
             q, k, v = (rnd((B, S, h, d), 1.0, dt).requires_grad_(True)
                        for h, d in ((H, hd), (KV, hd), (KV, dv)))
             pos = torch.arange(S, device=dev).expand(B, S)
@@ -2282,7 +2338,9 @@ def check_train_grads(torch, qcfg):
             del q, k, v, dy, out, got, out0, want
     torch.cuda.synchronize()
     print(f"training: SwapLinearFn at phase 15's shapes and "
-          f"FlashAttentionFn at phases 15 and 17's ({len(attn)} shapes) "
+          f"FlashAttentionFn at phases 15 and 17's ({len(attn)} shapes, "
+          f"danube's {DN_TRAIN_ID[0]} x {DN_TRAIN_ID[1]} under its window "
+          f"among them) "
           f"match autograd through the plain versions in {n} outputs and "
           f"gradients (worst rel err fp32 {worst['float32']:.3g} <= 1e-5, "
           f"bf16 {worst['bfloat16']:.3g} <= 2e-2)", flush=True)
@@ -4076,10 +4134,11 @@ def run_mcu(torch, model, params, main_launches, device="cuda"):
 
 
 # ---------------------------------------------------------------- llama4
-def mem_total_gb() -> float:
+def meminfo_gb(field: str = "MemTotal") -> float:
+    """A field of the host's /proc/meminfo in GB (1e9 B)."""
     with open("/proc/meminfo") as fh:
         for line in fh:
-            if line.startswith("MemTotal:"):
+            if line.startswith(f"{field}:"):
                 return int(line.split()[1]) * 1024 / 1e9
     return float("nan")
 
@@ -4182,10 +4241,22 @@ def cut_params(model, params, full_plan):
     return dict(params, segments=segs)
 
 
+def leading_values(params, n_layers: int) -> list:
+    """Host copies of the first 64 values of each leaf of ``params``, of
+    each of the first ``n_layers`` layers of a scanned segment: a
+    fingerprint of those layers and the unscanned leaves."""
+    from repro_torch.tree import tree_leaves
+    out = [a.reshape(-1)[:64] for k, v in params.items() if k != "segments"
+           for a in tree_leaves(v)]
+    out += [a[:n_layers].reshape(n_layers, -1)[:, :64]
+            for seg in params["segments"] for a in tree_leaves(seg)]
+    return [t.detach().cpu().clone() for t in out]
+
+
 def quant_arm(torch, tag, model, cut, batch, seq, workdir, reset, collect,
               expect, precision="int8", then=None):
-    """The int8-lazy arm of phases 11-13 (ROADMAP A10), and phase 20's
-    int4 one (``precision``): ``model`` over the
+    """The int8-lazy arm of phases 9 and 11-13 (ROADMAP A10), and phase
+    20's int4 one (``precision``): ``model`` over the
     phase's params cut to its layers (``cut``), stored lazy under
     ``workdir`` (removed after), planned under 1.1x the smallest budget on
     an ARM_GRID grid at which the planner packs the store at m = P9_M,
@@ -4376,7 +4447,11 @@ def run_llama4(torch, card, main_launches):
     budget less than half the store: an 8,704-token prefill bitwise equal
     to the unswapped forward (B4 at chunk 8192 on layers 0-2 and none on
     layer 3, B5 seven times a layer), then two paged generations equal to
-    each request served alone."""
+    each request served alone; last the int8-lazy arm (``quant_arm``) on
+    the same params cut to layers 0 and 1: one first pass of the prompt
+    with B1 at each layer's wq, wk, wv, wo and the shared expert's three
+    and the head (15), B4 once a layer at chunk 8192, the routed stacks,
+    the router and the embedding widened on the host."""
     import shutil
 
     import numpy as np
@@ -4400,7 +4475,7 @@ def run_llama4(torch, card, main_launches):
           f"{[i for i in range(cfg.n_layers) if cfg.is_local_layer(i)]}, "
           f"frontend stub {cfg.d_frontend}, {cfg.dtype}; reduced: n_layers "
           f"48->{LLAMA_LAYERS}", flush=True)
-    print(f"[phase9] {card}; host MemTotal {mem_total_gb():.1f} GB",
+    print(f"[phase9] {card}; host MemTotal {meminfo_gb():.1f} GB",
           flush=True)
     t0 = time.perf_counter()
     model = Model(cfg)
@@ -4433,6 +4508,7 @@ def run_llama4(torch, card, main_launches):
         ratio = resident / budget
         out.update(resident=resident, ratio=ratio)
         require(ratio > 2, f"{tag}: resident / budget {ratio:.3f} <= 2")
+        arm_fingerprint = leading_values(params, LLAMA_Q_LAYERS)
         del params
 
         t0 = time.perf_counter()
@@ -4520,14 +4596,56 @@ def run_llama4(torch, card, main_launches):
               f"({LLAMA_LAYERS} layers x {steps}); batched {paged_s:.1f} s, alone {solo_s:.1f} s; "
               f"launches {pcounts}", flush=True)
         out["paged"].update(tokens=got, batched_s=paged_s, solo_s=solo_s)
-        print(f"[phase9] wall s: init {init_s:.1f}, store {out['store_s']:.1f}"
-              f", warm pass {warm_s:.1f}, timed pass {st['latency_s']:.1f}, "
-              f"unswapped {unswapped_s:.1f}, paged {paged_s:.1f}, alone "
-              f"{solo_s:.1f}", flush=True)
     finally:
         sm.close()
         shutil.rmtree(P9_WORKDIR, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # ---- the int8-lazy arm: B1 at the attention's four linears, the
+    # shared expert's three and the head; the routed stacks, the router
+    # and the embedding widened on the host. Its params are drawn again on
+    # the card from the same seed, cut there and copied down (their leading
+    # values checked against the first draw's): a copy kept from
+    # ``params`` would hold 26 GB of the host through the passes above and
+    # evict the store's pages, which they would then read from disk again;
+    # reading the store's files back is slower than drawing them again
+    t0 = time.perf_counter()
+    qmodel = Model(dataclasses.replace(cfg, n_layers=LLAMA_Q_LAYERS))
+    full = model.init(0, device="cuda")
+    cut = host_copy(torch, cut_params(qmodel, full, model.plan))
+    del full
+    torch.cuda.empty_cache()
+    require(all(torch.equal(a, b) for a, b in zip(
+        leading_values(cut, LLAMA_Q_LAYERS), arm_fingerprint)),
+        "phase9 int8-lazy: the params drawn again differ from the first "
+        "draw")
+    n_cut = sum(p.numel() for p in _leaves(cut))
+    print(f"[phase9] host MemAvailable {meminfo_gb('MemAvailable'):.1f} GB "
+          f"before the int8-lazy arm, its {n_cut / 1e9:.3f} B fp32 params "
+          f"drawn again on the card and copied down in "
+          f"{time.perf_counter() - t0:.1f} s (their leading values == the "
+          f"first draw's)", flush=True)
+    fa_before = dict(main_launches["flash_attention"])
+    try:
+        out["int8_lazy"] = quant_arm(
+            torch, f"phase9 {cfg.name} bf16 int8-lazy, {LLAMA_Q_LAYERS} "
+            f"layers", qmodel, cut, batch, LLAMA_PROMPT,
+            P9_WORKDIR / "int8-lazy", reset, collect,
+            {"swap_linear_q": 7 * LLAMA_Q_LAYERS + 1, "swap_linear": 0,
+             "flash_attention": LLAMA_Q_LAYERS, "dequant_int8": 0})
+        del cut
+    finally:
+        shutil.rmtree(P9_WORKDIR, ignore_errors=True)
+    arm_s = time.perf_counter() - t0
+    arm_fa = {k[10] for k, n in main_launches["flash_attention"].items()
+              if n > fa_before.get(k, 0)}
+    require(arm_fa == {LLAMA_CHUNK}, f"phase9 int8-lazy: flash_attention at "
+            f"chunks {arm_fa}, not {LLAMA_CHUNK} alone (layers 0 and 1 are "
+            f"block-local)")
+    print(f"[phase9] wall s: init {init_s:.1f}, store {out['store_s']:.1f}"
+          f", warm pass {warm_s:.1f}, timed pass {st['latency_s']:.1f}, "
+          f"unswapped {unswapped_s:.1f}, paged {paged_s:.1f}, alone "
+          f"{solo_s:.1f}, int8-lazy arm {arm_s:.1f}", flush=True)
     # every shape the phase's main-path runs launched a kernel at
     out["by_shape"] = {
         name: {k: n - before[name].get(k, 0) for k, n in keys.items()
@@ -6081,13 +6199,15 @@ def describe(cfg, depth: int, id_depth: int) -> str:
             f"{TRAIN_BATCH} x seq {TRAIN_SEQ}")
 
 
-def train_identity(torch, cfg, tag: str) -> None:
+def train_identity(torch, cfg, tag: str, batch_size: int = TRAIN_BATCH,
+                   seq: int = TRAIN_SEQ) -> None:
     """The fp32 loss and every gradient leaf of ``Model.loss`` on one
-    ``SyntheticLM`` batch of 8 x 256 through the kernels (their
-    ``autograd.Function``s, each launching as often as ``train_launches``
-    says) == through the plain versions (``plain_kernels``, which launch
-    nothing): the loss within 1e-5 relative, each leaf within
-    ``TRAIN_GRAD_TOL`` of its largest |g|. Runs before the counted run."""
+    ``SyntheticLM`` batch of ``batch_size`` x ``seq`` through the kernels
+    (their ``autograd.Function``s, each launching as often as
+    ``train_launches`` says) == through the plain versions
+    (``plain_kernels``, which launch nothing): the loss within 1e-5
+    relative, each leaf within ``TRAIN_GRAD_TOL`` of its largest |g|. Runs
+    before the counted run."""
     import math
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.transformer import Model
@@ -6098,7 +6218,7 @@ def train_identity(torch, cfg, tag: str) -> None:
     for p in _leaves(params):
         p.requires_grad_(True)
     batch = {k: v.cuda() for k, v in SyntheticLM(
-        cfg, TRAIN_SEQ, TRAIN_BATCH).sample(0).items()}
+        cfg, seq, batch_size).sample(0).items()}
     counters = kernel_counters()
     n0 = {k: c.count for k, c in counters.items()}
     loss, grads = loss_and_grads(torch, model, params, batch)
@@ -6121,8 +6241,13 @@ def train_identity(torch, cfg, tag: str) -> None:
                 f"{tag} (a): a gradient leaf {tuple(g.shape)} off by "
                 f"{err:.3g} of {scale:.3g}")
         worst = max(worst, err / max(scale, 1e-30))
+    window = cfg.sliding_window if cfg.layer_pattern == "swa" else None
+    cut = (f", the window {window} cutting the first keys of the last "
+           f"{seq - window} queries a layer"
+           if window is not None and seq > window else "")
     print(f"[{tag} fp32] {cfg.n_layers} layers, "
-          f"{sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M params: "
+          f"{sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M params, "
+          f"{batch_size} x {seq} tokens{cut}: "
           f"loss {loss:.6f} through the kernels vs {loss0:.6f} through the "
           f"plain versions (rel {rel:.3g} <= 1e-5); {len(grads)} gradient "
           f"leaves, worst {worst:.3g} of the leaf's largest |g| <= "
@@ -6248,9 +6373,10 @@ def run_train_rwkv6(torch, card, main_launches):
 
 def run_train_families(torch, card, main_launches):
     """Phase 17: each family of ``TRAIN_FAMILIES`` at its published widths
-    and the depth there: the fp32 identity at that depth (phase 15 (a)),
-    then 3 bf16 steps of the loop, all finite, with the launches each step
-    implies, step ms, tok/s and peak memory."""
+    and the depth there: the fp32 identity at that depth (phase 15 (a);
+    at ``TRAIN_ID_SHAPE``'s batch where one is given: h2o-danube's window
+    cutting keys), then 3 bf16 steps of the loop, all finite, with the
+    launches each step implies, step ms, tok/s and peak memory."""
     from repro_torch.configs import get_arch
     by_shape = {}
     for arch, depth in TRAIN_FAMILIES:
@@ -6258,7 +6384,8 @@ def run_train_families(torch, card, main_launches):
         print(describe(base, depth, depth), flush=True)
         cfg = dataclasses.replace(base, n_layers=depth)
         tag = f"phase17 {arch}"
-        train_identity(torch, cfg, tag)
+        train_identity(torch, cfg, tag, *TRAIN_ID_SHAPE.get(
+            arch, (TRAIN_BATCH, TRAIN_SEQ)))
         out, shapes, _ = train_counted(torch, card, cfg, TRAIN_FAMILY_STEPS,
                                        main_launches, tag)
         for name, keys in shapes.items():
@@ -7018,10 +7145,13 @@ def main() -> int:
     conv_path = p10_kernel_shapes(sd_sched)
     print(f"phase 10's self-driving fleet planned in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # phases 11-13's int8-lazy arms: their configs cut to the arms' depths,
-    # held in int8 and int4; phase 20's int4 granite-20b, its first pass
-    # and its paged decode (admissions, steps at 3 sequences and at 1)
+    # phases 9 and 11-13's int8-lazy arms: their configs cut to the arms'
+    # depths, held in int8 and int4 (llama4's head at N 202,048, not a
+    # multiple of 128, at every column); phase 20's int4 granite-20b, its
+    # first pass and its paged decode (admissions, steps at 3 sequences
+    # and at 1)
     arms = [k + ((8, 4),) for name, d, M in (
+        ("llama4-scout-17b-a16e", LLAMA_Q_LAYERS, LLAMA_PROMPT),
         ("deepseek-v2-lite-16b", DS_Q_LAYERS, DS_PROMPT),
         ("zamba2-7b", Z_Q_LAYERS, Z_PROMPT),
         ("qwen2-vl-72b", VL_Q_LAYERS, VL_PROMPT))
@@ -7048,7 +7178,8 @@ def main() -> int:
                       get_arch("rwkv6-3b"), get_arch("llama4-scout-17b-a16e"),
                       get_arch("deepseek-v2-lite-16b"), get_arch("zamba2-7b"),
                       get_arch("qwen2-vl-72b"), get_arch("hubert-xlarge"),
-                      get_arch("h2o-danube-3-4b"), conv_path)
+                      get_arch("h2o-danube-3-4b"), get_arch("granite-20b"),
+                      conv_path)
         rows += timed("flash_attention", check_flash_attention, torch)
         timed("gradients", check_train_grads, torch, cfg)
         print("[phase2] s: " + ", ".join(f"{k} {v:.1f}"
@@ -7170,8 +7301,8 @@ def main() -> int:
             ("15", "qwen2.5-3b trained at full width", run_train),
             ("16", "rwkv6-3b trained at full width through WKV6Fn",
              run_train_rwkv6),
-            ("17", "gemma2, deepseek, zamba2 and hubert trained at full "
-             "width", run_train_families)):
+            ("17", "gemma2, deepseek, zamba2, hubert, h2o-danube and "
+             "granite trained at full width", run_train_families)):
         with phase(f"{num} {title}"):
             shapes = run(torch, card, main_launches)
             check_held(rows, shapes, f"phase {num}")

@@ -19,6 +19,7 @@ dtype strings follow numpy's names (``"float32"``, ``"bfloat16"``, ...);
 from __future__ import annotations
 
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, List, Tuple
 
@@ -115,24 +116,50 @@ def flatten_params(tree) -> Tuple[np.ndarray, Skeleton]:
     return buf, skel
 
 
+class RunningCRC:
+    """The CRC32 of a stream of buffers, taken in order on one worker
+    thread, so that it runs while the caller writes the next buffer
+    (``zlib.crc32`` and file writes both release the GIL). Each buffer is
+    held until its CRC is taken; :meth:`value` waits for the last one."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._last = None
+
+    def update(self, chunk) -> None:
+        prev = self._last
+        self._last = self._pool.submit(
+            lambda: zlib.crc32(chunk, 0 if prev is None else prev.result()))
+
+    def value(self) -> int:
+        try:
+            return 0 if self._last is None else self._last.result()
+        finally:
+            self._pool.shutdown()
+
+
 def write_flat(tree, fh) -> Tuple[Skeleton, int]:
     """Write a param tree to the binary file ``fh`` in the layout of
     :func:`flatten_params` (the same bytes), leaf by leaf, so no host copy
     of the whole unit is made; returns the skeleton and the CRC32 of the
-    bytes written."""
+    bytes written (:class:`RunningCRC`)."""
     skel = skeleton_of(tree)
-    crc, cursor = 0, 0
-    for leaf, ref in zip(tree_flatten(tree)[0], skel.refs):
-        pad = bytes(ref.offset - cursor)
-        arr, _ = host_array(leaf)
-        data = arr.reshape(-1).view(np.uint8)
-        for chunk in (pad, data):
-            fh.write(chunk)
-            crc = zlib.crc32(chunk, crc)
-        cursor = ref.offset + data.nbytes
-    pad = bytes(skel.nbytes - cursor)
-    fh.write(pad)
-    return skel, zlib.crc32(pad, crc)
+    crc, cursor = RunningCRC(), 0
+    try:
+        for leaf, ref in zip(tree_flatten(tree)[0], skel.refs):
+            pad = bytes(ref.offset - cursor)
+            arr, _ = host_array(leaf)
+            data = arr.reshape(-1).view(np.uint8)
+            for chunk in (pad, data):
+                crc.update(chunk)
+                fh.write(chunk)
+            cursor = ref.offset + data.nbytes
+        pad = bytes(skel.nbytes - cursor)
+        crc.update(pad)
+        fh.write(pad)
+    finally:
+        digest = crc.value()
+    return skel, digest
 
 
 def assemble(skel: Skeleton, buf: torch.Tensor) -> Any:

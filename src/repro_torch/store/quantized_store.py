@@ -55,8 +55,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.skeleton import (ALIGN, _align, dtype_name, host_array,
-                                       skeleton_of, torch_dtype)
+from repro_torch.core.skeleton import (ALIGN, RunningCRC, _align, dtype_name,
+                                       host_array, skeleton_of, torch_dtype)
 from repro_torch.kernels.dequant import (dequant_int8, quantize_int4,
                                          quantize_int8, unpack_int4)
 from repro_torch.kernels.qtensor import FUSED_WEIGHT_KEYS, QuantizedTensor
@@ -293,40 +293,50 @@ class QuantizedStore(BlockStore):
         quantize = quantize_int8 if bits_u == 8 else quantize_int4
         flat, _ = tree_flatten_with_path(params)
         self.skeletons[name] = skeleton_of(params)
-        blob = bytearray()
-
-        def put(b: bytes) -> int:
-            off = len(blob)
-            blob.extend(b)
-            blob.extend(b"\0" * ((-len(blob)) % ALIGN))
-            return off
-
         qleaves: List[QLeaf] = []
         resident_lazy = 0
         pbytes = {p: 0 for p in BITS_PRECISION.values()}
-        for path, leaf in flat:
-            arr, dname = host_array(leaf)
-            seg0 = len(blob)
-            if bits_u and quantizable(arr.shape, dname, self.min_quant_size):
-                key = path[-1] if path else None
-                fusable = arr.ndim == 2 and key in FUSED_STREAM_KEYS
-                q, scales = quantize(_float_array(leaf))
-                off = put(q.tobytes())
-                soff = put(scales.tobytes())
-                rows = int(np.prod(arr.shape[:-1]))
-                qleaves.append(QLeaf(off, q.nbytes, tuple(arr.shape), dname,
-                                     soff, rows, q.shape[1], fusable, bits_u))
-                resident_lazy += (q.nbytes + scales.nbytes if fusable
-                                  else arr.nbytes)
-            else:
-                off = put(arr.tobytes())
-                qleaves.append(QLeaf(off, arr.nbytes, tuple(arr.shape), dname))
-                resident_lazy += arr.nbytes
-            pbytes[BITS_PRECISION[qleaves[-1].bits]] += len(blob) - seg0
+        size, crc = 0, RunningCRC()
+        # each segment goes to the file as it is made, its CRC32 taken on
+        # the way (no copy of the unit's payload, no read back)
         with open(self._path(name), "wb") as fh:
-            fh.write(bytes(blob))
-        self._qmeta[name] = QuantMeta(qleaves, len(blob), resident_lazy,
-                                      pbytes)
+            def put(a: np.ndarray) -> int:
+                nonlocal size
+                off = size
+                for chunk in (np.ascontiguousarray(a).reshape(-1).view(
+                        np.uint8), bytes((-(off + a.nbytes)) % ALIGN)):
+                    crc.update(chunk)
+                    fh.write(chunk)
+                    size += len(chunk)
+                return off
+
+            try:
+                for path, leaf in flat:
+                    arr, dname = host_array(leaf)
+                    seg0 = size
+                    if bits_u and quantizable(arr.shape, dname,
+                                              self.min_quant_size):
+                        key = path[-1] if path else None
+                        fusable = arr.ndim == 2 and key in FUSED_STREAM_KEYS
+                        q, scales = quantize(_float_array(leaf))
+                        off = put(q)
+                        soff = put(scales)
+                        rows = int(np.prod(arr.shape[:-1]))
+                        qleaves.append(QLeaf(off, q.nbytes, tuple(arr.shape),
+                                             dname, soff, rows, q.shape[1],
+                                             fusable, bits_u))
+                        resident_lazy += (q.nbytes + scales.nbytes if fusable
+                                          else arr.nbytes)
+                    else:
+                        off = put(arr)
+                        qleaves.append(QLeaf(off, arr.nbytes, tuple(arr.shape),
+                                             dname))
+                        resident_lazy += arr.nbytes
+                    pbytes[BITS_PRECISION[qleaves[-1].bits]] += size - seg0
+            finally:
+                digest = crc.value()
+        self.digests[name] = digest
+        self._qmeta[name] = QuantMeta(qleaves, size, resident_lazy, pbytes)
 
     # ------------------------------------------------------------ read
     def read_unit(self, name: str) -> UnitRead:

@@ -1491,6 +1491,71 @@ def test_flash_attention_fn_grads_at_padded_head_dims_on_the_card(
         assert a.dtype == dtype and _rel(a, a0) <= TOL[dtype]
 
 
+# phase 17's h2o-danube and granite-20b attention under autograd (B, S, H,
+# KV, hd, window): danube's 32 / 8 heads of 120 on one sequence of 4,352
+# tokens under its 4,096 window (the last 256 queries lose their first
+# keys to it: the kernel's forward and flash_attention_grad's masking must
+# agree at the window's edge), granite's 48 query heads of 128 on one KV
+# head at 8 x 256 (fp32: the CUDA-core kernel at G 48)
+TRAIN_FAMILY_ATTN = [(1, 4352, 32, 8, 120, 4096), (8, 256, 48, 1, 128, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,window", TRAIN_FAMILY_ATTN)
+def test_flash_attention_fn_grads_at_danube_and_granite_on_the_card(
+        dev, B, S, H, KV, hd, window, dtype):
+    """``FlashAttentionFn`` against autograd through the plain version at
+    the two families' training shapes: the output and each input's
+    gradient within the tolerance of the qwen-shaped test."""
+    g = torch.Generator(device=dev).manual_seed(S + H)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+    dy = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    kw = dict(scale=hd ** -0.5, window=window)
+    inputs = [t.requires_grad_(True) for t in (q, k, v)]
+    before = fa.launches.count
+    out, got = _train_grads(lambda: fa.flash_attention(q, k, v, pos, **kw),
+                            inputs, dy)
+    assert fa.launches.count == before + 1
+    out0, want = _train_grads(
+        lambda: fa.flash_attention_plain(q, k, v, pos, **kw), inputs, dy)
+    assert _rel(out, out0) <= TOL[dtype]
+    for a, a0 in zip(got, want):
+        assert a.dtype == dtype and _rel(a, a0) <= TOL[dtype]
+    if window is not None:
+        # the window masks something: without it the output differs
+        with torch.no_grad():
+            wide = fa.flash_attention(q, k, v, pos, scale=hd ** -0.5)
+        assert _rel(wide[:, window:], out[:, window:]) > TOL[dtype]
+        assert _rel(wide[:, :window], out[:, :window]) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_swap_linear_q_at_the_llama4_head_on_the_card(dev, bits):
+    """B1 at llama4-scout's head (fp32 x, K 5,120, N 202,048 = 1,578 x 128
+    + 64: the first head whose last column tile the kernel masks) against
+    swap_linear_q_plain at M 1, every column and the last 64 alone; the
+    rows of a 4-row call equal their 1-row calls bitwise."""
+    K, N = 5120, 202048
+    g = torch.Generator(device=dev).manual_seed(bits)
+    q = torch.randint(-127 if bits == 8 else -128, 128,
+                      (K if bits == 8 else K // 2, N), generator=g,
+                      device=dev, dtype=torch.int8)
+    s = torch.rand((N,), generator=g, device=dev) * (2.0 / 127) / K ** 0.5
+    x = torch.randn((4, K), generator=g, device=dev)
+    got = slq.swap_linear_q(x[:1], q, s, bits=bits)
+    want = slq.swap_linear_q_plain(x[:1], q, s, bits=bits)
+    assert got.shape == (1, N) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL[torch.float32]
+    assert _rel(got[:, -64:], want[:, -64:]) <= TOL[torch.float32]
+    full = slq.swap_linear_q(x, q, s, bits=bits)
+    for i in range(4):
+        assert torch.equal(full[i:i + 1],
+                           slq.swap_linear_q(x[i:i + 1], q, s, bits=bits))
+
+
 def test_kernels_without_a_backward_refuse_grad_on_the_card(dev):
     """swap_linear_q, dequant_int8 and paged_attention raise, naming the
     kernel, where autograd would record them; under no_grad they run."""

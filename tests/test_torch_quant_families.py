@@ -23,6 +23,13 @@ over as numpy, a 2 x 32 prompt. Tolerances, with their reasons:
     int8 weight in its fp32 accumulator): the same bound, against the
     port's fp32 run (the widened weights' bf16 rounding and the
     activations' at other places).
+
+llama4-scout's arm (phase 9) is counted here too: the kernels one swapped
+int8-lazy pass calls on the reduced config, exact counts, and the pass
+bitwise the forward over the lazy leaves. Its logits are not held to the
+reference's here: quantized llama4 strays from fp in both packages, and
+``tests/test_torch_moe.py`` holds its quantized logits to the reference's
+in fp32.
 """
 import dataclasses
 
@@ -43,6 +50,8 @@ from repro_torch.core.cost_model import (DelayModel,  # noqa: E402
                                          resident_infos)
 from repro_torch.core.partition import PartitionPlanner  # noqa: E402
 from repro_torch.core.runtime import SwappedModel, unit_infos  # noqa: E402
+from repro_torch.kernels import dequant as dq  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import swap_linear as sl  # noqa: E402
 from repro_torch.kernels import swap_linear_q as slq  # noqa: E402
 from repro_torch.kernels.qtensor import (QuantizedTensor,  # noqa: E402
@@ -261,3 +270,54 @@ def test_zamba2_pinned_quant_unit_charged_its_lazy_bytes(tmp_path):
         assert bool(torch.isfinite(got).all())
     finally:
         sm.close()
+
+
+@pytest.mark.parametrize("n_layers", [1, 2])
+def test_llama4_int8_lazy_pass_launches(monkeypatch, tmp_path, n_layers):
+    """llama4-scout's int8-lazy arm as ``chip_smoke.py`` phase 9 runs it
+    (``quant_arm``'s expected launches), on the reduced config in bf16 cut
+    to ``n_layers``: one swapped pass calls swap_linear_q 7 times a moe
+    layer (wq, wk, wv, wo and the shared expert's three) and once for the
+    head, flash_attention once a layer at the block-local chunk of a local
+    layer, and neither swap_linear nor dequant_int8 (the routed stacks,
+    the router and the embedding widen on the host); the pass equals the
+    forward over the store's lazy leaves bitwise. Counted on the CPU,
+    where each wrapper runs its plain version."""
+    cfg = dataclasses.replace(get_arch("llama4-scout-17b-a16e").reduced(),
+                              dtype="bfloat16", n_layers=n_layers)
+    assert cfg.layer_kinds() == ("moe",) * n_layers
+    calls = {"swap_linear_q": 0, "swap_linear": 0, "dequant_int8": 0}
+    chunks = []
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def attention(*a, **kw):
+        chunks.append(kw["chunk"])
+        return plain_fa(*a, **kw)
+    plain_fa = fa.flash_attention_plain
+    monkeypatch.setattr(slq, "swap_linear_q_plain",
+                        count("swap_linear_q", slq.swap_linear_q_plain))
+    monkeypatch.setattr(sl, "swap_linear_plain",
+                        count("swap_linear", sl.swap_linear_plain))
+    monkeypatch.setattr(dq, "dequant_int8_plain",
+                        count("dequant_int8", dq.dequant_int8_plain))
+    monkeypatch.setattr(fa, "flash_attention_plain", attention)
+    model = Model(cfg)
+    sm = _int8_lazy(model, model.init(0, device="cpu"), tmp_path / "port")
+    try:
+        got, _ = sm.forward(_t(_batch(cfg, seed=7)))
+        swapped, swapped_chunks = dict(calls), list(chunks)
+        want = sm.forward_unswapped(_t(_batch(cfg, seed=7)),
+                                    resident=_lazy_units(sm))
+    finally:
+        sm.close()
+    assert swapped == {"swap_linear_q": 7 * n_layers + 1, "swap_linear": 0,
+                       "dequant_int8": 0}
+    assert S > cfg.attn_chunk and swapped_chunks == [
+        cfg.attn_chunk if cfg.is_local_layer(i) else None
+        for i in range(n_layers)]
+    assert torch.equal(got, want)

@@ -15,7 +15,15 @@ serves, ``reduced()`` in float32 on the CPU:
   ``wkv6_grad`` backward);
 - qwen2-vl-72b: M-RoPE positions and vision embeddings in the batch;
 - hubert-xlarge: the bidirectional encoder, ``mask_emb`` on the masked
-  frames and the loss weighed by the mask.
+  frames and the loss weighed by the mask;
+- h2o-danube-3-4b: the sliding window on every layer (S 96 passes the
+  reduced 64-token window);
+- granite-20b: multi-query attention and the non-gated GELU MLP.
+
+``reduced()`` sets head dim 64 and at most 4 heads; danube and granite
+are also held at their published head geometry on the reduced widths
+(danube 32 / 8 heads of 120, granite 48 / 1 heads of 128), the
+attention ``chip_smoke.py`` phase 17 trains on the card.
 
 Tolerance: the loss within 1e-5 relative, each gradient leaf within 1e-4
 of that leaf's largest |g| (float32; the sums run in another order).
@@ -45,15 +53,24 @@ ARCHS = {
     "rwkv6-3b": (2, 32),
     "qwen2-vl-72b": (2, 32),
     "hubert-xlarge": (2, 32),
+    "h2o-danube-3-4b": (2, 96),
+    "granite-20b": (2, 32),
+}
+# the published head geometry on the reduced widths
+GEOMETRY = {
+    "h2o-danube-3-4b": dict(n_heads=32, n_kv_heads=8, head_dim=120),
+    "granite-20b": dict(n_heads=48, n_kv_heads=1, head_dim=128),
 }
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_loss_and_grads_match_reference(arch):
+def _check_loss_and_grads(arch, **geometry):
+    """The port's loss and every gradient leaf against the reference's on
+    the reduced config (with ``geometry``'s fields replaced in both)."""
     B, S = ARCHS[arch]
     ref_cfg = dataclasses.replace(ref_get_arch(arch).reduced(),
-                                  dtype="float32")
-    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+                                  dtype="float32", **geometry)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32",
+                              **geometry)
     ref_model, model = RefModel(ref_cfg), Model(cfg)
     ref_params = ref_model.init(jax.random.key(0))
     params = params_from_jax(jax.tree.map(np.asarray, ref_params))
@@ -83,14 +100,28 @@ def test_loss_and_grads_match_reference(arch):
         assert err <= 1e-4 * float(np.abs(rg).max()), (path, err)
 
 
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_loss_and_grads_match_reference(arch):
+    _check_loss_and_grads(arch)
+
+
+@pytest.mark.parametrize("arch", sorted(GEOMETRY))
+def test_loss_and_grads_at_published_head_geometry(arch):
+    """danube's 32 / 8 heads of 120 (its window at the reduced 64 tokens,
+    S 96) and granite's 48 query heads of 128 on one KV head: B4's
+    grouping and head dim under ``FlashAttentionFn``'s backward."""
+    _check_loss_and_grads(arch, **GEOMETRY[arch])
+
+
 # per layer kind: (swap_linear, flash_attention, wkv6) launches of one train
 # step. Each layer is checkpointed, so its forward runs twice; a gated MLP
 # (swiglu, GeGLU, a moe layer's shared expert) relaunches its gate once at
 # act "none" in SwapLinearFn's backward. dense: wq, wk, wv, wo + wi0, wi1,
-# wo (hubert's GELU MLP: wi, wo); MLA + moe: wq, wo + the shared expert's
-# three; Mamba2 and rwkv6: wo. The head, the routed experts and the other
-# projections are plain matmuls, as in the reference. chip_smoke.py's
-# ``train_launches`` holds the card's train steps to the same counts.
+# wo (hubert's and granite's GELU MLP: wi, wo); MLA + moe: wq, wo + the
+# shared expert's three; Mamba2 and rwkv6: wo. The head, the routed experts
+# and the other projections are plain matmuls, as in the reference.
+# chip_smoke.py's ``train_launches`` holds the card's train steps to the
+# same counts.
 LAUNCHES_PER_LAYER = {
     "gemma2-9b": {"dense": (15, 2, 0)},
     "llama4-scout-17b-a16e": {"moe": (15, 2, 0)},
@@ -99,6 +130,8 @@ LAUNCHES_PER_LAYER = {
     "rwkv6-3b": {"rwkv6": (2, 0, 2)},
     "qwen2-vl-72b": {"dense": (15, 2, 0)},
     "hubert-xlarge": {"dense": (12, 2, 0)},
+    "h2o-danube-3-4b": {"dense": (15, 2, 0)},
+    "granite-20b": {"dense": (12, 2, 0)},
 }
 
 
