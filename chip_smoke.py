@@ -245,7 +245,7 @@ Phases, each printing its wall time:
    heads of 128, a GELU MLP): each the fp32 identity of phase 15 (a) at
    that depth (danube's on one sequence of 4,352 tokens, so that the
    window cuts the first keys of each layer's last 256 queries; granite's
-   ``flash_attention`` on the CUDA cores at G 48), 3 bf16 steps of the
+   ``flash_attention`` in three-pass TF32 at G 48), 3 bf16 steps of the
    loop, all finite, the launches each step implies (``train_launches``),
    step ms, tok/s and peak device memory;
 18. the dry run (``repro_torch.launch.dryrun``) on the card's host CPU:
@@ -337,8 +337,9 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12,    # bf16 tensor cores, dense
-            "float32": 67e12}      # fp32 outside the tensor cores (fp32
-                                   # accuracy rules out TF32)
+            "float32": 67e12,      # fp32 outside the tensor cores
+            "tf32": 495e12}        # TF32 tensor cores, dense
+TF32_PASSES = 3                    # the fp32 routes' TF32 products a product
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # max |err| / max |plain|
 
 # Device ms of the kernels at the timed shapes in their earlier design,
@@ -351,9 +352,12 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # max |err| / max |plain|
 # per row, the chunks one after another on the CUDA cores), and
 # flash_attention at bf16 hd 80 and 112 on the CUDA cores before those
 # head dims took the tensor cores (PR 23 call 2, PR 24 call 4, PR 26 call
-# 2). Printed beside a timing row's human-readable line for comparison,
-# marked as recorded; never part of the kernels line, which holds only
-# what this run measured.
+# 2), and the fp32 rows of swap_linear and flash_attention on the CUDA
+# cores before they took the tensor cores in three-pass TF32 (PERF.md's
+# per-shape table, in brackets, names each run). Printed
+# beside a timing row's human-readable line for comparison, marked as
+# recorded; never part of the kernels line, which holds only what this
+# run measured.
 EARLIER_MS = {
     ('swap_linear_q',
      'M=512 K=2048 N=2048 int8 x=bfloat16 act=none'): 0.3015,
@@ -402,15 +406,15 @@ EARLIER_MS = {
     ('swap_linear',
      'qwen2.5-3b M=512 K=11008 N=2048 bfloat16 act=none'): 1.6905,
     ('swap_linear',
-     'qwen2.5-3b M=2 K=2048 N=2048 float32 act=none +bias'): 0.1425,
+     'qwen2.5-3b M=2 K=2048 N=2048 float32 act=none +bias'): 0.0135,
     ('swap_linear',
-     'qwen2.5-3b M=2 K=2048 N=256 float32 act=none +bias'): 0.1420,
+     'qwen2.5-3b M=2 K=2048 N=256 float32 act=none +bias'): 0.0131,
     ('swap_linear',
-     'qwen2.5-3b M=2 K=2048 N=11008 float32 act=silu'): 0.2274,
+     'qwen2.5-3b M=2 K=2048 N=11008 float32 act=silu'): 0.0680,
     ('swap_linear',
-     'qwen2.5-3b M=2 K=2048 N=11008 float32 act=none'): 0.2269,
+     'qwen2.5-3b M=2 K=2048 N=11008 float32 act=none'): 0.0679,
     ('swap_linear',
-     'qwen2.5-3b M=2 K=11008 N=2048 float32 act=none'): 0.9648,
+     'qwen2.5-3b M=2 K=11008 N=2048 float32 act=none'): 0.0493,
     ('swap_linear',
      'gemma2-9b M=4200 K=3584 N=4096 bfloat16 act=none'): 6.6732,
     ('swap_linear',
@@ -424,7 +428,7 @@ EARLIER_MS = {
     ('swap_linear',
      'gemma2-9b M=4200 K=14336 N=3584 bfloat16 act=none'): 23.8633,
     ('swap_linear',
-     'rwkv6-3b wo M=1024 K=2560 N=2560 float32 act=none'): 0.6521,
+     'rwkv6-3b wo M=1024 K=2560 N=2560 float32 act=none'): 0.4697,
     ('paged_attention', 'qwen2.5-3b fp32 B=4 seq_lens=[38, 65, 101, 130] '
      'window=None softcap=None'): 0.0346,
     ('paged_attention', 'qwen2.5-3b bf16 B=1 seq_lens=[208] window=None '
@@ -440,7 +444,7 @@ EARLIER_MS = {
     **{('flash_attention', f'qwen2.5-3b admission B=1 S={S} 16/2 heads '
         f'hd=128 {dname} window=None softcap=None'): ms
        for dname, times in (
-           ("float32", (0.0129, 0.0230, 0.0265, 0.0458, 0.0569, 0.0812)),
+           ("float32", (0.0107, 0.0132, 0.0155, 0.0226, 0.0273, 0.0384)),
            ("bfloat16", (0.0139, 0.0244, 0.0476, 0.0484, 0.0598, 0.0856)))
        for S, ms in zip((17, 37, 64, 100, 129, 200), times)},
     ('flash_attention', 'gemma2-9b prefill B=1 S=4200 16/8 heads hd=256 '
@@ -461,6 +465,32 @@ EARLIER_MS = {
      'bfloat16 window=None softcap=None'): 0.3517,
     ('flash_attention', 'hubert-xlarge train B=8 S=256 16/16 heads hd=80 '
      'bfloat16 window=None softcap=None non-causal'): 0.2423,
+    **{('swap_linear', f'h2o-danube-3-4b M={M} K={K} N={N} float32 '
+        f'act={act}'): ms
+       for M, times in ((4000, (3.7534, 1.0637, 9.8763, 9.8551, 9.8996)),
+                        (40, (0.0726, 0.0274, 0.2620, 0.2610, 0.1793)),
+                        (3, (0.0364, 0.0138, 0.1241, 0.1240, 0.0865)),
+                        (1, (0.0362, 0.0138, 0.1243, 0.1240, 0.0861)))
+       for (K, N, act), ms in zip(((3840, 3840, "none"), (3840, 960, "none"),
+                                   (3840, 10240, "silu"),
+                                   (3840, 10240, "none"),
+                                   (10240, 3840, "none")), times)},
+    **{('swap_linear', f'{label} M={M} K={K} N={N} float32 act=none +bias'):
+       ms for label, M, K, N, ms in (
+           ("vgg_sim fc", 4, 256, 4096, 0.0111),
+           ("vgg_sim fc", 4, 4096, 1024, 0.0140),
+           ("vgg_sim fc", 4, 1024, 100, 0.0130),
+           ("resnet_sim fc", 4, 256, 100, 0.0111),
+           ("vgg_sim TPrg fc", 4, 79, 4096, 0.0086),
+           ("fc stack 12 x 1280", 64, 1280, 1280, 0.0195))},
+    ('flash_attention', 'h2o-danube admission B=1 S=4000 32/8 heads hd=120 '
+     'float32 window=4096 softcap=None'): 8.7495,
+    ('flash_attention', 'h2o-danube admission B=1 S=40 32/8 heads hd=120 '
+     'float32 window=4096 softcap=None'): 0.0145,
+    ('flash_attention', 'h2o-danube train identity B=1 S=4352 32/8 heads '
+     'hd=120 float32 window=4096 softcap=None'): 10.3063,
+    ('flash_attention', 'granite-20b train identity B=8 S=256 48/1 heads '
+     'hd=128 float32 window=None softcap=None'): 0.5568,
     ('wkv6', 'BH=80 S=512 hd=64 float32, zero initial state'): 0.3428,
     ('wkv6', 'BH=80 S=16 hd=64 float32, zero initial state'): 0.0132,
 }
@@ -774,17 +804,19 @@ def plain_call(torch, fn):
 
 def gemm_ptxas(log: str) -> list:
     """One line per variant of the weight-streaming matmul core
-    (``csrc/sm90_gemm.cuh``: weight kind, row tile) with what ``ptxas -v``
-    reported for it: registers, spill stores and loads."""
+    (``csrc/sm90_gemm.cuh``: weight kind, row tile; the three-pass TF32
+    core by row tile) with what ``ptxas -v`` reported for it: registers,
+    spill stores and loads."""
     import re
-    names = {"0": "bf16/fp32", "8": "int8", "4": "int4"}
+    names = {"0": "bf16", "8": "int8", "4": "int4"}
     out, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = m.group(1)
             t = re.search(r"(tc_gemm|simt_gemm)ILi(\d+)E(?:Li(\d+)E)?", name)
-            cur = None
+            f = re.search(r"tf32_gemmILi(\d+)E", name)
+            cur = f"tf32_gemm<{f.group(1)} rows>" if f else None
             if t:
                 rows = int(t.group(3)) * (64 if t.group(1) == "tc_gemm" else 1)
                 cur = f"{t.group(1)}<{names[t.group(2)]}, {rows} rows>"
@@ -804,6 +836,7 @@ def gemm_ptxas(log: str) -> list:
 
 ATTENTION_KERNELS = [
     ("fa_tc", r"fa_tcILi(\d+)ELi(\d+)ELi(\d+)E", "HD {0} HDV {1} k16 x {2}"),
+    ("fa_tf32", r"fa_tf32ILi(\d+)ELi(\d+)E", "HD {0} HDV {1}"),
     ("fa_simt", r"fa_simtI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
      "{0} hd {1} dv {2}"),
     ("paged_attention_kernel",
@@ -862,6 +895,89 @@ def rel_err(torch, got, want) -> tuple:
     return d, d / max(scale, 1e-30)
 
 
+def bound(nbytes: float, ops: float, dname: str, route: str) -> dict:
+    """A timing row's bound: the larger of its bytes over the card's memory
+    rate and its operations over the peak of what computes them. On the
+    three-pass TF32 route (``tf32x3``) an fp32 operation is three TF32
+    ones on the tensor cores; ``fp32_bound_ms`` keeps the CUDA cores' fp32
+    bound beside it (printed, not in the kernels line)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if route == "tf32x3":
+        t_ops = TF32_PASSES * ops / PEAK_OPS["tf32"] * 1e3
+    else:
+        t_ops = ops / PEAK_OPS[dname] * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if route == "tf32x3":
+        out["fp32_bound_ms"] = max(t_bytes, ops / PEAK_OPS["float32"] * 1e3)
+    return out
+
+
+def bound_note(r) -> str:
+    """The printed bound of a timing row, with the fp32 CUDA-core bound
+    beside a three-pass TF32 row's."""
+    fp32 = r.get("fp32_bound_ms")
+    return (f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}"
+            + ("" if fp32 is None else f"; three-pass TF32, fp32 CUDA-core "
+               f"bound {fp32:.4f}") + ")")
+
+
+def fp32_routes(by_shape, what: str, need=()) -> str:
+    """Every fp32 swap_linear launch in ``by_shape`` (kernel -> launch key
+    -> count) ran the three-pass TF32 core, and every fp32 flash_attention
+    launch the kernel ``path`` gives its (hd, dv): three-pass TF32 where
+    the widths round up to (64, 64) or (128, 128), the CUDA cores
+    elsewhere; each kernel named in ``need`` launched in fp32 on the
+    three-pass route at least once. Returns a summary line."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    sl_keys = {k: n for k, n in by_shape.get("swap_linear", {}).items()
+               if k[3] == "float32"}
+    fa_keys = {k: n for k, n in by_shape.get("flash_attention", {}).items()
+               if k[6] == "float32"}
+    off = sorted((k for k in sl_keys if k[5] != "tf32x3"), key=str)
+    require(not off, f"{what}: fp32 swap_linear off the TF32 core: {off}")
+    off = sorted((k for k in fa_keys
+                  if k[11] != fa.path(torch.float32, k[4], k[5])), key=str)
+    require(not off, f"{what}: fp32 flash_attention off its path: {off}")
+    got = {"swap_linear": sum(sl_keys.values()),
+           "flash_attention": sum(n for k, n in fa_keys.items()
+                                  if k[11] == "tf32x3")}
+    for name in need:
+        require(got[name] > 0, f"{what}: no fp32 {name} launch on the "
+                f"three-pass TF32 route")
+    simt = sum(n for k, n in fa_keys.items() if k[11] == "simt")
+    return (f"{what}: fp32 launches on the three-pass TF32 route: "
+            f"swap_linear {got['swap_linear']}, flash_attention "
+            f"{got['flash_attention']}" + (f"; fp32 flash_attention on the "
+                                           f"CUDA cores {simt}" if simt
+                                           else ""))
+
+
+class launch_delta:
+    """The kernels' launches inside the block, by kernel and key, without
+    resetting the counters (``by_shape`` after the block)."""
+
+    def __enter__(self):
+        self.before = {n: dict(c.by_shape)
+                       for n, c in kernel_counters().items()}
+        return self
+
+    def __exit__(self, *exc):
+        self.by_shape = {}
+        for n, c in kernel_counters().items():
+            d = {k: v - self.before[n].get(k, 0)
+                 for k, v in c.by_shape.items()}
+            self.by_shape[n] = {k: v for k, v in d.items() if v > 0}
+
+
+def since(main_launches, before) -> dict:
+    """What ``main_launches`` gained since the snapshot ``before``."""
+    return {n: {k: v - before[n].get(k, 0) for k, v in keys.items()
+                if v > before[n].get(k, 0)}
+            for n, keys in main_launches.items()}
+
+
 # ---------------------------------------------------------------- kernels
 def slice_linear_shapes(cfg):
     """(K, N, act, x dtype, bias) of every fused linear the slice launches,
@@ -903,15 +1019,22 @@ def check_row_independence(torch, g, which):
     pass) and of an 1100-row call (N = K = 2048: the
     splits summed inside each block, against the last-block combine of the
     1-row call) equal their 1-row calls bitwise, at every dtype and,
-    for B1, int8 and int4; an x at data_ptr() % 16 != 0 (plain loads)
-    gives its aligned copy's (TMA or cp.async) bits; one-hot rows of x
+    for B1, int8 and int4 (B5's fp32 on the three-pass TF32 core, its
+    1-row calls in 16-row tiles against the 128-row tiles of the others);
+    an x at data_ptr() % 16 != 0 (plain loads) gives its aligned copy's
+    (TMA or cp.async) bits; one-hot rows of x
     against a weight of distinct values return its rows exactly (a
     swizzle or transpose fault cannot pass). Returns a summary line."""
     from repro_torch.kernels import dequant as dq
+    from repro_torch.kernels import gemm_plan
     from repro_torch.kernels import swap_linear as sl
     from repro_torch.kernels import swap_linear_q as slq
     dev = torch.device("cuda")
     kinds = (8, 4) if which == "q" else (None,)
+    if which == "fp":      # fp32 on the three-pass TF32 core, at every M
+        require({gemm_plan.plan(M, N, 2048, "float32", "fp32").core
+                 for M in (1, 130, 1100) for N in (256, 2048)} == {"tf32x3"},
+                "swap_linear fp32 does not plan the TF32 core")
     n = 0
     for dt in (torch.float32, torch.bfloat16):
         for (M, K, N, rows) in ((130, 2048, 256, range(130)),
@@ -1696,6 +1819,7 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
     shapes and qwen2.5-3b's linears at decode and prefill, then timed at
     the main paths' shapes (phase 10's from ``conv_path``). Returns the
     timing rows."""
+    from repro_torch.kernels import gemm_plan
     from repro_torch.kernels import swap_linear as sl
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -1836,24 +1960,23 @@ def check_swap_linear(torch, qcfg, gcfg, rcfg, lcfg, dcfg, zcfg, vcfg,
                  f"{' +bias' if b is not None else ''}")
         nbytes = (M * K * xs + K * N * w.element_size()
                   + (N * xs if b is not None else 0) + M * N * xs)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2.0 * M * N * K / PEAK_OPS[dname] * 1e3
+        core = gemm_plan.plan(M, N, K, dname, "bf16" if dname == "bfloat16"
+                              else "fp32").core
         rows.append({
             "name": "swap_linear", "route": "cuda",
             "source": "src/repro_torch/csrc/swap_linear.cu",
             "replaces": "src/repro/kernels/swap_linear.py:36",
-            "key": (M, K, N, dname, act),
+            "key": (M, K, N, dname, act, core),
             "shape": shape,
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": l_ms})
+            "plain_ms": p_ms, **bound(nbytes, 2.0 * M * N * K, dname, core),
+            "library_ms": l_ms, "path": core})
         del x, w, b, got, want
     for r in rows:
-        print(f"  swap_linear {r['shape']:58s} kernel {r['ms']:.4f} ms"
-              f"{earlier(r)}  plain {r['plain_ms']:.4f} ms  library "
-              f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+        print(f"  swap_linear {r['shape']:58s} ({r['path']}) kernel "
+              f"{r['ms']:.4f} ms{earlier(r)}  plain {r['plain_ms']:.4f} ms  "
+              f"library {r['library_ms']:.4f} ms  {bound_note(r)}",
+              flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -1936,7 +2059,7 @@ FA_TIMED += [(f"qwen2-vl {what}", "bfloat16", 1, S, 64, 8, 128, 128,
 FA_TIMED += [("hubert-xlarge encoder", "bfloat16", HB_BATCH, HB_FRAMES, 16,
               16, 80, 80, HB_SCALE, None, None, None, False)]
 # phase 19 (b): h2o-danube-3-4b's paged admissions in fp32 (32 / 8 heads of
-# 120, window 4096; the CUDA cores); phase 20: granite-20b's first pass and
+# 120, window 4096; three-pass TF32); phase 20: granite-20b's first pass and
 # paged admissions in bf16 (48 query heads of 128 on one KV head)
 FA_TIMED += [("h2o-danube admission", "float32", 1, S, 32, 8, 120, 120,
               DN_SCALE, 4096, None, None) for S in sorted(set(
@@ -1969,7 +2092,7 @@ FA_TIMED += [(label, "bfloat16", TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, dv, scale,
               window, cap, None, causal)
              for label, H, KV, hd, dv, scale, window, cap, causal
              in TRAIN_ATTN]
-# phase 17's fp32 identities on the CUDA cores where no other fp32 row
+# phase 17's fp32 identities in three-pass TF32 where no other fp32 row
 # holds their shape: h2o-danube's 1 x 4,352 tokens under its 4,096 window
 # (the window cuts the last 256 queries' first keys) and granite-20b's 8 x
 # 256 at G 48: (label, B, S, H, KV, hd, scale, window)
@@ -2144,6 +2267,27 @@ def check_flash_attention(torch):
                         f"rel {rel:.3g}")
                 worst["bfloat16"] = max(worst["bfloat16"], rel)
                 n_checked += 1
+    # the three-pass TF32 kernel (fp32) at S around its 64-key and 128-row
+    # tiles and past them, at both instantiations and the pairs it takes
+    # padded (danube's 120, zamba2's 112, the reduced MLA's (48, 32))
+    for hd, dv in fa.TF32_HEAD_DIMS + ((120, 120), (112, 112), (48, 32)):
+        for i, S in enumerate((1, 63, 65, 129, 700)):
+            q, k, v, pos = fa_inputs(torch, 450 + i, 2, S, 4, 2, hd,
+                                     torch.float32, i % 2 == 1, dv=dv)
+            for causal, window, softcap, chunk in masks:
+                kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                          softcap=softcap, chunk=chunk)
+                got = fa.flash_attention(q, k, v, pos, **kw)
+                _, rel = rel_err(torch, got, fa.flash_attention_plain(
+                    q, k, v, pos, **kw))
+                require(rel <= TOL["float32"] and
+                        bool(torch.isfinite(got).all()) and
+                        fa.path(torch.float32, hd, dv) == "tf32x3",
+                        f"flash_attention fp32 S={S} hd={hd} dv={dv} causal "
+                        f"{causal} window {window} softcap {softcap} chunk "
+                        f"{chunk}: rel {rel:.3g}")
+                worst["float32"] = max(worst["float32"], rel)
+                n_checked += 1
     print(f"flash_attention: {n_checked} cases match the plain version "
           f"(worst rel err fp32 {worst['float32']:.3g} <= 1e-5, bf16 "
           f"{worst['bfloat16']:.3g} <= 2e-2)", flush=True)
@@ -2162,7 +2306,10 @@ def check_flash_attention(torch):
              (200, 16, 16, 192, 128, "float32", {}),
              (200, 32, 32, 112, 112, "bfloat16", {}),
              (HB_FRAMES, 16, 16, 80, 80, "bfloat16", {"causal": False}),
-             (300, 32, 8, 120, 120, "bfloat16", {})]):
+             (300, 32, 8, 120, 120, "bfloat16", {}),
+             (300, 32, 8, 120, 120, "float32", {}),
+             (256, 48, 1, 128, 128, "float32", {}),
+             (200, 32, 32, 112, 112, "float32", {"causal": False})]):
         q, k, v, pos = fa_inputs(torch, 500 + i, 4, S, H, KV, hd, dts[dname],
                                  dv=dv)
         kw = dict(scale=hd ** -0.5, **(masked or {"window": 64,
@@ -2189,7 +2336,8 @@ def check_flash_attention(torch):
         n_bits += 1
     print(f"flash_attention: {n_bits} bitwise checks pass (rows of 4-row "
           f"calls == their 1-row calls, repeated calls equal, a chunk of S "
-          f"== no chunk; tensor-core and CUDA-core kernels)", flush=True)
+          f"== no chunk; the bf16 and three-pass TF32 tensor-core kernels "
+          f"and the CUDA-core kernel)", flush=True)
     torch.cuda.synchronize()
 
     rows, timed_library = [], {}
@@ -2228,24 +2376,22 @@ def check_flash_attention(torch):
                    + B * S * H * dv) * es + B * S * 4)
         pairs = attended_pairs(S, window, chunk) if causal else S * S
         ops = 2.0 * (hd + dv) * H * B * pairs
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS[dname] * 1e3
+        kernel = fa.path(dt, hd, dv)
         rows.append({
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:26",
             "key": (B, S, H, KV, hd, dv, dname, causal, window, softcap,
-                    chunk),
+                    chunk, kernel),
             "shape": f"{label} B={B} S={S} {H}/{KV} heads hd={hd} {dname} "
                      f"window={window} softcap={softcap}"
                      + ("" if causal else " non-causal")
                      + (f" chunk={chunk}" if chunk is not None else "")
                      + (f" dv={dv}" if dv != hd else ""),
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": p_ms, **bound(nbytes, ops, dname, kernel),
             "library_ms": l_ms, "library_call": lib_name,
-            "also": also, "path": fa.path(dt, hd, dv)})
+            "also": also, "path": kernel})
         del q, k, v, got, want
     for r in rows:
         lib = ("none takes dv != hd" if r["library_ms"] is None else
@@ -2253,8 +2399,7 @@ def check_flash_attention(torch):
                + "".join(f", {n} {ms:.4f} ms" for n, ms in r["also"].items()))
         print(f"  flash_attention {r['shape']:78s} ({r['path']}) kernel "
               f"{r['ms']:.4f} ms{earlier(r)}  plain {r['plain_ms']:.4f} ms  "
-              f"library {lib}  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"library {lib}  {bound_note(r)}", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -4647,10 +4792,7 @@ def run_llama4(torch, card, main_launches):
           f"unswapped {unswapped_s:.1f}, paged {paged_s:.1f}, alone "
           f"{solo_s:.1f}, int8-lazy arm {arm_s:.1f}", flush=True)
     # every shape the phase's main-path runs launched a kernel at
-    out["by_shape"] = {
-        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
-               if n > before[name].get(k, 0)}
-        for name, keys in main_launches.items()}
+    out["by_shape"] = since(main_launches, before)
     return out
 
 
@@ -4741,7 +4883,10 @@ def run_deepseek(torch, main_launches):
         max_alloc = torch.cuda.max_memory_allocated()
         want_key = (1, DS_PROMPT, cfg.n_heads, cfg.n_heads,
                     m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim,
-                    cfg.dtype, True, None, None, None)
+                    cfg.dtype, True, None, None, None,
+                    fa.path(getattr(torch, cfg.dtype),
+                            m.qk_nope_head_dim + m.qk_rope_head_dim,
+                            m.v_head_dim))
         require(counts["flash_attention"] == DS_LAYERS
                 and dict(fa.launches.by_shape) == {want_key: DS_LAYERS},
                 f"{tag}: flash_attention launches {fa.launches.by_shape}, "
@@ -4891,7 +5036,10 @@ def run_deepseek(torch, main_launches):
                 f"{tag}: engine launches {ecounts}, logits "
                 f"{tuple(first16.shape)}")
         model32 = Model(dataclasses.replace(cfg, dtype="float32"))
-        first32, etokens32, routes32 = engine_first(model32)
+        with launch_delta() as eng32:
+            first32, etokens32, routes32 = engine_first(model32)
+        print(fp32_routes(eng32.by_shape, f"{tag} fp32 engine",
+                          ("swap_linear",)), flush=True)
         cache = model32.alloc_cache(DS_BATCH, L, device="cuda")
         for t in range(DS_DECODE_PROMPT):
             absorbed32, cache = model32.decode_step(dev_params, cache, {
@@ -4954,10 +5102,7 @@ def run_deepseek(torch, main_launches):
           f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}, decode "
           f"{decode_s:.1f}, engine {engine_s:.1f}, int8-lazy arm "
           f"{arm_s:.1f}", flush=True)
-    out["by_shape"] = {
-        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
-               if n > before[name].get(k, 0)}
-        for name, keys in main_launches.items()}
+    out["by_shape"] = since(main_launches, before)
     return out
 
 
@@ -5077,7 +5222,8 @@ def run_zamba2(torch, main_launches):
         max_alloc = torch.cuda.max_memory_allocated()
         es = sm.engine.stats
         want_key = (1, Z_PROMPT, cfg.n_heads, cfg.n_kv_heads, hd, hd,
-                    cfg.dtype, True, None, None, None)
+                    cfg.dtype, True, None, None, None,
+                    fa.path(getattr(torch, cfg.dtype), hd))
         launched = dict(fa.launches.by_shape)
         require(counts["flash_attention"] == n_shared
                 and launched == {want_key: n_shared}
@@ -5232,7 +5378,10 @@ def run_zamba2(torch, main_launches):
                 f"{tag}: engine launches {ecounts}, logits "
                 f"{tuple(first16.shape)}")
         model32 = Model(dataclasses.replace(cfg, dtype="float32"))
-        first32, etokens32 = engine_first(model32)
+        with launch_delta() as eng32:
+            first32, etokens32 = engine_first(model32)
+        print(fp32_routes(eng32.by_shape, f"{tag} fp32 engine",
+                          ("swap_linear", "flash_attention")), flush=True)
         cache = model32.alloc_cache(Z_BATCH, L, device="cuda")
         for t in range(Z_DECODE_PROMPT):
             stepped32, cache = model32.decode_step(dev_params, cache, {
@@ -5282,10 +5431,7 @@ def run_zamba2(torch, main_launches):
           f"{st['latency_s']:.1f}, unswapped {unswapped_s:.1f}, decode "
           f"{decode_s:.1f}, engine {engine_s:.1f}, int8-lazy arm "
           f"{arm_s:.1f}", flush=True)
-    out["by_shape"] = {
-        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
-               if n > before[name].get(k, 0)}
-        for name, keys in main_launches.items()}
+    out["by_shape"] = since(main_launches, before)
     return out
 
 
@@ -5385,7 +5531,8 @@ def run_qwen2_vl(torch, main_launches):
         counts = collect()
         max_alloc = torch.cuda.max_memory_allocated()
         want_key = (1, VL_PROMPT, cfg.n_heads, cfg.n_kv_heads, hd, hd,
-                    cfg.dtype, True, None, None, None)
+                    cfg.dtype, True, None, None, None,
+                    fa.path(getattr(torch, cfg.dtype), hd))
         launched = dict(fa.launches.by_shape)
         require(counts["flash_attention"] == VL_LAYERS
                 and launched == {want_key: VL_LAYERS},
@@ -5492,10 +5639,7 @@ def run_qwen2_vl(torch, main_launches):
           f"{st['latency_s']:.1f}, unswapped and moved grid "
           f"{unswapped_s:.1f}, paged {paged_s:.1f}, alone {solo_s:.1f}, "
           f"int8-lazy arm {arm_s:.1f}", flush=True)
-    out["by_shape"] = {
-        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
-               if n > before[name].get(k, 0)}
-        for name, keys in main_launches.items()}
+    out["by_shape"] = since(main_launches, before)
     return out
 
 
@@ -5599,7 +5743,8 @@ def run_hubert(torch, main_launches):
         counts = collect()
         max_alloc = torch.cuda.max_memory_allocated()
         want_key = (HB_BATCH, HB_FRAMES, cfg.n_heads, cfg.n_kv_heads, hd,
-                    hd, cfg.dtype, False, None, None, None)
+                    hd, cfg.dtype, False, None, None, None,
+                    fa.path(getattr(torch, cfg.dtype), hd))
         launched = dict(fa.launches.by_shape)
         require(counts["flash_attention"] == cfg.n_layers
                 and launched == {want_key: cfg.n_layers}
@@ -5643,10 +5788,7 @@ def run_hubert(torch, main_launches):
         sm.close()
         shutil.rmtree(P14_WORKDIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    out["by_shape"] = {
-        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
-               if n > before[name].get(k, 0)}
-        for name, keys in main_launches.items()}
+    out["by_shape"] = since(main_launches, before)
     return out
 
 
@@ -6073,10 +6215,7 @@ def run_conv(torch, sd_sched, planners, main_launches, device="cuda"):
         for sw in sws.values():
             sw.close()
         shutil.rmtree(P10_WORKDIR, ignore_errors=True)
-    out["by_shape"] = {
-        name: {k: c - before[name].get(k, 0) for k, c in keys.items()
-               if c > before[name].get(k, 0)}
-        for name, keys in main_launches.items()}
+    out["by_shape"] = since(main_launches, before)
     return out
 
 
@@ -6118,21 +6257,36 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
+def rounded_linear(x, w, b=None, *, act="none"):
+    """``swap_linear``'s function with the product accumulated in float64
+    and rounded once to fp32, then the bias and activation in fp32:
+    the fp32 linear free of any summation order, the reference linear of
+    the fp32 gradient identities (``plain_kernels``). cuBLAS's fp32 order
+    is no reference for a kernel that sums otherwise: on zamba2-7b's 12
+    layers the identity moves 1.37e-4 of a leaf's largest |g| between two
+    fp32 orders of the same products, past its 1e-4, even for a GEMM
+    exact to float64 (an NVIDIA H100, ``tools/torch_identity_probe.py``)."""
+    from repro_torch.kernels.swap_linear_q import activation
+    r = x.double() @ w.double()
+    if b is not None:
+        r = r + b.double()
+    return activation(r.float(), act).to(x.dtype)
+
+
 class plain_kernels:
     """Within the block the models' linears, prefill attention and rwkv6
-    recurrence run the plain versions of ``swap_linear``,
-    ``flash_attention`` and ``wkv6`` on the card (autograd differentiates
-    them as it does any torch op): the reference for the gradient through
-    the kernels in phases 15-17. ``models/ssm.py`` imports ``wkv6`` by
-    name, so the name is swapped there."""
+    recurrence run the plain versions of ``flash_attention`` and ``wkv6``
+    and :func:`rounded_linear` on the card (autograd differentiates them
+    as it does any torch op): the reference for the gradient through the
+    kernels in phases 15-17. ``models/ssm.py`` imports ``wkv6`` by name,
+    so the name is swapped there."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
-        from repro_torch.kernels import swap_linear as sl
         from repro_torch.kernels import wkv6 as kw
         from repro_torch.models import attention, layers, ssm
         self.saved = layers.swap_linear, attention.flash_attention, ssm.wkv6
-        layers.swap_linear = sl.swap_linear_plain
+        layers.swap_linear = rounded_linear
         attention.flash_attention = fa.flash_attention_plain
         ssm.wkv6 = kw.wkv6_plain
 
@@ -6204,8 +6358,9 @@ def train_identity(torch, cfg, tag: str, batch_size: int = TRAIN_BATCH,
     """The fp32 loss and every gradient leaf of ``Model.loss`` on one
     ``SyntheticLM`` batch of ``batch_size`` x ``seq`` through the kernels
     (their ``autograd.Function``s, each launching as often as
-    ``train_launches`` says) == through the plain versions
-    (``plain_kernels``, which launch nothing): the loss within 1e-5
+    ``train_launches`` says) == through the plain versions, the linears
+    rounded once from float64 (``plain_kernels``, which launch nothing):
+    the loss within 1e-5
     relative, each leaf within ``TRAIN_GRAD_TOL`` of its largest |g|. Runs
     before the counted run."""
     import math
@@ -6221,7 +6376,8 @@ def train_identity(torch, cfg, tag: str, batch_size: int = TRAIN_BATCH,
         cfg, seq, batch_size).sample(0).items()}
     counters = kernel_counters()
     n0 = {k: c.count for k, c in counters.items()}
-    loss, grads = loss_and_grads(torch, model, params, batch)
+    with launch_delta() as fp32_launches:
+        loss, grads = loss_and_grads(torch, model, params, batch)
     n1 = {k: c.count for k, c in counters.items()}
     launched = {k: n1[k] - n0[k] for k in n0}
     require(launched == train_launches(cfg), f"{tag} (a): launches "
@@ -6241,6 +6397,15 @@ def train_identity(torch, cfg, tag: str, batch_size: int = TRAIN_BATCH,
                 f"{tag} (a): a gradient leaf {tuple(g.shape)} off by "
                 f"{err:.3g} of {scale:.3g}")
         worst = max(worst, err / max(scale, 1e-30))
+    from repro_torch.kernels import flash_attention as fa
+    pair = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+             cfg.mla.v_head_dim) if cfg.mla is not None
+            else (cfg.resolved_head_dim, cfg.resolved_head_dim))
+    tf32_attn = (train_launches(cfg)["flash_attention"] > 0
+                 and fa.path(torch.float32, *pair) == "tf32x3")
+    routes = fp32_routes(fp32_launches.by_shape, f"{tag} (a)",
+                         ("swap_linear",)
+                         + (("flash_attention",) if tf32_attn else ()))
     window = cfg.sliding_window if cfg.layer_pattern == "swa" else None
     cut = (f", the window {window} cutting the first keys of the last "
            f"{seq - window} queries a layer"
@@ -6249,10 +6414,11 @@ def train_identity(torch, cfg, tag: str, batch_size: int = TRAIN_BATCH,
           f"{sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M params, "
           f"{batch_size} x {seq} tokens{cut}: "
           f"loss {loss:.6f} through the kernels vs {loss0:.6f} through the "
-          f"plain versions (rel {rel:.3g} <= 1e-5); {len(grads)} gradient "
+          f"plain versions, linears rounded from float64 (rel {rel:.3g} <= "
+          f"1e-5); {len(grads)} gradient "
           f"leaves, worst {worst:.3g} of the leaf's largest |g| <= "
           f"{TRAIN_GRAD_TOL}; launches {launched}; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; {routes}", flush=True)
     del model, params, grads, grads0, batch
     torch.cuda.empty_cache()
 
@@ -6909,9 +7075,7 @@ def danube_paged(torch, model, params, prompt, main_launches):
           f"{solo_s:.1f} s; launches {counts}", flush=True)
     out.update(tokens=[len(t) for t in got], batched_s=paged_s,
                solo_s=solo_s)
-    return {name: {k: n - before[name].get(k, 0) for k, n in keys.items()
-                   if n > before[name].get(k, 0)}
-            for name, keys in main_launches.items()}
+    return since(main_launches, before)
 
 
 def run_mesh(torch, card, main_launches):
@@ -7039,10 +7203,7 @@ def run_granite(torch, main_launches):
     del params
     print(f"[phase20] wall s: init {init_s:.1f}, int4-lazy arm and paged "
           f"{arm_s:.1f}", flush=True)
-    out["by_shape"] = {
-        name: {k: n - before[name].get(k, 0) for k, n in keys.items()
-               if n > before[name].get(k, 0)}
-        for name, keys in main_launches.items()}
+    out["by_shape"] = since(main_launches, before)
     return out
 
 
@@ -7205,11 +7366,17 @@ def main() -> int:
 
     with phase("4 paged continuous-batching decode at full width"):
         gmodel, gparams = gemma_model(torch)
+        before = {name: dict(keys) for name, keys in main_launches.items()}
         run_paged(torch, cfg, model, params, gmodel, gparams, main_launches)
+        print(fp32_routes(since(main_launches, before), "phase 4",
+                          ("swap_linear", "flash_attention")), flush=True)
     torch.cuda.empty_cache()
 
     with phase("5 rwkv6-3b swapped at full width"):
+        before = {name: dict(keys) for name, keys in main_launches.items()}
         run_rwkv6(torch, main_launches)
+        print(fp32_routes(since(main_launches, before), "phase 5",
+                          ("swap_linear",)), flush=True)
 
     with phase("6 gemma2-9b full-precision swapped prefill at full width"):
         run_gemma_prefill(torch, gmodel, gparams, main_launches)
@@ -7255,6 +7422,8 @@ def main() -> int:
                "store arms, the fc stack"):
         p10 = run_conv(torch, sd_sched, p10_planners, main_launches)
         p10_check_launches(p10)
+        print(fp32_routes(p10["by_shape"], "phase 10", ("swap_linear",)),
+              flush=True)
         check_held(rows, p10["by_shape"], "phase 10")
         print("phase 10 launches by held shape: " + "; ".join(
             f"{name} {k} x{n}" for name, keys in p10["by_shape"].items()
@@ -7317,6 +7486,8 @@ def main() -> int:
                "h2o-danube-3-4b paged past its window"):
         shapes = run_mesh(torch, card, main_launches)
         check_held(rows, shapes, "phase 19")
+        print(fp32_routes(shapes, "phase 19",
+                          ("swap_linear", "flash_attention")), flush=True)
         print("phase 19 launches by held shape: " + "; ".join(
             f"{name} {held_key(name, k)} x{n}"
             for name, keys in shapes.items()
@@ -7345,6 +7516,7 @@ def main() -> int:
                             if held_key(r["name"], k) == key)
         r.pop("live_tokens", None)
         r.pop("path", None)
+        r.pop("fp32_bound_ms", None)
         r.pop("library_call", None)
         r.pop("also", None)
         out.append(r)

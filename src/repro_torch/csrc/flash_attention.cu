@@ -5,7 +5,8 @@
 // launched by flash_attention). The kernels, their design and what bounds
 // them are in flash_attention.cuh. They compile apart, one source per
 // tensor-core instantiation (flash_attention_tc64.cu, _tc128.cu,
-// _tc256.cu, _tc192.cu) and one for the CUDA-core kernel in each dtype
+// _tc256.cu, _tc192.cu; fp32's flash_attention_tf32_64.cu, _tf32_128.cu)
+// and one for the CUDA-core kernel in each dtype
 // (flash_attention_simt_fp32.cu, _simt_bf16.cu), so that the build runs
 // them in parallel nvcc processes; this file checks a call and picks the
 // entry.
@@ -18,8 +19,10 @@
 // path: 0 = the tensor cores (bf16, hd and dv multiples of 8 whose widths
 // rounded up to 64 are (64, 64), (128, 128), (256, 256) or (192, 128),
 // 16-byte aligned q, k, v), 1 = the CUDA cores (either dtype, any hd and
-// dv), as kernels/flash_attention.py::path chooses (its TC_HEAD_DIMS are
-// the pairs below). Returns the first CUDA error of the launch, or
+// dv), 2 = the tensor cores in three-pass TF32 (fp32, hd and dv multiples
+// of 4 whose widths rounded up to 64 are (64, 64) or (128, 128)), as
+// kernels/flash_attention.py::path chooses (its TC_HEAD_DIMS and
+// TF32_HEAD_DIMS are the pairs below). Returns the first CUDA error of the launch, or
 // cudaErrorInvalidValue for a call the kernel does not take.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, const void* q_pos,
@@ -53,6 +56,22 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     if (w_hd == 192 && w_dv == 128) {
       return repro_fa_tc_192_128(q, k, v, q_pos, out, B, S, H, KV, hd, dv,
                                  scale, causal, window, chunk, softcap, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (path == PATH_TF32) {
+    if (dtype != 0 || hd % 4 != 0 || dv % 4 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int w_hd = (hd + 63) / 64 * 64, w_dv = (dv + 63) / 64 * 64;
+    if (w_hd == 64 && w_dv == 64) {
+      return repro_fa_tf32_64_64(q, k, v, q_pos, out, B, S, H, KV, hd, dv,
+                                 scale, causal, window, chunk, softcap, st);
+    }
+    if (w_hd == 128 && w_dv == 128) {
+      return repro_fa_tf32_128_128(q, k, v, q_pos, out, B, S, H, KV, hd, dv,
+                                   scale, causal, window, chunk, softcap,
+                                   st);
     }
     return (int)cudaErrorInvalidValue;
   }

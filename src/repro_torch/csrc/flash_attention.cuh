@@ -39,7 +39,7 @@
 //
 // What bounds it on an H100: operations, 2 (hd + dv) flops per (query,
 // key, head) pair that is not skipped, against reading q, k, v once and
-// writing out once. Two kernels, chosen by the caller from (dtype, hd, dv)
+// writing out once. Three kernels, chosen by the caller from (dtype, hd, dv)
 // (kernels/flash_attention.py::path), never as a reaction to a failure:
 //
 // * fa_tc, bf16 at every (hd, dv) with hd and dv multiples of 8 (TMA's
@@ -79,10 +79,39 @@
 //   folding the G heads into one block's rows would save those L2 reads
 //   but tie the block's row count to G. Causal blocks run the longest
 //   query tiles first.
-// * fa_simt, fp32 (1e-5 parity with the plain version rules out TF32 and
-//   bf16 tensor cores) and bf16 at any pair outside fa_tc's rule (an hd
-//   or dv that is no multiple of 8, or widths rounding up to another
-//   pair, such as (128, 192)): the CUDA cores in
+// * fa_tf32, fp32 at every (hd, dv) of multiples of 4 whose widths rounded
+//   up to 64 are (64, 64) or (128, 128): qwen's and granite-20b's 128,
+//   h2o-danube's 120, zamba2's 112 and the reduced configs' 64. The tensor
+//   cores in three-pass TF32 (sm90_common.cuh: each operand split into
+//   TF32 hi and lo, hi lo + lo hi + hi hi into fp32 accumulators), within
+//   1e-5 of the plain version, where one TF32 pass would not be. One block
+//   of 256 threads per (128 query rows, query head, batch row), as fa_tc's;
+//   each warp owns 16 rows and runs mma.sync.m16n8k8. Q is staged once as
+//   fp32 (rows of HD + 8 floats) and split in registers. K / V tiles of 32
+//   keys land by 16-byte cp.async into two stages (plain loads where k or
+//   v is not 16-byte aligned; columns past hd and dv stay zero), and the
+//   block splits each landed tile once into TF32 hi and lo tiles in shared
+//   memory, which every warp then reads: eight warps no longer split the
+//   same K and V. Q K^T takes ceil(hd / 8) k8 steps, reading Q and K
+//   fragments as 8-byte pairs (the k8 step's k 2 t and 2 t + 1 placed at
+//   the instruction's t and t + 4, the same for both operands), each 32 of
+//   hd summed on the tensor cores and then added in fp32; the scores'
+//   accumulator is then, in that order, P's A fragment for P V, so P never
+//   leaves registers; V is read as it lies, keys 2 t and 2 t + 1 of a
+//   column (rows of HDV + 4 words, free of bank conflicts), so nothing is
+//   transposed, as wgmma's K-major TF32 operand would need; each n8 group
+//   of O is summed over a tile's keys on the tensor cores, then added in
+//   fp32. Scale, softcap (tanhf, fp32-accurate: tanh.approx holds only the
+//   bf16 tolerance), mask and the online softmax (expf) run in fp32 on the
+//   accumulator, row max and sum over the 4 threads of a row. 8-key groups
+//   past the block's last attended key and n8 groups of O past dv are
+//   skipped. Shared memory at (128, 128): Q 68 KB, two landed stages of 32
+//   KB and the split tile 67 KB; with wgmma, Q's hi and lo tiles alone
+//   would take 64 KB at 64 rows.
+// * fa_simt, fp32 at any other pair (deepseek's (192, 128), hd 256, an hd
+//   or dv that is no multiple of 4) and bf16 at any pair outside fa_tc's
+//   rule (an hd or dv that is no multiple of 8, or widths rounding up to
+//   another pair, such as (128, 192)): the CUDA cores in
 //   fp32, hd and dv each rounded up to a template width of 64, 128 or 256.
 //   One block of 256 threads per (32 (query, head) rows of one KV head's G
 //   heads, KV head, batch row), so each K / V tile is staged once for all
@@ -108,6 +137,7 @@ namespace {
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
 constexpr int PATH_TC = 0;        // kernels/flash_attention.py PATHS
 constexpr int PATH_SIMT = 1;
+constexpr int PATH_TF32 = 2;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -865,6 +895,308 @@ fa_simt(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- three-pass TF32 kernel (fp32)
+// fa_tf32: fp32 at every (hd, dv) of multiples of 4 whose widths rounded
+// up to 64 are (64, 64) or (128, 128). Each warp owns 16 query rows and
+// runs Q K^T and P V as mma.sync.m16n8k8 in three-pass TF32
+// (sm90_common.cuh). K and V are split into TF32 hi and lo once a tile,
+// by the whole block, into shared memory; Q and P are split in registers.
+constexpr int T3_BQ = 128;          // query rows a block: 8 warps of 16
+constexpr int T3_BKV = 32;          // keys a K / V tile
+
+template <int HD, int HDV> struct Tf32Attn {
+  // row strides in floats: HD + 8 (8 mod 32) puts the 8-byte fragment
+  // loads of Q and split K (two d of one row) of a half-warp on 32 banks
+  // once; HDV + 4 (4 mod 32) the 4-byte loads of split V's keys 2 t and
+  // 2 t + 1 at column g. Landed K / V rows are dense (hd, dv at most HD,
+  // HDV: the columns past them stay zero).
+  static constexpr int LDQ = HD + 8;
+  static constexpr int LDK = HD + 8;
+  static constexpr int LDV = HDV + 4;
+  static constexpr int Q_BYTES = T3_BQ * LDQ * 4;
+  static constexpr int LAND = T3_BKV * (HD + HDV);     // floats: K, then V
+  static constexpr int LAND_BYTES = LAND * 4;
+  // split: K hi, K lo, V hi, V lo
+  static constexpr int KS = T3_BKV * LDK, VS = T3_BKV * LDV;   // words
+  static constexpr int SPLIT_BYTES = (2 * KS + 2 * VS) * 4;
+  static constexpr int SMEM_BYTES = Q_BYTES + 2 * LAND_BYTES + SPLIT_BYTES;
+  static_assert(HD % 64 == 0 && HDV % 64 == 0 && HD <= 128 && HDV <= 128,
+                "the TF32 kernel's widths");
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
+};
+
+// one landed K / V tile split into TF32 hi and lo, by all ST_THREADS
+// threads, 4 values a step
+template <int HD, int HDV>
+__device__ __forceinline__ void t3_split(const float* land, uint32_t* split,
+                                         int tid) {
+  using L = Tf32Attn<HD, HDV>;
+  constexpr int KQ = HD / 4, VQ = HDV / 4;       // float4s a row
+#pragma unroll
+  for (int e = tid; e < T3_BKV * (KQ + VQ); e += ST_THREADS) {
+    const bool isk = e < T3_BKV * KQ;
+    const int f = isk ? e : e - T3_BKV * KQ;
+    const int q = isk ? KQ : VQ;
+    const int r = f / q, c = (f % q) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(
+        land + (isk ? r * HD + c : T3_BKV * HD + r * HDV + c));
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    uint32_t* hi = isk ? split + r * L::LDK + c
+                       : split + 2 * L::KS + r * L::LDV + c;
+    *reinterpret_cast<uint4*>(hi) = h;
+    *reinterpret_cast<uint4*>(hi + (isk ? L::KS : L::VS)) = l;
+  }
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(ST_THREADS, 1)
+fa_tf32(const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const int32_t* __restrict__ q_pos,
+        float* __restrict__ out, int S, int H, int KV, int hd, int dv,
+        float scale, int causal, int window, int chunk, float softcap,
+        int vec) {
+  using L = Tf32Attn<HD, HDV>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* land = reinterpret_cast<float*>(smem + L::Q_BYTES);      // 2 stages
+  uint32_t* split = reinterpret_cast<uint32_t*>(smem + L::Q_BYTES +
+                                                2 * L::LAND_BYTES);
+  const uint32_t* khi = split;
+  const uint32_t* klo = split + L::KS;
+  const uint32_t* vhi = split + 2 * L::KS;
+  const uint32_t* vlo = vhi + L::VS;
+  __shared__ int red[2 * ST_THREADS / 32];
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.z;
+  // causal: the query tiles with the most keys first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int m0 = qt * T3_BQ;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  if (hd < HD || dv < HDV) {     // landed columns past hd / dv stay zero
+    for (int e = tid; e < 2 * L::LAND_BYTES / 16; e += ST_THREADS) {
+      reinterpret_cast<uint4*>(land)[e] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+#pragma unroll 16
+  for (int e = tid; e < T3_BQ * HD; e += ST_THREADS) {
+    const int r = e / HD, c = e % HD;
+    float x = 0.0f;
+    if (m0 + r < S && c < hd) {
+      x = q[(((size_t)b * S + m0 + r) * H + h) * hd + c];
+    }
+    qs[r * L::LDQ + c] = x;
+  }
+  int lo = INT32_MAX, hi = INT32_MIN;
+  if (tid < T3_BQ && m0 + tid < S) {
+    lo = hi = q_pos[(size_t)b * S + m0 + tid];
+  }
+  block_minmax<ST_THREADS>(lo, hi, red);     // also publishes the zeros and Q
+  int kv_lo, kv_hi;
+  key_range(lo, hi, S, causal, window, chunk, kv_lo, kv_hi);
+  const int t_lo = kv_lo / T3_BKV;
+  const int ntiles = (kv_hi + T3_BKV - 1) / T3_BKV - t_lo;
+
+  // this thread's rows a (g) and b (g + 8) of the warp's 16, and its
+  // columns 2 t, 2 t + 1 of every 8-column group of an accumulator
+  const int row_a = m0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  const int qp_a = row_a < S ? q_pos[(size_t)b * S + row_a] : 0;
+  const int qp_b = row_b < S ? q_pos[(size_t)b * S + row_b] : 0;
+  const float* qa = qs + (warp * 16 + g) * L::LDQ + 2 * t;
+  const int nk8 = (hd + 7) / 8;        // k8 steps of Q K^T on a real column
+  const int nd8 = (dv + 7) / 8;        // n8 tiles of O with a real column
+
+  float o[HDV / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HDV / 8; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[nd][c] = 0.0f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.0f, l_b = 0.0f;
+
+  if (ntiles > 0) {
+    simt_rows<float, T3_BKV>(land, HD, k, b, S, KV, kvh, hd, t_lo * T3_BKV,
+                             vec, tid);
+    simt_rows<float, T3_BKV>(land + T3_BKV * HD, HDV, v, b, S, KV, kvh, dv,
+                             t_lo * T3_BKV, vec, tid);
+    cp_async_commit();
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();         // tile i landed; every warp is past tile i - 1
+    t3_split<HD, HDV>(land + (i & 1) * L::LAND, split, tid);
+    __syncthreads();         // tile i split
+    if (i + 1 < ntiles) {    // lands while tile i is computed
+      float* nl = land + ((i + 1) & 1) * L::LAND;
+      const int jn = (t_lo + i + 1) * T3_BKV;
+      simt_rows<float, T3_BKV>(nl, HD, k, b, S, KV, kvh, hd, jn, vec, tid);
+      simt_rows<float, T3_BKV>(nl + T3_BKV * HD, HDV, v, b, S, KV, kvh, dv,
+                               jn, vec, tid);
+      cp_async_commit();
+    }
+    const int j0 = (t_lo + i) * T3_BKV;
+    // 8-key groups holding a key below kv_hi: the rest are skipped
+    const int nkt = (min(T3_BKV, kv_hi - j0) + 7) / 8;
+
+    // S = Q K^T: register (nt, c) holds row (c < 2 ? a : b), key j0 + 8 nt
+    // + 2 t + c % 2; each 32 of hd summed on the tensor cores, then added
+    // in fp32
+    float sc[T3_BKV / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < T3_BKV / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[nt][c] = 0.0f;
+#pragma unroll
+    for (int kg = 0; kg < HD / 32; ++kg) {
+      if (kg * 4 >= nk8) break;
+      float p[T3_BKV / 8][4];
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const int kk = kg * 4 + k4;
+        if (kk >= nk8) break;
+        const float2 u = *reinterpret_cast<const float2*>(qa + kk * 8);
+        const float2 w = *reinterpret_cast<const float2*>(qa + 8 * L::LDQ +
+                                                          kk * 8);
+        uint32_t ah[4], al[4];
+        split_tf32(u.x, ah[0], al[0]);
+        split_tf32(w.x, ah[1], al[1]);
+        split_tf32(u.y, ah[2], al[2]);
+        split_tf32(w.y, ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < T3_BKV / 8; ++nt) {
+          if (nt < nkt) {
+            const int off = (nt * 8 + g) * L::LDK + kk * 8 + 2 * t;
+            const uint2 bh2 = *reinterpret_cast<const uint2*>(khi + off);
+            const uint2 bl2 = *reinterpret_cast<const uint2*>(klo + off);
+            const uint32_t bh[2] = {bh2.x, bh2.y}, bl[2] = {bl2.x, bl2.y};
+            mma_3xtf32(p[nt], ah, al, bh, bl, k4 == 0);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < T3_BKV / 8; ++nt) {
+        if (nt < nkt) add_rn(sc[nt], p[nt]);
+      }
+    }
+
+    // scale, softcap (tanhf, fp32-accurate), mask unless every row attends
+    // to the whole tile; the online softmax in fp32
+    const bool full =
+        all_attend(j0, j0 + T3_BKV, lo, hi, S, causal, window, chunk);
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int nt = 0; nt < T3_BKV / 8; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = NEG_INF;
+        if (nt < nkt) {
+          x = sc[nt][c] * scale;
+          if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+          if (!full && !attends(j0 + 8 * nt + 2 * t + (c & 1),
+                                c < 2 ? qp_a : qp_b, S, causal, window,
+                                chunk)) {
+            x = NEG_INF;
+          }
+        }
+        sc[nt][c] = x;
+        if (c < 2) {
+          mx_a = fmaxf(mx_a, x);
+        } else {
+          mx_b = fmaxf(mx_b, x);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = expf(m_a - mn_a), corr_b = expf(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float ps_a = 0.0f, ps_b = 0.0f;
+    // P split into TF32 hi / lo: key group kt's scores are the A fragment
+    // as they lie (keys 2 t, 2 t + 1 at the instruction's k t, t + 4)
+    uint32_t ph[T3_BKV / 8][4], pl[T3_BKV / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < T3_BKV / 8; ++nt) {
+      float pv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pv[c] = expf(sc[nt][c] - (c < 2 ? mn_a : mn_b));
+        if (c < 2) {
+          ps_a += pv[c];
+        } else {
+          ps_b += pv[c];
+        }
+      }
+      split_tf32(pv[0], ph[nt][0], pl[nt][0]);
+      split_tf32(pv[2], ph[nt][1], pl[nt][1]);
+      split_tf32(pv[1], ph[nt][2], pl[nt][2]);
+      split_tf32(pv[3], ph[nt][3], pl[nt][3]);
+    }
+    l_a = l_a * corr_a + ps_a;       // this thread's share of the row sum
+    l_b = l_b * corr_b + ps_b;
+
+    // O = O * corr + P V: each n8 group of O summed over the tile's keys
+    // on the tensor cores, then added in fp32; V's keys 2 t and 2 t + 1 of
+    // column g are B's
+    const int vrow = 2 * t * L::LDV + g;
+#pragma unroll
+    for (int nd = 0; nd < HDV / 8; ++nd) {
+      o[nd][0] *= corr_a;
+      o[nd][1] *= corr_a;
+      o[nd][2] *= corr_b;
+      o[nd][3] *= corr_b;
+      if (nd < nd8) {
+        float p[4];
+#pragma unroll
+        for (int kt = 0; kt < T3_BKV / 8; ++kt) {
+          if (kt < nkt) {
+            const int off = kt * 8 * L::LDV + vrow + nd * 8;
+            const uint32_t bh[2] = {vhi[off], vhi[off + L::LDV]};
+            const uint32_t bl[2] = {vlo[off], vlo[off + L::LDV]};
+            mma_3xtf32(p, ph[kt], pl[kt], bh, bl, kt == 0);
+          }
+        }
+        add_rn(o[nd], p);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  // the dv real columns at row stride dv (dv a multiple of 4: a column
+  // pair 2 t, 2 t + 1 is real whole or not at all, and 8-byte aligned)
+#pragma unroll
+  for (int nd = 0; nd < HDV / 8; ++nd) {
+    const int c = 8 * nd + 2 * t;
+    if (c < dv && row_a < S) {
+      *reinterpret_cast<float2*>(out + (((size_t)b * S + row_a) * H + h) * dv +
+                                 c) =
+          make_float2(o[nd][0] * inv_a, o[nd][1] * inv_a);
+    }
+    if (c < dv && row_b < S) {
+      *reinterpret_cast<float2*>(out + (((size_t)b * S + row_b) * H + h) * dv +
+                                 c) =
+          make_float2(o[nd][2] * inv_b, o[nd][3] * inv_b);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 // a 4-D bf16 tensor map over [B, S, heads, hd] (dims innermost first) at
 // the tensor's real hd (a multiple of 8: the row stride a multiple of 16
@@ -947,6 +1279,31 @@ int run_tc(const void* q, const void* k, const void* v, const void* qpos,
   return (int)cudaErrorInvalidValue;
 }
 
+template <int HD, int HDV>
+int run_tf32(const void* q, const void* k, const void* v, const void* qpos,
+             void* out, int B, int S, int H, int KV, int hd, int dv,
+             float scale, int causal, int window, int chunk, float softcap,
+             cudaStream_t st) {
+  using L = Tf32Attn<HD, HDV>;
+  const int qtiles = (S + T3_BQ - 1) / T3_BQ;
+  if (qtiles > 65535 || hd % 4 != 0 || dv % 4 != 0 || hd > HD || dv > HDV ||
+      hd <= HD - 64 || dv <= HDV - 64) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_tf32<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = aligned16(k) && aligned16(v);
+  const dim3 grid(H, qtiles, B);
+  fa_tf32<HD, HDV><<<grid, ST_THREADS, L::SMEM_BYTES, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int32_t*>(qpos),
+      static_cast<float*>(out), S, H, KV, hd, dv, scale, causal, window,
+      chunk, softcap, vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD, int HDV>
 int launch_simt(const void* q, const void* k, const void* v, const void* qpos,
                 void* out, int B, int S, int H, int KV, int hd, int dv,
@@ -1013,10 +1370,10 @@ int run_simt(const void* q, const void* k, const void* v, const void* qpos,
 // The compiled entries, one source each, so that nvcc builds them in
 // processes of their own, all at once (kernels/_build.py): fa_tc at each
 // instantiation (flash_attention_tc64.cu, _tc128.cu, _tc256.cu,
-// _tc192.cu) and fa_simt in each dtype (flash_attention_simt_fp32.cu,
-// _simt_bf16.cu).
+// _tc192.cu), fa_tf32 at each (flash_attention_tf32_64.cu, _tf32_128.cu)
+// and fa_simt in each dtype (flash_attention_simt_fp32.cu, _simt_bf16.cu).
 // flash_attention.cu checks a call and dispatches to them. Each returns
-// run_tc's (run_simt's) code.
+// run_tc's (run_tf32's, run_simt's) code.
 #define REPRO_FA_PARAMS                                                    \
   const void *q, const void *k, const void *v, const void *qpos,          \
       void *out, int B, int S, int H, int KV, int hd, int dv, float scale, \
@@ -1030,6 +1387,8 @@ int repro_fa_tc_64_64(REPRO_FA_PARAMS);
 int repro_fa_tc_128_128(REPRO_FA_PARAMS);
 int repro_fa_tc_256_256(REPRO_FA_PARAMS);
 int repro_fa_tc_192_128(REPRO_FA_PARAMS);
+int repro_fa_tf32_64_64(REPRO_FA_PARAMS);
+int repro_fa_tf32_128_128(REPRO_FA_PARAMS);
 int repro_fa_simt_fp32(REPRO_FA_PARAMS);
 int repro_fa_simt_bf16(REPRO_FA_PARAMS);
 }

@@ -1,8 +1,9 @@
 // sm90_common.cuh: Hopper (sm_90a) primitives shared by the port's
 // kernels: shared-memory addresses, mbarriers, TMA tile loads, proxy
 // fences, named barriers, 16-byte cp.async, the 128-byte-swizzle wgmma
-// descriptor and layout, and the driver's tensor-map encoder fetched at run
-// time (cudaGetDriverEntryPoint(ByVersion)), so no kernel library links
+// descriptor and layout, the three-pass TF32 product of the fp32 routes,
+// and the driver's tensor-map encoder fetched at run time
+// (cudaGetDriverEntryPoint(ByVersion)), so no kernel library links
 // libcuda. sm90_gemm.cuh (swap_linear, swap_linear_q), flash_attention.cuh
 // and paged_attention.cu include it.
 #pragma once
@@ -105,6 +106,93 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ------------------------------------------------------ three-pass TF32
+// fp32 products on the tensor cores at fp32 accuracy (the fp32 routes of
+// swap_linear and flash_attention). Each operand is split explicitly,
+// hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest (ties away,
+// cvt.rna); the subtraction is exact in fp32, so hi + lo keeps 22 of x's
+// 24 significant bits. Raw fp32 bits are never handed to a TF32 operand:
+// the tensor cores would read only the top 19 bits, truncating. A k8
+// step's three products go small terms first, hi lo, then lo hi, then
+// hi hi, into a partial sum that starts at zero on the tensor cores; after
+// a few k8 steps that partial is added to the fp32 accumulator with one
+// rounded fp32 add. lo lo (below 2^-22 of the product) is dropped. The
+// accumulator never enters the tensor cores: their sums are not rounded
+// to nearest, and fed back through them at every step an accumulator
+// drifted past 1e-5 of the fp32 result at K 2,048-10,240 on an H100. So
+// the error stays near that of kernels/tf32.py's model (which emulates a
+// partial a k8 step on the CPU), about 1e-6 of the largest output at K
+// 10,240, inside the 1e-5 of fp32 parity that one pass (~3e-4) fails.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi is cvt.rna's result by two integer operations (add half of the 13
+// dropped bits' unit to the magnitude, clear them; inf stays inf), lo the
+// exact residual through cvt.rna itself, which keeps a NaN of x (hi may
+// lose it) in the products. An infinite x gives NaN (inf - inf), as it
+// did with both through cvt.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d[16 x 8] (+)= a[16 x 8] b[8 x 8], one mma.sync.m16n8k8 in TF32 (zero:
+// d = a b). Fragments (lane = 4 g + t): a0 (row g, k t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, col g), b1 (t + 4, g); d0,
+// d1 (row g, cols 2 t, 2 t + 1), d2, d3 (row g + 8). The callers place
+// physical k 2 t and 2 t + 1 at the instruction's k t and t + 4 (a
+// permutation of the k8 step, the same for both operands), so a thread's
+// two k values of a row are neighbours: one 8-byte load, and an
+// accumulator's (d0, d2, d1, d3) is the A fragment of the next product.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+// p += a b over one k8 step in three TF32 passes, small terms first,
+// summed on the tensor cores (first: p starts at zero). The caller adds p
+// to its fp32 accumulator with a rounded add after a few k8 steps
+// (swap_linear: a 32-deep k tile, 12 products; flash_attention: a k32 of
+// Q K^T, a 64-key tile of P V), so the tensor cores' own rounding stays
+// relative to a partial, never to the running sum.
+__device__ __forceinline__ void mma_3xtf32(float (&p)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2],
+                                           bool first) {
+  if (first) {
+    mma_tf32_zero(p, ah, bl[0], bl[1]);
+  } else {
+    mma_tf32(p, ah, bl[0], bl[1]);
+  }
+  mma_tf32(p, al, bh[0], bh[1]);
+  mma_tf32(p, ah, bh[0], bh[1]);
+}
+
+template <int N>
+__device__ __forceinline__ void add_rn(float (&acc)[N], const float (&p)[N]) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) acc[c] = __fadd_rn(acc[c], p[c]);
 }
 
 // ------------------------------------------------------------------ host

@@ -11,7 +11,8 @@
 // or bf16 (read as it is: no cast before the launch) or null.
 //
 // What bounds it on an H100: at prefill (M in the hundreds or thousands) the
-// arithmetic, 2 M N K flops; at decode (M = 1..4) the weight bytes. Two cores:
+// arithmetic, 2 M N K flops; at decode (M = 1..4) the weight bytes. Three
+// cores, chosen by (x dtype, weight kind):
 //
 // * tc_gemm, bf16 x: the tensor cores. One block per 128-column output
 //   tile of 128 rows (two consumer warpgroups) or 64 rows (one), plus a
@@ -30,10 +31,25 @@
 //   wgmmas of the tile before. Every int8 / int4 value is
 //   exact in bf16, so the products are exact and the scale factors out of
 //   the k-sum. The weight never exists as fp in device memory.
-// * simt_gemm, fp32 x: the CUDA cores in fp32 (1e-5 parity with the
-//   reference rules out TF32 and bf16 tensor cores). 256 threads, a row
-//   tile of 8 or 64 rows, 16-byte cp.async loads into a 3- or 4-stage
-//   ring; each output is one fma chain over k in order.
+// * tf32_gemm, fp32 x and an fp32 weight: the tensor cores in three-pass
+//   TF32 (sm90_common.cuh: each operand split into TF32 hi and lo, hi lo
+//   + lo hi + hi hi summed on the tensor cores over a 32-deep k tile, then
+//   added to fp32 accumulators), within 1e-5 of the plain fp32 version.
+//   256 threads, a row tile of 16 rows (M <= 16: eight warps side by side
+//   over the 128 columns, three blocks an SM), 64 or 128 (2 x 4 warps of 32
+//   or 64 x 32; 128 once such tiles fill the card twice), 16-byte cp.async
+//   loads into a ring of 3 (16 rows) or 4 stages of 32-deep k-steps (x
+//   rows padded to 40 floats, weight rows to 132, so every fragment load
+//   is free of bank conflicts), mma.sync.m16n8k8. Both operands are read
+//   as they land and split in registers: mma.sync's B fragment takes two k
+//   of one column of the N-contiguous weight, so no pass transposes it, as
+//   wgmma's K-major TF32 operand would need; at decode shared memory
+//   carries each weight byte in and out once, against about seven times
+//   through a split-and-transpose stage for wgmma, so M 1 stays
+//   bytes-bound.
+// * simt_gemm, fp32 x and an int8 or int4 weight: the CUDA cores in fp32.
+//   256 threads, a row tile of 8 or 64 rows, 16-byte cp.async loads into a
+//   3- or 4-stage ring; each output is one fma chain over k in order.
 //
 // The launch plan (kernels/gemm_plan.py) decides the row tile, the k-split
 // and how the splits are combined; this file only checks that it can run
@@ -62,8 +78,9 @@
 // N % 16 for int8 and the int4 carrier). Where those fail the producer
 // warpgroup takes the second load route, masked plain loads into the same
 // shared-memory tiles in the same layout, read by the same wgmma sequence:
-// the output bits do not depend on the route. The fp32 core takes cp.async
-// where x rows and weight rows are 16-byte aligned, plain loads elsewhere.
+// the output bits do not depend on the route. The fp32-x cores take
+// cp.async where x rows and weight rows are 16-byte aligned, plain loads
+// elsewhere.
 //
 // The tensor-map encoder is a driver function; it is fetched at run time
 // with cudaGetDriverEntryPoint(ByVersion), so the library links no libcuda.
@@ -121,9 +138,12 @@ template <int WK, int NC> struct TcTile {
   static constexpr int SMEM_BYTES = BAR_OFF + (2 * TC_STAGES + 4) * 8 + 1024;
 };
 
-// CUDA-core core
+// CUDA-core core (a quantized weight under fp32 x) and three-pass TF32 core
+// (an fp32 weight): 256 threads, the same cp.async ring (gemm_stage)
 constexpr int SIMT_THREADS = 256;
 template <int WK, int BM> struct SimtTile {
+  static_assert(WK != W_FP, "an fp32 weight takes the TF32 core");
+  static constexpr int ROWS = BM;
   static constexpr int BN = BM == 8 ? 128 : 64;
   static constexpr int BK = 32;
   static constexpr int STAGES = BM == 8 ? 4 : 3;
@@ -132,9 +152,38 @@ template <int WK, int BM> struct SimtTile {
   static constexpr int XLD = BK + 4;                  // x row stride, floats
   static constexpr int X_BYTES = BM * XLD * 4;
   static constexpr int W_ROWS = WK == W_INT4 ? BK / 2 : BK;
-  static constexpr int W_LD = WK == W_FP ? BN * 4 : BN;   // bytes per row
+  static constexpr int W_LD = BN;                     // bytes per row
   static constexpr int STAGE_BYTES = X_BYTES + W_ROWS * W_LD;
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
+};
+
+template <int BM> struct Tf32Tile {
+  static constexpr int ROWS = BM;
+  static constexpr int BN = 128, BK = 32;
+  // 16 rows: 3 stages, three blocks an SM (decode streams the weight: 24
+  // warps an SM keep more of it in flight); 64 and 128 rows: 4 stages
+  static constexpr int STAGES = BM == 16 ? 3 : 4;
+  static constexpr int WARPS_M = BM == 16 ? 1 : 2;
+  static constexpr int WARPS_N = 8 / WARPS_M;
+  static constexpr int MT = BM / WARPS_M / 16;        // m16 tiles a warp
+  static constexpr int NT = BN / WARPS_N / 8;         // n8 tiles a warp
+  // row strides: 40 floats (8 mod 32) make the 8-byte x fragment loads of
+  // a half-warp hit 32 banks once; 132 (4 mod 32) the weight's 4-byte
+  // loads of k 2 t and 2 t + 1 at column g
+  static constexpr int XLD = BK + 8;
+  static constexpr int WLD = BN + 4;                  // floats
+  static constexpr int X_BYTES = BM * XLD * 4;
+  static constexpr int W_ROWS = BK;
+  static constexpr int W_LD = WLD * 4;                // bytes per row
+  static constexpr int STAGE_BYTES = X_BYTES + W_ROWS * W_LD;
+  // a thread's outputs: their sum over the serial splits lives in shared
+  // memory past the ring, registers holding the split's sum and the k
+  // tile's partial
+  static constexpr int OUTS = MT * NT * 4;
+  static constexpr int SMEM_BYTES =
+      STAGES * STAGE_BYTES + OUTS * SIMT_THREADS * 4;
+  static constexpr int MIN_BLOCKS = BM == 16 ? 3 : 1;
+  static_assert(BM == 16 || BM == 64 || BM == 128, "the plan's row tiles");
 };
 
 struct GemmArgs {
@@ -633,12 +682,15 @@ tc_gemm(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// ----------------------------------------------------- CUDA-core core
-template <int WK, int BM>
-__device__ __forceinline__ void simt_stage(uint8_t* st, const GemmArgs& a,
+// ------------------------------------------- CUDA-core and TF32 cores
+// One stage of the fp32-x cores' ring (layout L: SimtTile or Tf32Tile):
+// x rows of BK floats at stride XLD, weight rows at W_LD bytes; cp.async
+// (route fast) or masked plain loads, zeros past M, K and N.
+template <int WK, typename L>
+__device__ __forceinline__ void gemm_stage(uint8_t* st, const GemmArgs& a,
                                            int m0, int n0, int kt, int route,
                                            int tid) {
-  using L = SimtTile<WK, BM>;
+  constexpr int BM = L::ROWS;
   const int k0 = kt * L::BK;
   const float* x = static_cast<const float*>(a.x);
   float* xs = reinterpret_cast<float*>(st);
@@ -701,7 +753,7 @@ simt_gemm(const GemmArgs a, const int route) {
 
 #pragma unroll
   for (int p = 0; p < L::STAGES - 1; ++p) {
-    if (p < nkt) simt_stage<WK, BM>(smem + p * L::STAGE_BYTES, a, m0, n0,
+    if (p < nkt) gemm_stage<WK, L>(smem + p * L::STAGE_BYTES, a, m0, n0,
                                     kt_lo + p, route, tid);
     cp_async_commit();
   }
@@ -717,7 +769,7 @@ simt_gemm(const GemmArgs a, const int route) {
       cp_async_wait<L::STAGES - 2>();
       __syncthreads();
       const int nx = i + L::STAGES - 1;
-      if (nx < nkt) simt_stage<WK, BM>(smem + (nx % L::STAGES) * L::STAGE_BYTES,
+      if (nx < nkt) gemm_stage<WK, L>(smem + (nx % L::STAGES) * L::STAGE_BYTES,
                                        a, m0, n0, kt_lo + nx, route, tid);
       cp_async_commit();
       const uint8_t* st = smem + (i % L::STAGES) * L::STAGE_BYTES;
@@ -728,10 +780,7 @@ simt_gemm(const GemmArgs a, const int route) {
         float av[L::TM], bv[4];
 #pragma unroll
         for (int r = 0; r < L::TM; ++r) av[r] = xs[(ty * L::TM + r) * L::XLD + kk];
-        if (WK == W_FP) {
-          const float4 v = *reinterpret_cast<const float4*>(ws + kk * L::W_LD + tx * 16);
-          bv[0] = v.x; bv[1] = v.y; bv[2] = v.z; bv[3] = v.w;
-        } else if (WK == W_INT8) {
+        if (WK == W_INT8) {
           widen4<W_INT8, 0>(*reinterpret_cast<const uint32_t*>(ws + kk * L::W_LD + tx * 4), bv);
         } else if (kk & 1) {
           widen4<W_INT4, 1>(*reinterpret_cast<const uint32_t*>(ws + (kk >> 1) * L::W_LD + tx * 4), bv);
@@ -756,6 +805,122 @@ simt_gemm(const GemmArgs a, const int route) {
     const int m = m0 + ty * L::TM + r, n = n0 + tx * 4;
     store_pair(a, m, n, tot[r][0], tot[r][1]);
     store_pair(a, m, n + 2, tot[r][2], tot[r][3]);
+  }
+  if (a.counters != nullptr) {
+    combine_if_last<float, SIMT_THREADS>(a, m0, n0, BM, L::BN, tid);
+  }
+}
+
+// The three-pass TF32 core (an fp32 weight under fp32 x). Warp (wm, wn)
+// owns MT m16 tiles from row wm * MT * 16 and NT n8 tiles from column
+// wn * NT * 8. Each k8 step: the x fragments (two k of a row: one 8-byte
+// load) and the weight fragments (k 2 t and 2 t + 1 of column g) are
+// split into TF32 hi and lo in registers, and mma_3xtf32 adds each
+// (m16, n8) product to the k tile's partial on the tensor cores; after the
+// tile's 4 k8 steps the partial is added to the split's sum in fp32. An
+// output's sum runs over the k tiles in order within each split, and the
+// splits' sums are added in order, whatever the row tile: row i of an
+// M-row call is the 1-row call's.
+template <int BM>
+__global__ void __launch_bounds__(SIMT_THREADS, Tf32Tile<BM>::MIN_BLOCKS)
+tf32_gemm(const GemmArgs a, const int route) {
+  using L = Tf32Tile<BM>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* tot_s = reinterpret_cast<float*>(smem + L::STAGES * L::STAGE_BYTES);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / L::WARPS_N, wn = warp % L::WARPS_N;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * L::BN;
+  const int ktiles = (a.K + L::BK - 1) / L::BK;
+  const bool serial = a.combine == COMBINE_SERIAL;
+  const int s_lo = serial ? 0 : (int)blockIdx.z;
+  const int s_hi = serial ? a.splits : s_lo + 1;
+  const int kt_lo = split_start(s_lo, ktiles, a.splits);
+  const int nkt = split_start(s_hi, ktiles, a.splits) - kt_lo;
+
+#pragma unroll
+  for (int p = 0; p < L::STAGES - 1; ++p) {
+    if (p < nkt) gemm_stage<W_FP, L>(smem + p * L::STAGE_BYTES, a, m0, n0,
+                                     kt_lo + p, route, tid);
+    cp_async_commit();
+  }
+  float acc[L::MT][L::NT][4];                 // this split's sum
+  int i = 0;
+  for (int sp = s_lo; sp < s_hi; ++sp) {
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.0f;
+    const int kt_end = split_start(sp + 1, ktiles, a.splits);
+    for (int kt = split_start(sp, ktiles, a.splits); kt < kt_end; ++kt, ++i) {
+      cp_async_wait<L::STAGES - 2>();
+      __syncthreads();
+      const int nx = i + L::STAGES - 1;
+      if (nx < nkt) gemm_stage<W_FP, L>(smem + (nx % L::STAGES) * L::STAGE_BYTES,
+                                        a, m0, n0, kt_lo + nx, route, tid);
+      cp_async_commit();
+      const uint8_t* st = smem + (i % L::STAGES) * L::STAGE_BYTES;
+      const float* xs = reinterpret_cast<const float*>(st) +
+                        (wm * L::MT * 16 + g) * L::XLD + 2 * t;
+      const float* ws = reinterpret_cast<const float*>(st + L::X_BYTES) +
+                        2 * t * L::WLD + wn * L::NT * 8 + g;
+      float part[L::MT][L::NT][4];            // this k tile's partial
+#pragma unroll
+      for (int kk = 0; kk < L::BK / 8; ++kk) {
+        uint32_t ah[L::MT][4], al[L::MT][4];
+#pragma unroll
+        for (int mt = 0; mt < L::MT; ++mt) {
+          const float* xr = xs + mt * 16 * L::XLD + kk * 8;
+          const float2 u = *reinterpret_cast<const float2*>(xr);
+          const float2 v = *reinterpret_cast<const float2*>(xr + 8 * L::XLD);
+          split_tf32(u.x, ah[mt][0], al[mt][0]);     // (g, 2 t)
+          split_tf32(v.x, ah[mt][1], al[mt][1]);     // (g + 8, 2 t)
+          split_tf32(u.y, ah[mt][2], al[mt][2]);     // (g, 2 t + 1)
+          split_tf32(v.y, ah[mt][3], al[mt][3]);     // (g + 8, 2 t + 1)
+        }
+#pragma unroll
+        for (int nt = 0; nt < L::NT; ++nt) {
+          const float* wc = ws + kk * 8 * L::WLD + nt * 8;
+          uint32_t bh[2], bl[2];
+          split_tf32(wc[0], bh[0], bl[0]);           // (2 t, g)
+          split_tf32(wc[L::WLD], bh[1], bl[1]);      // (2 t + 1, g)
+#pragma unroll
+          for (int mt = 0; mt < L::MT; ++mt) {
+            mma_3xtf32(part[mt][nt], ah[mt], al[mt], bh, bl, kk == 0);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < L::NT; ++nt) add_rn(acc[mt][nt], part[mt][nt]);
+    }
+    // the split's sum into the block's total, in split order
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float* tp = tot_s + ((mt * L::NT + nt) * 4 + c) * SIMT_THREADS + tid;
+          *tp = sp == s_lo ? acc[mt][nt][c] : __fadd_rn(*tp, acc[mt][nt][c]);
+        }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < L::NT; ++nt) {
+      const float* tp = tot_s + (mt * L::NT + nt) * 4 * SIMT_THREADS + tid;
+      const float r[4] = {tp[0], tp[SIMT_THREADS], tp[2 * SIMT_THREADS],
+                          tp[3 * SIMT_THREADS]};
+      const int m = m0 + (wm * L::MT + mt) * 16 + g;
+      const int n = n0 + (wn * L::NT + nt) * 8 + 2 * t;
+      store_pair(a, m, n, r[0], r[1]);
+      store_pair(a, m + 8, n, r[2], r[3]);
+    }
   }
   if (a.counters != nullptr) {
     combine_if_last<float, SIMT_THREADS>(a, m0, n0, BM, L::BN, tid);
@@ -882,18 +1047,51 @@ int launch_simt(GemmArgs a, int route, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// fp32 x: the CUDA-core core, row tiles of block_m = 8 or 64.
+// fp32 x, an int8 or int4 weight: the CUDA-core core, row tiles of
+// block_m = 8 or 64.
 template <int WK>
 int run_simt(GemmArgs a, int block_m, int route, cudaStream_t st) {
   a.ldp = (a.N + 3) & ~3;
   if (route == ROUTE_FAST) {
-    const int wal = WK == W_FP ? 4 : 16;
-    if (a.K % 4 != 0 || a.N % wal != 0 || !aligned16(a.x) || !aligned16(a.w)) {
+    if (a.K % 4 != 0 || a.N % 16 != 0 || !aligned16(a.x) || !aligned16(a.w)) {
       return (int)cudaErrorInvalidValue;
     }
   }
   if (block_m == 8) return launch_simt<WK, 8>(a, route, st);
   if (block_m == 64) return launch_simt<WK, 64>(a, route, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int BM>
+int launch_tf32(GemmArgs a, int route, cudaStream_t st) {
+  using L = Tf32Tile<BM>;
+  int err = check_plan(a, BM, L::BN, L::BK, route);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(
+      tf32_gemm<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM_BYTES);
+  if (err) return err;
+  const int tiles_n = (a.N + L::BN - 1) / L::BN;
+  if (tiles_n > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.M + BM - 1) / BM, tiles_n,
+                  a.partial != nullptr ? a.splits : 1);
+  tf32_gemm<BM><<<grid, SIMT_THREADS, L::SMEM_BYTES, st>>>(a, route);
+  launch_split_sum<float>(a, st);
+  return (int)cudaGetLastError();
+}
+
+// fp32 x and an fp32 weight: the three-pass TF32 core, row tiles of
+// block_m = 16, 64 or 128.
+inline int run_tf32(GemmArgs a, int block_m, int route, cudaStream_t st) {
+  a.ldp = (a.N + 3) & ~3;
+  if (route == ROUTE_FAST) {
+    if (a.K % 4 != 0 || a.N % 4 != 0 || !aligned16(a.x) || !aligned16(a.w)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (block_m == 16) return launch_tf32<16>(a, route, st);
+  if (block_m == 64) return launch_tf32<64>(a, route, st);
+  if (block_m == 128) return launch_tf32<128>(a, route, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,12 +10,13 @@
 //
 // What bounds it on an H100: at prefill the arithmetic (2 M N K flops), at
 // decode the weight bytes. bf16 runs the tensor-core core of sm90_gemm.cuh
-// (TMA ring, wgmma on 128 x 128 tiles); fp32 runs its CUDA-core core
-// (cp.async ring, row tile sized to M), since fp32 inputs must stay within
-// 1e-5 of the plain version, which rules out TF32 and bf16 tensor cores.
-// K is split where the output tiles alone leave SMs idle, by a count that
-// depends on (N, K, dtype) only, so row i of an M-row call equals the 1-row
-// call on that row bitwise (sm90_gemm.cuh says how).
+// (TMA ring, wgmma on 128 x 128 tiles); fp32 runs its three-pass TF32 core
+// (cp.async ring, mma.sync with each operand split into TF32 hi and lo,
+// row tile 16, 64 or 128), which holds fp32 inputs within 1e-5 of the plain
+// version where one TF32 pass would not. K is split where the output tiles
+// alone leave SMs idle, by a count that depends on (N, K, dtype) only, so
+// row i of an M-row call equals the 1-row call on that row bitwise
+// (sm90_gemm.cuh says how).
 #include "sm90_gemm.cuh"
 
 // dtype (of x, w and out): 0 = fp32, 1 = bf16; act: 0 none, 1 silu,
@@ -39,6 +40,6 @@ extern "C" int repro_swap_linear(const void* x, const void* w,
                 splits, combine, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return run_tc<W_FP>(a, block_m, route, st);
-  if (dtype == 0) return run_simt<W_FP>(a, block_m, route, st);
+  if (dtype == 0) return run_tf32(a, block_m, route, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -40,16 +40,27 @@ ring of 64-key K / V tiles at the real hd and dv, zero-filled up to the
 padded widths (nothing padded or copied in device memory; the scale is
 the caller's), ``wgmma`` for ``Q K^T`` over ``ceil(hd / 16)`` k16 steps
 and ``P V`` at the padded dv, with P rounded to bf16 in registers; the
-dv real columns are stored. fp32, and bf16 at any other pair, take the
-CUDA cores in fp32: a block of 32 (query, head)
+dv real columns are stored. fp32 takes the tensor cores in three-pass
+TF32 (``tf32x3``) wherever hd and dv are multiples of 4 and their widths
+rounded up to 64 are one of :data:`TF32_HEAD_DIMS`: qwen's and
+granite-20b's 128, h2o-danube's 120, zamba2's 112 and the reduced
+configs' 64. Each operand of ``Q K^T`` and ``P V`` is split into TF32
+hi and lo, and ``hi lo + lo hi + hi hi`` is summed into fp32
+accumulators by ``mma.sync.m16n8k8``, which keeps fp32 parity (one
+TF32 pass would not); a block of 128 query rows of one head, 16 a warp,
+64-key K / V tiles by ``cp.async``, P never leaving registers. fp32 at
+any other pair (deepseek's (192, 128), hd 256) and bf16 outside its
+rule take the CUDA cores in fp32: a block of 32 (query, head)
 rows of one KV head's G heads, so each K / V tile is staged once for all
-of them. Both visit only the KV tiles
+of them. All visit only the KV tiles
 that hold a key some of the block's rows may attend to (the TPU kernel's
 block skip, taken from q_pos). :func:`flash_attention_plain` is the plain
 PyTorch version, ``flash_attention_ref`` with GQA, q_pos and dv: one dense
 fp32 softmax. It is what a CPU tensor runs, and what the kernels are held
 to on the card: about 1e-5 relative for fp32 (the online softmax sums in
-another order), about 2e-2 for bf16 (P and the output rounded to bf16).
+another order, and three TF32 passes leave about 1e-6), about 2e-2 for
+bf16 (P and the output rounded to bf16). A launch is counted under a key
+that ends with the path, so a run shows which kernel each call took.
 
 Training: where autograd records the call (grad mode on and q, k or v
 requiring grad) :func:`flash_attention` runs through
@@ -81,7 +92,11 @@ MAX_HEAD_DIM = 256
 # each compiled in csrc/flash_attention_tc<HD>.cu
 TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 TC_ALIGN = 8                     # hd, dv multiples of 8: 16-byte TMA rows
-PATHS = {"tc": 0, "simt": 1}
+# the three-pass TF32 kernel's instantiations (HD, HDV), the widths an fp32
+# (hd, dv) rounds up to, each compiled in csrc/flash_attention_tf32_<HD>.cu
+TF32_HEAD_DIMS = ((64, 64), (128, 128))
+TF32_ALIGN = 4                   # hd, dv multiples of 4: 16-byte cp.async rows
+PATHS = {"tc": 0, "simt": 1, "tf32x3": 2}
 GRAD_BLOCK = 256                 # query rows a block of the backward
 
 launches = LaunchCounter()
@@ -133,11 +148,17 @@ def path(dtype: torch.dtype, hd: int, dv: Optional[int] = None) -> str:
     """The kernel a CUDA call runs (``dv`` None: ``hd``): "tc" (tensor
     cores) for bf16 where hd and dv are multiples of :data:`TC_ALIGN` and
     :func:`tc_widths` is one of :data:`TC_HEAD_DIMS` (so both are at most
-    256); "simt" (CUDA cores, fp32) otherwise."""
+    256); "tf32x3" (tensor cores, three-pass TF32) for fp32 where hd and
+    dv are multiples of :data:`TF32_ALIGN` and :func:`tc_widths` is one of
+    :data:`TF32_HEAD_DIMS`; "simt" (CUDA cores, fp32) otherwise."""
     dv = hd if dv is None else dv
-    return ("tc" if dtype == torch.bfloat16 and hd % TC_ALIGN == 0
-            and dv % TC_ALIGN == 0 and tc_widths(hd, dv) in TC_HEAD_DIMS
-            else "simt")
+    if dtype == torch.bfloat16:
+        ok = (hd % TC_ALIGN == 0 and dv % TC_ALIGN == 0
+              and tc_widths(hd, dv) in TC_HEAD_DIMS)
+        return "tc" if ok else "simt"
+    ok = (hd % TF32_ALIGN == 0 and dv % TF32_ALIGN == 0
+          and tc_widths(hd, dv) in TF32_HEAD_DIMS)
+    return "tf32x3" if ok else "simt"
 
 
 def _mask(q_pos: torch.Tensor, S: int, window: Optional[int],
@@ -311,5 +332,5 @@ def _flash_attention(q, k, v, q_pos, scale, causal, window, softcap,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention kernel launch")
     launches.bump((B, S, H, KV, hd, dv, str(q.dtype).replace("torch.", ""),
-                   bool(causal), window, softcap, chunk))
+                   bool(causal), window, softcap, chunk, kernel))
     return out

@@ -4,13 +4,19 @@ pointer alignment, computed by the wrappers and handed to the CUDA core in
 ``csrc/sm90_gemm.cuh``. This is the one place that decides; the core only
 checks that it can run the plan (its tiles and codes are this module's).
 
-- ``core``: bf16 x runs the tensor cores (``wgmma``, 128-column tiles of
-  128 or 64 rows, 64-deep k-steps, a 4-stage TMA ring); fp32 x runs the
-  CUDA cores in fp32 (32-deep k-steps, a row tile of 8 for M <= 8, else
-  64).
+- ``core``: from (x dtype, weight kind) alone. bf16 x runs the tensor
+  cores (``wgmma``, 128-column tiles of 128 or 64 rows, 64-deep k-steps,
+  a 4-stage TMA ring); fp32 x with an fp32 weight runs them too, in
+  three-pass TF32 (``tf32x3``: ``mma.sync`` with each operand split into
+  TF32 hi and lo, within 1e-5 of fp32; 128-column tiles of 16 rows for
+  M <= 16, else 128 once such tiles fill the card twice, else 64; 32-deep
+  k-steps, a 4-stage ``cp.async`` ring); fp32
+  x with an int8 or int4 weight runs the CUDA cores in fp32 (``simt``:
+  32-deep k-steps, a row tile of 8 for M <= 8, else 64).
 - ``splits`` and ``split_bounds``: K cut into equal k-tile runs so that
-  decode (one row tile) has about one block per SM. They set the order of
-  every output's sum, so they depend on (N, K, dtype) alone, never on M:
+  decode (one row tile) has about one block per SM (two on the TF32 core,
+  whose 16-row decode tiles run up to three to an SM). They set the order of
+  every output's sum, so they depend on (N, K, core) alone, never on M:
   row i of an M-row call equals the 1-row call on that row bitwise.
 - ``combine``: where the splits' sums meet. While the split blocks stay
   within two waves, one split per block into fp32 scratch, added in order
@@ -35,7 +41,15 @@ SMEM_LIMIT = 227 * 1024     # shared memory one block may use on Hopper
 
 # tensor-core core (bf16 x)
 TC_BLOCK_M, TC_BLOCK_N, TC_BLOCK_K, TC_STAGES = 128, 128, 64, 4
-# CUDA-core core (fp32 x): block_m -> (block_n, stages)
+# three-pass TF32 core (fp32 x, fp32 weight): row tiles, 128 columns,
+# 32-deep k-steps, stages by row tile; x rows padded to 40 floats, weight
+# rows to 132; the outputs' sums over serial splits in shared memory;
+# decode runs three blocks to an SM, and its splits size for two waves
+TF32_BLOCK_MS, TF32_BLOCK_N, TF32_BLOCK_K = (16, 64, 128), 128, 32
+TF32_STAGES = {16: 3, 64: 4, 128: 4}
+TF32_XLD, TF32_WLD = 40, 132
+TF32_THREADS, TF32_WAVES = 256, 2
+# CUDA-core core (fp32 x, quantized weight): block_m -> (block_n, stages)
 SIMT_BLOCK_K = 32
 SIMT_TILES = {8: (128, 4), 64: (64, 3)}
 
@@ -46,7 +60,7 @@ COMBINE_CODES = {"none": 0, "serial": 1, "blocks": 2, "pass": 3}
 
 @dataclass(frozen=True)
 class GemmPlan:
-    core: str               # "wgmma" or "simt"
+    core: str               # "wgmma", "tf32x3" or "simt"
     weight: str             # one of WEIGHTS
     block_m: int
     block_n: int
@@ -78,18 +92,27 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def core_of(x_dtype: str) -> str:
+def core_of(x_dtype: str, weight: str) -> str:
+    """The core a call runs: "wgmma" for bf16 x, "tf32x3" for fp32 x with
+    an fp32 weight, "simt" for fp32 x with an int8 or int4 one."""
+    if weight not in WEIGHTS:
+        raise ValueError(f"weight must be one of {WEIGHTS}, got {weight!r}")
+    if x_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"x must be float32 or bfloat16, got {x_dtype}")
+    if weight in ("bf16", "fp32") and weight != {"bfloat16": "bf16",
+                                                  "float32": "fp32"}[x_dtype]:
+        raise ValueError(f"a {weight} weight needs x of its dtype, "
+                         f"got {x_dtype}")
     if x_dtype == "bfloat16":
         return "wgmma"
-    if x_dtype == "float32":
-        return "simt"
-    raise ValueError(f"x must be float32 or bfloat16, got {x_dtype}")
+    return "tf32x3" if weight == "fp32" else "simt"
 
 
-def k_splits(N: int, K: int, block_k: int) -> int:
+def k_splits(N: int, K: int, block_k: int, waves: int = 1) -> int:
     """Splits of K: enough that the column tiles of one row tile give about
-    one block per SM, each split at least MIN_SPLIT_K deep and one k-tile."""
-    s = max(1, NUM_SMS // _cdiv(N, PLAN_BLOCK_N))
+    ``waves`` blocks per SM, each split at least MIN_SPLIT_K deep and one
+    k-tile."""
+    s = max(1, waves * NUM_SMS // _cdiv(N, PLAN_BLOCK_N))
     s = min(s, max(1, K // MIN_SPLIT_K))
     return max(1, min(s, _cdiv(K, block_k)))
 
@@ -105,8 +128,13 @@ def split_bounds(K: int, block_k: int, splits: int) -> tuple:
 def smem_bytes(core: str, weight: str, block_m: int) -> int:
     """Dynamic shared memory of one block: the ring's stages (x tile and
     weight tile, the latter still quantized for int8 / int4) plus, on the
-    tensor cores, the two bf16 tiles a quantized weight is widened into
-    (mbarriers and alignment slack not counted)."""
+    bf16 tensor cores, the two bf16 tiles a quantized weight is widened
+    into (mbarriers and alignment slack not counted)."""
+    if core == "tf32x3":
+        x = block_m * TF32_XLD * 4
+        w = TF32_BLOCK_K * TF32_WLD * 4
+        tot = block_m * TF32_BLOCK_N * 4       # the serial splits' sums
+        return TF32_STAGES[block_m] * (x + w) + tot
     if core == "wgmma":
         x = block_m * TC_BLOCK_K * 2
         w = {"bf16": TC_BLOCK_K * TC_BLOCK_N * 2,
@@ -116,8 +144,7 @@ def smem_bytes(core: str, weight: str, block_m: int) -> int:
         return TC_STAGES * (x + w) + wide
     block_n, stages = SIMT_TILES[block_m]
     x = block_m * (SIMT_BLOCK_K + 4) * 4
-    w = {"fp32": SIMT_BLOCK_K * block_n * 4,
-         "int8": SIMT_BLOCK_K * block_n,
+    w = {"int8": SIMT_BLOCK_K * block_n,
          "int4": SIMT_BLOCK_K // 2 * block_n}[weight]
     return stages * (x + w)
 
@@ -131,16 +158,27 @@ def combine_in_blocks(tiles: int, splits: int) -> bool:
     return tiles * splits <= 2 * NUM_SMS
 
 
-def block_shape(M: int, N: int, x_dtype: str) -> tuple:
-    """(block_m, block_n, block_k) of the core that takes x_dtype for an
-    [M, K] x [K, N] call. Only the row tile follows M, and a row's
-    arithmetic is the same in every row tile: on the tensor cores 128 rows
-    (two consumer warpgroups) once such tiles fill the card, else 64; on
-    the CUDA cores 8 rows for M <= 8, else 64."""
-    if core_of(x_dtype) == "wgmma":
+def block_shape(M: int, N: int, x_dtype: str, weight: str) -> tuple:
+    """(block_m, block_n, block_k) of the core that takes (x_dtype,
+    weight) for an [M, K] x [K, N] call. Only the row tile follows M, and
+    a row's arithmetic is the same in every row tile: on the bf16 tensor
+    cores 128 rows (two consumer warpgroups) once such tiles fill the card,
+    else 64; on the TF32 core 16 rows (one m16 tile) for M <= 16, else
+    128 once such tiles fill the card twice, else 64; on the CUDA cores 8
+    rows for M <= 8, else 64."""
+    core = core_of(x_dtype, weight)
+    if core == "wgmma":
         tiles = _cdiv(M, TC_BLOCK_M) * _cdiv(N, TC_BLOCK_N)
         bm = TC_BLOCK_M if tiles >= NUM_SMS else TC_BLOCK_M // 2
         return bm, TC_BLOCK_N, TC_BLOCK_K
+    if core == "tf32x3":
+        small, mid, big = TF32_BLOCK_MS
+        if M <= small:
+            bm = small
+        else:
+            tiles = _cdiv(M, big) * _cdiv(N, TF32_BLOCK_N)
+            bm = big if tiles >= TF32_WAVES * NUM_SMS else mid
+        return bm, TF32_BLOCK_N, TF32_BLOCK_K
     bm = 8 if M <= 8 else 64
     return bm, SIMT_TILES[bm][0], SIMT_BLOCK_K
 
@@ -153,7 +191,7 @@ def fast_route_ok(N: int, K: int, x_dtype: str, weight: str,
     per16 = {"bf16": 8, "fp32": 4, "int8": 16, "int4": 16}[weight]
     if N % per16:
         return False
-    if core_of(x_dtype) == "wgmma":
+    if core_of(x_dtype, weight) == "wgmma":
         return K > 0 and K % 8 == 0     # TMA: a non-empty row of 16-byte steps
     return K % 4 == 0
 
@@ -164,17 +202,11 @@ def plan(M: int, N: int, K: int, x_dtype: str, weight: str,
     times a [K, N] weight (``weight`` "bf16" / "fp32" in x's dtype, or
     "int8" / "int4" quantized), with x and the weight at the given device
     addresses."""
-    if weight not in WEIGHTS:
-        raise ValueError(f"weight must be one of {WEIGHTS}, got {weight!r}")
-    core = core_of(x_dtype)
-    if weight in ("bf16", "fp32") and weight != {"wgmma": "bf16",
-                                                  "simt": "fp32"}[core]:
-        raise ValueError(f"a {weight} weight needs x of its dtype, "
-                         f"got {x_dtype}")
+    core = core_of(x_dtype, weight)
     if M <= 0 or N <= 0 or K < 0:
         raise ValueError(f"bad shape M={M} N={N} K={K}")
-    bm, bn, bk = block_shape(M, N, x_dtype)
-    splits = k_splits(N, K, bk)
+    bm, bn, bk = block_shape(M, N, x_dtype, weight)
+    splits = k_splits(N, K, bk, TF32_WAVES if core == "tf32x3" else 1)
     tiles = (_cdiv(M, bm), _cdiv(N, bn))
     if splits == 1:
         combine = "none"
@@ -200,7 +232,7 @@ def weight_stream_bytes(M: int, K: int, N: int, x_dtype: str,
     """Device-memory weight traffic of one call: every weight tile is read
     once per row tile (the L2 cache may serve some of the re-reads), so one
     row tile streams the weight once, K * N at its stored width."""
-    bm = block_shape(M, N, x_dtype)[0]
+    bm = block_shape(M, N, x_dtype, weight)[0]
     stored = {"bf16": 2 * K, "fp32": 4 * K, "int8": K,
               "int4": _cdiv(K, 2)}[weight]
     return _cdiv(M, bm) * stored * N

@@ -9,16 +9,21 @@ take ``swap_linear_q`` (the same core, the weight widened in the k-loop).
 
 The CUDA kernel is ``csrc/swap_linear.cu`` over the shared core of
 ``csrc/sm90_gemm.cuh``: bf16 on the tensor cores (``wgmma`` fed by a TMA
-ring), fp32 on the CUDA cores in fp32 (a ``cp.async`` ring, the row tile
-sized to M). K is split where the output tiles alone leave SMs idle, by a
+ring), fp32 on the tensor cores in three-pass TF32 (``mma.sync`` fed by a
+``cp.async`` ring, each operand split into TF32 hi and lo in registers,
+``hi lo + lo hi + hi hi`` into fp32 accumulators, the row tile 16, 64 or
+128).
+K is split where the output tiles alone leave SMs idle, by a
 count that depends on (N, K, dtype) only (``kernels/gemm_plan.py``), so
 row i of an M-row call equals the 1-row call on that row bitwise; ragged
-or misaligned shapes take masked plain loads into the same tiles.
+or misaligned shapes take masked plain loads into the same tiles. A
+launch is counted under a key that ends with the plan's core ("wgmma" or
+"tf32x3"), so a run shows which route each call took.
 :func:`swap_linear_plain` is the plain PyTorch version,
 ``swap_linear_ref``'s arithmetic: it is what a CPU tensor runs, and what
 the kernel is held to on the card: about 1e-5 relative for fp32 (the sums
-run in another order), about 2e-2 for bf16 x (one bf16 rounding of the
-output).
+run in another order, and three TF32 passes leave about 1e-6), about 2e-2
+for bf16 x (one bf16 rounding of the output).
 
 Training: where autograd records the call (grad mode on and x, w or b
 requiring grad) :func:`swap_linear` runs through :class:`SwapLinearFn`,
@@ -51,17 +56,17 @@ _DTYPE_NAMES = {2: ("bfloat16", "bf16"), 4: ("float32", "fp32")}
 def smem_bytes(itemsize: int = 2) -> int:
     """Shared memory one block of the kernel holds (the Hopper counterpart
     of the reference's ``vmem_bytes``): for bf16 the TMA ring's 4 stages of
-    x and w tiles, for fp32 the larger of the CUDA-core rings."""
+    x and w tiles, for fp32 the TF32 core's ring at its larger row tile."""
     if itemsize == 2:
         return gemm_plan.smem_bytes("wgmma", "bf16", gemm_plan.TC_BLOCK_M)
-    return max(gemm_plan.smem_bytes("simt", "fp32", bm)
-               for bm in gemm_plan.SIMT_TILES)
+    return gemm_plan.smem_bytes("tf32x3", "fp32",
+                                max(gemm_plan.TF32_BLOCK_MS))
 
 
 def weight_stream_bytes(M: int, K: int, N: int, w_itemsize: int = 2) -> int:
     """Device-memory weight traffic of one call: every weight tile is read
     once per row tile of x (bf16: 64 rows, 128 once such tiles fill the
-    card; fp32: 8 or 64), so one row tile streams ``K * N * w_itemsize``
+    card; fp32: 16, 64 or 128), so one row tile streams ``K * N * w_itemsize``
     bytes (the L2 cache may serve some of the re-reads)."""
     x_dtype, weight = _DTYPE_NAMES[w_itemsize]
     return gemm_plan.weight_stream_bytes(M, K, N, x_dtype, weight)
@@ -180,5 +185,5 @@ def _swap_linear(x, w, b, act: str) -> torch.Tensor:
         p.splits, p.block_m, p.combine_code, p.route_code,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "swap_linear kernel launch")
-    launches.bump((M, K, N, str(x.dtype).replace("torch.", ""), act))
+    launches.bump((M, K, N, str(x.dtype).replace("torch.", ""), act, p.core))
     return out

@@ -31,10 +31,14 @@ def test_flash_attention_path_by_dtype_and_head_dim(dtype, hd):
     """bf16 takes the tensor cores at every one of these head dims: each
     is a multiple of 8 and rounds up to an instantiation's width (16 and
     32 to 64; hubert's 80 and h2o-danube's 120 to 128; 200 to 256);
-    fp32 takes the CUDA cores."""
-    want = "tc" if dtype == torch.bfloat16 else "simt"
+    fp32 takes them in three-pass TF32 up to 128 and the CUDA cores at 200
+    and 256."""
+    if dtype == torch.bfloat16:
+        want = "tc"
+    else:
+        want = "tf32x3" if hd <= 128 else "simt"
     assert fa.path(dtype, hd) == want
-    assert fa.PATHS[fa.path(dtype, hd)] in (0, 1)
+    assert fa.PATHS[fa.path(dtype, hd)] in (0, 1, 2)
 
 
 @pytest.mark.parametrize("hd,dv", [(192, 128), (48, 32), (128, 192),
@@ -45,12 +49,51 @@ def test_flash_attention_path_by_value_head_dim(dtype, hd, dv):
     the pair rounds up to an instantiation: deepseek-v2's MLA pair
     (192, 128) and its reduced (48, 32) (to (64, 64)); (128, 192),
     (192, 192), (128, 64) and (64, 128) have none and take the CUDA cores.
-    Equal pairs keep the rule of one head dim."""
-    want = ("tc" if dtype == torch.bfloat16 and (hd, dv) in ((192, 128),
-                                                              (48, 32))
-            else "simt")
+    fp32 takes three-pass TF32 at the reduced (48, 32) alone: (192, 128)
+    is wider than its instantiations. Equal pairs keep the rule of one
+    head dim."""
+    if dtype == torch.bfloat16:
+        want = "tc" if (hd, dv) in ((192, 128), (48, 32)) else "simt"
+    else:
+        want = "tf32x3" if (hd, dv) == (48, 32) else "simt"
     assert fa.path(dtype, hd, dv) == want
     assert fa.path(dtype, 128, 128) == fa.path(dtype, 128)
+
+
+def _tf32_pairs():
+    """The fp32 (hd, dv) the TF32 kernel takes, spelled out: multiples of
+    4 whose widths rounded up to 64 are (64, 64) or (128, 128)."""
+    small = range(4, 65, 4)
+    large = range(68, 129, 4)
+    return ({(h, d) for h in small for d in small}
+            | {(h, d) for h in large for d in large})
+
+
+def test_fp32_takes_the_tf32_route_exactly_at_its_pairs():
+    """Every fp32 (hd, dv) of 1 to 256: "tf32x3" at the pairs of
+    Tf32Attn's two instantiations, "simt" everywhere else."""
+    pairs = _tf32_pairs()
+    assert len(pairs) == 16 * 16 * 2
+    for hd in range(1, fa.MAX_HEAD_DIM + 1):
+        for dv in range(1, fa.MAX_HEAD_DIM + 1):
+            want = "tf32x3" if (hd, dv) in pairs else "simt"
+            assert fa.path(torch.float32, hd, dv) == want, (hd, dv)
+    assert fa.TF32_HEAD_DIMS == ((64, 64), (128, 128))
+
+
+@pytest.mark.parametrize("hd,dv,want", [
+    (128, 128, "tf32x3"),     # qwen2.5-3b (phase 4 run A), granite-20b
+    (120, 120, "tf32x3"),     # h2o-danube-3-4b (phases 17, 19)
+    (112, 112, "tf32x3"),     # zamba2-7b's shared block (phase 12)
+    (64, 64, "tf32x3"),       # the reduced configs
+    (48, 32, "tf32x3"),       # deepseek-v2's reduced MLA
+    (192, 128, "simt"),       # deepseek-v2's MLA (phase 11's fp32 engine)
+    (256, 256, "simt"),       # gemma2-9b
+    (80, 80, "tf32x3"),       # hubert-xlarge
+    (126, 126, "simt"),       # not a multiple of 4
+])
+def test_fp32_paths_of_the_configs(hd, dv, want):
+    assert fa.path(torch.float32, hd, dv) == want
 
 
 # ---------------------------------------------------------- paged_attention

@@ -19,12 +19,15 @@ Tolerances, with their reasons:
     a BH 80 call against a 3-row call on them, every column split against
     the planned one, two calls with the state carried against one:
     bitwise;
-  * swap_linear: 1e-5 fp32 x (the fp32 sums run in another order), 2e-2
-    bf16 x (one bf16 rounding of the output); an M-row call against the
+  * swap_linear: 1e-5 fp32 x (the fp32 sums run in another order, and
+    the three TF32 passes of the tensor-core route leave about 1e-6, also
+    where x and w span 2^-20 .. 2^20), 2e-2 bf16 x (one bf16 rounding of
+    the output); an M-row call against the
     1-row calls on its rows, and swap_linear_q's too: bitwise; a
     misaligned view against its aligned copy: bitwise; one-hot rows of x
     against a weight of distinct values: exact;
-  * flash_attention: 1e-5 fp32 (online against dense softmax), 2e-2 bf16
+  * flash_attention: 1e-5 fp32 (online against dense softmax; three TF32
+    passes at the pairs the TF32 kernel takes), 2e-2 bf16
     (P and the output rounded to bf16), at one head dim and at a value
     head dim of its own (MLA's 192 / 128); a row of a B-row call against
     the 1-row call on it, and two identical calls: bitwise; a block-local
@@ -621,10 +624,12 @@ def test_rows_match_across_split_combines(dev, dtype):
             row, q, s, b, bits=8, act="gelu")), i
 
 
-# qwen2.5-3b's linears at decode (M = 2): every (K, N) with N = 2048
-# splits K 8 ways, the d_ff one not at all
+# qwen2.5-3b's linears at decode (M = 2): in bf16 every (K, N) with N =
+# 2048 splits K 8 ways, the d_ff one not at all; the fp32 TF32 core sizes
+# its splits for two blocks an SM: 8, 8, 3 and 16 ways
 QWEN_DECODE = [(2, 2048, 2048), (2, 2048, 256), (2, 2048, 11008),
                (2, 11008, 2048), (4, 2048, 151936)]
+QWEN_DECODE_SPLITS = {torch.bfloat16: (8, 8, 1, 8), torch.float32: (8, 8, 3, 16)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -645,7 +650,7 @@ def test_decode_shapes_and_splits_match_plain(dev, dtype):
         w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dtype).to(dev)
         assert gemm_plan.plan(M, N, K, name, "bf16" if dtype ==
                               torch.bfloat16 else "fp32").splits == (
-            1 if N == 11008 else 8)
+            QWEN_DECODE_SPLITS[dtype][i])
         got = sl.swap_linear(x, w, b, act="none")
         assert _rel(got, sl.swap_linear_plain(x, w, b)) <= TOL[dtype], (M, K, N)
 
@@ -842,6 +847,9 @@ def test_flash_attention_tensor_cores_at_ragged_s(dev, hd, causal, window,
 FA_BITWISE = [(200, 16, 2, 128, torch.bfloat16, True),
               (130, 16, 8, 256, torch.bfloat16, True),
               (200, 16, 2, 128, torch.float32, True),
+              (300, 32, 8, 120, torch.float32, True),
+              (256, 48, 1, 128, torch.float32, True),
+              (130, 8, 8, 64, torch.float32, False),
               (37, 4, 2, 80, torch.bfloat16, True),
               (200, 32, 32, 112, torch.bfloat16, True),
               (1500, 16, 16, 80, torch.bfloat16, False),
@@ -900,7 +908,7 @@ def test_flash_attention_chunk_matches_plain(dev, dtype, hd, window):
         kw = dict(scale=hd ** -0.5, window=window)
         fa.launches.reset()
         got = fa.flash_attention(q, k, v, pos, chunk=chunk, **kw)
-        assert list(fa.launches.by_shape)[0][-1] == chunk
+        assert list(fa.launches.by_shape)[0][10] == chunk
         want = fa.flash_attention_plain(q, k, v, pos, chunk=chunk, **kw)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all()), (S, chunk)
@@ -969,7 +977,7 @@ def test_llama4_prefill_on_the_card(dev, tmp_path):
         fa.launches.reset()
         sl.launches.reset()
         logits, _ = sm.forward(batch)
-        assert sorted(k[-1] or 0 for k, n in fa.launches.by_shape.items()
+        assert sorted(k[10] or 0 for k, n in fa.launches.by_shape.items()
                       for _ in range(n)) == [0, 8, 8, 8]
         assert sl.launches.count == 7 * cfg.n_layers
         assert torch.equal(logits, sm.forward_unswapped(batch))
@@ -1186,7 +1194,7 @@ def test_flash_attention_mla_pair_on_the_tensor_cores(dev, B, S, H, KV,
     fa.launches.reset()
     got = fa.flash_attention(q, k, v, pos, **kw)
     assert list(fa.launches.by_shape) == [
-        (B, S, H, KV, 192, 128, "bfloat16", True, None, None, None)]
+        (B, S, H, KV, 192, 128, "bfloat16", True, None, None, None, "tc")]
     want = fa.flash_attention_plain(q, k, v, pos, **kw)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (B, S, H, 128)
@@ -1197,8 +1205,9 @@ def test_flash_attention_mla_pair_on_the_tensor_cores(dev, B, S, H, KV,
 
 # (B, S, H, KV, hd, dv, dtype): a value head dim of its own: MLA's pair
 # in fp32, the reduced config's (48, 32) in both dtypes, GQA (KV < H), and
-# dv above hd. All take the CUDA cores but the bf16 (48, 32), whose widths
-# round up to the tensor-core kernel's (64, 64)
+# dv above hd. MLA's fp32 pair and the bf16 (80, 256) take the CUDA cores;
+# the bf16 (48, 32) rounds up to the tensor-core kernel's (64, 64), and
+# the fp32 (48, 32) and (32, 64) to the TF32 kernel's
 FA_DV_CASES = [(2, 129, 16, 16, 192, 128, torch.float32),
                (2, 37, 4, 4, 48, 32, torch.float32),
                (2, 37, 4, 4, 48, 32, torch.bfloat16),
@@ -1206,6 +1215,7 @@ FA_DV_CASES = [(2, 129, 16, 16, 192, 128, torch.float32),
                (2, 65, 4, 1, 32, 64, torch.float32),
                (1, 100, 8, 2, 80, 256, torch.bfloat16)]
 FA_DV_TC = {(48, 32, torch.bfloat16)}
+FA_DV_TF32 = {(48, 32, torch.float32), (32, 64, torch.float32)}
 
 
 @pytest.mark.parametrize("causal,window,softcap", [
@@ -1215,8 +1225,9 @@ FA_DV_TC = {(48, 32, torch.bfloat16)}
 def test_flash_attention_dv_on_the_cuda_cores(dev, B, S, H, KV, hd, dv,
                                               dtype, causal, window,
                                               softcap):
-    assert fa.path(dtype, hd, dv) == ("tc" if (hd, dv, dtype) in FA_DV_TC
-                                      else "simt")
+    assert fa.path(dtype, hd, dv) == (
+        "tc" if (hd, dv, dtype) in FA_DV_TC
+        else "tf32x3" if (hd, dv, dtype) in FA_DV_TF32 else "simt")
     q, k, v, pos = _fa_inputs(B, S, H, KV, hd, dtype, hd + dv, dv=dv)
     kw = dict(scale=hd ** -0.5, causal=causal, window=window,
               softcap=softcap)
@@ -1300,6 +1311,169 @@ def test_flash_attention_dispatch_takes_exactly_the_rule(dev, monkeypatch):
                 took = False
             assert took == (FA_RULE(torch.bfloat16, hd, dv) == "tc"), (hd,
                                                                       dv)
+    torch.cuda.synchronize()
+
+
+# ------------------------------------------- the fp32 routes in TF32 x 3
+# swap_linear's fp32 main-path shapes (M, K, N): h2o-danube's prefill
+# (4,000 rows), admission (40), decode (3 and 1) at wq / wi0 / ffn wo,
+# rwkv6's wo at 1,024 rows, qwen's run A decode, the conv fleets' fc
+# layers (M 4) and fc stack (M 64)
+TF32_LINEARS = [(4000, 3840, 3840), (4000, 3840, 10240), (4000, 10240, 3840),
+                (40, 3840, 960), (3, 3840, 10240), (1, 3840, 10240),
+                (1, 10240, 3840), (1024, 2560, 2560), (2, 2048, 11008),
+                (4, 256, 4096), (4, 4096, 1024), (4, 1024, 100),
+                (64, 1280, 1280)]
+
+
+@pytest.mark.parametrize("M,K,N", TF32_LINEARS)
+def test_swap_linear_fp32_takes_the_tf32_route(dev, M, K, N):
+    """fp32 x and weight at the main paths' shapes: the launch is keyed
+    "tf32x3", the output within 1e-5 of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev) * 0.5
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    b = torch.randn((N,), generator=g, device=dev) * 0.1
+    assert gemm_plan.plan(M, N, K, "float32", "fp32").core == "tf32x3"
+    sl.launches.reset()
+    got = sl.swap_linear(x, w, b, act="silu")
+    assert list(sl.launches.by_shape) == [(M, K, N, "float32", "silu",
+                                           "tf32x3")]
+    want = sl.swap_linear_plain(x, w, b, act="silu")
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TOL[torch.float32], (M, K, N)
+
+
+@pytest.mark.parametrize("M,K,N", [(3, 129, 67), (130, 200, 150), (1, 7, 3),
+                                   (17, 1001, 130), (16, 12, 9),
+                                   (200, 2052, 260)])
+def test_swap_linear_fp32_wide_range_and_ragged_k(dev, M, K, N):
+    """x and w whose values span 2^-20 .. 2^20 (where lo carries what hi
+    drops), K no multiple of 8 (or of 4: plain loads), ragged N: within
+    1e-5 of the plain version."""
+    rng = np.random.default_rng(M * K + N)
+    x, w = (torch.from_numpy((rng.standard_normal(shape)
+                              * 2.0 ** rng.integers(-20, 21, shape))
+                             .astype(np.float32)).to(dev)
+            for shape in ((M, K), (K, N)))
+    got = sl.swap_linear(x, w)
+    want = sl.swap_linear_plain(x, w)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL[torch.float32], (M, K, N)
+
+
+@pytest.mark.parametrize("K,N", [(3840, 10240), (10240, 3840), (3840, 960)])
+def test_swap_linear_fp32_rows_across_row_tiles(dev, K, N):
+    """Row i of an M-row call equals its 1-row call bitwise across the TF32
+    core's row tiles (16 rows up to M 16, then 128) and its combines, at
+    h2o-danube's decode, admission and prefill widths."""
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    x = torch.randn((300, K), generator=g, device=dev)
+    ones = {i: sl.swap_linear(x[i:i + 1].contiguous(), w)
+            for i in (0, 1, 2, 15, 16, 39, 127, 128, 299)}
+    for M in (3, 16, 17, 40, 300):
+        full = sl.swap_linear(x[:M].contiguous(), w)
+        for i, one in ones.items():
+            if i < M:
+                assert torch.equal(full[i:i + 1], one), (M, i)
+
+
+# (B, S, H, KV, hd, window): flash_attention's fp32 main-path shapes:
+# h2o-danube's 4,000-token admission and its training identity's 4,352
+# under the 4,096 window, granite-20b's identity at G 48, qwen's run A
+# admission, zamba2's shared block, the reduced configs' 64
+TF32_ATTN = [(1, 4000, 32, 8, 120, 4096), (1, 4352, 32, 8, 120, 4096),
+             (8, 256, 48, 1, 128, None), (1, 200, 16, 2, 128, None),
+             (2, 300, 32, 32, 112, None), (2, 129, 4, 2, 64, None)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", TF32_ATTN)
+def test_flash_attention_fp32_takes_the_tf32_route(dev, B, S, H, KV, hd,
+                                                   window):
+    q, k, v, pos = _fa_inputs(B, S, H, KV, hd, torch.float32, S + hd)
+    kw = dict(scale=hd ** -0.5, window=window)
+    assert fa.path(torch.float32, hd) == "tf32x3"
+    fa.launches.reset()
+    got = fa.flash_attention(q, k, v, pos, **kw)
+    assert [key[11] for key in fa.launches.by_shape] == ["tf32x3"]
+    want = fa.flash_attention_plain(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= TOL[torch.float32], (B, S, H, KV, hd)
+
+
+@pytest.mark.parametrize("causal,window,softcap,chunk", FA_PADDED_MASKS)
+@pytest.mark.parametrize("hd,dv", [(128, 128), (120, 120), (112, 112),
+                                   (64, 64), (48, 32), (4, 60), (68, 100)])
+def test_flash_attention_fp32_at_ragged_s(dev, hd, dv, causal, window,
+                                          softcap, chunk):
+    """The TF32 kernel at S around its 64-key and 128-row tiles, at every
+    mask, at pairs padded up to its widths, shuffled positions on every
+    other S: within 1e-5 of the plain version, the output [B, S, H, dv],
+    a repeated call equal."""
+    assert fa.path(torch.float32, hd, dv) == "tf32x3"
+    for i, S in enumerate((1, 2, 63, 64, 65, 127, 128, 129, 700)):
+        q, k, v, pos = _fa_inputs(2, S, 4, 2, hd, torch.float32, 120 + i,
+                                  shuffled=i % 2 == 1, dv=dv)
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+                  softcap=softcap, chunk=chunk)
+        got = fa.flash_attention(q, k, v, pos, **kw)
+        want = fa.flash_attention_plain(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        assert tuple(got.shape) == (2, S, 4, dv)
+        assert bool(torch.isfinite(got).all()), S
+        assert _rel(got, want) <= TOL[torch.float32], (S, hd, dv)
+        assert torch.equal(got, fa.flash_attention(q, k, v, pos, **kw))
+
+
+def test_flash_attention_fp32_wide_range(dev):
+    """q and k at 2^-20 .. 2^0 and v at 2^-20 .. 2^20 per element: the lo
+    terms carry what hi drops at every magnitude; a misaligned k and v
+    (plain loads) give the aligned copies' bits."""
+    rng = np.random.default_rng(5)
+    B, S, H, KV, hd = 2, 300, 8, 2, 120
+
+    def draw(shape, lo, hi):
+        return torch.from_numpy((rng.standard_normal(shape)
+                                 * 2.0 ** rng.integers(lo, hi + 1, shape))
+                                .astype(np.float32)).to(dev)
+    q, k = draw((B, S, H, hd), -20, 0), draw((B, S, KV, hd), -20, 0)
+    v = draw((B, S, KV, hd), -20, 20)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    kw = dict(scale=1.0, window=100, softcap=30.0)
+    got = fa.flash_attention(q, k, v, pos, **kw)
+    want = fa.flash_attention_plain(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TOL[torch.float32]
+    buf = torch.empty(2 * k.numel() + 8, device=dev)
+    kv = buf[1:1 + k.numel()].view(k.shape)
+    vv = buf[2 + k.numel():2 + 2 * k.numel()].view(v.shape)
+    kv.copy_(k)
+    vv.copy_(v)
+    assert kv.data_ptr() % 16 and vv.data_ptr() % 16
+    assert torch.equal(fa.flash_attention(q, kv, vv, pos, **kw), got)
+
+
+def test_flash_attention_tf32_dispatch_takes_exactly_the_rule(dev,
+                                                              monkeypatch):
+    """The TF32 launch succeeds at every fp32 (hd, dv) that ``path`` sends
+    to "tf32x3" and is refused (a raised RuntimeError, never a fallback)
+    at every other pair."""
+    monkeypatch.setattr(fa, "path", lambda dtype, hd, dv=None: "tf32x3")
+    dims = sorted(set(range(4, 257, 4)) | {1, 6, 50, 126, 130, 250})
+    for hd in dims:
+        q, k, _, pos = _fa_inputs(1, 3, 2, 1, hd, torch.float32, 0)
+        for dv in dims:
+            v = torch.ones((1, 3, 1, dv), device=dev)
+            try:
+                fa.flash_attention(q, k, v, pos, scale=0.1)
+                took = True
+            except RuntimeError:
+                took = False
+            assert took == (FA_RULE(torch.float32, hd, dv) == "tf32x3"), (
+                hd, dv)
     torch.cuda.synchronize()
 
 
@@ -1470,7 +1644,7 @@ def test_flash_attention_fn_grads_at_padded_head_dims_on_the_card(
     the output and each input's gradient within the tolerance of the
     qwen-shaped test."""
     assert fa.path(dtype, hd) == ("tc" if dtype == torch.bfloat16
-                                  else "simt")
+                                  else "tf32x3")
     g = torch.Generator(device=dev).manual_seed(hd)
     B, S = 8, 256
     q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
@@ -1496,7 +1670,7 @@ def test_flash_attention_fn_grads_at_padded_head_dims_on_the_card(
 # tokens under its 4,096 window (the last 256 queries lose their first
 # keys to it: the kernel's forward and flash_attention_grad's masking must
 # agree at the window's edge), granite's 48 query heads of 128 on one KV
-# head at 8 x 256 (fp32: the CUDA-core kernel at G 48)
+# head at 8 x 256 (fp32: the three-pass TF32 kernel at G 48)
 TRAIN_FAMILY_ATTN = [(1, 4352, 32, 8, 120, 4096), (8, 256, 48, 1, 128, None)]
 
 

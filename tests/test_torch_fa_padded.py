@@ -92,8 +92,10 @@ def _cu_takes(hd, dv, pairs):
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_every_config_prefills_on_the_tensor_cores(name):
     """Each config with attention, at its published widths and reduced,
-    takes the tensor cores in bf16 and the CUDA cores in fp32; its pair's
-    padded widths are an instantiation the dispatch reaches."""
+    takes the tensor cores in bf16, and in fp32 three-pass TF32 where its
+    pair rounds up to (64, 64) or (128, 128) (the CUDA cores at gemma2's
+    256 and deepseek's (192, 128)); its pair's padded widths are an
+    instantiation the dispatch reaches."""
     pairs, _, _ = _dispatch()
     for cfg in (ARCHS[name], ARCHS[name].reduced()):
         pair = _prefill_pair(cfg)
@@ -101,7 +103,9 @@ def test_every_config_prefills_on_the_tensor_cores(name):
             assert name == "rwkv6-3b"
             continue
         assert fa.path(torch.bfloat16, *pair) == "tc", (cfg.name, pair)
-        assert fa.path(torch.float32, *pair) == "simt", (cfg.name, pair)
+        want = ("tf32x3" if fa.tc_widths(*pair) in fa.TF32_HEAD_DIMS
+                else "simt")
+        assert fa.path(torch.float32, *pair) == want, (cfg.name, pair)
         assert fa.tc_widths(*pair) in pairs, (cfg.name, pair)
 
 
@@ -141,15 +145,17 @@ def test_dispatch_takes_exactly_the_rule():
 
 def test_each_instantiation_compiles_in_a_source_of_its_own():
     """The build runs one nvcc per source, all at once: each tensor-core
-    instantiation the dispatch reaches, and the CUDA-core kernel in each
-    dtype, is defined by exactly one source apart from the dispatch, which
-    instantiates no kernel itself; the header declares every entry."""
+    instantiation the dispatch reaches (bf16's and fp32's three-pass TF32),
+    and the CUDA-core kernel in each dtype, is defined by exactly one
+    source apart from the dispatch, which instantiates no kernel itself;
+    the header declares every entry."""
     pairs, _, _ = _dispatch()
     header = HEADER.read_text()
     defined = {}
     for src in sorted(CSRC.glob("flash_attention*.cu")):
         for m in re.finditer(r'extern "C" int (repro_fa_\w+)\(REPRO_FA_PARAMS\)'
                              r" \{\s*return (run_tc<(\d+), (\d+)>|"
+                             r"run_tf32<(\d+), (\d+)>|"
                              r"run_simt<(float|__nv_bfloat16)>)\(",
                              src.read_text()):
             assert m.group(1) not in defined, m.group(1)
@@ -157,13 +163,41 @@ def test_each_instantiation_compiles_in_a_source_of_its_own():
             assert f"int {m.group(1)}(REPRO_FA_PARAMS);" in header
     assert "run_tc<" not in SOURCE.read_text()
     assert "run_simt<" not in SOURCE.read_text()
+    assert "run_tf32<" not in SOURCE.read_text()
     for a, b in pairs:
         name, call = defined[f"repro_fa_tc_{a}_{b}"]
         assert call == f"run_tc<{a}, {b}>" and name != SOURCE.name
+    for a, b in fa.TF32_HEAD_DIMS:
+        name, call = defined[f"repro_fa_tf32_{a}_{b}"]
+        assert call == f"run_tf32<{a}, {b}>" and name != SOURCE.name
     assert defined["repro_fa_simt_fp32"][1] == "run_simt<float>"
     assert defined["repro_fa_simt_bf16"][1] == "run_simt<__nv_bfloat16>"
     files = {name for name, _ in defined.values()}
-    assert len(files) == len(pairs) + 2
+    assert len(files) == len(pairs) + len(fa.TF32_HEAD_DIMS) + 2
+
+
+def test_tf32_dispatch_takes_exactly_the_rule():
+    """The .cu's three-pass TF32 gate (path 2: fp32, hd and dv multiples of
+    4, widths rounded up to 64 one of its instantiations) accepts an fp32
+    (hd, dv) of 1..256 iff ``path`` says "tf32x3"."""
+    text = SOURCE.read_text()
+    entry = text[text.index('extern "C" int repro_flash_attention'):]
+    gate = entry[entry.index("if (path == PATH_TF32)"):]
+    gate = gate[:gate.index("if (path != PATH_SIMT)")]
+    assert "dtype != 0 || hd % 4 != 0 || dv % 4 != 0" in gate
+    pairs = []
+    for m in re.finditer(r"if \(w_hd == (\d+) && w_dv == (\d+)\) \{\s*"
+                         r"return repro_fa_tf32_(\d+)_(\d+)\(", gate):
+        a, b, c, d = map(int, m.groups())
+        assert (a, b) == (c, d), m.group(0)
+        pairs.append((a, b))
+    assert sorted(pairs) == sorted(fa.TF32_HEAD_DIMS)
+    assert fa.PATHS["tf32x3"] == 2 and "PATH_TF32 = 2;" in HEADER.read_text()
+    for hd in range(1, fa.MAX_HEAD_DIM + 1):
+        for dv in range(1, fa.MAX_HEAD_DIM + 1):
+            takes = (hd % 4 == 0 and dv % 4 == 0
+                     and fa.tc_widths(hd, dv) in pairs)
+            assert (fa.path(torch.float32, hd, dv) == "tf32x3") == takes
 
 def _inputs(B, S, H, KV, hd, dv, seed):
     rng = np.random.default_rng(seed)

@@ -7,6 +7,9 @@ What it must guarantee:
   * everything that sets the order of an output's sum (core, k-tile,
     split count and boundaries) is the same for every M at every main-path
     (N, K), so row i of an M-row call equals the 1-row call bitwise;
+  * the core follows (x dtype, weight kind) alone: an fp32 weight takes
+    the three-pass TF32 core at every M, decode included, and an int8 or
+    int4 weight under fp32 x the CUDA cores;
   * the load route follows alignment and never M;
   * the fp32 scratch matches the split;
   * every main-path shape takes the fast route (TMA or cp.async);
@@ -62,7 +65,8 @@ def test_order_does_not_depend_on_m(N, K, x_dtype, weight):
     plans = [gp.plan(M, N, K, x_dtype, weight) for M in MS]
     assert len({p.order for p in plans}) == 1
     p = plans[0]
-    assert p.splits == gp.k_splits(N, K, p.block_k)
+    waves = gp.TF32_WAVES if p.core == "tf32x3" else 1
+    assert p.splits == gp.k_splits(N, K, p.block_k, waves)
     assert p.split_bounds == gp.split_bounds(K, p.block_k, p.splits)
 
 
@@ -154,12 +158,52 @@ def test_split_bounds_cover_k(N, K):
 def test_decode_fills_the_card_where_k_allows(N, K):
     """One row (decode): the column tiles times the splits reach about one
     block per SM unless K is too shallow to split further."""
-    for x_dtype, weight in (("bfloat16", "int8"), ("float32", "fp32")):
+    for x_dtype, weight, waves in (("bfloat16", "int8", 1),
+                                   ("float32", "fp32", gp.TF32_WAVES)):
         p = gp.plan(1, N, K, x_dtype, weight)
         tiles_n = -(-N // gp.PLAN_BLOCK_N)
-        assert (tiles_n * p.splits > gp.NUM_SMS // 2
+        assert (tiles_n * p.splits > waves * gp.NUM_SMS // 2
                 or p.splits == K // gp.MIN_SPLIT_K)
-        assert tiles_n * p.splits <= gp.NUM_SMS or p.splits == 1
+        assert tiles_n * p.splits <= waves * gp.NUM_SMS or p.splits == 1
+
+
+FP32_NK = [(3840, 3840), (960, 3840), (10240, 3840), (3840, 10240),
+           (2048, 2048), (256, 2048), (11008, 2048), (2048, 11008),
+           (2560, 2560), (4096, 256), (1024, 4096), (100, 1024), (100, 256),
+           (4096, 79), (1280, 1280)]
+
+
+@pytest.mark.parametrize("N,K", FP32_NK)
+def test_fp32_route_does_not_depend_on_m(N, K):
+    """Every fp32-weight linear the main paths launch (h2o-danube's, qwen's
+    run A, rwkv6's wo, the conv fleets' fc layers and fc stack): at every M
+    from 1 to 8,704 the core is the TF32 one, and block_k, the splits and
+    their bounds, what sets the order of an output's sum, are the same."""
+    want = gp.plan(1, N, K, "float32", "fp32")
+    assert want.core == "tf32x3" and want.block_k == gp.TF32_BLOCK_K
+    assert want.splits == gp.k_splits(N, K, gp.TF32_BLOCK_K, gp.TF32_WAVES)
+    for M in range(1, 8705):
+        p = gp.plan(M, N, K, "float32", "fp32")
+        assert (p.core, p.block_k, p.splits, p.split_bounds) == (
+            want.core, want.block_k, want.splits, want.split_bounds), M
+        big = -(-M // 128) * -(-N // 128) >= 2 * gp.NUM_SMS
+        assert p.block_m == (16 if M <= 16 else 128 if big else 64), M
+
+
+@pytest.mark.parametrize("M", MS)
+def test_core_follows_dtype_and_weight_kind(M):
+    """bf16 x takes wgmma with every weight; fp32 x the TF32 core with an
+    fp32 weight and the CUDA cores with an int8 or int4 one (B1's fp32-x
+    route stays as it is)."""
+    for x_dtype, weight, core in (("bfloat16", "bf16", "wgmma"),
+                                  ("bfloat16", "int8", "wgmma"),
+                                  ("bfloat16", "int4", "wgmma"),
+                                  ("float32", "fp32", "tf32x3"),
+                                  ("float32", "int8", "simt"),
+                                  ("float32", "int4", "simt")):
+        assert gp.core_of(x_dtype, weight) == core
+        for N, K in ((2048, 2048), (151936, 2048), (67, 129)):
+            assert gp.plan(M, N, K, x_dtype, weight).core == core
 
 
 def test_plan_rejects_what_the_kernels_do_not_take():
@@ -195,7 +239,33 @@ def test_plan_mirrors_the_header():
     assert "M <= 8" not in src and "NUM_SMS" not in src
     for M, N in ((1, 2048), (512, 2048), (1100, 2048), (512, 11008)):
         want = 128 if -(-M // 128) * -(-N // 128) >= gp.NUM_SMS else 64
-        assert gp.block_shape(M, N, "bfloat16")[0] == want
+        assert gp.block_shape(M, N, "bfloat16", "bf16")[0] == want
+    # the TF32 core: its tile, its row tiles from the plan, its ring
+    tf = src[src.index("template <int BM> struct Tf32Tile"):]
+    tf = tf[:tf.index("\n};")]
+    assert "BN = 128, BK = 32;" in tf
+    assert "STAGES = BM == 16 ? 3 : 4;" in tf
+    assert (gp.TF32_BLOCK_N, gp.TF32_BLOCK_K) == (128, 32)
+    assert gp.TF32_STAGES == {16: 3, 64: 4, 128: 4}
+    assert "XLD = BK + 8;" in tf and "WLD = BN + 4;" in tf
+    assert (gp.TF32_XLD, gp.TF32_WLD) == (40, 132)
+    assert gp.TF32_BLOCK_MS == (16, 64, 128) and gp.TF32_THREADS == 256
+    for bm in gp.TF32_BLOCK_MS:
+        assert f"block_m == {bm}) return launch_tf32<{bm}>" in src
+    assert "MIN_BLOCKS = BM == 16 ? 3 : 1;" in tf
+    assert "STAGES * STAGE_BYTES + OUTS * SIMT_THREADS * 4;" in tf
+    assert gp.smem_bytes("tf32x3", "fp32", 128) == (
+        4 * (128 * 40 + 32 * 132) * 4 + 128 * 128 * 4)
+    assert gp.smem_bytes("tf32x3", "fp32", 64) == (
+        4 * (64 * 40 + 32 * 132) * 4 + 64 * 128 * 4)
+    assert 3 * gp.smem_bytes("tf32x3", "fp32", 16) <= gp.SMEM_LIMIT
+    # an fp32 weight reaches the TF32 core only: no fp32-weight simt_gemm
+    assert "run_simt<W_FP>" not in src
+    assert 'static_assert(WK != W_FP, "an fp32 weight takes the TF32 core")' \
+        in src
+    entry = (HEADER.parent / "swap_linear.cu").read_text()
+    assert "if (dtype == 0) return run_tf32(a, block_m, route, st);" in entry
+    assert "run_simt" not in entry
     assert "(long long)s * ktiles) / splits" in src
 
 
@@ -207,7 +277,7 @@ def test_weight_stream_is_one_pass_per_row_tile():
                                    ("float32", "int4", 0.5)):
         assert gp.weight_stream_bytes(1, K, N, x_dtype, weight) == K * N * per_k
         for M in MS:
-            tiles = -(-M // gp.block_shape(M, N, x_dtype)[0])
+            tiles = -(-M // gp.block_shape(M, N, x_dtype, weight)[0])
             assert (gp.weight_stream_bytes(M, K, N, x_dtype, weight)
                     == tiles * K * N * per_k)
     assert gp.weight_stream_bytes(3, 7, 5, "bfloat16", "int4") == 4 * 5

@@ -265,7 +265,7 @@ def test_flash_attention_dv_arguments():
     assert fa.path(torch.bfloat16, 192, 128) == "tc"
     assert fa.path(torch.float32, 192, 128) == "simt"
     assert fa.path(torch.bfloat16, 48, 32) == "tc"
-    assert fa.path(torch.float32, 48, 32) == "simt"
+    assert fa.path(torch.float32, 48, 32) == "tf32x3"
     assert fa.path(torch.bfloat16, 128, 192) == "simt"
 
 

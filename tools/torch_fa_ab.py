@@ -12,6 +12,8 @@ within one call, alternating: for a parent checkout ``P`` and a change
 
     for d in P C C P; do python3 tools/torch_fa_ab.py $d; done
 
+``--dtype float32`` (or ``bfloat16``) times only that dtype's rows.
+
 Needs a CUDA card; exits 2 without one.
 """
 from __future__ import annotations
@@ -23,8 +25,12 @@ from pathlib import Path
 
 
 def main(argv) -> int:
+    only = None
+    if len(argv) == 3 and argv[1] == "--dtype":
+        argv, only = argv[:1], argv[2]
     if len(argv) != 1:
-        print("usage: torch_fa_ab.py CHECKOUT", file=sys.stderr)
+        print("usage: torch_fa_ab.py CHECKOUT [--dtype DTYPE]",
+              file=sys.stderr)
         return 2
     root = Path(argv[0]).resolve()
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -43,6 +49,8 @@ def main(argv) -> int:
     for row in smoke.FA_TIMED:
         (label, dname, B, S, H, KV, hd, dv, scale, window, softcap,
          chunk), causal = row[:12], (row[12] if len(row) > 12 else True)
+        if only is not None and dname != only:
+            continue
         q, k, v, pos = smoke.fa_inputs(torch, 9, B, S, H, KV, hd, dts[dname],
                                        dv=dv)
         kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
